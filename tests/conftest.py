@@ -17,3 +17,8 @@ except ModuleNotFoundError:             # ...seeded fallback otherwise
 @pytest.fixture(scope="session")
 def rng():
     return np.random.default_rng(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (CUDA); skipped without one")
