@@ -7,8 +7,8 @@
 Phases, each fatal on failure:
 
 1. print the card's name and power limit (``nvidia-smi``);
-2. build the four CUDA kernels from ``src/repro_torch/csrc`` (timed as
-   set-up);
+2. build the six CUDA kernels from ``src/repro_torch/csrc`` (timed as
+   set-up; the compiler's register and spill lines are printed);
 3. co-execute the paper's four kernel programs on ``[cuda:0, cpu]``
    through ``repro_torch.api.coexec``, with HGuidedOpt seeded from a
    one-packet probe on each group.  Every kernel's launch counter is set to
@@ -20,7 +20,25 @@ Phases, each fatal on failure:
 5. hold each kernel against its plain PyTorch version on the card, at the
    main path's largest packet on the card (or a band of it where the plain
    version is too slow), and time kernel, plain version and, for the
-   blur, one ``F.conv2d`` with the 31x31 outer-product weight.
+   blur, one ``F.conv2d`` with the 31x31 outer-product weight;
+6. serve llama3.2-1b at full width (``--small``: 2 of its 16 layers) in
+   bfloat16 on ``cuda:0`` through ``repro_torch.serve.CoexecServer``: two
+   replicas (throttles 1 and 2) share one copy of the weights, 16
+   requests arrive at t=0 (prompt 256, 32 generated tokens, lws 4,
+   ``hguided_deadline``, no shedding, SLO 600 s).  All must be served;
+   the launch counters, set to 0 after a warm-up, must show one
+   ``flash_attention`` launch per layer and prefill and one
+   ``flash_decode`` launch per layer and decode step; a fresh replica
+   must give the same tokens.  Prefill and decode-step times come from
+   CUDA events, beside the least time to read the weights once;
+7. card against host: the same weights in float32 (TF32 off), a batch of
+   2 with a 64-token prompt and 4 teacher-forced decode steps on
+   ``cuda:0`` (kernels) and on the CPU (plain versions); the logits must
+   agree within 1e-3 of the largest logit;
+8. hold ``flash_attention`` and ``flash_decode`` against their plain
+   versions at the serving shapes, a long shape, a ragged S and head
+   dims 80 and 128 (bfloat16 at 2e-2, float32 at rtol 1e-4 / atol 2e-5),
+   and time kernel, plain version and ``scaled_dot_product_attention``.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  It exits non-zero, printing no result,
@@ -37,10 +55,12 @@ from pathlib import Path
 
 import numpy as np
 
-# published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
-# float32 operations/s outside the tensor cores
+# published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s,
+# float32 operations/s outside the tensor cores and dense bfloat16
+# tensor-core operations/s
 HBM_BYTES_S = 3.35e12
 FP32_OPS_S = 67e12
+BF16_OPS_S = 989e12
 
 PAPER_SIZES = {
     "gaussian": dict(h=8192, w=8192),
@@ -72,11 +92,15 @@ def check(ok: bool, what: str) -> None:
 
 def cuda_ms(fn, torch, reps: int = 5) -> float:
     """Mean device time of ``fn`` over ``reps`` calls after one warm-up,
-    from CUDA events around the whole run."""
+    from CUDA events around the whole run.  The card first spins for
+    ~20 ms, so the host queues all ``reps`` calls before the first one
+    runs and the events time the device's work, not the host's launch
+    gaps between short kernels."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(35_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -85,11 +109,332 @@ def cuda_ms(fn, torch, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: float, ops: float):
+def bound(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_S):
     """(least ms, what bounds it) for moving ``nbytes`` and doing
-    ``ops`` float32 operations on the card."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / FP32_OPS_S * 1e3
+    ``ops`` operations at ``ops_per_s`` (float32 by default) on the card."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ------------------------------------------------------------ serving path
+SERVE = dict(requests=16, prompt=256, gen=32, lws=4)
+PARITY = dict(batch=2, prompt=64, steps=4)
+# kernel against plain version: those of tests/test_kernels.py:120-124
+ATTN_TOL = {"bfloat16": (2e-2, 2e-2), "float32": (1e-4, 2e-5)}
+
+
+def profile_window(torch, fn, n: int):
+    """Device time by kernel over ``n`` calls of ``fn``, from
+    ``torch.profiler``; returns (device ms per call, top kernels) or None
+    where the profiler sees no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue          # host ops: their kernels are rows of their own
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us > 0:
+            rows.append((us / n / 1e3, e.key))
+    if not rows:
+        return None
+    rows.sort(reverse=True)
+    return sum(ms for ms, _ in rows), rows[:8]
+
+
+def serving_phases(args, torch, dev0, launches, record):
+    import copy
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as KA, ref as RA
+    from repro_torch.kernels.flash_decode import kernel as KD, ref as RD
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import (CoexecServer, Replica, RequestQueue,
+                                   ServerConfig, make_requests)
+
+    F = torch.nn.functional
+    cfg = get_config("llama3.2-1b")
+    if args.small:
+        cfg = replace(cfg, n_layers=2)
+    n_req, P, gen, lws = (SERVE[k] for k in ("requests", "prompt", "gen",
+                                               "lws"))
+
+    # -------------------------------------------------- serve, full width
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(dev0).manual_seed(0))
+    torch.cuda.synchronize()
+    w_bytes = T.param_bytes(params)
+    log(f"serve {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, {cfg.dtype}; "
+        f"{w_bytes / 1e9:.3f} GB of weights made on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    class CountingReplica(Replica):
+        """Counts prefill calls and decode steps of ``serve``."""
+        calls = steps = 0
+
+        def serve(self, prompts, gen, cache_len=None):
+            self.calls += 1
+            self.steps += gen
+            return super().serve(prompts, gen, cache_len)
+
+    reps = [CountingReplica("r0", cfg, params, throttle=1.0, device=dev0),
+            CountingReplica("r1", cfg, params, throttle=2.0, device=dev0)]
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (n_req, P)).astype(np.int32)
+    # warm-up (first launches, library plans) outside the counted run
+    for r in reps:
+        r.serve(np.stack([prompts[0]] * lws), gen, P + gen)
+        r.calls = r.steps = 0
+    torch.cuda.synchronize()
+    server = CoexecServer(reps, ServerConfig(
+        scheduler="hguided_deadline", lws=lws, gen=gen, policy="none",
+        warmup=False))
+    reqs = make_requests([0.0] * n_req, slo=600.0,
+                         prompt_fn=lambda i: prompts[i])
+    KA.launches = KD.launches = 0
+    try:
+        out = server.run(RequestQueue(reqs))
+    finally:
+        server.close()
+    torch.cuda.synchronize()
+    launches["flash_attention"] = KA.launches
+    launches["flash_decode"] = KD.launches
+    calls = sum(r.calls for r in reps)
+    steps = sum(r.steps for r in reps)
+    st = out.stats
+    check(st.served == n_req, f"serve: {st.served} of {n_req} served")
+    check(sum(st.dispatch.values()) == n_req,
+          f"serve: dispatch counts {st.dispatch}")
+    check(KA.launches == cfg.n_layers * calls,
+          f"serve: {KA.launches} flash_attention launches for {calls} "
+          f"prefills of {cfg.n_layers} layers")
+    check(KD.launches == cfg.n_layers * steps,
+          f"serve: {KD.launches} flash_decode launches for {steps} "
+          f"decode steps of {cfg.n_layers} layers")
+    toks = np.stack([out.results[r.rid] for r in out.requests])
+    check(toks.shape == (n_req, gen) and int(toks.min()) >= 0
+          and int(toks.max()) < cfg.vocab_size,
+          f"serve: tokens of shape {toks.shape} out of range")
+    log(f"serve: {st.row()} dispatch={st.dispatch} "
+        f"duration={st.duration:.3f} s, decode {n_req * gen / st.duration:.1f}"
+        f" tokens/s, {calls} prefills and {steps} decode steps, launches "
+        f"flash_attention {KA.launches} flash_decode {KD.launches}")
+    # replica invariance: four requests again on a fresh replica
+    # (one packet alone, its time against the server's shared-card rounds)
+    first = out.requests[:4]
+    t0 = time.perf_counter()
+    want = Replica("ref", cfg, params, device=dev0).serve(
+        np.stack([r.prompt for r in first]), gen)
+    alone_s = time.perf_counter() - t0
+    got = np.stack([out.results[r.rid] for r in first])
+    check(np.array_equal(got, want), "serve: tokens not replica-invariant")
+    log(f"serve: tokens replica-invariant on rids "
+        f"{[r.rid for r in first]}; that packet alone on a fresh replica "
+        f"took {alone_s:.3f} s")
+
+    with torch.inference_mode():
+        batch = torch.as_tensor(prompts[:lws], device=dev0)
+        cache = T.init_cache(cfg, lws, P + gen, dev0)
+        prefill_ms = cuda_ms(lambda: T.prefill(cfg, params, batch, cache),
+                             torch, 5)
+        tok = batch[:, :1]
+        pos = P + gen // 2
+        step_ms = cuda_ms(lambda: T.decode_step(cfg, params, tok, cache,
+                                                pos), torch, 20)
+        log(f"serve: prefill (batch {lws} x {P}) {prefill_ms:.3f} ms, "
+            f"decode step (batch {lws}, pos {pos}) {step_ms:.3f} ms; "
+            f"reading the weights once takes at least "
+            f"{w_bytes / HBM_BYTES_S * 1e3:.3f} ms")
+        for label, fn, ms_call in (
+                ("prefill", lambda: T.prefill(cfg, params, batch, cache),
+                 prefill_ms),
+                ("decode step", lambda: T.decode_step(cfg, params, tok,
+                                                      cache, pos), step_ms)):
+            try:       # a diagnostic: the run goes on without a trace
+                prof = profile_window(torch, fn, 3)
+            except Exception as e:
+                prof = None
+                log(f"profile {label}: torch.profiler failed ({e!r})")
+            if prof is None:
+                log(f"profile {label}: no device time in the trace")
+                continue
+            dev_ms, top = prof
+            log(f"profile {label}: {dev_ms:.3f} ms of kernels per call "
+                f"against {ms_call:.3f} ms between CUDA events (busy "
+                f"{dev_ms / ms_call:.1%}); "
+                + "; ".join(f"{ms:.3f} ms {k[:60]}" for ms, k in top))
+    del server, reps, cache, out
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------- card against host, f32
+    cfg32 = replace(cfg, dtype="float32")
+    p32 = copy.deepcopy(params).to(torch.float32)
+    del params
+    torch.cuda.empty_cache()
+    B2, P2, n_steps = (PARITY[k] for k in ("batch", "prompt", "steps"))
+    ptoks = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (B2, P2 + n_steps)).astype(np.int32)
+
+    def teacher_forced(device):
+        with torch.inference_mode():
+            t = torch.as_tensor(ptoks, device=device)
+            cache = T.init_cache(cfg32, B2, P2 + n_steps, device)
+            lg, cache = T.prefill(cfg32, p32, t[:, :P2], cache)
+            outs = [lg[:, 0]]
+            for i in range(P2, P2 + n_steps):
+                lg, cache = T.decode_step(cfg32, p32, t[:, i:i + 1], cache, i)
+                outs.append(lg[:, 0])
+            return torch.stack(outs, dim=1).cpu()
+
+    t0 = time.perf_counter()
+    card = teacher_forced(dev0)
+    t_card = time.perf_counter() - t0
+    p32.to("cpu")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    host = teacher_forced(torch.device("cpu"))
+    t_host = time.perf_counter() - t0
+    del p32
+    top = float(host.abs().max())
+    err = float((card - host).abs().max())
+    # float32 on both sides with TF32 off: what is left is the order of
+    # summation (cuBLAS against the host BLAS, the kernels' tiles against
+    # the plain versions' whole rows) over every layer
+    tol = 1e-3 * top
+    check(bool(torch.isfinite(card).all()) and card.shape == host.shape,
+          "parity: logits not finite or of another shape")
+    check(err <= tol, f"parity: max |card - host| {err:.3g} above "
+                      f"{tol:.3g} (1e-3 of the largest logit {top:.3g})")
+    log(f"parity {cfg.name} float32 (TF32 off), batch {B2}, prompt {P2}, "
+        f"{n_steps} decode steps: max |card - host| {err:.3g} = "
+        f"{err / top:.3g} of the largest logit {top:.3g} (limit 1e-3); "
+        f"card {t_card:.2f} s, host {t_host:.2f} s")
+
+    # --------------------------------- kernels against plain versions
+    H, KH, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    gen_t = torch.Generator(dev0).manual_seed(2)
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen_t, device=dev0).to(dtype)
+
+    def attn_check(B, S, h, kh, d, dtype, timed=False):
+        q, k, v = (randn(s, dtype) for s in ((B, S, h, d), (B, S, kh, d),
+                                             (B, S, kh, d)))
+        got = KA.flash_attention(q, k, v)
+        want = RA.attention_ref(q, k, v)
+        rtol, atol = ATTN_TOL[str(dtype).split(".")[-1]]
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                                   atol=atol)
+        err = float((got.float() - want.float()).abs().max())
+        shape = f"B={B} S={S} H={h} KH={kh} D={d} {dtype}"
+        log(f"  flash_attention {shape}: max abs err {err:.3g}")
+        if not timed:
+            return None
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True)
+        lib_err = float((lib.transpose(1, 2).float() - got.float()).abs()
+                        .max())
+        log(f"  sdpa vs kernel max abs diff {lib_err:.3g}")
+        elt = q.element_size()
+        res = dict(
+            err=err, shape=shape,
+            ms=cuda_ms(lambda: KA.flash_attention(q, k, v), torch),
+            plain_ms=cuda_ms(lambda: RA.attention_ref(q, k, v), torch, 2),
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), torch),
+            nbytes=elt * (2 * B * S * h * d + 2 * B * S * kh * d),
+            ops=4.0 * B * h * d * S * (S + 1) / 2,
+            ops_per_s=BF16_OPS_S if dtype == torch.bfloat16 else FP32_OPS_S)
+        del q, k, v, qt, kt, vt, got, want, lib
+        torch.cuda.empty_cache()
+        return res
+
+    def decode_check(B, Smax, h, kh, d, pos, dtype, timed=False):
+        q = randn((B, h, d), dtype)
+        kc, vc = randn((B, Smax, kh, d), dtype), randn((B, Smax, kh, d), dtype)
+        got = KD.flash_decode(q, kc, vc, pos)
+        want = RD.decode_attention(q, kc, vc, pos)
+        rtol, atol = ATTN_TOL[str(dtype).split(".")[-1]]
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                                   atol=atol)
+        err = float((got.float() - want.float()).abs().max())
+        shape = f"B={B} Smax={Smax} pos={pos} H={h} KH={kh} D={d} {dtype}"
+        log(f"  flash_decode {shape}: max abs err {err:.3g}")
+        if not timed:
+            return None
+        ms = cuda_ms(lambda: KD.flash_decode(q, kc, vc, pos), torch)
+        plain_ms = cuda_ms(lambda: RD.decode_attention(q, kc, vc, pos),
+                           torch, 1)
+        # the library yardstick attends over the live prefix, copied to
+        # its (B, KH, L, D) layout outside the timed call
+        qt = q[:, :, None]
+        kt, vt = (c[:, :pos + 1].transpose(1, 2).contiguous()
+                  for c in (kc, vc))
+        lib = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True)
+        log(f"  sdpa vs kernel max abs diff "
+            f"{float((lib[:, :, 0].float() - got.float()).abs().max()):.3g}")
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, enable_gqa=True), torch)
+        elt = q.element_size()
+        res = dict(err=err, shape=shape, ms=ms, plain_ms=plain_ms,
+                   library_ms=library_ms,
+                   nbytes=elt * (2 * B * (pos + 1) * kh * d + 2 * B * h * d),
+                   ops=4.0 * B * h * d * (pos + 1),
+                   ops_per_s=BF16_OPS_S if dtype == torch.bfloat16
+                   else FP32_OPS_S)
+        del q, kc, vc, kt, vt, got, want, lib
+        torch.cuda.empty_cache()
+        return res
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    log("kernels of the serving path against their plain versions:")
+    serve_a = attn_check(lws, P, H, KH, D, bf16, timed=True)
+    long_S = 1024 if args.small else 4096
+    long_a = attn_check(2, long_S, H, KH, D, bf16, timed=True)
+    attn_check(2, 1000, H, KH, D, bf16)           # ragged S
+    attn_check(1, 1000, H, KH, D, f32)
+    attn_check(2, 256, 8, 4, 80, f32)             # stablelm-3b's head dim
+    attn_check(2, 256, 8, 4, 80, bf16)
+    attn_check(1, 384, 16, 2, 128, f32)           # qwen3-32b's head dim
+    attn_check(1, 384, 16, 2, 128, bf16)
+    serve_d = decode_check(lws, P + gen, H, KH, D, P + gen - 1, bf16,
+                           timed=True)
+    long_B, long_Smax = (16, 4096) if args.small else (128, 32768)
+    long_d = decode_check(long_B, long_Smax, H, KH, D, long_Smax - 1, bf16,
+                          timed=True)
+    decode_check(3, 1000, H, KH, D, 700, f32)
+    decode_check(2, 512, 8, 4, 80, 300, bf16)
+    decode_check(2, 512, 16, 2, 128, 511, f32)
+
+    def long_entry(r):
+        b_ms, b_by = bound(r["nbytes"], r["ops"], r["ops_per_s"])
+        log(f"  long shape {r['shape']}: {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+            f"library {r['library_ms']:.4f} ms")
+        return dict(shape=r["shape"], ms=r["ms"], plain_ms=r["plain_ms"],
+                    bound_ms=b_ms, bound_by=b_by,
+                    library_ms=r["library_ms"], max_abs_err=r["err"])
+
+    for name, res, lng, src, replaces in (
+            ("flash_attention", serve_a, long_a,
+             "src/repro_torch/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention/kernel.py:69"),
+            ("flash_decode", serve_d, long_d,
+             "src/repro_torch/csrc/flash_decode.cu",
+             "src/repro/kernels/flash_decode/kernel.py:63")):
+        record(name, src, replaces, res["err"], res["ms"], res["plain_ms"],
+               res["nbytes"], res["ops"], res["library_ms"],
+               res["shape"] + " (serving shape)", res["ops_per_s"],
+               long_shape=long_entry(lng))
 
 
 def main() -> int:
@@ -248,12 +593,12 @@ def main() -> int:
     records = []
 
     def record(name, src, replaces, err, ms, plain_ms, nbytes, ops,
-               library_ms, shape):
-        b_ms, b_by = bound(nbytes, ops)
+               library_ms, shape, ops_per_s=FP32_OPS_S, **extra):
+        b_ms, b_by = bound(nbytes, ops, ops_per_s)
         rec = dict(name=name, route="cuda", source=src, replaces=replaces,
                    launches=launches[name], max_abs_err=err, ms=ms,
                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                   library_ms=library_ms, shape=shape)
+                   library_ms=library_ms, shape=shape, **extra)
         records.append(rec)
         log(f"kernel {name} {shape}: {ms:.4f} ms, plain {plain_ms:.4f} ms,"
             f" bound {b_ms:.4f} ms ({b_by}), library {library_ms}, max "
@@ -376,6 +721,8 @@ def main() -> int:
            None,
            f"{nt} targets of the largest packet ({size * nops.LWS}) x "
            f"{N} sources")
+
+    serving_phases(args, torch, dev0, launches, record)
 
     print(json.dumps({"kernels": records}))
     print(smi)

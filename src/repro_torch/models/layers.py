@@ -1,0 +1,196 @@
+"""Model layers of the dense GQA decoder: RMSNorm, RoPE, causal attention
+(prefill) and cached single-token attention (decode), the GQA attention
+layer and the SwiGLU MLP.  A PyTorch port of the dense part of the JAX
+package's ``models/layers.py``, with its numerics.
+
+Attention goes through the two hand-written CUDA kernels: causal prefill
+attention through ``kernels/flash_attention`` and cached decode attention
+through ``kernels/flash_decode``.  The tensor's device picks the path: a
+CUDA tensor launches the kernel, a CPU tensor takes its plain version.
+The projections stay ``torch.matmul``, as the JAX package leaves them to
+XLA.
+
+Parameters are ``nn.Module``s in a matmul layout (``x @ w``): ``wq`` is
+(d_model, H*hd), ``wk``/``wv`` (d_model, KH*hd) and ``wo`` (H*hd,
+d_model); ``models/convert.py`` maps the JAX package's (d, H, hd) and
+(H, hd, d) arrays onto them.  MLA, MoE and Mamba layers are later slices
+of the port.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention.kernel import flash_attention
+from repro_torch.kernels.flash_decode.kernel import flash_decode
+
+
+def _dense_init(gen: torch.Generator, shape, dtype, fan_in: int,
+                scale: Optional[float] = None) -> nn.Parameter:
+    """Normal(0, 1/sqrt(fan_in)) (or ``scale``) in float32, cast to
+    ``dtype``, on the generator's device; frozen (the port serves)."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
+    w = torch.randn(shape, generator=gen, dtype=torch.float32,
+                    device=gen.device) * scale
+    return nn.Parameter(w.to(dtype), requires_grad=False)
+
+
+def _ones(n: int, dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.ones(n, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+def rmsnorm(x, w, eps):
+    # cast back to x's dtype BEFORE the weight, as the JAX package does
+    x32 = x.float()
+    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * w
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_cos_sin(positions, dim, theta, dtype=torch.float32):
+    """positions: (...,) int tensor -> cos/sin (..., dim/2)."""
+    inv = 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                        device=positions.device) / dim))
+    ang = positions.float()[..., None] * inv
+    return torch.cos(ang).to(dtype), torch.sin(ang).to(dtype)
+
+
+def apply_rope(x, cos, sin):
+    """x: (..., S, H, D); cos/sin: (S, D/2).  Rotates the two halves of
+    the head (not interleaved pairs); the float32 product is cast back to
+    x's dtype."""
+    d2 = x.shape[-1] // 2
+    x1, x2 = x[..., :d2], x[..., d2:]
+    c = cos[..., :, None, :]
+    s = sin[..., :, None, :]
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention cores
+# ---------------------------------------------------------------------------
+
+def blocked_causal_attention(q, k, v, chunk: int = 2048):
+    """Exact causal attention. q: (B,S,H,D); k,v: (B,S,KH,D).  ``chunk``
+    is the JAX schedule's kv-block size; the kernel picks its own tiles
+    and takes any S, and neither changes the result beyond rounding."""
+    del chunk
+    return flash_attention(q, k, v)
+
+
+def cached_decode_attention(q, k_cache, v_cache, pos: int):
+    """Single-token attention over a static-size cache.
+    q: (B,1,H,D); caches: (B,Smax,KH,D) in their storage dtype; ``pos``
+    the current position (a Python int)."""
+    return flash_decode(q[:, 0], k_cache, v_cache, pos)[:, None]
+
+
+# ---------------------------------------------------------------------------
+# GQA attention layer
+# ---------------------------------------------------------------------------
+
+class GQA(nn.Module):
+    """Grouped-query attention weights (matmul layout)."""
+
+    def __init__(self, wq, wk, wv, wo, q_norm=None, k_norm=None):
+        super().__init__()
+        self.wq, self.wk, self.wv, self.wo = wq, wk, wv, wo
+        self.q_norm, self.k_norm = q_norm, k_norm
+
+
+def gqa_init(cfg: ModelConfig, gen: torch.Generator, dtype) -> GQA:
+    d, H, KH, hd = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                    cfg.resolved_head_dim)
+    qk = ((_ones(hd, dtype, gen.device), _ones(hd, dtype, gen.device))
+          if cfg.qk_norm else (None, None))
+    return GQA(_dense_init(gen, (d, H * hd), dtype, d),
+               _dense_init(gen, (d, KH * hd), dtype, d),
+               _dense_init(gen, (d, KH * hd), dtype, d),
+               _dense_init(gen, (H * hd, d), dtype, H,
+                           scale=1.0 / math.sqrt(H * hd)), *qk)
+
+
+def gqa_apply(cfg: ModelConfig, p: GQA, x, positions, *,
+              cache: Optional[Dict] = None, pos: Optional[int] = None):
+    """x: (B,S,d).  Train/prefill when ``pos`` is None (the prefix is
+    written into ``cache`` when one is given); decode when x has S == 1
+    and ``cache``/``pos`` are given.  Returns (y, cache)."""
+    B, S, _ = x.shape
+    H, KH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    q = (x @ p.wq).view(B, S, H, hd)
+    k = (x @ p.wk).view(B, S, KH, hd)
+    v = (x @ p.wv).view(B, S, KH, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p.q_norm, cfg.norm_eps)
+        k = rmsnorm(k, p.k_norm, cfg.norm_eps)
+    cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    if cache is not None and pos is not None:
+        # decode: the JAX package inserts the new k/v with a functional
+        # dynamic_update_slice; the port writes the cache in place
+        cache["k"][:, pos:pos + 1] = k
+        cache["v"][:, pos:pos + 1] = v
+        out = cached_decode_attention(q, cache["k"], cache["v"], pos)
+    else:
+        out = blocked_causal_attention(q, k, v, cfg.attn_chunk)
+        if cache is not None:  # prefill: write the whole prefix in place
+            cache["k"][:, :S] = k
+            cache["v"][:, :S] = v
+    y = out.reshape(B, S, H * hd) @ p.wo
+    return y, cache
+
+
+def gqa_cache_init(cfg: ModelConfig, batch, max_seq, dtype, device):
+    shape = (batch, max_seq, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# SwiGLU MLP
+# ---------------------------------------------------------------------------
+
+class MLP(nn.Module):
+    def __init__(self, w_gate, w_up, w_down):
+        super().__init__()
+        self.w_gate, self.w_up, self.w_down = w_gate, w_up, w_down
+
+
+def mlp_init(cfg: ModelConfig, gen: torch.Generator, dtype,
+             d_ff=None) -> MLP:
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    return MLP(_dense_init(gen, (d, f), dtype, d),
+               _dense_init(gen, (d, f), dtype, d),
+               _dense_init(gen, (f, d), dtype, f))
+
+
+def mlp_apply(cfg: ModelConfig, p: MLP, x):
+    h = torch.nn.functional.silu(x @ p.w_gate) * (x @ p.w_up)
+    return h @ p.w_down
+
+
+# ---------------------------------------------------------------------------
+# later slices of the port
+# ---------------------------------------------------------------------------
+
+def _later(what: str, item: str):
+    def missing(*args, **kwargs):
+        raise NotImplementedError(
+            f"{what} is not ported to PyTorch yet ({item} of ROADMAP.md)")
+    return missing
+
+
+mla_init = mla_apply = mla_cache_init = _later(
+    "MLA attention", "Queue A item 8")
+moe_init = moe_apply = _later("the MoE layer", "Queue A item 8")
+mamba_init = mamba_apply = mamba_cache_init = _later(
+    "the Mamba1 block", "Queue A item 8 with Queue B item 7")

@@ -1,0 +1,166 @@
+"""Decoder LM of the dense GQA family (llama3.2-1b, qwen3-32b, yi-9b,
+stablelm-3b): ``embed -> layers -> norm -> head``.  A PyTorch port of the
+JAX package's ``models/transformer.py`` for that family.
+
+The JAX package stacks its layers' parameters over ``n_blocks`` and runs
+them with ``lax.scan`` (rematerialised for training); the port keeps one
+``nn.Module`` per layer and runs them in a plain Python loop.  The KV
+cache is a list of per-layer ``{"k", "v"}`` tensors that prefill and
+decode write in place.  MoE, MLA, hybrid, SSM and the modality frontends
+raise ``NotImplementedError``: they are later slices of the port.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+
+Cache = List[Dict[str, torch.Tensor]]
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise unless ``cfg`` is a dense GQA decoder without a frontend,
+    the family this slice of the port covers."""
+    cfg.validate()
+    if (cfg.attn_kind != "gqa" or cfg.moe.n_routed or cfg.is_recurrent
+            or cfg.attn_every > 1 or cfg.frontend or cfg.d_ff <= 0):
+        raise NotImplementedError(
+            f"{cfg.name}: only the dense GQA family is ported to PyTorch "
+            f"(MoE, MLA, Mamba, hybrid and frontends: ROADMAP.md Queue A "
+            f"item 8)")
+    if cfg.score_dtype != "float32":
+        raise NotImplementedError(
+            f"{cfg.name}: score_dtype {cfg.score_dtype!r}; the attention "
+            f"kernels keep their scores in float32")
+
+
+class Layer(nn.Module):
+    def __init__(self, ln1, ln2, mixer: L.GQA, mlp: L.MLP):
+        super().__init__()
+        self.ln1, self.ln2 = ln1, ln2
+        self.mixer, self.mlp = mixer, mlp
+
+
+class LM(nn.Module):
+    """Parameters of the decoder: ``embed`` (vocab, d), ``layers``,
+    ``final_norm`` and, unless the config ties it to ``embed``,
+    ``lm_head`` (d, vocab)."""
+
+    def __init__(self, embed, layers, final_norm, lm_head=None):
+        super().__init__()
+        self.embed = embed
+        self.layers = nn.ModuleList(layers)
+        self.final_norm = final_norm
+        self.lm_head = lm_head
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def init_params(cfg: ModelConfig, generator: torch.Generator) -> LM:
+    """Random weights of the published shapes, in ``cfg.dtype``, on the
+    generator's device.  ``torch.Generator`` and ``jax.random`` draw
+    different numbers from one seed: ``models/convert.py`` carries the JAX
+    package's weights over where the two must agree."""
+    check_supported(cfg)
+    dtype, dev = _dtype(cfg), generator.device
+    embed = L._dense_init(generator, (cfg.vocab_size, cfg.d_model), dtype,
+                          cfg.vocab_size, scale=0.02)
+    layers = []
+    for _ in range(cfg.n_layers):
+        mixer = L.gqa_init(cfg, generator, dtype)
+        mlp = L.mlp_init(cfg, generator, dtype)
+        layers.append(Layer(L._ones(cfg.d_model, dtype, dev),
+                            L._ones(cfg.d_model, dtype, dev), mixer, mlp))
+    head = None if cfg.tie_embeddings else L._dense_init(
+        generator, (cfg.d_model, cfg.vocab_size), dtype, cfg.d_model)
+    return LM(embed, layers, L._ones(cfg.d_model, dtype, dev), head)
+
+
+def param_bytes(params: LM) -> int:
+    return sum(p.numel() * p.element_size() for p in params.parameters())
+
+
+# ---------------------------------------------------------------------------
+# embedding / head
+# ---------------------------------------------------------------------------
+
+def embed_tokens(cfg: ModelConfig, params: LM, tokens):
+    return params.embed[tokens.long()]
+
+
+def lm_head(cfg: ModelConfig, params: LM, x):
+    if cfg.tie_embeddings:
+        return x @ params.embed.T
+    return x @ params.lm_head
+
+
+# ---------------------------------------------------------------------------
+# layers
+# ---------------------------------------------------------------------------
+
+def _apply_layer(cfg: ModelConfig, lp: Layer, x, positions, cache=None,
+                 pos=None):
+    h = L.rmsnorm(x, lp.ln1, cfg.norm_eps)
+    h, _ = L.gqa_apply(cfg, lp.mixer, h, positions, cache=cache, pos=pos)
+    x = x + h
+    h = L.rmsnorm(x, lp.ln2, cfg.norm_eps)
+    return x + L.mlp_apply(cfg, lp.mlp, h)
+
+
+def _run(cfg, params: LM, x, positions, cache=None, pos=None):
+    for i, lp in enumerate(params.layers):
+        x = _apply_layer(cfg, lp, x, positions,
+                         None if cache is None else cache[i], pos)
+    return L.rmsnorm(x, params.final_norm, cfg.norm_eps)
+
+
+# ---------------------------------------------------------------------------
+# public entry points
+# ---------------------------------------------------------------------------
+
+def forward(cfg: ModelConfig, params: LM, tokens) -> Tuple[torch.Tensor,
+                                                           torch.Tensor]:
+    """Scoring forward. tokens: (B,S) int.  Returns (logits, aux_loss);
+    the dense family has no auxiliary loss (0.0)."""
+    x = embed_tokens(cfg, params, tokens)
+    positions = torch.arange(x.shape[1], device=x.device)
+    logits = lm_head(cfg, params, _run(cfg, params, x, positions))
+    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
+               device="cuda") -> Cache:
+    """One zeroed ``{"k", "v"}`` cache of (batch, max_seq, KH, hd) per
+    layer, in ``cfg.dtype``."""
+    check_supported(cfg)
+    return [L.gqa_cache_init(cfg, batch, max_seq, _dtype(cfg), device)
+            for _ in range(cfg.n_layers)]
+
+
+def prefill(cfg: ModelConfig, params: LM, tokens, cache: Cache):
+    """Fill the cache with the prompt (in place); returns (logits of the
+    last position (B,1,V), cache)."""
+    x = embed_tokens(cfg, params, tokens)
+    positions = torch.arange(x.shape[1], device=x.device)
+    x = _run(cfg, params, x, positions, cache)
+    return lm_head(cfg, params, x[:, -1:]), cache
+
+
+def decode_step(cfg: ModelConfig, params: LM, token, cache: Cache,
+                pos: int):
+    """One decode step. token: (B,1) int; ``pos`` a Python int.  Writes
+    the new k/v at ``pos`` in place; returns (logits (B,1,V), cache)."""
+    x = embed_tokens(cfg, params, token)
+    positions = torch.full((1,), pos, device=x.device)
+    x = _run(cfg, params, x, positions, cache, pos)
+    return lm_head(cfg, params, x), cache

@@ -84,3 +84,77 @@ def test_coexec_on_card_and_host(card, name, kw):
     else:
         rtol, atol = TOL[name]
         np.testing.assert_allclose(res.output, ref, rtol=rtol, atol=atol)
+
+
+# ------------------------------------------- attention kernels (serving)
+def _attn_inputs(card, B, S, H, KH, D, dtype, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            .to(card, dtype) for shape in ((B, S, H, D), (B, S, KH, D),
+                                           (B, S, KH, D))]
+
+
+# bfloat16 at rtol/atol 2e-2 and float32 at rtol 1e-4, atol 2e-5: the
+# tolerances of tests/test_kernels.py:120-124
+ATTN_TOL = {torch.bfloat16: (2e-2, 2e-2), torch.float32: (1e-4, 2e-5)}
+
+
+@pytest.mark.parametrize("B,S,H,KH,D,dtype", [
+    (2, 128, 4, 4, 64, torch.float32),
+    (1, 256, 8, 2, 64, torch.float32),
+    (1, 256, 4, 1, 128, torch.float32),
+    (2, 128, 8, 4, 80, torch.float32),
+    (1, 100, 8, 4, 64, torch.float32),        # ragged S
+    (2, 1000, 32, 8, 64, torch.bfloat16),     # ragged S, llama3.2-1b heads
+    (4, 256, 32, 8, 64, torch.bfloat16),      # the serving prefill shape
+    (1, 200, 12, 2, 80, torch.bfloat16),      # G = 6
+    (1, 130, 8, 8, 128, torch.bfloat16),
+    (1, 77, 4, 2, 96, torch.float32),         # ragged S, unpadded D = 96
+])
+def test_flash_attention_kernel_matches_plain(card, B, S, H, KH, D, dtype):
+    from repro_torch.kernels.flash_attention import kernel as KA, ref as RA
+    q, k, v = _attn_inputs(card, B, S, H, KH, D, dtype, S + D)
+    before = KA.launches
+    got = KA.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert KA.launches == before + 1 and got.dtype == dtype
+    rtol, atol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), RA.attention_ref(q, k, v).float(),
+                               rtol=rtol, atol=atol)
+
+
+def test_flash_attention_kernel_rejects_bf16_head_dim_without_tile(card):
+    from repro_torch.kernels.flash_attention import kernel as KA
+    q, k, v = _attn_inputs(card, 1, 77, 4, 2, 96, torch.bfloat16, 0)
+    before = KA.launches
+    with pytest.raises(ValueError, match="bfloat16"):
+        KA.flash_attention(q, k, v)
+    assert KA.launches == before
+
+
+@pytest.mark.parametrize("B,S,H,KH,D,pos,dtype", [
+    (2, 256, 8, 4, 64, 255, torch.bfloat16),
+    (1, 512, 4, 1, 128, 300, torch.bfloat16),   # masked tail of a block
+    (2, 256, 8, 8, 64, 17, torch.bfloat16),     # most blocks never read
+    (1, 128, 16, 2, 64, 127, torch.bfloat16),
+    (4, 288, 32, 8, 64, 270, torch.bfloat16),   # the serving decode shape
+    (2, 200, 12, 2, 80, 150, torch.bfloat16),   # G = 6, D = 80
+    (2, 256, 8, 4, 64, 200, torch.float32),
+    (1, 300, 8, 2, 80, 299, torch.float32),
+    (1, 4096, 8, 1, 128, 4000, torch.float32),  # several splits
+])
+def test_flash_decode_kernel_matches_plain(card, B, S, H, KH, D, pos, dtype):
+    from repro_torch.kernels.flash_decode import kernel as KD, ref as RD
+    rng = np.random.default_rng(pos + D)
+    q = torch.from_numpy(rng.standard_normal((B, H, D)).astype(
+        np.float32)).to(card, dtype)
+    kc, vc = (torch.from_numpy(rng.standard_normal((B, S, KH, D)).astype(
+        np.float32)).to(card, dtype) for _ in range(2))
+    before = KD.launches
+    got = KD.flash_decode(q, kc, vc, pos)
+    torch.cuda.synchronize()
+    assert KD.launches == before + 1 and got.dtype == dtype
+    rtol, atol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(),
+                               RD.decode_attention(q, kc, vc, pos).float(),
+                               rtol=rtol, atol=atol)
