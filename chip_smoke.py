@@ -7,7 +7,7 @@
 Phases, each fatal on failure:
 
 1. print the card's name and power limit (``nvidia-smi``);
-2. build the six CUDA kernels from ``src/repro_torch/csrc`` (timed as
+2. build the seven CUDA kernels from ``src/repro_torch/csrc`` (timed as
    set-up; the compiler's register and spill lines are printed);
 3. co-execute the paper's four kernel programs on ``[cuda:0, cpu]``
    through ``repro_torch.api.coexec``, with HGuidedOpt seeded from a
@@ -38,7 +38,20 @@ Phases, each fatal on failure:
 8. hold ``flash_attention`` and ``flash_decode`` against their plain
    versions at the serving shapes, a long shape, a ragged S and head
    dims 80 and 128 (bfloat16 at 2e-2, float32 at rtol 1e-4 / atol 2e-5),
-   and time kernel, plain version and ``scaled_dot_product_attention``.
+   and time kernel, plain version and ``scaled_dot_product_attention``;
+9. serve falcon-mamba-7b at full width (``--small``: 2 of its 64 layers)
+   in bfloat16 with the set-up of phase 6.  All must be served; the launch
+   counters, set to 0 after a warm-up, must show one ``selective_scan``
+   launch per layer and prefill and none in a decode step (one recurrence
+   step in plain ops); a fresh replica must give the same tokens.
+   Prefill and decode-step times from CUDA events, beside the weight-read
+   bound, and a profile of each;
+10. card against host as phase 7, on the first 8 of its 64 layers (a cut
+    of depth that bounds the host's memory and time; full width);
+11. hold ``selective_scan`` against its plain version at the serving
+    shape, a long shape and a ragged one with a carried state (rtol 1e-4 /
+    atol 1e-5), and time kernel and plain version; no single PyTorch call
+    computes this recurrence, so it has no library time.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  It exits non-zero, printing no result,
@@ -121,6 +134,10 @@ SERVE = dict(requests=16, prompt=256, gen=32, lws=4)
 PARITY = dict(batch=2, prompt=64, steps=4)
 # kernel against plain version: those of tests/test_kernels.py:120-124
 ATTN_TOL = {"bfloat16": (2e-2, 2e-2), "float32": (1e-4, 2e-5)}
+# the selective scan: that of tests/test_kernels.py:152
+SCAN_TOL = (1e-4, 1e-5)
+# falcon-mamba-7b's card-against-host check runs its first 8 layers
+MAMBA_PARITY_LAYERS = 8
 
 
 def profile_window(torch, fn, n: int):
@@ -148,33 +165,25 @@ def profile_window(torch, fn, n: int):
     return sum(ms for ms, _ in rows), rows[:8]
 
 
-def serving_phases(args, torch, dev0, launches, record):
-    import copy
-    from dataclasses import replace
-
-    from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import kernel as KA, ref as RA
-    from repro_torch.kernels.flash_decode import kernel as KD, ref as RD
+def serve_model(torch, dev0, cfg, params, launches, per_prefill, per_step):
+    """Serve ``SERVE`` through ``CoexecServer`` on two replicas sharing
+    ``params``; check that all are served, that every kernel of the path
+    launched ``per_prefill[name]`` times a prefill plus ``per_step[name]``
+    times a decode step (and the others never), and that the tokens are
+    replica-invariant; time a prefill and a decode step and profile
+    both.  Records the path's launch counts in ``launches``."""
+    from repro_torch.kernels.flash_attention import kernel as KA
+    from repro_torch.kernels.flash_decode import kernel as KD
+    from repro_torch.kernels.mamba_scan import kernel as KS
     from repro_torch.models import transformer as T
     from repro_torch.serve import (CoexecServer, Replica, RequestQueue,
                                    ServerConfig, make_requests)
 
-    F = torch.nn.functional
-    cfg = get_config("llama3.2-1b")
-    if args.small:
-        cfg = replace(cfg, n_layers=2)
+    counters = {"flash_attention": KA, "flash_decode": KD,
+                "selective_scan": KS}
     n_req, P, gen, lws = (SERVE[k] for k in ("requests", "prompt", "gen",
                                                "lws"))
-
-    # -------------------------------------------------- serve, full width
-    t0 = time.perf_counter()
-    params = T.init_params(cfg, torch.Generator(dev0).manual_seed(0))
-    torch.cuda.synchronize()
     w_bytes = T.param_bytes(params)
-    log(f"serve {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, {cfg.dtype}; "
-        f"{w_bytes / 1e9:.3f} GB of weights made on the card in "
-        f"{time.perf_counter() - t0:.2f} s")
 
     class CountingReplica(Replica):
         """Counts prefill calls and decode steps of ``serve``."""
@@ -199,26 +208,27 @@ def serving_phases(args, torch, dev0, launches, record):
         warmup=False))
     reqs = make_requests([0.0] * n_req, slo=600.0,
                          prompt_fn=lambda i: prompts[i])
-    KA.launches = KD.launches = 0
+    for k in counters.values():
+        k.launches = 0
     try:
         out = server.run(RequestQueue(reqs))
     finally:
         server.close()
     torch.cuda.synchronize()
-    launches["flash_attention"] = KA.launches
-    launches["flash_decode"] = KD.launches
+    counts = {name: k.launches for name, k in counters.items()}
     calls = sum(r.calls for r in reps)
     steps = sum(r.steps for r in reps)
+    for name in set(per_prefill) | set(per_step):
+        launches[name] = counts[name]
     st = out.stats
     check(st.served == n_req, f"serve: {st.served} of {n_req} served")
     check(sum(st.dispatch.values()) == n_req,
           f"serve: dispatch counts {st.dispatch}")
-    check(KA.launches == cfg.n_layers * calls,
-          f"serve: {KA.launches} flash_attention launches for {calls} "
-          f"prefills of {cfg.n_layers} layers")
-    check(KD.launches == cfg.n_layers * steps,
-          f"serve: {KD.launches} flash_decode launches for {steps} "
-          f"decode steps of {cfg.n_layers} layers")
+    for name, n in counts.items():
+        want = per_prefill.get(name, 0) * calls + per_step.get(name, 0) * steps
+        check(n == want, f"serve: {n} {name} launches for {calls} prefills "
+                         f"and {steps} decode steps of {cfg.n_layers} "
+                         f"layers (expected {want})")
     toks = np.stack([out.results[r.rid] for r in out.requests])
     check(toks.shape == (n_req, gen) and int(toks.min()) >= 0
           and int(toks.max()) < cfg.vocab_size,
@@ -226,7 +236,7 @@ def serving_phases(args, torch, dev0, launches, record):
     log(f"serve: {st.row()} dispatch={st.dispatch} "
         f"duration={st.duration:.3f} s, decode {n_req * gen / st.duration:.1f}"
         f" tokens/s, {calls} prefills and {steps} decode steps, launches "
-        f"flash_attention {KA.launches} flash_decode {KD.launches}")
+        + " ".join(f"{name} {n}" for name, n in counts.items()))
     # replica invariance: four requests again on a fresh replica
     # (one packet alone, its time against the server's shared-card rounds)
     first = out.requests[:4]
@@ -274,14 +284,16 @@ def serving_phases(args, torch, dev0, launches, record):
     del server, reps, cache, out
     torch.cuda.empty_cache()
 
-    # ------------------------------------------- card against host, f32
-    cfg32 = replace(cfg, dtype="float32")
-    p32 = copy.deepcopy(params).to(torch.float32)
-    del params
-    torch.cuda.empty_cache()
+
+def card_against_host(torch, dev0, cfg32, p32, label):
+    """Teacher-forced ``PARITY`` in float32 (TF32 off) with ``p32`` on
+    the card (kernels) and then on the host (plain versions); the logits
+    must agree within 1e-3 of the largest.  Moves ``p32`` to the host."""
+    from repro_torch.models import transformer as T
+
     B2, P2, n_steps = (PARITY[k] for k in ("batch", "prompt", "steps"))
     ptoks = np.random.default_rng(1).integers(
-        0, cfg.vocab_size, (B2, P2 + n_steps)).astype(np.int32)
+        0, cfg32.vocab_size, (B2, P2 + n_steps)).astype(np.int32)
 
     def teacher_forced(device):
         with torch.inference_mode():
@@ -302,7 +314,6 @@ def serving_phases(args, torch, dev0, launches, record):
     t0 = time.perf_counter()
     host = teacher_forced(torch.device("cpu"))
     t_host = time.perf_counter() - t0
-    del p32
     top = float(host.abs().max())
     err = float((card - host).abs().max())
     # float32 on both sides with TF32 off: what is left is the order of
@@ -313,10 +324,64 @@ def serving_phases(args, torch, dev0, launches, record):
           "parity: logits not finite or of another shape")
     check(err <= tol, f"parity: max |card - host| {err:.3g} above "
                       f"{tol:.3g} (1e-3 of the largest logit {top:.3g})")
-    log(f"parity {cfg.name} float32 (TF32 off), batch {B2}, prompt {P2}, "
+    log(f"parity {label} float32 (TF32 off), batch {B2}, prompt {P2}, "
         f"{n_steps} decode steps: max |card - host| {err:.3g} = "
         f"{err / top:.3g} of the largest logit {top:.3g} (limit 1e-3); "
         f"card {t_card:.2f} s, host {t_host:.2f} s")
+
+
+def long_entry(r):
+    """A long shape's measurements, for its kernel's JSON record."""
+    b_ms, b_by = bound(r["nbytes"], r["ops"], r["ops_per_s"])
+    lib = ("none" if r["library_ms"] is None
+           else f"{r['library_ms']:.4f} ms")
+    log(f"  long shape {r['shape']}: {r['ms']:.4f} ms, plain "
+        f"{r['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+        f"library {lib}")
+    return dict(shape=r["shape"], ms=r["ms"], plain_ms=r["plain_ms"],
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=r["library_ms"], max_abs_err=r["err"])
+
+
+def make_params(torch, dev0, cfg):
+    from repro_torch.models import transformer as T
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(dev0).manual_seed(0))
+    torch.cuda.synchronize()
+    log(f"serve {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, d_inner {cfg.d_inner}, "
+        f"{cfg.dtype}; {T.param_bytes(params) / 1e9:.3f} GB of weights made "
+        f"on the card in {time.perf_counter() - t0:.2f} s")
+    return params
+
+
+def serving_phases(args, torch, dev0, launches, record):
+    import copy
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as KA, ref as RA
+    from repro_torch.kernels.flash_decode import kernel as KD, ref as RD
+
+    F = torch.nn.functional
+    cfg = get_config("llama3.2-1b")
+    if args.small:
+        cfg = replace(cfg, n_layers=2)
+    P, gen, lws = (SERVE[k] for k in ("prompt", "gen", "lws"))
+
+    # -------------------------------------------------- serve, full width
+    params = make_params(torch, dev0, cfg)
+    serve_model(torch, dev0, cfg, params, launches,
+                per_prefill={"flash_attention": cfg.n_layers},
+                per_step={"flash_decode": cfg.n_layers})
+
+    # ------------------------------------------- card against host, f32
+    p32 = copy.deepcopy(params).to(torch.float32)
+    del params
+    torch.cuda.empty_cache()
+    card_against_host(torch, dev0, replace(cfg, dtype="float32"), p32,
+                      cfg.name)
+    del p32
 
     # --------------------------------- kernels against plain versions
     H, KH, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
@@ -415,15 +480,6 @@ def serving_phases(args, torch, dev0, launches, record):
     decode_check(2, 512, 8, 4, 80, 300, bf16)
     decode_check(2, 512, 16, 2, 128, 511, f32)
 
-    def long_entry(r):
-        b_ms, b_by = bound(r["nbytes"], r["ops"], r["ops_per_s"])
-        log(f"  long shape {r['shape']}: {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-            f"library {r['library_ms']:.4f} ms")
-        return dict(shape=r["shape"], ms=r["ms"], plain_ms=r["plain_ms"],
-                    bound_ms=b_ms, bound_by=b_by,
-                    library_ms=r["library_ms"], max_abs_err=r["err"])
-
     for name, res, lng, src, replaces in (
             ("flash_attention", serve_a, long_a,
              "src/repro_torch/csrc/flash_attention.cu",
@@ -435,6 +491,88 @@ def serving_phases(args, torch, dev0, launches, record):
                res["nbytes"], res["ops"], res["library_ms"],
                res["shape"] + " (serving shape)", res["ops_per_s"],
                long_shape=long_entry(lng))
+
+
+def mamba_phases(args, torch, dev0, launches, record):
+    import copy
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.mamba_scan import kernel as KS, ref as RS
+    from repro_torch.models import transformer as T
+
+    cfg = get_config("falcon-mamba-7b")
+    if args.small:
+        cfg = replace(cfg, n_layers=2)
+    P, lws = SERVE["prompt"], SERVE["lws"]
+    di, ds = cfg.d_inner, cfg.ssm.d_state
+
+    # -------------------------------------------------- serve, full width
+    params = make_params(torch, dev0, cfg)
+    serve_model(torch, dev0, cfg, params, launches,
+                per_prefill={"selective_scan": cfg.n_layers}, per_step={})
+
+    # ----------------------- card against host, f32, first layers only
+    n_par = min(MAMBA_PARITY_LAYERS, cfg.n_layers)
+    head = T.LM(params.embed, list(params.layers[:n_par]),
+                params.final_norm, params.lm_head)
+    p32 = copy.deepcopy(head).to(torch.float32)
+    del params, head
+    torch.cuda.empty_cache()
+    log(f"parity {cfg.name}: depth cut to the first {n_par} of "
+        f"{cfg.n_layers} layers at full width (host memory and time)")
+    card_against_host(torch, dev0,
+                      replace(cfg, n_layers=n_par, dtype="float32"), p32,
+                      f"{cfg.name} ({n_par} layers)")
+    del p32
+
+    # ------------------------------ selective scan against plain version
+    gen_t = torch.Generator(dev0).manual_seed(3)
+
+    def scan_check(B, S, d, s, with_h0=False, timed=False):
+        # the inputs of tests/test_kernels.py: a in [0.5, 0.99)
+        a = 0.5 + 0.49 * torch.rand((B, S, d, s), generator=gen_t,
+                                    device=dev0)
+        b = torch.randn((B, S, d, s), generator=gen_t, device=dev0) * 0.1
+        C = torch.randn((B, S, s), generator=gen_t, device=dev0)
+        h0 = (torch.randn((B, d, s), generator=gen_t, device=dev0)
+              if with_h0 else None)
+        y, h = KS.selective_scan(a, b, C, h0)
+        yr, hr = RS.selective_scan(a, b, C, h0)
+        rtol, atol = SCAN_TOL
+        torch.testing.assert_close(y, yr, rtol=rtol, atol=atol)
+        torch.testing.assert_close(h, hr, rtol=rtol, atol=atol)
+        err = max(float((y - yr).abs().max()), float((h - hr).abs().max()))
+        shape = (f"B={B} S={S} di={d} ds={s} float32"
+                 + (" h0" if with_h0 else ""))
+        log(f"  selective_scan {shape}: max abs err {err:.3g}")
+        res = None
+        if timed:
+            # each input read once, each output written once; a multiply-
+            # add, a multiply and a share of the ds-lane sum per element
+            res = dict(
+                err=err, shape=shape,
+                ms=cuda_ms(lambda: KS.selective_scan(a, b, C, h0), torch),
+                plain_ms=cuda_ms(lambda: RS.selective_scan(a, b, C, h0),
+                                 torch, 1),
+                library_ms=None,
+                nbytes=4.0 * (2 * B * S * d * s + B * S * s + B * S * d
+                              + B * d * s * (2 if with_h0 else 1)),
+                ops=float(B * S * d * (4 * s - 1)), ops_per_s=FP32_OPS_S)
+        del a, b, C, h0, y, h, yr, hr
+        torch.cuda.empty_cache()
+        return res
+
+    log("selective_scan against its plain version:")
+    serve_s = scan_check(lws, P, di, ds, timed=True)
+    long_s = scan_check(2, 1024 if args.small else 4096, di, ds, timed=True)
+    scan_check(1, 1000, 1000, 8, with_h0=True)        # ragged, a state
+    record("selective_scan", "src/repro_torch/csrc/selective_scan.cu",
+           "src/repro/kernels/mamba_scan/kernel.py:55", serve_s["err"],
+           serve_s["ms"], serve_s["plain_ms"], serve_s["nbytes"],
+           serve_s["ops"], None, serve_s["shape"] + " (serving prefill)",
+           long_shape=long_entry(long_s),
+           library_note="no single PyTorch call computes this recurrence")
 
 
 def main() -> int:
@@ -723,6 +861,9 @@ def main() -> int:
            f"{N} sources")
 
     serving_phases(args, torch, dev0, launches, record)
+    mamba_phases(args, torch, dev0, launches, record)
+    leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "repro")]
+    check(not leaked, f"the port imported {leaked}")
 
     print(json.dumps({"kernels": records}))
     print(smi)

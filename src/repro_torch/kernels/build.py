@@ -46,6 +46,7 @@ PROTOTYPES = {
     "nbody_step": [_P, _P, _P, _I, _I, _I, _F, _F, _P],
     "flash_attention_fwd": [_P] * 4 + [_I] * 6 + [_P],
     "flash_decode_fwd": [_P] * 6 + [_I] * 10 + [_P],
+    "selective_scan_fwd": [_P] * 6 + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()

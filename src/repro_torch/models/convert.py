@@ -5,7 +5,9 @@ The JAX package stacks every layer's parameters over a leading
 layer of the repeating period) and keeps the attention weights as
 ``wq``/``wk``/``wv`` (d, heads, hd) and ``wo`` (heads, hd, d).  The port
 keeps one module per layer with those weights flattened to the matmul
-layout of ``models/layers.py`` (``wq`` (d, H*hd), ``wo`` (H*hd, d)).  This
+layout of ``models/layers.py`` (``wq`` (d, H*hd), ``wo`` (H*hd, d)).  A
+Mamba layer's arrays already have the port's layouts (``x @ w``) and are
+carried over as they are; its layer has no ``ln2`` and no ``mlp``.  This
 module is the only place that knows both layouts.
 """
 from __future__ import annotations
@@ -42,7 +44,14 @@ def params_from_jax(cfg: ModelConfig, params_np: Mapping[str, Any],
     for b in range(n_blocks):
         for i in range(P):
             lp = blocks[f"sub{i}"]
-            mx, mlp = lp["mixer"], lp["mlp"]
+            mx = lp["mixer"]
+            if T._is_ssm(cfg):
+                layers.append(T.Layer(
+                    _tensor(lp["ln1"][b], device), None,
+                    L.Mamba(*(_tensor(np.asarray(mx[n])[b], device)
+                              for n in L.Mamba.NAMES)), None))
+                continue
+            mlp = lp["mlp"]
             wq, wk, wv, wo = (np.asarray(mx[n])[b]
                               for n in ("wq", "wk", "wv", "wo"))
             d = wq.shape[0]

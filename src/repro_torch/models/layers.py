@@ -13,8 +13,13 @@ XLA.
 Parameters are ``nn.Module``s in a matmul layout (``x @ w``): ``wq`` is
 (d_model, H*hd), ``wk``/``wv`` (d_model, KH*hd) and ``wo`` (H*hd,
 d_model); ``models/convert.py`` maps the JAX package's (d, H, hd) and
-(H, hd, d) arrays onto them.  MLA, MoE and Mamba layers are later slices
-of the port.
+(H, hd, d) arrays onto them.
+
+The Mamba1 block (falcon-mamba) keeps the JAX package's parameter names
+and layouts; its prefill scan goes through the hand-written CUDA kernel
+of ``kernels/mamba_scan``, and its decode step is one recurrence step in
+plain ops, as in the JAX package.  MLA and MoE layers are later slices of
+the port.
 """
 from __future__ import annotations
 
@@ -23,10 +28,16 @@ from typing import Dict, Optional
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.kernel import flash_attention
 from repro_torch.kernels.flash_decode.kernel import flash_decode
+from repro_torch.kernels.mamba_scan.kernel import selective_scan
+
+
+def _frozen(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
 
 
 def _dense_init(gen: torch.Generator, shape, dtype, fan_in: int,
@@ -36,12 +47,11 @@ def _dense_init(gen: torch.Generator, shape, dtype, fan_in: int,
     scale = scale if scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
     w = torch.randn(shape, generator=gen, dtype=torch.float32,
                     device=gen.device) * scale
-    return nn.Parameter(w.to(dtype), requires_grad=False)
+    return _frozen(w.to(dtype))
 
 
 def _ones(n: int, dtype, device) -> nn.Parameter:
-    return nn.Parameter(torch.ones(n, dtype=dtype, device=device),
-                        requires_grad=False)
+    return _frozen(torch.ones(n, dtype=dtype, device=device))
 
 
 def rmsnorm(x, w, eps):
@@ -179,6 +189,129 @@ def mlp_apply(cfg: ModelConfig, p: MLP, x):
 
 
 # ---------------------------------------------------------------------------
+# Mamba1 block (selective scan)
+# ---------------------------------------------------------------------------
+
+
+class Mamba(nn.Module):
+    """Mamba1 weights, in the JAX package's layouts: ``in_proj`` (d, 2di),
+    ``conv_w`` (dc, di), ``conv_b`` (di,), ``x_proj`` (di, dtr + 2ds),
+    ``dt_proj`` (dtr, di), ``dt_bias`` (di,), ``A_log`` (di, ds) and ``D``
+    (di,) in float32, ``out_proj`` (di, d)."""
+
+    NAMES = ("in_proj", "conv_w", "conv_b", "x_proj", "dt_proj", "dt_bias",
+             "A_log", "D", "out_proj")
+
+    def __init__(self, in_proj, conv_w, conv_b, x_proj, dt_proj, dt_bias,
+                 A_log, D, out_proj):
+        super().__init__()
+        self.in_proj, self.conv_w, self.conv_b = in_proj, conv_w, conv_b
+        self.x_proj, self.dt_proj, self.dt_bias = x_proj, dt_proj, dt_bias
+        self.A_log, self.D, self.out_proj = A_log, D, out_proj
+
+
+def mamba_init(cfg: ModelConfig, gen: torch.Generator, dtype) -> Mamba:
+    d, di, ds, dc = cfg.d_model, cfg.d_inner, cfg.ssm.d_state, cfg.ssm.d_conv
+    dtr = cfg.resolved_dt_rank
+    dev = gen.device
+    A = torch.arange(1, ds + 1, dtype=torch.float32, device=dev)
+    return Mamba(
+        _dense_init(gen, (d, 2 * di), dtype, d),
+        _dense_init(gen, (dc, di), dtype, dc, scale=1.0 / math.sqrt(dc)),
+        _frozen(torch.zeros(di, dtype=dtype, device=dev)),
+        _dense_init(gen, (di, dtr + 2 * ds), dtype, di),
+        _dense_init(gen, (dtr, di), dtype, dtr),
+        # softplus^-1(0.01)
+        _frozen(torch.full((di,), -4.6, dtype=dtype, device=dev)),
+        _frozen(torch.log(A).repeat(di, 1)),
+        _ones(di, torch.float32, dev),
+        _dense_init(gen, (di, d), dtype, di))
+
+
+def _causal_conv(x, w, b, state=None):
+    """Depthwise causal conv. x: (B,S,di); w: (dc,di); state: (B,dc-1,di)
+    or None (zeros).  The sum of dc shifted products, as the JAX package
+    rounds it.  Returns (y, the last dc-1 rows of the padded input)."""
+    dc = w.shape[0]
+    if state is None:
+        xp = F.pad(x, (0, 0, dc - 1, 0))
+    else:
+        xp = torch.cat([state.to(x.dtype), x], dim=1)
+    S = x.shape[1]
+    y = sum(xp[:, i:i + S, :] * w[i] for i in range(dc))
+    new_state = xp[:, xp.shape[1] - (dc - 1):, :] if dc > 1 else None
+    return y + b, new_state
+
+
+def _ssm_scan_chunked(a, b, C, h0, chunk):
+    """h_t = a_t * h_{t-1} + b_t ; y_t = sum_s C_t[s] h_t[:,s].
+    a,b: (B,S,di,ds); C: (B,S,ds); h0: (B,di,ds), all float32 -> y
+    (B,S,di), h_final (B,di,ds).  ``chunk`` is the JAX schedule's block
+    length; the kernel carries the state over the whole sequence."""
+    del chunk
+    # C is a column slice of the x_proj output (a view in float32)
+    return selective_scan(a.contiguous(), b.contiguous(), C.contiguous(),
+                          h0.contiguous())
+
+
+def mamba_apply(cfg: ModelConfig, p: Mamba, x, cache: Optional[Dict] = None,
+                decode: bool = False):
+    """x: (B,S,d).  Train/prefill (``decode`` False: the scan from the
+    cache's h, or zeros, and a zero-padded conv) or one decode step (S ==
+    1, ``cache`` = {"h", "conv"}).  Returns (y, new cache or None)."""
+    B, S, _ = x.shape
+    di, ds = cfg.d_inner, cfg.ssm.d_state
+    dtr = cfg.resolved_dt_rank
+    xz = x @ p.in_proj
+    xin, z = xz[..., :di], xz[..., di:]
+    conv_state = cache.get("conv") if cache else None
+    xc, new_conv = _causal_conv(xin, p.conv_w, p.conv_b,
+                                state=conv_state if decode else None)
+    xc = F.silu(xc)
+    proj = xc @ p.x_proj
+    dt = F.softplus(proj[..., :dtr] @ p.dt_proj + p.dt_bias)
+    Bmat = proj[..., dtr:dtr + ds].float()                  # (B,S,ds)
+    Cmat = proj[..., dtr + ds:].float()
+    A = -torch.exp(p.A_log)                                 # (di,ds)
+    dt32 = dt.float()
+    a = torch.exp(dt32[..., None] * A)                      # (B,S,di,ds)
+    b = (dt32 * xc.float())[..., None] * Bmat[:, :, None, :]
+    if decode:
+        h = a[:, 0] * cache["h"] + b[:, 0]
+        y = torch.einsum("bds,bs->bd", h, Cmat[:, 0])[:, None, :]
+        new_h = h
+    else:
+        h0 = (cache["h"] if cache is not None
+              else torch.zeros((B, di, ds), dtype=torch.float32,
+                               device=x.device))
+        y, new_h = _ssm_scan_chunked(a, b, Cmat, h0, cfg.scan_chunk)
+    y = y.to(x.dtype) + xc * p.D.to(x.dtype)
+    y = y * F.silu(z)
+    out = y @ p.out_proj
+    new_cache = None
+    if cache is not None:
+        new_cache = {"h": new_h}
+        if new_conv is not None:
+            new_cache["conv"] = (new_conv.to(cache["conv"].dtype)
+                                 if "conv" in cache else new_conv)
+        elif "conv" in cache:
+            new_cache["conv"] = cache["conv"]
+    return out, new_cache
+
+
+def mamba_cache_init(cfg: ModelConfig, batch, dtype, device):
+    """{"h": (batch, di, ds) float32, "conv": (batch, dc-1, di) in
+    ``dtype``} of zeros; no "conv" when dc == 1."""
+    di, ds, dc = cfg.d_inner, cfg.ssm.d_state, cfg.ssm.d_conv
+    c = {"h": torch.zeros((batch, di, ds), dtype=torch.float32,
+                          device=device)}
+    if dc > 1:
+        c["conv"] = torch.zeros((batch, dc - 1, di), dtype=dtype,
+                                device=device)
+    return c
+
+
+# ---------------------------------------------------------------------------
 # later slices of the port
 # ---------------------------------------------------------------------------
 
@@ -192,5 +325,3 @@ def _later(what: str, item: str):
 mla_init = mla_apply = mla_cache_init = _later(
     "MLA attention", "Queue A item 8")
 moe_init = moe_apply = _later("the MoE layer", "Queue A item 8")
-mamba_init = mamba_apply = mamba_cache_init = _later(
-    "the Mamba1 block", "Queue A item 8 with Queue B item 7")

@@ -1,13 +1,17 @@
 """Decoder LM of the dense GQA family (llama3.2-1b, qwen3-32b, yi-9b,
-stablelm-3b): ``embed -> layers -> norm -> head``.  A PyTorch port of the
-JAX package's ``models/transformer.py`` for that family.
+stablelm-3b) and of the pure Mamba1 family (falcon-mamba-7b):
+``embed -> layers -> norm -> head``.  A PyTorch port of the JAX package's
+``models/transformer.py`` for those families.
 
 The JAX package stacks its layers' parameters over ``n_blocks`` and runs
 them with ``lax.scan`` (rematerialised for training); the port keeps one
-``nn.Module`` per layer and runs them in a plain Python loop.  The KV
-cache is a list of per-layer ``{"k", "v"}`` tensors that prefill and
-decode write in place.  MoE, MLA, hybrid, SSM and the modality frontends
-raise ``NotImplementedError``: they are later slices of the port.
+``nn.Module`` per layer and runs them in a plain Python loop.  The cache
+is a list with one entry per layer: a GQA layer's ``{"k", "v"}`` tensors,
+which prefill and decode write in place, or a Mamba layer's ``{"h",
+"conv"}`` state, which prefill and decode replace in the list.  A Mamba
+layer has no MLP and no second norm.  MoE, MLA, hybrid and the modality
+frontends raise ``NotImplementedError``: they are later slices of the
+port.
 """
 from __future__ import annotations
 
@@ -26,16 +30,23 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
+def _is_ssm(cfg: ModelConfig) -> bool:
+    """A pure Mamba1 stack: every layer a Mamba block, no MLP."""
+    return cfg.family == "ssm" and cfg.attn_kind == "none"
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is a dense GQA decoder without a frontend,
-    the family this slice of the port covers."""
+    """Raise unless ``cfg`` is a dense GQA decoder or a pure Mamba1 stack,
+    without MoE or a frontend: the families the port covers so far."""
     cfg.validate()
-    if (cfg.attn_kind != "gqa" or cfg.moe.n_routed or cfg.is_recurrent
-            or cfg.attn_every > 1 or cfg.frontend or cfg.d_ff <= 0):
+    dense = (cfg.attn_kind == "gqa" and not cfg.is_recurrent
+             and cfg.attn_every <= 1 and cfg.d_ff > 0)
+    ssm = _is_ssm(cfg) and cfg.d_ff == 0
+    if not (dense or ssm) or cfg.moe.n_routed or cfg.frontend:
         raise NotImplementedError(
-            f"{cfg.name}: only the dense GQA family is ported to PyTorch "
-            f"(MoE, MLA, Mamba, hybrid and frontends: ROADMAP.md Queue A "
-            f"item 8)")
+            f"{cfg.name}: only the dense GQA and pure Mamba1 families are "
+            f"ported to PyTorch (MoE, MLA, hybrid and frontends: "
+            f"ROADMAP.md Queue A item 8)")
     if cfg.score_dtype != "float32":
         raise NotImplementedError(
             f"{cfg.name}: score_dtype {cfg.score_dtype!r}; the attention "
@@ -43,7 +54,10 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 class Layer(nn.Module):
-    def __init__(self, ln1, ln2, mixer: L.GQA, mlp: L.MLP):
+    """One decoder layer: a GQA mixer with its MLP and second norm, or a
+    Mamba mixer alone (``ln2`` and ``mlp`` None)."""
+
+    def __init__(self, ln1, ln2, mixer, mlp):
         super().__init__()
         self.ln1, self.ln2 = ln1, ln2
         self.mixer, self.mlp = mixer, mlp
@@ -77,6 +91,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> LM:
                           cfg.vocab_size, scale=0.02)
     layers = []
     for _ in range(cfg.n_layers):
+        if _is_ssm(cfg):
+            layers.append(Layer(L._ones(cfg.d_model, dtype, dev), None,
+                                L.mamba_init(cfg, generator, dtype), None))
+            continue
         mixer = L.gqa_init(cfg, generator, dtype)
         mlp = L.mlp_init(cfg, generator, dtype)
         layers.append(Layer(L._ones(cfg.d_model, dtype, dev),
@@ -110,17 +128,29 @@ def lm_head(cfg: ModelConfig, params: LM, x):
 
 def _apply_layer(cfg: ModelConfig, lp: Layer, x, positions, cache=None,
                  pos=None):
+    """Returns (x, the layer's cache entry); decode when ``pos`` is
+    given."""
     h = L.rmsnorm(x, lp.ln1, cfg.norm_eps)
-    h, _ = L.gqa_apply(cfg, lp.mixer, h, positions, cache=cache, pos=pos)
+    if isinstance(lp.mixer, L.Mamba):
+        h, cache = L.mamba_apply(cfg, lp.mixer, h, cache=cache,
+                                 decode=pos is not None)
+    else:
+        h, cache = L.gqa_apply(cfg, lp.mixer, h, positions, cache=cache,
+                               pos=pos)
     x = x + h
-    h = L.rmsnorm(x, lp.ln2, cfg.norm_eps)
-    return x + L.mlp_apply(cfg, lp.mlp, h)
+    if lp.mlp is not None:
+        h = L.rmsnorm(x, lp.ln2, cfg.norm_eps)
+        x = x + L.mlp_apply(cfg, lp.mlp, h)
+    return x, cache
 
 
 def _run(cfg, params: LM, x, positions, cache=None, pos=None):
     for i, lp in enumerate(params.layers):
-        x = _apply_layer(cfg, lp, x, positions,
-                         None if cache is None else cache[i], pos)
+        x, layer_cache = _apply_layer(cfg, lp, x, positions,
+                                      None if cache is None else cache[i],
+                                      pos)
+        if cache is not None:
+            cache[i] = layer_cache
     return L.rmsnorm(x, params.final_norm, cfg.norm_eps)
 
 
@@ -131,7 +161,7 @@ def _run(cfg, params: LM, x, positions, cache=None, pos=None):
 def forward(cfg: ModelConfig, params: LM, tokens) -> Tuple[torch.Tensor,
                                                            torch.Tensor]:
     """Scoring forward. tokens: (B,S) int.  Returns (logits, aux_loss);
-    the dense family has no auxiliary loss (0.0)."""
+    the dense and Mamba families have no auxiliary loss (0.0)."""
     x = embed_tokens(cfg, params, tokens)
     positions = torch.arange(x.shape[1], device=x.device)
     logits = lm_head(cfg, params, _run(cfg, params, x, positions))
@@ -140,16 +170,22 @@ def forward(cfg: ModelConfig, params: LM, tokens) -> Tuple[torch.Tensor,
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                device="cuda") -> Cache:
-    """One zeroed ``{"k", "v"}`` cache of (batch, max_seq, KH, hd) per
-    layer, in ``cfg.dtype``."""
+    """One zeroed cache per layer: ``{"k", "v"}`` of (batch, max_seq, KH,
+    hd) in ``cfg.dtype`` for a GQA layer; ``{"h", "conv"}`` for a Mamba
+    layer (``mamba_cache_init``: its size does not depend on
+    ``max_seq``)."""
     check_supported(cfg)
+    if _is_ssm(cfg):
+        return [L.mamba_cache_init(cfg, batch, _dtype(cfg), device)
+                for _ in range(cfg.n_layers)]
     return [L.gqa_cache_init(cfg, batch, max_seq, _dtype(cfg), device)
             for _ in range(cfg.n_layers)]
 
 
 def prefill(cfg: ModelConfig, params: LM, tokens, cache: Cache):
-    """Fill the cache with the prompt (in place); returns (logits of the
-    last position (B,1,V), cache)."""
+    """Fill the cache with the prompt (GQA layers in place, Mamba layers'
+    entries replaced in the list); returns (logits of the last position
+    (B,1,V), cache)."""
     x = embed_tokens(cfg, params, tokens)
     positions = torch.arange(x.shape[1], device=x.device)
     x = _run(cfg, params, x, positions, cache)
@@ -159,7 +195,8 @@ def prefill(cfg: ModelConfig, params: LM, tokens, cache: Cache):
 def decode_step(cfg: ModelConfig, params: LM, token, cache: Cache,
                 pos: int):
     """One decode step. token: (B,1) int; ``pos`` a Python int.  Writes
-    the new k/v at ``pos`` in place; returns (logits (B,1,V), cache)."""
+    the new k/v at ``pos`` in place (GQA) or replaces the layer's state
+    (Mamba); returns (logits (B,1,V), cache)."""
     x = embed_tokens(cfg, params, token)
     positions = torch.full((1,), pos, device=x.device)
     x = _run(cfg, params, x, positions, cache, pos)

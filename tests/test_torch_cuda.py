@@ -158,3 +158,85 @@ def test_flash_decode_kernel_matches_plain(card, B, S, H, KH, D, pos, dtype):
     torch.testing.assert_close(got.float(),
                                RD.decode_attention(q, kc, vc, pos).float(),
                                rtol=rtol, atol=atol)
+
+
+# --------------------------------------------- selective scan (Mamba1)
+# rtol 1e-4 / atol 1e-5: the tolerance of tests/test_kernels.py:152
+SCAN_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("B,S,di,ds,with_h0", [
+    (1, 64, 32, 8, False),          # the shapes of tests/test_kernels.py
+    (2, 128, 64, 16, False),
+    (2, 96, 48, 16, False),
+    (1, 1000, 1000, 8, True),       # ragged S and di, a carried state
+    (2, 37, 100, 5, True),          # ds not a power of two
+    (1, 19, 64, 32, False),         # a whole warp per channel
+    (3, 8, 33, 1, True),
+    (2, 0, 16, 16, True),           # no steps: h_T is h0
+])
+def test_selective_scan_kernel_matches_plain(card, B, S, di, ds, with_h0):
+    from repro_torch.kernels.mamba_scan import kernel as KS, ref as RS
+    rng = np.random.default_rng(S + di + ds)
+    a, b, C, h0 = (torch.from_numpy(x.astype(np.float32)).to(card) for x in (
+        rng.uniform(0.5, 0.99, (B, S, di, ds)),
+        rng.standard_normal((B, S, di, ds)) * 0.1,
+        rng.standard_normal((B, S, ds)),
+        rng.standard_normal((B, di, ds))))
+    h0 = h0 if with_h0 else None
+    before = KS.launches
+    y, h = KS.selective_scan(a, b, C, h0)
+    torch.cuda.synchronize()
+    assert KS.launches == before + 1
+    yr, hr = RS.selective_scan(a, b, C, h0)
+    torch.testing.assert_close(y, yr, **SCAN_TOL)
+    torch.testing.assert_close(h, hr, **SCAN_TOL)
+
+
+def test_selective_scan_kernel_rejects_what_it_does_not_take(card):
+    from repro_torch.kernels.mamba_scan import kernel as KS
+    a = torch.rand((1, 4, 8, 33), device=card)
+    C = torch.rand((1, 4, 33), device=card)
+    before = KS.launches
+    with pytest.raises(ValueError, match="ds=33"):
+        KS.selective_scan(a, a, C)
+    with pytest.raises(TypeError):
+        KS.selective_scan(a.double(), a.double(), C.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        KS.selective_scan(a[..., :16], a[..., :16], C[..., :16])
+    assert KS.launches == before
+
+
+def test_mamba_model_on_card_matches_host(card):
+    """The smoke falcon-mamba-7b in float32 (TF32 off): prefill through
+    the scan kernel (one launch per layer) and decode steps in plain ops
+    (no launch), against the same weights on the host."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels.mamba_scan import kernel as KS
+    from repro_torch.models import transformer as T
+    cfg = get_smoke("falcon-mamba-7b")
+    params = T.init_params(cfg, torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (2, 24)).astype(np.int64))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def run(device, p):
+        t = toks.to(device)
+        cache = T.init_cache(cfg, 2, 24, device=device)
+        lg, cache = T.prefill(cfg, p, t[:, :20], cache)
+        outs = [lg[:, 0]]
+        for i in range(20, 24):
+            lg, cache = T.decode_step(cfg, p, t[:, i:i + 1], cache, i)
+            outs.append(lg[:, 0])
+        return torch.stack(outs, 1).cpu()
+
+    try:
+        host = run("cpu", params)
+        before = KS.launches
+        got = run(card, params.to(card))
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert KS.launches == before + cfg.n_layers
+    torch.testing.assert_close(got, host, rtol=2e-4, atol=2e-4)

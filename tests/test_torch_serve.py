@@ -96,21 +96,26 @@ def test_trace_round_trip_matches_jax(tmp_path):
 
 
 # ------------------------------------------- threaded server, CPU replicas
-@pytest.fixture(scope="module")
-def smoke_serving():
-    cfg = get_smoke("llama3.2-1b")
+def _smoke_serving(arch):
+    cfg = get_smoke(arch)
     params = T.init_params(cfg, torch.Generator().manual_seed(0))
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, cfg.vocab_size, (8, 16)).astype(np.int32)
     return cfg, params, prompts
 
 
+@pytest.fixture(scope="module")
+def smoke_serving():
+    return _smoke_serving("llama3.2-1b")
+
+
 def _replica(name, cfg, params, throttle=1.0):
     return TS.Replica(name, cfg, params, throttle=throttle, device="cpu")
 
 
-def test_server_replica_invariant_outputs(smoke_serving):
-    cfg, params, prompts = smoke_serving
+def _check_replica_invariance(cfg, params, prompts):
+    """Two replicas (throttles 1 and 2) and one replica alone give every
+    request the same tokens."""
     scfg = TS.ServerConfig(scheduler="hguided_deadline", lws=2, gen=2,
                            policy="none")
 
@@ -132,6 +137,14 @@ def test_server_replica_invariant_outputs(smoke_serving):
     for rid in one.results:
         np.testing.assert_array_equal(two.results[rid], one.results[rid])
     assert sum(two.stats.dispatch.values()) == len(prompts)
+
+
+def test_server_replica_invariant_outputs(smoke_serving):
+    _check_replica_invariance(*smoke_serving)
+
+
+def test_mamba_server_replica_invariant_outputs():
+    _check_replica_invariance(*_smoke_serving("falcon-mamba-7b"))
 
 
 def test_server_sheds_on_predicted_miss(smoke_serving):
@@ -180,12 +193,14 @@ GEN = 6
 MIN_GAP = 2e-3
 
 
-def test_greedy_tokens_match_jax_replica():
-    cfg, jcfg = get_smoke("llama3.2-1b"), jax_get_smoke("llama3.2-1b")
+def _check_greedy_against_jax(arch, prompt_seed):
+    """The port's replica and the JAX replica, on the same weights, pick
+    the same greedy tokens; every step's top-2 gap is checked first."""
+    cfg, jcfg = get_smoke(arch), jax_get_smoke(arch)
     jparams, _ = JT.init_params(jcfg, jax.random.PRNGKey(0))
     params = params_from_jax(cfg, jax.tree.map(np.asarray, jparams),
                              device="cpu")
-    prompts = np.random.default_rng(24).integers(
+    prompts = np.random.default_rng(prompt_seed).integers(
         0, cfg.vocab_size, (2, 12)).astype(np.int32)
     got = _replica("port", cfg, params).serve(prompts, GEN)
     # the gap between the two best logits at every greedy step
@@ -204,6 +219,14 @@ def test_greedy_tokens_match_jax_replica():
     np.testing.assert_array_equal(got, np.asarray(want))
 
 
+def test_greedy_tokens_match_jax_replica():
+    _check_greedy_against_jax("llama3.2-1b", 24)
+
+
+def test_mamba_greedy_tokens_match_jax_replica():
+    _check_greedy_against_jax("falcon-mamba-7b", 24)
+
+
 def test_launch_serve_smoke_on_cpu(capsys):
     from repro_torch.launch import serve
     rc = serve.main(["--smoke", "--device", "cpu", "--check-invariance",
@@ -212,10 +235,21 @@ def test_launch_serve_smoke_on_cpu(capsys):
     assert rc == 0 and "outputs replica-invariant: True" in out
 
 
+def test_launch_serve_mamba_smoke_on_cpu(capsys):
+    from repro_torch.launch import serve
+    rc = serve.main(["--arch", "falcon-mamba-7b", "--smoke", "--device",
+                     "cpu", "--check-invariance", "--requests", "8",
+                     "--replicas", "r0:1,r1:2"])
+    out = capsys.readouterr().out
+    assert rc == 0 and "outputs replica-invariant: True" in out
+
+
 def test_port_imports_neither_jax_nor_repro():
     code = ("import sys\n"
             "import repro_torch.serve, repro_torch.models.transformer\n"
             "import repro_torch.launch.serve\n"
+            "import repro_torch.kernels.mamba_scan.kernel\n"
+            "import repro_torch.kernels.mamba_scan.ops\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'repro'))\n"
             "print(bad)\n"
