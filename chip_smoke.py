@@ -38,7 +38,11 @@ Phases, each fatal on failure:
 8. hold ``flash_attention`` and ``flash_decode`` against their plain
    versions at the serving shapes, a long shape, a ragged S and head
    dims 80 and 128 (bfloat16 at 2e-2, float32 at rtol 1e-4 / atol 2e-5),
-   and time kernel, plain version and ``scaled_dot_product_attention``;
+   and time kernel, plain version and ``scaled_dot_product_attention``
+   (with the kernel/SDPA ratio) at the serving shapes, the long shapes
+   and qwen3-32b's heads (D = 128); the profiler must see exactly one
+   kernel on the device for one ``flash_decode`` call at the serving
+   shape;
 9. serve falcon-mamba-7b at full width (``--small``: 2 of its 64 layers)
    in bfloat16 with the set-up of phase 6.  All must be served; the launch
    counters, set to 0 after a warm-up, must show one ``selective_scan``
@@ -163,6 +167,28 @@ def profile_window(torch, fn, n: int):
         return None
     rows.sort(reverse=True)
     return sum(ms for ms, _ in rows), rows[:8]
+
+
+def device_ops_per_call(torch, fn, n: int):
+    """(device operations per call, their names) of ``n`` calls of
+    ``fn``, from ``torch.profiler``: every kernel, copy and memset the
+    calls put on the device."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        # a spin kernel on either side of the window, so that the trace's
+        # first and last events are not the calls' own
+        torch.cuda._sleep(100_000)
+        for _ in range(n):
+            fn()
+        torch.cuda._sleep(100_000)
+        torch.cuda.synchronize()
+    ops = [(e.key, e.count) for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and "spin_kernel" not in e.key]
+    return sum(c for _, c in ops) / n, sorted(k for k, _ in ops)
 
 
 def serve_model(torch, dev0, cfg, params, launches, per_prefill, per_step):
@@ -419,6 +445,9 @@ def serving_phases(args, torch, dev0, launches, record):
             nbytes=elt * (2 * B * S * h * d + 2 * B * S * kh * d),
             ops=4.0 * B * h * d * S * (S + 1) / 2,
             ops_per_s=BF16_OPS_S if dtype == torch.bfloat16 else FP32_OPS_S)
+        log(f"  timed {shape}: kernel {res['ms']:.4f} ms, SDPA "
+            f"{res['library_ms']:.4f} ms, kernel/SDPA "
+            f"{res['ms'] / res['library_ms']:.3f}")
         del q, k, v, qt, kt, vt, got, want, lib
         torch.cuda.empty_cache()
         return res
@@ -456,6 +485,8 @@ def serving_phases(args, torch, dev0, launches, record):
                    ops=4.0 * B * h * d * (pos + 1),
                    ops_per_s=BF16_OPS_S if dtype == torch.bfloat16
                    else FP32_OPS_S)
+        log(f"  timed {shape}: kernel {ms:.4f} ms, SDPA {library_ms:.4f} "
+            f"ms, kernel/SDPA {ms / library_ms:.3f}")
         del q, kc, vc, kt, vt, got, want, lib
         torch.cuda.empty_cache()
         return res
@@ -465,6 +496,8 @@ def serving_phases(args, torch, dev0, launches, record):
     serve_a = attn_check(lws, P, H, KH, D, bf16, timed=True)
     long_S = 1024 if args.small else 4096
     long_a = attn_check(2, long_S, H, KH, D, bf16, timed=True)
+    # qwen3-32b's heads: D = 128 runs another instantiation of the kernel
+    d128_a = attn_check(1, long_S, 64, 8, 128, bf16, timed=True)
     attn_check(2, 1000, H, KH, D, bf16)           # ragged S
     attn_check(1, 1000, H, KH, D, f32)
     attn_check(2, 256, 8, 4, 80, f32)             # stablelm-3b's head dim
@@ -473,6 +506,17 @@ def serving_phases(args, torch, dev0, launches, record):
     attn_check(1, 384, 16, 2, 128, bf16)
     serve_d = decode_check(lws, P + gen, H, KH, D, P + gen - 1, bf16,
                            timed=True)
+    # one flash_decode call is one kernel on the device: no combine pass,
+    # no memset of the split counters
+    qd = randn((lws, H, D), bf16)
+    kcd, vcd = (randn((lws, P + gen, KH, D), bf16) for _ in range(2))
+    n_ops, names = device_ops_per_call(
+        torch, lambda: KD.flash_decode(qd, kcd, vcd, P + gen - 1), 10)
+    log(f"  flash_decode at the serving shape: {n_ops:g} device operations "
+        f"a call ({names})")
+    check(n_ops == 1, f"flash_decode: {n_ops} device operations a call, "
+                      f"expected one kernel ({names})")
+    del qd, kcd, vcd
     long_B, long_Smax = (16, 4096) if args.small else (128, 32768)
     long_d = decode_check(long_B, long_Smax, H, KH, D, long_Smax - 1, bf16,
                           timed=True)
@@ -480,17 +524,18 @@ def serving_phases(args, torch, dev0, launches, record):
     decode_check(2, 512, 8, 4, 80, 300, bf16)
     decode_check(2, 512, 16, 2, 128, 511, f32)
 
-    for name, res, lng, src, replaces in (
+    for name, res, lng, more, src, replaces in (
             ("flash_attention", serve_a, long_a,
+             {"d128_shape": long_entry(d128_a)},
              "src/repro_torch/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention/kernel.py:69"),
-            ("flash_decode", serve_d, long_d,
+            ("flash_decode", serve_d, long_d, {},
              "src/repro_torch/csrc/flash_decode.cu",
              "src/repro/kernels/flash_decode/kernel.py:63")):
         record(name, src, replaces, res["err"], res["ms"], res["plain_ms"],
                res["nbytes"], res["ops"], res["library_ms"],
                res["shape"] + " (serving shape)", res["ops_per_s"],
-               long_shape=long_entry(lng))
+               long_shape=long_entry(lng), **more)
 
 
 def mamba_phases(args, torch, dev0, launches, record):

@@ -9,36 +9,53 @@
 // Bound on an H100: operations.  4*D*S(S+1)/2 per head against 2*D*S*2
 // bytes of q, k, v and o: at S=256, D=64 about 128 operations a byte in
 // bfloat16 and 64 in float32, so the card's multipliers, not its memory,
-// set the least time once S is past a few hundred.
+// set the least time once S is past a few hundred.  In bfloat16 at D = 64
+// the exponentials weigh as much as the products: a score costs 2*2*64 =
+// 256 tensor-core operations (at 989e12/s) and one exponential on the
+// special-function units (16 a clock per SM, about 4.2e12/s on 132 SMs),
+// so both take about 0.13 ms at B=2, S=4096, 32 heads, and a kernel that
+// runs the softmax and the products one after the other cannot get below
+// their sum.
 //
 // Design: CTAs run in parallel and in no order, so the TPU's sequential
-// kv-block axis becomes a loop inside the CTA.  One CTA owns (batch, kv
-// head, BQ query positions) and holds the BQ*G rows of all G query heads
-// that share the kv head (kRows = 64 rows: BQ = 64/G), so every K/V tile
-// read from device memory serves G heads, as the JAX kernel's (bq*G, D)
-// packing does.  Per key tile (kBK = 64 keys) the CTA stages K and V in
-// shared memory as float32; 128 threads form 16 row groups of 4 rows x 8
-// column groups, each thread computes a 4x8 block of scores from
+// kv-block axis becomes a loop inside the CTA, and tiles wholly above the
+// diagonal are never loaded.  A CTA holds the rows of all G query heads
+// that share its kv head, the JAX kernel's (bq*G, D) packing, so every
+// K/V tile read from device memory serves G heads.
+//
+// bfloat16 (D of 64, 80 or 128; every dense model of the repo), the
+// serving path: flash_fwd_wgmma_kernel below.  Work items of 128 packed
+// rows, taken by one persistent CTA an SM, longest key range first; two
+// consumer warpgroups on wgmma and one TMA producer thread feeding two Q
+// buffers, a two-slot K ring and a two-slot V ring through mbarriers, so
+// the next item's loads overlap this item's products; each consumer runs
+// tile j's softmax while its own P.V of tile j-1 and the other
+// consumer's products are on the tensor cores (the two take turns on
+// named barriers), with the scale folded into one FMA and ex2.approx per
+// score.
+//
+// float32 (0 < D <= 128), for the card-against-host parity checks:
+// flash_fwd_kernel, 64 rows (kRows = 64: BQ = 64/G) x 64-key tiles staged
+// in shared memory as float32; 128 threads form 16 row groups of 4 rows x
+// 8 column groups, each thread computes a 4x8 block of scores from
 // conflict-free float4 reads, the row max and sum are reduced with warp
 // shuffles over the 8 threads of a row group, and the probabilities go
 // through shared memory (one warp writes and reads its own rows) into a
-// 4 x (DP/8) slice of the output accumulator.  The running max,
-// denominator and accumulator stay in float32 registers for the whole
-// CTA.  Key tiles wholly above the diagonal are never loaded; positions
-// past S (a ragged last tile, any S) and head columns past D (D = 80 runs
-// padded to 96) are zero-filled and masked.  Products are plain float32
-// FMAs, so float32 inputs keep float32 accuracy.  bfloat16 inputs, whose D
-// is 64, 80 or 128 in every dense model of the repo, take a second kernel
-// of the same shape whose two products run on the tensor cores
-// (mma.sync; see flash_fwd_mma_kernel).  wgmma, TMA and a pipelined K/V
-// ring are later work.
+// 4 x (DP/8) slice of the output accumulator.  Positions past S (a ragged
+// last tile, any S) and head columns past D (D = 80 runs padded to 96)
+// are zero-filled and masked.  Products are plain float32 FMAs, so
+// float32 inputs keep float32 accuracy.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace repro_hopper;
 
 constexpr int kThreads = 128;  // 16 row groups x 8 column groups
 constexpr int kRows = 64;      // query rows (position, head) of a CTA
@@ -248,42 +265,85 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16 inputs with D in {64, 80, 128}: the same CTA (64 rows of G heads
-// x 64-key tiles), with the two products on the tensor cores
-// (mma.sync m16n8k16, bfloat16 in, float32 accumulate).  Each warp owns 16
-// of the CTA's rows: its Q fragments stay in registers for the whole CTA,
-// K and V tiles are staged in shared memory as bfloat16 and read with
-// ldmatrix (V transposed), the scores of a 16 x 64 tile sit in the
-// accumulator layout, whose two 16 x 8 tiles per 16 keys are also the
-// layout of the A operand of P @ V, so the probabilities go from
-// registers to the second product without shared memory.  The row max
-// and sum reduce over the 4 lanes that share a row.  P is rounded to
-// bfloat16 for the product; the denominator sums it in float32.
+// bfloat16 inputs with D in {64, 80, 128}: warp-specialised, on wgmma.
+//
+// A work item is 128 packed rows (BQ = 128/G positions x G heads of one
+// kv head and batch), the JAX kernel's (bq*G, D) packing; a CTA stays on
+// its SM and takes items in a fixed order (longest key range first, in a
+// snake over the CTAs, so the CTAs get like shares), which hides each
+// item's first loads behind the previous item's work and keeps short
+// prefills in one wave.  Three warpgroups: 0 and 1 are consumers of 64
+// rows each, 2 a producer whose one thread loads each item's Q (one TMA
+// box of G heads x BQ positions lands as the packed rows, into one of two
+// buffers) and keeps a ring of kStages K tiles and kStages V tiles of kBN
+// keys in flight, each slot guarded by a full and an empty mbarrier (K
+// and V have rings of their own, so a K slot is free again as soon as
+// Q.K^T has read it).  A row of K, V or Q
+// in shared memory is one or two 128-byte swizzle atoms of 64 columns;
+// D = 80 is padded to two atoms (128 columns) and TMA fills the 48
+// columns past D with zeros, because the 128-byte swizzle, which the
+// wgmma descriptors need to read without bank conflicts, is 64 bf16
+// columns wide (a 64-byte swizzle would fit 80 as 5 x 16 but halves the
+// rate at which shared memory feeds the tensor cores).
+//
+// Per tile j a consumer issues S_j = Q.K_j^T (wgmma m64n128k16, Q and K
+// K-major from shared memory) and O += P_{j-1}.V_{j-1} (m64n64k16 per
+// 64-column atom, P from registers in the A-fragment layout, V from
+// shared memory as the transposed, N-major operand), then runs the
+// softmax of S_j while P_{j-1}.V_{j-1} is still in flight.  The two
+// consumers take turns issuing their products (named barriers 1 and 2),
+// so one warpgroup's exponentials overlap the other's products.  The
+// scale is folded into one FMA per score (scale * log2 e) and the
+// exponential is ex2.approx; the running max, the denominator and O stay
+// in float32 registers.  setmaxnreg gives the consumers 240 registers and
+// leaves the producer 24.
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
+constexpr int kWgRows = 128;    // packed query rows of a CTA
+constexpr int kBN = 128;        // keys of a K/V tile
+constexpr int kStages = 2;      // slots of the K ring and of the V ring
+constexpr int kWgThreads = 384; // consumer warpgroups 0, 1; producer 2
+
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
 }
 
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-// c += a (16x16, row) * b (16x8, col)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// keep the compiler from moving reads or writes of a register across an
+// asynchronous wgmma that uses it
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand: 8-row
+// groups 1024 bytes apart (stride byte offset); the leading byte offset is
+// unused by these layouts (each product reads within one 64-column atom)
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  const uint64_t a = smem_u32(p);
+  return ((a & 0x3FFFFull) >> 4) | (1ull << 16) | (64ull << 32) |
+         (1ull << 62);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -291,197 +351,436 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <int D>
-constexpr size_t mma_smem_bytes() {
-  return static_cast<size_t>(kRows + 2 * kBK) * (D + 8) * 2;  // Q, K, V
+// d (64 x 128, float32) = (accumulate ? d : 0) + A (64 x 16) * B (128 x 16)^T,
+// A and B K-major in shared memory (128-byte swizzle)
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64, float32) += A (64 x 16, registers) * B (16 x 64), B N-major
+// in shared memory (128-byte swizzle, transposed operand)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(1));
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     __nv_bfloat16* __restrict__ o, int S, int H, int KH,
-                     int G, int BQ, float scale) {
-  constexpr int LD = D + 8;   // row stride (elements): ldmatrix rows of 8
-                              // addresses land on distinct banks
-  constexpr int CH = D / 8;   // 16-byte chunks of a row
-  constexpr int KD = D / 16;  // k-steps over the head dim
-  constexpr int ND = D / 8;   // 8-column tiles of the output
-  extern __shared__ uint4 smem_u4[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_u4);
-  __nv_bfloat16* Ks = Qs + kRows * LD;
-  __nv_bfloat16* Vs = Ks + kBK * LD;
+struct WgShape {
+  static constexpr int NA = (D + 63) / 64;     // 64-column atoms of a row
+  static constexpr int KD = D / 16;            // k-steps of Q.K^T
+  static constexpr int Q_ATOM = kWgRows * 128; // bytes of one atom column
+  static constexpr int KV_ATOM = kBN * 128;
+  static constexpr int QBUF = NA * Q_ATOM;     // bytes of a Q buffer
+  static constexpr int TILE = NA * KV_ATOM;    // bytes of a K or V tile
+  static constexpr int SMEM = 1024 + 2 * QBUF + 2 * kStages * TILE +
+                              (4 * kStages + 4) * 8;  // slack, barriers
+};
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int qt = gridDim.x - 1 - blockIdx.x;  // longest key range first
-  const int kvh = blockIdx.y;
-  const int b = blockIdx.z;
-  const int q0 = qt * BQ;
-  const int R = BQ * G;
+// S (64 rows x kBN keys) = Q (this warpgroup's 64 rows) . K^T, both
+// K-major in shared memory
+template <int D>
+__device__ __forceinline__ void issue_s(float (&s)[64], const uint8_t* qrows,
+                                        const uint8_t* ktile) {
+  using W = WgShape<D>;
+#pragma unroll
+  for (int kk = 0; kk < W::KD; ++kk)
+    wgmma_ss_n128(
+        s, sw128_desc(qrows + (kk >> 2) * W::Q_ATOM + (kk & 3) * 32),
+        sw128_desc(ktile + (kk >> 2) * W::KV_ATOM + (kk & 3) * 32), kk > 0);
+  wgmma_commit();
+}
 
-  for (int idx = tid; idx < kRows * CH; idx += kThreads) {
-    const int r = idx / CH, c = idx - (idx / CH) * CH;
-    const int pos = q0 + r / G;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < R && pos < S) {
-      val = *reinterpret_cast<const uint4*>(
-          q + ((static_cast<size_t>(b) * S + pos) * H + kvh * G + r % G) * D +
-          c * 8);
+// O += P . V, P from registers, V N-major in shared memory, one product
+// per 64-column atom
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&acc)[WgShape<D>::NA][32],
+                                         const uint32_t (&p)[kBN / 16][4],
+                                         const uint8_t* vtile) {
+  using W = WgShape<D>;
+#pragma unroll
+  for (int kk = 0; kk < kBN / 16; ++kk)
+#pragma unroll
+    for (int a = 0; a < W::NA; ++a)
+      wgmma_rs_n64(acc[a], p[kk],
+                   sw128_desc(vtile + a * W::KV_ATOM + kk * 16 * 128));
+  wgmma_commit();
+}
+
+// online softmax of the scores of keys k0 ... in s (rows: this lane's
+// two), in base 2 with the scale folded into one FMA: s becomes the exp2
+// weights, rs their sums over the lane's columns, corr the factors that
+// rescale the rows' earlier state, m the running maxima
+__device__ __forceinline__ void online_softmax(float (&s)[64], float (&m)[2],
+                                               float (&corr)[2],
+                                               float (&rs)[2], int k0,
+                                               int q0, const int (&row_pos)[2],
+                                               int lane, float scale_log2) {
+  const bool masked = k0 + kBN - 1 > q0;  // some key past some row
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e >> 1;
+      const int key = k0 + i * 8 + (lane & 3) * 2 + (e & 1);
+      if (masked && key > row_pos[h]) s[4 * i + e] = -INFINITY;
+      mx[h] = fmaxf(mx[h], s[4 * i + e]);
     }
-    *reinterpret_cast<uint4*>(Qs + r * LD + c * 8) = val;
+  float mc[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    // a row with no key yet (an idle row) keeps max -inf: offset 0
+    mc[h] = mx[h] == -INFINITY ? 0.f : mx[h] * scale_log2;
+    corr[h] = ex2(m[h] * scale_log2 - mc[h]);
+    m[h] = mx[h];
+    rs[h] = 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float x = ex2(fmaf(s[4 * i + e], scale_log2, -mc[e >> 1]));
+      s[4 * i + e] = x;
+      rs[e >> 1] += x;
+    }
+}
+
+// the weights as bfloat16 A fragments of P . V, 16 keys each
+__device__ __forceinline__ void to_p(uint32_t (&p)[kBN / 16][4],
+                                     const float (&s)[64]) {
+#pragma unroll
+  for (int kk = 0; kk < kBN / 16; ++kk) {
+    p[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+    p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+__device__ __forceinline__ void rescale(float (&acc)[32],
+                                        const float (&corr)[2]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    acc[4 * i + 0] *= corr[0];
+    acc[4 * i + 1] *= corr[0];
+    acc[4 * i + 2] *= corr[1];
+    acc[4 * i + 3] *= corr[1];
+  }
+}
+
+// the CTA's n-th work item (longest key range first, in a snake over the
+// CTAs so that every CTA gets a like share); false past the last
+__device__ __forceinline__ bool work_item(int n, int n_items, int KH, int B,
+                                          int n_qt, int& qt, int& kvh,
+                                          int& b) {
+  const int c = (n & 1) ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int w = n * gridDim.x + c;
+  if (w >= n_items) return false;
+  qt = n_qt - 1 - w / (KH * B);
+  kvh = w % KH;
+  b = (w / KH) % B;
+  return true;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       __nv_bfloat16* __restrict__ o, int B, int S, int H,
+                       int KH, int G, int BQ, float scale_log2) {
+  using W = WgShape<D>;
+  extern __shared__ uint8_t smem_raw[];
+  // 1024-byte alignment: the period of the 128-byte swizzle
+  uint8_t* Qs = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t{1023});
+  uint8_t* Ks = Qs + 2 * W::QBUF;
+  uint8_t* Vs = Ks + kStages * W::TILE;
+  uint64_t* full_k = reinterpret_cast<uint64_t*>(Vs + kStages * W::TILE);
+  uint64_t* full_v = full_k + kStages;
+  uint64_t* empty_k = full_v + kStages;
+  uint64_t* empty_v = empty_k + kStages;
+  uint64_t* full_q = empty_v + kStages;  // two Q buffers
+  uint64_t* empty_q = full_q + 2;
+
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int R = BQ * G;  // packed rows of an item
+  const int n_qt = (S + BQ - 1) / BQ;
+  const int n_items = n_qt * KH * B;
+  if (tid == 0) {
+#pragma unroll
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&full_k[st], 1);
+      mbar_init(&full_v[st], 1);
+      mbar_init(&empty_k[st], 8);  // lane 0 of each consumer warp
+      mbar_init(&empty_v[st], 8);
+    }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&full_q[i], 1);
+      mbar_init(&empty_q[i], 8);
+    }
+    mbar_init_fence();
   }
   __syncthreads();
-  uint32_t qf[KD][4];  // A fragments of the warp's 16 rows
-#pragma unroll
-  for (int kd = 0; kd < KD; ++kd)
-    ldsm_x4(qf[kd], Qs + (warp * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LD +
-                        kd * 16 + (lane >> 4) * 8);
 
-  // this lane's two rows: r and r + 8 of the warp's 16
-  int row_pos[2];
+  if (wg == 2) {
+    // ------------------------------------------------------- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (tid == 256) {
+      tma_prefetch(&tm_q);
+      tma_prefetch(&tm_k);
+      tma_prefetch(&tm_v);
+      int qt, kvh, b, it = 0;
+      for (int n = 0; work_item(n, n_items, KH, B, n_qt, qt, kvh, b); ++n) {
+        const int qb = n & 1;
+        mbar_wait(&empty_q[qb], ((n >> 1) & 1) ^ 1);
+        mbar_expect_tx(&full_q[qb], W::NA * R * 128);
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = warp * 16 + (lane >> 2) + h * 8;
-    const int pos = q0 + r / G;
-    row_pos[h] = (r < R && pos < S) ? pos : -1;
-  }
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float acc[ND][4];
+        for (int a = 0; a < W::NA; ++a)
+          tma_load_4d(Qs + qb * W::QBUF + a * W::Q_ATOM, &tm_q, &full_q[qb],
+                      a * 64, kvh * G, qt * BQ, b);
+        const int n_tiles = (min(qt * BQ + BQ, S) - 1) / kBN + 1;
+        for (int j = 0; j < n_tiles; ++j, ++it) {
+          const int st = it % kStages, ph = (it / kStages) & 1;
+          mbar_wait(&empty_k[st], ph ^ 1);
+          mbar_expect_tx(&full_k[st], W::TILE);
 #pragma unroll
-  for (int n = 0; n < ND; ++n)
+          for (int a = 0; a < W::NA; ++a)
+            tma_load_4d(Ks + st * W::TILE + a * W::KV_ATOM, &tm_k,
+                        &full_k[st], a * 64, kvh, j * kBN, b);
+          mbar_wait(&empty_v[st], ph ^ 1);
+          mbar_expect_tx(&full_v[st], W::TILE);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  const int last = min(q0 + BQ, S) - 1;
-  const int n_tiles = last / kBK + 1;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();  // the previous tile's K/V are no longer read
-    for (int idx = tid; idx < kBK * CH; idx += kThreads) {
-      const int key = idx / CH, c = idx - (idx / CH) * CH;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
-      if (k0 + key < S) {
-        const size_t off =
-            ((static_cast<size_t>(b) * S + k0 + key) * KH + kvh) * D + c * 8;
-        kv = *reinterpret_cast<const uint4*>(k + off);
-        vv = *reinterpret_cast<const uint4*>(v + off);
-      }
-      *reinterpret_cast<uint4*>(Ks + key * LD + c * 8) = kv;
-      *reinterpret_cast<uint4*>(Vs + key * LD + c * 8) = vv;
-    }
-    __syncthreads();
-
-    // scores: 8 tiles of 8 keys; s[j][e]: row r (e < 2) or r + 8, key
-    // k0 + 8j + 2*(lane % 4) + e % 2
-    float s[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-    for (int kd = 0; kd < KD; ++kd)
-#pragma unroll
-      for (int jp = 0; jp < 4; ++jp) {
-        uint32_t kb[4];
-        ldsm_x4(kb, Ks + ((jp * 2 + (lane >> 4)) * 8 + (lane & 7)) * LD +
-                        kd * 16 + ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * jp], qf[kd], kb[0], kb[1]);
-        mma_bf16(s[2 * jp + 1], qf[kd], kb[2], kb[3]);
-      }
-
-    float corr[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int key = k0 + j * 8 + (lane & 3) * 2 + e;
-          float x = s[j][h * 2 + e] * scale;
-          x = key <= row_pos[h] ? x : kNegInf;
-          s[j][h * 2 + e] = x;
-          mx = fmaxf(mx, x);
+          for (int a = 0; a < W::NA; ++a)
+            tma_load_4d(Vs + st * W::TILE + a * W::KV_ATOM, &tm_v,
+                        &full_v[st], a * 64, kvh, j * kBN, b);
         }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m[h], mx);
-      corr[h] = expf(m[h] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int key = k0 + j * 8 + (lane & 3) * 2 + e;
-          const float p =
-              key <= row_pos[h] ? expf(s[j][h * 2 + e] - m_new) : 0.f;
-          s[j][h * 2 + e] = p;
-          rs += p;
-        }
-      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
-      l[h] = l[h] * corr[h] + rs;
-      m[h] = m_new;
-    }
-#pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      acc[n][0] *= corr[0];
-      acc[n][1] *= corr[0];
-      acc[n][2] *= corr[1];
-      acc[n][3] *= corr[1];
-    }
-
-    // acc += P (16 x 64) @ V (64 x D), 16 keys per step
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      const uint32_t pa[4] = {
-          pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-          pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dp = 0; dp < ND / 2; ++dp) {
-        uint32_t vb[4];
-        ldsm_x4_t(vb, Vs + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LD +
-                          (dp * 2 + (lane >> 4)) * 8);
-        mma_bf16(acc[2 * dp], pa, vb[0], vb[1]);
-        mma_bf16(acc[2 * dp + 1], pa, vb[2], vb[3]);
       }
     }
-  }
+  } else {
+    // ------------------------------------------------------ consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int t = tid & 127, warp = t >> 5, lane = t & 31;
+    const int bar_me = 1 + wg, bar_other = 2 - wg;
+    if (wg == 1) named_arrive(1);  // warpgroup 0 issues first
+    int qt, kvh, b, it = 0;
+    for (int n = 0; work_item(n, n_items, KH, B, n_qt, qt, kvh, b); ++n) {
+      const int q0 = qt * BQ;
+      const int n_tiles = (min(q0 + BQ, S) - 1) / kBN + 1;
+      const int qb = n & 1;
+      // is this the CTA's last item?
+      int nqt, nkvh, nb;
+      const bool last_item = !work_item(n + 1, n_items, KH, B, n_qt, nqt,
+                                        nkvh, nb);
+      // this lane's rows: r and r + 8 of its warp's 16 (row r: position
+      // q0 + r/G, head kvh*G + r%G); rows past R or S are computed on
+      // whatever the Q buffer holds there and never written
+      int row_pos[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = wg * 64 + warp * 16 + (lane >> 2) + h * 8;
+        const int pos = q0 + r / G;
+        row_pos[h] = (r < R && pos < S) ? pos : -1;
+      }
+      float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+      float s[64];  // S_j: s[4i+e], row h = e/2, key 8i + 2(lane%4) + e%2
+      float acc[W::NA][32];     // O: the same layout, 64 columns an atom
+      uint32_t p[kBN / 16][4];  // P_{j-1} as A fragments, 16 keys each
+#pragma unroll
+      for (int i = 0; i < 64; ++i) s[i] = 0.f;
+#pragma unroll
+      for (int a = 0; a < W::NA; ++a)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[a][i] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) p[kk][e] = 0u;
+      const uint8_t* qrows = Qs + qb * W::QBUF + wg * 64 * 128;
+      mbar_wait(&full_q[qb], (n >> 1) & 1);
+
+      // tile 0: S_0 alone
+      {
+        const int st = it % kStages, ph = (it / kStages) & 1;
+        mbar_wait(&full_k[st], ph);
+        named_sync(bar_me);
+        fence_regs(s);
+        wgmma_fence();
+        issue_s<D>(s, qrows, Ks + st * W::TILE);
+        named_arrive(bar_other);  // the other warpgroup's products next
+        wgmma_wait<0>();
+        fence_regs(s);
+        __syncwarp();
+        if (lane == 0) {
+          mbar_arrive(&empty_k[st]);
+          if (n_tiles == 1) mbar_arrive(&empty_q[qb]);  // Q read
+        }
+        float corr[2], rs[2];
+        online_softmax(s, m, corr, rs, 0, q0, row_pos, lane, scale_log2);
+        l[0] = rs[0];
+        l[1] = rs[1];
+        to_p(p, s);
+        ++it;
+      }
+      // tile j: S_j and P_{j-1}.V_{j-1} on the tensor cores, then the
+      // softmax of S_j while P_{j-1}.V_{j-1} may still run
+      for (int j = 1; j < n_tiles; ++j, ++it) {
+        const int st = it % kStages, ph = (it / kStages) & 1;
+        const int pst = (it + kStages - 1) % kStages;  // tile j - 1
+        const int pph = ((it + 2 * kStages - 1) / kStages) & 1;
+        mbar_wait(&full_k[st], ph);
+        mbar_wait(&full_v[pst], pph);
+        named_sync(bar_me);
+        fence_regs(s);
+#pragma unroll
+        for (int a = 0; a < W::NA; ++a) fence_regs(acc[a]);
+        fence_regs(p);
+        wgmma_fence();
+        issue_s<D>(s, qrows, Ks + st * W::TILE);
+        issue_pv<D>(acc, p, Vs + pst * W::TILE);
+        named_arrive(bar_other);
+        wgmma_wait<1>();  // S_j done
+        fence_regs(s);
+        __syncwarp();
+        if (lane == 0) {
+          mbar_arrive(&empty_k[st]);
+          if (j == n_tiles - 1) mbar_arrive(&empty_q[qb]);
+        }
+        float corr[2], rs[2];
+        online_softmax(s, m, corr, rs, j * kBN, q0, row_pos, lane,
+                       scale_log2);
+        wgmma_wait<0>();  // P_{j-1}.V_{j-1} done: free its V slot
+#pragma unroll
+        for (int a = 0; a < W::NA; ++a) fence_regs(acc[a]);
+        fence_regs(p);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty_v[pst]);
+#pragma unroll
+        for (int a = 0; a < W::NA; ++a) rescale(acc[a], corr);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) l[h] = l[h] * corr[h] + rs[h];
+        to_p(p, s);
+      }
+
+      // the last tile's P.V
+      {
+        const int pst = (it + kStages - 1) % kStages;
+        const int pph = ((it + 2 * kStages - 1) / kStages) & 1;
+        mbar_wait(&full_v[pst], pph);
+        named_sync(bar_me);
+#pragma unroll
+        for (int a = 0; a < W::NA; ++a) fence_regs(acc[a]);
+        fence_regs(p);
+        wgmma_fence();
+        issue_pv<D>(acc, p, Vs + pst * W::TILE);
+        // warpgroup 1 arrived once ahead of its first turn: its last turn
+        // of the CTA hands nothing on, so every arrival meets a wait
+        if (wg == 0 || !last_item) named_arrive(bar_other);
+        wgmma_wait<0>();
+#pragma unroll
+        for (int a = 0; a < W::NA; ++a) fence_regs(acc[a]);
+        fence_regs(p);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty_v[pst]);
+      }
 
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    if (row_pos[h] < 0) continue;
-    const int r = warp * 16 + (lane >> 2) + h * 8;
-    const float den = fmaxf(l[h], 1e-30f);
-    __nv_bfloat16* orow =
-        o + ((static_cast<size_t>(b) * S + row_pos[h]) * H + kvh * G + r % G) *
-                D;
+      for (int h = 0; h < 2; ++h) {
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+      }
 #pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + (lane & 3) * 2) =
-          __floats2bfloat162_rn(acc[n][h * 2] / den, acc[n][h * 2 + 1] / den);
+      for (int h = 0; h < 2; ++h) {
+        if (row_pos[h] < 0) continue;
+        const int r = wg * 64 + warp * 16 + (lane >> 2) + h * 8;
+        const float inv = 1.f / fmaxf(l[h], 1e-30f);
+        __nv_bfloat16* orow =
+            o + ((static_cast<size_t>(b) * S + row_pos[h]) * H + kvh * G +
+                 r % G) *
+                    D;
+#pragma unroll
+        for (int a = 0; a < W::NA; ++a)
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const int col = a * 64 + i * 8 + (lane & 3) * 2;
+            if (col < D) {
+              *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+                  __floats2bfloat162_rn(acc[a][4 * i + 2 * h] * inv,
+                                        acc[a][4 * i + 2 * h + 1] * inv);
+            }
+          }
+      }
     }
   }
 }
 
+int sm_count() {
+  static int n[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
+  if (n[dev] == 0 &&
+      cudaDeviceGetAttribute(&n[dev], cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return 132;
+  return n[dev];
+}
+
 template <int D>
-cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
-                       int B, int S, int H, int KH, cudaStream_t stream) {
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         void* o, int B, int S, int H, int KH,
+                         cudaStream_t stream) {
   const int G = H / KH;
-  const int BQ = kRows / G;
-  const size_t smem = mma_smem_bytes<D>();
+  const int BQ = kWgRows / G;
+  // q as (D, H, S, B) with boxes of 64 columns x G heads x BQ positions:
+  // an item's packed rows, in the order p*G + g
+  CUtensorMap mq, mk, mv;
+  if (!rows_map(&mq, q, 2, B, S, S, H, D, BQ, G) ||
+      !rows_map(&mk, k, 2, B, S, S, KH, D, kBN) ||
+      !rows_map(&mv, v, 2, B, S, S, KH, D, kBN))
+    return cudaErrorNotSupported;
+  const int smem = WgShape<D>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      flash_fwd_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + BQ - 1) / BQ, KH, B);
-  flash_fwd_mma_kernel<D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), S,
-      H, KH, G, BQ, static_cast<float>(1.0 / std::sqrt(static_cast<double>(D))));
+  const long long n_items =
+      static_cast<long long>((S + BQ - 1) / BQ) * KH * B;
+  const int grid = static_cast<int>(
+      n_items < sm_count() ? n_items : static_cast<long long>(sm_count()));
+  flash_fwd_wgmma_kernel<D><<<grid, kWgThreads, smem, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), B, S, H, KH, G, BQ,
+      static_cast<float>(1.4426950408889634 /
+                         std::sqrt(static_cast<double>(D))));
   return cudaGetLastError();
 }
 
@@ -489,25 +788,26 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
 
 // q, o: (B, S, H, D); k, v: (B, S, KH, D), contiguous and 16-byte
 // aligned, float32 (0 < D <= 128, on the FMA kernel) or, with is_bf16,
-// bfloat16 (D of 64, 80 or 128, on the tensor cores).  Causal;
-// H % KH == 0, H / KH <= 64.
+// bfloat16 (D of 64, 80 or 128, on wgmma).  Causal; H % KH == 0,
+// H / KH <= 64.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, int B, int S,
                                    int H, int KH, int D, int is_bf16,
                                    void* stream) {
   if (B < 1 || S < 1 || KH < 1 || H % KH != 0 || H / KH > kRows || D < 1 ||
       D > 128 || B > 65535 || KH > 65535 ||
+      (is_bf16 && static_cast<long long>(S) * KH * B > (1ll << 31) - 1) ||
       (is_bf16 && D != 64 && D != 80 && D != 128)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (is_bf16 && D == 64) {
-    err = launch_mma<64>(q, k, v, o, B, S, H, KH, st);
+    err = launch_wgmma<64>(q, k, v, o, B, S, H, KH, st);
   } else if (is_bf16 && D == 80) {
-    err = launch_mma<80>(q, k, v, o, B, S, H, KH, st);
+    err = launch_wgmma<80>(q, k, v, o, B, S, H, KH, st);
   } else if (is_bf16) {
-    err = launch_mma<128>(q, k, v, o, B, S, H, KH, st);
+    err = launch_wgmma<128>(q, k, v, o, B, S, H, KH, st);
   } else if (D <= 64) {
     err = launch<64>(q, k, v, o, B, S, H, KH, D, st);
   } else if (D <= 96) {

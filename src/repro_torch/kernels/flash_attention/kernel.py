@@ -1,9 +1,10 @@
 """Wrapper of the hand-written CUDA causal flash-attention kernel
-(``csrc/flash_attention.cu``: one CTA per (batch, kv head, query tile)
-holding the tile's rows of all G query heads, K/V tiles staged in shared
-memory, online softmax in float32 registers; bfloat16 products on the
-tensor cores, float32 ones on FMAs), which replaces the JAX package's
-Pallas kernel ``kernels/flash_attention/kernel.py`` ``flash_attention``.
+(``csrc/flash_attention.cu``: work items of (batch, kv head, query tile)
+holding the tile's rows of all G query heads, online softmax in float32
+registers; bfloat16 on ``wgmma`` in persistent CTAs fed by TMA rings,
+with the softmax overlapped with the products, float32 on FMAs), which
+replaces the JAX package's Pallas kernel
+``kernels/flash_attention/kernel.py`` ``flash_attention``.
 
 ``launches`` counts the kernel's launches and nothing else."""
 from __future__ import annotations
@@ -16,7 +17,7 @@ from repro_torch.kernels.flash_attention import ref as R
 launches = 0
 
 MAX_HEAD_DIM = 128
-BF16_HEAD_DIMS = (64, 80, 128)  # the tensor-core tiles; every dense config
+BF16_HEAD_DIMS = (64, 80, 128)  # the wgmma kernel's; every dense config
 MAX_GROUP = 64          # query heads per kv head: one CTA holds >= 1 position
 
 

@@ -1,11 +1,14 @@
 """Wrapper of the hand-written CUDA flash-decode kernel
 (``csrc/flash_decode.cu``: the live keys [0, pos] cut into splits, one
-CTA per (split, kv head, batch) reading whole cache rows with 16-byte
-loads, then a combine pass), which replaces the JAX package's Pallas
-kernel ``kernels/flash_decode/kernel.py`` ``flash_decode``.
+CTA per (split, kv head, batch) whose warps stream tiles of cache rows
+through TMA rings in shared memory, bfloat16 products on the tensor
+cores; the last CTA of a (batch, kv head) to finish merges the splits,
+in the same launch), which replaces the
+JAX package's Pallas kernel ``kernels/flash_decode/kernel.py``
+``flash_decode``.
 
-``launches`` counts the wrapper's launches (one split pass and its
-combine pass each) and nothing else."""
+``launches`` counts the wrapper's launches (one kernel each) and nothing
+else."""
 from __future__ import annotations
 
 import functools
@@ -20,6 +23,22 @@ launches = 0
 
 SPLIT_KEYS = 64         # a split is a whole number of 64-key blocks
 MAX_GROUP = 8           # query heads per kv head
+MIN_SPLIT_KEYS = 1024   # keys a CTA walks before a range splits further
+TILED_HEAD_DIMS = (64, 80, 128)  # bfloat16 head dims whose CTAs may cover
+                                 # several kv heads
+
+# per (device, stream): B * KH arrival counters of the splits, zeroed
+# once here and left zeroed by every launch (no memset a call)
+_counters: dict = {}
+
+
+def _split_counters(device: torch.device, n: int):
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
+        _counters[key] = buf
+    return buf
 
 
 @functools.lru_cache(maxsize=None)
@@ -27,12 +46,30 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def splits(batch: int, kv_heads: int, pos: int, sm_count: int):
-    """(n_splits, keys_per_split) for keys [0, pos]: enough CTAs for two
-    per SM, each split a whole number of SPLIT_KEYS blocks, none empty."""
+def heads_per_cta(batch: int, kv_heads: int, sm_count: int) -> int:
+    """kv heads a CTA of the bfloat16 kernel covers: 1 while the card has
+    SMs to spare, else the most (8, 4 or 2, dividing ``kv_heads``) that
+    still leave three quarters of the SMs a CTA, so that a CTA's tile of
+    all its heads is one contiguous stretch of the cache."""
+    for hc in (8, 4, 2):
+        if kv_heads % hc == 0 and 4 * batch * kv_heads // hc >= 3 * sm_count:
+            return hc
+    return 1
+
+
+def splits(batch: int, kv_heads: int, pos: int, sm_count: int,
+           heads: int = 1):
+    """(n_splits, keys_per_split) for keys [0, pos] with ``heads`` kv
+    heads a CTA, each split a whole number of SPLIT_KEYS blocks, none
+    empty.  A CTA's warps take its tiles in parallel, so a range is split
+    only while each split keeps MIN_SPLIT_KEYS keys and the card has room
+    for the split CTAs in one wave: merging splits costs a few dependent
+    memory round trips, which a short cache does not repay."""
     n_blocks = -(-(pos + 1) // SPLIT_KEYS)
-    want = -(-2 * sm_count // max(batch * kv_heads, 1))
-    per_split = -(-n_blocks // max(1, min(n_blocks, want)))
+    ctas = max(batch * kv_heads // heads, 1)
+    want = min(-(-n_blocks * SPLIT_KEYS // MIN_SPLIT_KEYS),
+               sm_count // ctas)
+    per_split = -(-n_blocks // max(1, want))
     return -(-n_blocks // per_split), per_split * SPLIT_KEYS
 
 
@@ -69,16 +106,23 @@ def flash_decode(q, k_cache, v_cache, pos):
         raise ValueError("flash_decode: caches must be 16-byte aligned")
     # cached_decode_attention casts q to the cache's type
     qc = q.to(cdt).contiguous()
-    ns, kps = splits(B, KH, pos, _sm_count(q.device))
+    sms = _sm_count(q.device)
+    hc = (heads_per_cta(B, KH, sms)
+          if cdt == torch.bfloat16 and D in TILED_HEAD_DIMS else 1)
+    ns, kps = splits(B, KH, pos, sms, hc)
     G = H // KH
-    part_o = torch.empty((B, KH, ns, G, D), dtype=torch.float32,
-                         device=q.device)
-    part_ml = torch.empty((B, KH, ns, G, 2), dtype=torch.float32,
-                          device=q.device)
     out = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
+    scratch = (None, None, None)      # one split: the CTA writes out
+    if ns > 1:
+        part_o = torch.empty((B, KH, ns, G, D), dtype=torch.float32,
+                             device=q.device)
+        part_ml = torch.empty((B, KH, ns, G, 2), dtype=torch.float32,
+                              device=q.device)
+        scratch = (part_o.data_ptr(), part_ml.data_ptr(),
+                   _split_counters(q.device, B * KH).data_ptr())
     build.launch("flash_decode_fwd", q, qc.data_ptr(), k_cache.data_ptr(),
-                 v_cache.data_ptr(), out.data_ptr(), part_o.data_ptr(),
-                 part_ml.data_ptr(), B, Smax, H, KH, D, pos, ns, kps,
-                 int(cdt == torch.bfloat16), int(q.dtype == torch.bfloat16))
+                 v_cache.data_ptr(), out.data_ptr(), *scratch, B, Smax, H,
+                 KH, D, pos, ns, kps, hc, int(cdt == torch.bfloat16),
+                 int(q.dtype == torch.bfloat16))
     launches += 1
     return out

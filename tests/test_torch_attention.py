@@ -127,12 +127,40 @@ def test_cached_decode_attention_matches_jax_model_path(pos):
 
 
 @pytest.mark.parametrize("B,KH,pos,sms,want", [
-    (4, 8, 287, 132, (5, 64)),           # the serving decode shape
+    (4, 8, 287, 132, (1, 320)),          # the serving decode shape
     (128, 8, 32767, 132, (1, 32768)),    # decode_32k: one split per CTA
     (1, 1, 0, 132, (1, 64)),
-    (2, 8, 4095, 132, (16, 256)),
-    (1, 8, 100000, 16, (4, 25024))])
+    (2, 8, 4095, 132, (4, 1024)),
+    (1, 8, 100000, 16, (2, 50048))])
 def test_decode_splits_cover_exactly_the_live_keys(B, KH, pos, sms, want):
     ns, kps = KD.splits(B, KH, pos, sms)
     assert (ns, kps) == want and kps % KD.SPLIT_KEYS == 0
     assert (ns - 1) * kps <= pos < ns * kps    # no empty split, no gap
+
+
+@pytest.mark.parametrize("B,KH,pos,sms", [
+    (4, 8, 287, 132), (1, 1, 63, 132), (1, 1, 64, 132), (2, 2, 5000, 132),
+    (1, 8, 65535, 132), (16, 8, 1023, 132), (3, 4, 777, 7)])
+def test_decode_split_plan_reads_each_live_key_once(B, KH, pos, sms):
+    """Every key of [0, pos] falls in exactly one split, every split has
+    a live key, and a range is cut only while CTAs are fewer than SMs."""
+    hc = KD.heads_per_cta(B, KH, sms)
+    assert KH % hc == 0
+    ns, kps = KD.splits(B, KH, pos, sms, hc)
+    owners = np.zeros(pos + 1, np.int64)
+    for s in range(ns):
+        lo, hi = s * kps, min((s + 1) * kps, pos + 1)
+        assert lo < hi                      # no empty CTA
+        owners[lo:hi] += 1
+    assert (owners == 1).all()
+    assert ns * (B * KH // hc) <= max(sms, B * KH // hc)   # one wave
+
+
+@pytest.mark.parametrize("B,KH,sms,want", [
+    (4, 8, 132, 1),        # the serving decode shape: SMs to spare
+    (128, 8, 132, 8),      # decode_32k: 128 CTAs of all 8 heads
+    (64, 8, 132, 4), (33, 2, 132, 1), (99, 2, 132, 2), (7, 3, 4, 1)])
+def test_decode_heads_per_cta_keeps_the_card_busy(B, KH, sms, want):
+    hc = KD.heads_per_cta(B, KH, sms)
+    assert hc == want and KH % hc == 0
+    assert hc == 1 or 4 * B * KH // hc >= 3 * sms

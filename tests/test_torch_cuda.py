@@ -123,6 +123,25 @@ def test_flash_attention_kernel_matches_plain(card, B, S, H, KH, D, dtype):
                                rtol=rtol, atol=atol)
 
 
+@pytest.mark.parametrize("D", [64, 80, 128])
+@pytest.mark.parametrize("G", [1, 4, 6, 8])
+@pytest.mark.parametrize("S", [1, 127, 128, 129, 4096])
+def test_flash_attention_bf16_tiles_and_edges(card, S, G, D):
+    """The wgmma kernel across its 128-row CTA and its 128-key K/V tile
+    (S = 127, 128, 129), one position, a long causal range, every G of
+    the dense configs and G = 6 (idle rows), every bfloat16 head dim."""
+    from repro_torch.kernels.flash_attention import kernel as KA, ref as RA
+    B = 1 if S == 4096 else 2
+    q, k, v = _attn_inputs(card, B, S, 2 * G, 2, D, torch.bfloat16,
+                           S * 7 + G * 3 + D)
+    before = KA.launches
+    got = KA.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert KA.launches == before + 1 and got.dtype == torch.bfloat16
+    want = RA.attention_ref(q, k, v).float()
+    torch.testing.assert_close(got.float(), want, rtol=2e-2, atol=2e-2)
+
+
 def test_flash_attention_kernel_rejects_bf16_head_dim_without_tile(card):
     from repro_torch.kernels.flash_attention import kernel as KA
     q, k, v = _attn_inputs(card, 1, 77, 4, 2, 96, torch.bfloat16, 0)
@@ -158,6 +177,78 @@ def test_flash_decode_kernel_matches_plain(card, B, S, H, KH, D, pos, dtype):
     torch.testing.assert_close(got.float(),
                                RD.decode_attention(q, kc, vc, pos).float(),
                                rtol=rtol, atol=atol)
+
+
+def _decode_inputs(card, B, S, H, KH, D, seed):
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.standard_normal((B, H, D)).astype(
+        np.float32)).to(card, torch.bfloat16)
+    kc, vc = (torch.from_numpy(rng.standard_normal((B, S, KH, D)).astype(
+        np.float32)).to(card, torch.bfloat16) for _ in range(2))
+    return q, kc, vc
+
+
+@pytest.mark.parametrize("B,S,KH,D,pos,one_split", [
+    (64, 512, 8, 64, 511, True),    # B*KH fills the card: one split
+    (128, 300, 8, 64, 299, True),   # 8 kv heads a CTA
+    (96, 200, 4, 128, 150, True),   # 2 kv heads a CTA, D = 128
+    (2, 4096, 8, 64, 4095, False),  # 4 splits merged by the last CTA
+    (3, 64, 8, 64, 0, None),        # pos = 0: one key
+    (1, 300, 2, 128, 0, None),
+    (2, 300, 2, 96, 200, None),     # a head dim of no model: generic path
+    (2, 300, 4, 72, 299, None),     # D not a multiple of 16
+])
+def test_flash_decode_one_launch_any_split_count(card, B, S, KH, D, pos,
+                                                 one_split):
+    from repro_torch.kernels.flash_decode import kernel as KD, ref as RD
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    ns, _ = KD.splits(B, KH, pos, sms, KD.heads_per_cta(B, KH, sms))
+    if one_split is not None:
+        assert (ns == 1) == one_split
+    q, kc, vc = _decode_inputs(card, B, S, 4 * KH, KH, D, B + S + pos)
+    before = KD.launches
+    got = KD.flash_decode(q, kc, vc, pos)
+    torch.cuda.synchronize()
+    assert KD.launches == before + 1
+    torch.testing.assert_close(got.float(),
+                               RD.decode_attention(q, kc, vc, pos).float(),
+                               rtol=2e-2, atol=2e-2)
+
+
+def test_flash_decode_counters_reset_between_calls(card):
+    """Ten calls in a row alternating two shapes of different B*KH, each
+    with several splits: a counter left non-zero by one call would make
+    the next call's merge run early (or never) and give wrong rows."""
+    from repro_torch.kernels.flash_decode import kernel as KD, ref as RD
+    shapes = [(2, 2048, 8, 1999), (5, 4096, 4, 3000)]
+    inputs = [_decode_inputs(card, B, S, 4 * KH, KH, 64, i)
+              for i, (B, S, KH, _) in enumerate(shapes)]
+    wants = [RD.decode_attention(q, kc, vc, shapes[i][3]).float()
+             for i, (q, kc, vc) in enumerate(inputs)]
+    for call in range(10):
+        i = call % 2
+        q, kc, vc = inputs[i]
+        got = KD.flash_decode(q, kc, vc, shapes[i][3])
+        torch.testing.assert_close(got.float(), wants[i], rtol=2e-2,
+                                   atol=2e-2)
+
+
+def test_flash_decode_on_two_streams_at_once(card):
+    """Two calls in flight on two streams: each stream has counters of
+    its own, so their merges cannot count each other's splits."""
+    from repro_torch.kernels.flash_decode import kernel as KD, ref as RD
+    args = [_decode_inputs(card, 4, 8192, 8, 2, 128, 10 + i) + (8000 - i,)
+            for i in range(2)]
+    wants = [RD.decode_attention(*a).float() for a in args]
+    streams = [torch.cuda.Stream(card) for _ in args]
+    torch.cuda.synchronize()
+    outs = []
+    for st, a in zip(streams, args):
+        with torch.cuda.stream(st):
+            outs.append(KD.flash_decode(*a))
+    torch.cuda.synchronize()
+    for got, want in zip(outs, wants):
+        torch.testing.assert_close(got.float(), want, rtol=2e-2, atol=2e-2)
 
 
 # --------------------------------------------- selective scan (Mamba1)
