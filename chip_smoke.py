@@ -20,7 +20,12 @@ Phases, each fatal on failure:
 5. hold each kernel against its plain PyTorch version on the card, at the
    main path's largest packet on the card (or a band of it where the plain
    version is too slow), and time kernel, plain version and, for the
-   blur, one ``F.conv2d`` with the 31x31 outer-product weight;
+   blur, one ``F.conv2d`` with the 31x31 outer-product weight, each time
+   beside its share of the kernel's bound; time binomial and nbody also
+   at the smallest packet the card ran, and log both kernels' and plain
+   versions' errors from float64 (binomial on 256 options, nbody's
+   accelerations on 256 targets, where the kernel must stay within its
+   earlier error at the paper's size);
 6. serve llama3.2-1b at full width (``--small``: 2 of its 16 layers) in
    bfloat16 on ``cuda:0`` through ``repro_torch.serve.CoexecServer``: two
    replicas (throttles 1 and 2) share one copy of the weights, 16
@@ -89,6 +94,10 @@ PAPER_SIZES = {
 # Mandelbrot exactly, the rest as the JAX package's kernel tests hold them
 TOLERANCES = {"gaussian": (1e-5, 1e-5), "binomial": (1e-4, 1e-3),
               "nbody": (2e-4, 2e-4)}
+# nbody at the paper's size: the largest relative error from float64 of
+# the kernel's accelerations over 256 targets, that of the earlier kernel
+# (rsqrt(r2) / r2 * m, one running sum per target) at these inputs
+NBODY_F64_REL = 1.89e-6
 SMALL_SIZES = {
     "gaussian": dict(h=1024, w=512),
     "binomial": dict(n_options=65536),
@@ -131,6 +140,16 @@ def bound(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_S):
     ``ops`` operations at ``ops_per_s`` (float32 by default) on the card."""
     t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def binomial_ops(n_options: int, steps: int) -> float:
+    """Float32 operations of pricing ``n_options`` on a tree of ``steps``:
+    2 a node-step of the induction, 6 a leaf and 12 for the prologue.  A
+    node-step is at least one fused multiply-add (2 operations, as the peak
+    counts it): taking K steps in one pass costs (2K + 1) / K a node-step,
+    one step at a time 3."""
+    return n_options * (2.0 * steps * (steps + 1) / 2 + 6.0 * (steps + 1)
+                        + 12)
 
 
 # ------------------------------------------------------------ serving path
@@ -705,7 +724,7 @@ def main() -> int:
             check(kernels[k].launches > 0, f"{name}: {k} kernel unused")
 
     # ----------------------------------------------------- main path
-    launches, largest = {}, {}
+    launches, largest, smallest = {}, {}, {}
     outputs = {}
     for name, kw in sizes.items():
         t0 = time.perf_counter()
@@ -726,6 +745,8 @@ def main() -> int:
         gpu_pkts = [p for p in res.packets if p.device == 0]
         big = max(gpu_pkts, key=lambda p: p.size)
         largest[name] = (big.offset, big.size)
+        small = min(gpu_pkts, key=lambda p: p.size)
+        smallest[name] = (small.offset, small.size)
         ref = P.reference_output(name, device=dev0, **kw)
         out = res.output
         check(out.shape == ref.shape and bool(np.isfinite(out).all()),
@@ -783,9 +804,17 @@ def main() -> int:
                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                    library_ms=library_ms, shape=shape, **extra)
         records.append(rec)
-        log(f"kernel {name} {shape}: {ms:.4f} ms, plain {plain_ms:.4f} ms,"
-            f" bound {b_ms:.4f} ms ({b_by}), library {library_ms}, max "
-            f"abs err {err:.3g}")
+        log(f"kernel {name} {shape}: {ms:.4f} ms ({b_ms / ms:.1%} of its "
+            f"bound), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}),"
+            f" library {library_ms}, max abs err {err:.3g}")
+
+    def time_smallest(name, ms, nbytes, ops, what):
+        """Log a kernel's time at the smallest packet the card ran in the
+        ``coexec`` run, beside its bound (not part of the JSON record)."""
+        b_ms, b_by = bound(nbytes, ops)
+        log(f"  {name} at the smallest packet on the card ({what}): "
+            f"{ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} "
+            f"of its bound")
 
     # gaussian: the largest packet on the card, whole
     kw = sizes["gaussian"]
@@ -838,10 +867,29 @@ def main() -> int:
            float((got - want).abs().max()),
            cuda_ms(lambda: KB.price_options(*args_b), torch),
            cuda_ms(lambda: RB.price_options(*args_b), torch, 2),
-           16.0 * n,
-           n * (4.0 * steps * (steps + 1) / 2 + 6.0 * (steps + 1) + 12),
-           None,
+           16.0 * n, binomial_ops(n, steps), None,
            f"{n} options of the largest packet ({size * bops.LWS})")
+    # the kernel folds disc into its coefficients (one rounding fewer per
+    # step than the plain version): both against float64 on 256 options
+    sub = tuple(x[:256] for x in args_b)
+    v64 = RB.price_options(*(x.double() for x in sub))
+    worth = v64 >= 0.01
+    for label, v in (("kernel", got[:256]), ("plain", want[:256])):
+        e64 = (v.double() - v64).abs()
+        log(f"  binomial |v - v_f64| over 256 options: {label} max "
+            f"{float(e64.max()):.3g}, max relative (the "
+            f"{int(worth.sum())} worth at least 0.01) "
+            f"{float((e64[worth] / v64[worth]).max()):.3g}")
+    off, size = smallest["binomial"]
+    a_s, n_s = off * bops.LWS, size * bops.LWS
+    args_s = tuple(x[a_s:a_s + n_s] for x in (s0, k0, ty))
+    torch.testing.assert_close(KB.price_options(*args_s),
+                               RB.price_options(*args_s),
+                               rtol=TOLERANCES["binomial"][0],
+                               atol=TOLERANCES["binomial"][1])
+    time_smallest("binomial",
+                  cuda_ms(lambda: KB.price_options(*args_s), torch),
+                  16.0 * n_s, binomial_ops(n_s, steps), f"{n_s} options")
     del s0, k0, ty
 
     # mandelbrot: a 64-row band of the largest packet, nearest the centre
@@ -895,15 +943,31 @@ def main() -> int:
                             / acc64.norm(dim=1)).max())
     log(f"  nbody |acc - acc_f64| / |acc_f64| over {sub.stop} targets: "
         f"kernel {rel['kernel']:.3g}, plain {rel['plain']:.3g}")
+    if not args.small:
+        check(rel["kernel"] <= NBODY_F64_REL,
+              f"nbody kernel: {rel['kernel']:.3g} from float64, above "
+              f"{NBODY_F64_REL}")
+
+    def nbody_bytes_ops(n_t):
+        return 16.0 * N + 40.0 * n_t, 20.0 * n_t * N + 15.0 * n_t
+
     record("nbody", "src/repro_torch/csrc/nbody.cu",
            "src/repro/kernels/nbody/kernel.py:38",
            float((got - want).abs().max()),
            cuda_ms(lambda: KN.step_rows(pm, vel, t0n, nt), torch),
            cuda_ms(lambda: RN.step_rows(pm, vel, t0n, nt), torch, 2),
-           16.0 * N + 12.0 * nt + 28.0 * nt, 20.0 * nt * N + 15.0 * nt,
-           None,
+           *nbody_bytes_ops(nt), None,
            f"{nt} targets of the largest packet ({size * nops.LWS}) x "
            f"{N} sources")
+    off, size = smallest["nbody"]
+    t0s, nts = off * nops.LWS, size * nops.LWS
+    torch.testing.assert_close(KN.step_rows(pm, vel, t0s, nts),
+                               RN.step_rows(pm, vel, t0s, nts),
+                               rtol=TOLERANCES["nbody"][0],
+                               atol=TOLERANCES["nbody"][1])
+    time_smallest("nbody",
+                  cuda_ms(lambda: KN.step_rows(pm, vel, t0s, nts), torch),
+                  *nbody_bytes_ops(nts), f"{nts} targets x {N} sources")
 
     serving_phases(args, torch, dev0, launches, record)
     mamba_phases(args, torch, dev0, launches, record)

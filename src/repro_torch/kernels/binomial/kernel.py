@@ -1,6 +1,6 @@
 """Wrapper of the hand-written CUDA binomial kernel (``csrc/binomial.cu``,
-one CTA per option), which replaces the JAX package's Pallas kernel
-``kernels/binomial/kernel.py`` ``price_options``.
+one warp per option with the lattice in registers), which replaces the JAX
+package's Pallas kernel ``kernels/binomial/kernel.py`` ``price_options``.
 
 ``launches`` counts the kernel's launches and nothing else."""
 from __future__ import annotations

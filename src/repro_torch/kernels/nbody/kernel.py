@@ -1,7 +1,8 @@
-"""Wrapper of the hand-written CUDA NBody kernel (``csrc/nbody.cu``, one
-thread per target, source tiles through shared memory, Euler step fused),
-which replaces the JAX package's Pallas kernel ``kernels/nbody/kernel.py``
-``accelerations`` together with the Euler update of its ``ops.py``.
+"""Wrapper of the hand-written CUDA NBody kernel (``csrc/nbody.cu``: four
+targets a thread, the sources cut into one slice per warp and streamed
+through shared memory, Euler step fused), which replaces the JAX
+package's Pallas kernel ``kernels/nbody/kernel.py`` ``accelerations``
+together with the Euler update of its ``ops.py``.
 
 ``launches`` counts the kernel's launches and nothing else."""
 from __future__ import annotations

@@ -29,13 +29,20 @@ def card():
     return torch.device("cuda:0")
 
 
-def test_binomial_kernel_matches_plain(card):
+@pytest.mark.parametrize("n", [1, 33, 1024])
+@pytest.mark.parametrize("steps", [1, 2, 31, 32, 63, 64, 95, 96, 127, 128,
+                                   159, 160, 191, 192, 223, 224, 254, 255])
+def test_binomial_kernel_matches_plain(card, steps, n):
+    """Both sides of every re-pack of the register lattice (a front of
+    32*w nodes is re-packed to w nodes a lane), the compile-time 254 steps
+    and the run-time path, and option counts that leave a CTA's warps
+    idle."""
     s0, k0, ty = (torch.from_numpy(x).to(card)
-                  for x in OB.make_inputs(1024, seed=2))
+                  for x in OB.make_inputs(n, seed=2))
     before = KB.launches
-    got = KB.price_options(s0, k0, ty)
+    got = KB.price_options(s0, k0, ty, steps=steps)
     assert KB.launches == before + 1
-    torch.testing.assert_close(got, RB.price_options(s0, k0, ty),
+    torch.testing.assert_close(got, RB.price_options(s0, k0, ty, steps=steps),
                                rtol=1e-4, atol=1e-3)
 
 
@@ -61,10 +68,22 @@ def test_gaussian_kernel_matches_plain(card):
                                rtol=1e-5, atol=1e-5)
 
 
-def test_nbody_kernel_matches_plain(card):
-    pm, vel = (torch.from_numpy(x).to(card) for x in ON.make_inputs(1024))
-    got = KN.step_rows(pm, vel, 192, 320)
-    torch.testing.assert_close(got, RN.step_rows(pm, vel, 192, 320),
+@pytest.mark.parametrize("n,tgt0,n_tgt", [
+    (1024, 192, 320),
+    (1000, 0, 1), (1000, 999, 1),          # N not a multiple of the tile
+    (1000, 17, 64), (1000, 680, 320),      # the last packet ends at N
+    (2048, 5, 320), (2048, 100, 1), (2048, 1984, 64),
+    (300, 10, 64),                         # slices past N stay empty
+    (5000, 4680, 320)])                    # a short last slice
+def test_nbody_kernel_matches_plain(card, n, tgt0, n_tgt):
+    """Target counts that are not a multiple of a thread's or a CTA's
+    targets, and source counts that are not a multiple of the tile or of
+    the warps' slices."""
+    pm, vel = (torch.from_numpy(x).to(card) for x in ON.make_inputs(n))
+    before = KN.launches
+    got = KN.step_rows(pm, vel, tgt0, n_tgt)
+    assert KN.launches == before + 1
+    torch.testing.assert_close(got, RN.step_rows(pm, vel, tgt0, n_tgt),
                                rtol=2e-4, atol=2e-4)
 
 

@@ -160,6 +160,132 @@ def test_nbody_momentum_conservation():
     assert float(acc.sum(0).abs().max()) < 1e-2
 
 
+# ------------------------------------ the CUDA kernels' order of operations
+# csrc/binomial.cu and csrc/nbody.cu round otherwise than their plain
+# versions; these evaluate the kernels' arithmetic in float32 torch, so the
+# change is held against the JAX package on the CPU too.
+def _fma32(a, b, c):
+    """fmaf in float32: a*b is exact in float64, then one rounding (two on
+    a rare tie)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+# steps a pass over the lattice of csrc/binomial.cu (kFuse)
+BINOMIAL_FUSE = 8
+
+
+def _binomial_passes(steps, k):
+    """The steps of each of the binomial kernel's passes: at each width of
+    8..2 nodes a lane, passes of k until the front fits in one node fewer
+    a lane, then at width 1 passes of k and single steps."""
+    passes, f = [], steps + 1
+    for w in range(8, 1, -1):
+        keep = 32 * (w - 1)
+        count = -(-(f - keep) // k) if f > keep else 0
+        passes += [k] * count
+        f -= count * k
+    return passes + [k] * ((f - 1) // k) + [1] * ((f - 1) % k)
+
+
+def _binomial_as_kernel(s0, strike, t_years, steps, fuse=BINOMIAL_FUSE):
+    """The binomial kernel's order: the plain version's prologue and
+    leaves, disc folded into the coefficients once, the coefficients of k
+    steps by Pascal's rule, and a pass of k steps as one multiply and k
+    FMAs a node: acc = c[k] * v[j+k], then acc = fmaf(c[i], v[j+i], acc)
+    for i = k-1..0."""
+    dt = t_years / steps
+    vdt = RB.VOLATILITY * torch.sqrt(dt)
+    u = torch.exp(vdt)
+    d = 1.0 / u
+    p = (torch.exp(RB.RISKFREE * dt) - d) / (u - d)
+    disc = torch.exp(-RB.RISKFREE * dt)
+    pu, pd = (disc * p)[:, None], (disc * (1.0 - p))[:, None]
+    coef = {}
+    for k in (1, fuse):
+        c = [torch.ones_like(pu)] + [None] * k
+        for kk in range(1, k + 1):
+            c[kk] = pu * c[kk - 1]
+            for i in range(kk - 1, 0, -1):
+                c[i] = _fma32(pd, c[i], pu * c[i - 1])
+            c[0] = pd * c[0]
+        coef[k] = c
+    j = torch.arange(steps + 1, dtype=torch.float32)
+    s_t = s0[:, None] * torch.exp(vdt[:, None] * (2.0 * j[None, :] - steps))
+    v = torch.clamp(s_t - strike[:, None], min=0.0)
+    for k in _binomial_passes(steps, fuse):
+        c, m = coef[k], v.shape[1] - k
+        acc = c[k] * v[:, k:k + m]
+        for i in range(k - 1, -1, -1):
+            acc = _fma32(c[i], v[:, i:i + m], acc)
+        v = acc
+    return v[:, 0]
+
+
+def _nbody_as_kernel(pm, tgt0, n_tgt, slices=8, tile=128):
+    """The N-body kernel's order: eps2 folded into the first FMA of r2,
+    s = (m * rsqrt(r2)) * rsqrt(r2)^2 without a division, each slice of the
+    source tiles summed by one warp (a tile's terms into a partial by FMA,
+    the partial into the slice's total), the slices added in warp order."""
+    tgt = pm[tgt0:tgt0 + n_tgt, :3]
+    n = pm.shape[0]
+    n_tiles = -(-n // tile)
+    per = -(-n_tiles // slices)
+    acc = None
+    for w in range(slices):
+        total = torch.zeros(n_tgt, 3)
+        for i in range(w * per, min((w + 1) * per, n_tiles)):
+            src = pm[i * tile:(i + 1) * tile]
+            d = src[None, :, :3] - tgt[:, None, :]
+            dx, dy, dz = d.unbind(-1)
+            r2 = _fma32(dx, dx, _fma32(dy, dy, _fma32(
+                dz, dz, torch.full_like(dz, RN.EPS2))))
+            inv = torch.rsqrt(r2)
+            s = (src[None, :, 3] * inv) * (inv * inv)
+            part = torch.zeros(n_tgt, 3)
+            for k in range(src.shape[0]):
+                part = _fma32(d[:, k], s[:, k, None], part)
+            total = total + part
+        acc = total if acc is None else acc + total
+    return acc
+
+
+@pytest.mark.parametrize("n,steps,tile", [(256, 64, 64), (512, 254, 128)])
+def test_binomial_kernel_order_matches_jax(n, steps, tile):
+    """rtol=1e-4, atol=1e-3 (tests/test_kernels.py:42), against the JAX
+    oracle, the Pallas kernel in interpret mode and the plain version."""
+    s0, k0, ty = OB.make_inputs(n, seed=11)
+    jargs = [jnp.asarray(x) for x in (s0, k0, ty)]
+    ref = np.asarray(JRB.price_options(*jargs, steps=steps))
+    pallas = np.asarray(JKB.price_options(*jargs, steps=steps, tile=tile,
+                                          interpret=True))
+    args = (_t(s0), _t(k0), _t(ty))
+    got = _binomial_as_kernel(*args, steps).numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-3)
+    np.testing.assert_allclose(got, pallas, rtol=1e-4, atol=1e-3)
+    np.testing.assert_allclose(
+        got, RB.price_options(*args, steps=steps).numpy(), rtol=1e-4,
+        atol=1e-3)
+
+
+@pytest.mark.parametrize("n,tile_t,tile_s", [(256, 64, 128), (512, 128, 256)])
+def test_nbody_kernel_order_matches_jax(n, tile_t, tile_s):
+    """rtol=atol=2e-4 (tests/test_kernels.py:79), against the JAX oracle,
+    the Pallas kernel in interpret mode and the plain version.  Tiles of 48
+    sources (the kernel's are 128) leave a short last tile and slices with
+    no tile at these N."""
+    pm, _ = ON.make_inputs(n, seed=13)
+    ref = np.asarray(JRN.accelerations(jnp.asarray(pm), 0, tile_t))
+    pallas = np.asarray(JKN.accelerations(jnp.asarray(pm[:tile_t]),
+                                          jnp.asarray(pm), tile_t=tile_t,
+                                          tile_s=tile_s, interpret=True))
+    got = _nbody_as_kernel(_t(pm), 0, tile_t, tile=48).numpy()
+    np.testing.assert_allclose(got, ref, rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(got, pallas, rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(got, RN.accelerations(_t(pm), 0,
+                                                     tile_t).numpy(),
+                               rtol=2e-4, atol=2e-4)
+
+
 # ---------------------------------------------------- inputs carried across
 @pytest.mark.parametrize("seed", [0, 7])
 def test_inputs_byte_identical(seed):
