@@ -21,8 +21,9 @@ Phases, each fatal on failure:
    main path's largest packet on the card (or a band of it where the plain
    version is too slow), and time kernel, plain version and, for the
    blur, one ``F.conv2d`` with the 31x31 outer-product weight, each time
-   beside its share of the kernel's bound; time binomial and nbody also
-   at the smallest packet the card ran, and log both kernels' and plain
+   beside its share of the kernel's bound; time each of the four also
+   at the smallest packet the card ran, and log binomial's and nbody's
+   kernels' and plain
    versions' errors from float64 (binomial on 256 options, nbody's
    accelerations on 256 targets, where the kernel must stay within its
    earlier error at the paper's size);
@@ -846,6 +847,16 @@ def main() -> int:
            2.0 * K * nr * (Wp + W),
            cuda_ms(lambda: torch.nn.functional.conv2d(band, w2), torch),
            f"rows {nr} of the padded {ip.shape} image (largest packet)")
+    off, size = smallest["gaussian"]
+    r0s, nrs = off * gops.LWS, size * gops.LWS
+    torch.testing.assert_close(KG.blur_rows(ipd, wd, r0s, nrs),
+                               RG.blur_rows_ref(ipd, wd, r0s, nrs),
+                               rtol=TOLERANCES["gaussian"][0],
+                               atol=TOLERANCES["gaussian"][1])
+    time_smallest("gaussian",
+                  cuda_ms(lambda: KG.blur_rows(ipd, wd, r0s, nrs), torch),
+                  4.0 * ((nrs + K - 1) * Wp + nrs * W + K),
+                  2.0 * K * nrs * (Wp + W), f"{nrs} rows")
     del ipd, band, got, want, lib_out
 
     # binomial: the largest packet on the card (at most 2**21 options:
@@ -914,6 +925,21 @@ def main() -> int:
            4.0 * nr * px, 8.0 * iters_done + 6.0 * nr * px, None,
            f"rows [{r0}, {r0 + nr}) x {px} of the largest packet "
            f"(rows [{lo}, {hi})), {iters_done:.0f} iterations")
+    off, size = smallest["mandelbrot"]
+    r0s, nrs = off * mops.LWS, size * mops.LWS
+    got = KM.escape_counts(r0s, nrs, px, px, iters, device=dev0)
+    nb = min(nrs, 64)     # the plain version on a band of it, as above
+    n_bad = int((got[:nb] != RM.escape_counts(r0s, nb, px, px, iters,
+                                              device=dev0)).sum())
+    check(n_bad == 0, f"mandelbrot kernel: {n_bad} counts differ at the "
+                      f"smallest packet")
+    iters_s = float(got.sum())
+    time_smallest("mandelbrot",
+                  cuda_ms(lambda: KM.escape_counts(r0s, nrs, px, px, iters,
+                                                   device=dev0), torch),
+                  4.0 * nrs * px, 8.0 * iters_s + 6.0 * nrs * px,
+                  f"rows [{r0s}, {r0s + nrs}) x {px}, {iters_s:.0f} "
+                  f"iterations")
 
     # nbody: the largest packet on the card (at most 2**17 targets),
     # against all sources

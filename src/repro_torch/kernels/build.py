@@ -42,7 +42,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 PROTOTYPES = {
     "binomial_price": [_P, _P, _P, _P, _I, _I, _P],
     "mandelbrot_counts": [_P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "gaussian_blur_rows": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "gaussian_blur_rows": [_P, _P, _P] + [_I] * 7 + [_P],
     "nbody_step": [_P, _P, _P, _I, _I, _I, _F, _F, _P],
     "flash_attention_fwd": [_P] * 4 + [_I] * 6 + [_P],
     "flash_decode_fwd": [_P] * 7 + [_I] * 11 + [_P],

@@ -1,6 +1,7 @@
 """Wrapper of the hand-written CUDA Mandelbrot kernel
-(``csrc/mandelbrot.cu``, one thread per pixel with early exit), which
-replaces the JAX package's Pallas kernel ``kernels/mandelbrot/kernel.py``
+(``csrc/mandelbrot.cu``: one thread per pixel with early exit, the
+iterations in unchecked blocks rolled back at an escape), which replaces
+the JAX package's Pallas kernel ``kernels/mandelbrot/kernel.py``
 ``escape_counts``.  Its counts equal the plain version's exactly.
 
 ``launches`` counts the kernel's launches and nothing else."""

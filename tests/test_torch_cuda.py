@@ -59,13 +59,69 @@ def test_mandelbrot_kernel_is_exact(card, row0, n_rows, w, h, iters, col0,
     assert torch.equal(got.cpu(), plain_host)
 
 
-def test_gaussian_kernel_matches_plain(card):
-    img = np.random.default_rng(3).standard_normal((512, 200)).astype(
+@pytest.mark.parametrize("iters", [1, 7, 8, 9, 15, 16, 17, 257, 5000])
+def test_mandelbrot_kernel_exact_across_blocks(card, iters):
+    """Iteration counts below, at and across a block of 16 unchecked steps,
+    on a tile across the set's edge (counts of every size) whose width is
+    not a multiple of a warp's 32 columns."""
+    args = (24, 16, 128, 64, iters, 30, 45)
+    got = KM.escape_counts(*args, device=card)
+    assert torch.equal(got, RM.escape_counts(*args, device=card))
+    assert torch.equal(got.cpu(), RM.escape_counts(*args))
+    if iters >= 257:
+        assert int(got.min()) < 8 and int(got.max()) == iters
+
+
+@pytest.mark.parametrize("row0,col0,iters,want", [
+    (28, 36, 300, 300),     # inside the main cardioid: every pixel maxes out
+    (0, 0, 5000, 1)])       # a corner where |c| > 2: one step each
+def test_mandelbrot_kernel_uniform_tiles(card, row0, col0, iters, want):
+    args = (row0, 8, 64, 64, iters, col0, 8)
+    got = KM.escape_counts(*args, device=card)
+    assert torch.equal(got, torch.full_like(got, want))
+    assert torch.equal(got.cpu(), RM.escape_counts(*args))
+
+
+def _gaussian_inputs(card, h, w, ksize, seed):
+    img = np.random.default_rng(seed).standard_normal((h, w)).astype(
         np.float32)
-    ip, w = (torch.from_numpy(x).to(card) for x in OG.prepare(img))
-    got = KG.blur_rows(ip, w, 128, 256)
-    torch.testing.assert_close(got, RG.blur_rows_ref(ip, w, 128, 256),
+    return (torch.from_numpy(x).to(card) for x in OG.prepare(img, ksize))
+
+
+@pytest.mark.parametrize("ksize,h,w,row0,n_rows", [
+    (31, 512, 200, 128, 256),
+    (31, 96, 300, 17, 1),          # one row
+    (31, 96, 130, 5, 33),          # a tile and a row; 2 columns past 128
+    (31, 300, 257, 40, 256),       # an odd width: scalar stores
+    (5, 128, 200, 7, 100),         # run-time K
+    (63, 128, 190, 3, 81)])
+def test_gaussian_kernel_matches_plain(card, ksize, h, w, row0, n_rows):
+    """The compile-time 31 taps and the run-time-K instance, at row counts
+    and widths that leave partial tiles of 40 rows and 128 columns."""
+    ip, wt = _gaussian_inputs(card, h, w, ksize, h + w + ksize)
+    before = KG.launches
+    got = KG.blur_rows(ip, wt, row0, n_rows)
+    assert KG.launches == before + 1 and got.shape == (n_rows, w)
+    torch.testing.assert_close(got, RG.blur_rows_ref(ip, wt, row0, n_rows),
                                rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("ksize,row0,n_rows,col0,n_cols", [
+    (31, 16, 48, 0, 40), (31, 0, 128, 77, 51), (31, 9, 40, 1, 256),
+    (5, 3, 61, 10, 1)])
+def test_gaussian_kernel_column_window(card, ksize, row0, n_rows, col0,
+                                       n_cols):
+    """A tile (row0, n_rows) x (col0, n_cols): the plain version on the
+    window's padded columns, and the same columns of the full rows."""
+    ip, wt = _gaussian_inputs(card, 128, 320, ksize, ksize + col0)
+    got = KG.blur_rows(ip, wt, row0, n_rows, col0, n_cols)
+    assert got.shape == (n_rows, n_cols)
+    want = RG.blur_rows_ref(ip[:, col0:col0 + n_cols + ksize - 1], wt, row0,
+                            n_rows)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(
+        got, KG.blur_rows(ip, wt, row0, n_rows)[:, col0:col0 + n_cols],
+        rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("n,tgt0,n_tgt", [

@@ -286,6 +286,146 @@ def test_nbody_kernel_order_matches_jax(n, tile_t, tile_s):
                                rtol=2e-4, atol=2e-4)
 
 
+# the Mandelbrot kernel's iterations a block (csrc/mandelbrot.cu kUnroll)
+MANDEL_UNROLL = 16
+
+
+def _mandel_step(zr, zi, cr, ci):
+    """One iteration as the kernel spells it: the escape test before it,
+    and zi' = fmaf(zr * zi, 2, ci), which is (2 * (zr * zi)) + ci in
+    float32 because 2 * p is exact."""
+    zr2, zi2 = zr * zr, zi * zi
+    inside = (zr2 + zi2) <= 4.0
+    return inside, (zr2 - zi2) + cr, (2.0 * (zr * zi)) + ci
+
+
+def _mandelbrot_as_kernel(row0, n_rows, width, height, max_iter, col0=0,
+                          n_cols=0, unroll=MANDEL_UNROLL):
+    """The Mandelbrot kernel's order: blocks of ``unroll`` steps with no
+    test inside, whose escape tests fold into a sticky flag; a block whose
+    flag fell is rolled back to the z saved at its start, and a checked
+    one-step loop then runs to the escape (and the last max_iter % unroll
+    steps of the rest)."""
+    if not n_cols:
+        n_cols = width
+    xs = torch.from_numpy(RM._axis(col0, n_cols, RM.X0, RM.X1, width))
+    ys = torch.from_numpy(RM._axis(row0, n_rows, RM.Y0, RM.Y1, height))
+    cr = xs[None, :].expand(n_rows, n_cols)
+    ci = ys[:, None].expand(n_rows, n_cols)
+    zr, zi = torch.zeros_like(cr), torch.zeros_like(ci)
+    cnt = torch.zeros(cr.shape, dtype=torch.int32)
+    blocked = torch.ones(cr.shape, dtype=torch.bool)
+    for _ in range(max_iter // unroll):
+        sr, si, ok = zr, zi, blocked.clone()
+        for _ in range(unroll):
+            inside, zr, zi = _mandel_step(zr, zi, cr, ci)
+            ok &= inside
+        zr, zi = torch.where(ok, zr, sr), torch.where(ok, zi, si)
+        cnt += ok.to(torch.int32) * unroll
+        blocked = ok
+        if not bool(blocked.any()):
+            break
+    live = cnt < max_iter
+    while bool(live.any()):
+        inside, nzr, nzi = _mandel_step(zr, zi, cr, ci)
+        live &= inside
+        zr, zi = torch.where(live, nzr, zr), torch.where(live, nzi, zi)
+        cnt += live.to(torch.int32)
+        live &= cnt < max_iter
+    return cnt
+
+
+@pytest.mark.parametrize("row0,n_rows,w,h,iters,col0,n_cols,unroll", [
+    (0, 64, 64, 64, 15, 0, 0, MANDEL_UNROLL),
+    (0, 64, 64, 64, 16, 0, 0, MANDEL_UNROLL),
+    (0, 64, 64, 64, 17, 0, 0, MANDEL_UNROLL),
+    (0, 32, 128, 32, 200, 0, 0, MANDEL_UNROLL),
+    (40, 32, 256, 128, 257, 0, 0, MANDEL_UNROLL),
+    (8, 16, 96, 64, 300, 24, 45, MANDEL_UNROLL),
+    (0, 64, 64, 64, 7, 0, 0, 8),         # blocks of 8: a timed variant
+    (0, 64, 64, 64, 8, 0, 0, 8),
+    (0, 64, 64, 64, 9, 0, 0, 8)])
+def test_mandelbrot_kernel_order_matches_jax(row0, n_rows, w, h, iters,
+                                             col0, n_cols, unroll):
+    """Exactly the plain version's counts, and within the port's 0.5% of
+    the pixels of the JAX oracle and the Pallas kernel in interpret mode,
+    at iteration counts below, at and across a block."""
+    got = _mandelbrot_as_kernel(row0, n_rows, w, h, iters, col0, n_cols,
+                                unroll)
+    assert torch.equal(got, RM.escape_counts(row0, n_rows, w, h, iters,
+                                             col0, n_cols))
+    ref = np.asarray(JRM.escape_counts(row0, n_rows, w, h, iters,
+                                       col0=col0, n_cols=n_cols))
+    assert (got.numpy() != ref).mean() <= 0.005
+    if not n_cols:
+        pallas = np.asarray(JKM.escape_counts(row0, n_rows, w, h, iters,
+                                              tile_h=8, interpret=True))
+        assert (got.numpy() != pallas).mean() <= 0.005
+
+
+def _gaussian_as_kernel(ip, w1d, row0, n_rows, col0=0, n_cols=0):
+    """The Gaussian kernel's order: each vertical sum and each output an
+    FMA chain over k = 0..K-1 from 0, the horizontal pass on the vertical
+    sums of the window's K - 1 + n_cols padded columns."""
+    K = w1d.shape[0]
+    if not n_cols:
+        n_cols = ip.shape[1] - (K - 1) - col0
+    band = ip[row0:row0 + n_rows + K - 1, col0:col0 + n_cols + K - 1]
+    tmp = torch.zeros((n_rows, band.shape[1]))
+    for k in range(K):
+        tmp = _fma32(w1d[k].expand_as(tmp), band[k:k + n_rows], tmp)
+    out = torch.zeros((n_rows, n_cols))
+    for k in range(K):
+        out = _fma32(w1d[k].expand_as(out), tmp[:, k:k + n_cols], out)
+    return out
+
+
+@pytest.mark.parametrize("h,w,ksize,tile", [(128, 64, 31, 64),
+                                            (128, 200, 31, 32),
+                                            (64, 96, 5, 16)])
+def test_gaussian_kernel_order_matches_jax(h, w, ksize, tile):
+    """rtol=atol=1e-5 (tests/test_kernels.py), against the plain version,
+    the JAX oracle and the Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(h + w + ksize)
+    img = rng.standard_normal((h, w)).astype(np.float32)
+    ip, wts = OG.prepare(img, ksize)
+    ref = np.asarray(JRG.blur_rows_ref(jnp.asarray(ip), jnp.asarray(wts),
+                                       0, h))
+    pallas = np.asarray(JKG.blur_rows(jnp.asarray(ip), jnp.asarray(wts),
+                                      tile_h=tile, interpret=True))
+    got = _gaussian_as_kernel(_t(ip), _t(wts), 0, h).numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got, pallas, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(
+        got, RG.blur_rows_ref(_t(ip), _t(wts), 0, h).numpy(), rtol=1e-5,
+        atol=1e-5)
+
+
+@pytest.mark.parametrize("ksize,row0,n_rows,col0,n_cols", [
+    (31, 16, 48, 0, 40), (31, 0, 128, 77, 51), (5, 3, 61, 10, 1)])
+def test_gaussian_column_window_matches_jax_run_region(ksize, row0, n_rows,
+                                                       col0, n_cols):
+    """The wrapper's column window on the CPU against the JAX package's
+    tile entry ``run_region``, the full-width rows' columns and the
+    kernel's order (rtol=atol=1e-5)."""
+    img = np.random.default_rng(ksize + col0).standard_normal(
+        (128, 128)).astype(np.float32)
+    ip, wts = OG.prepare(img, ksize)
+    ref = np.asarray(JOG.run_region(jnp.asarray(ip), jnp.asarray(wts), row0,
+                                    n_rows, col0, n_cols))
+    got = KG.blur_rows(_t(ip), _t(wts), row0, n_rows, col0, n_cols)
+    assert got.shape == (n_rows, n_cols) and KG.launches == 0
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5)
+    full = KG.blur_rows(_t(ip), _t(wts), row0, n_rows)
+    np.testing.assert_allclose(got.numpy(),
+                               full[:, col0:col0 + n_cols].numpy(),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(
+        got.numpy(), _gaussian_as_kernel(_t(ip), _t(wts), row0, n_rows, col0,
+                                         n_cols).numpy(),
+        rtol=1e-5, atol=1e-5)
+
+
 # ---------------------------------------------------- inputs carried across
 @pytest.mark.parametrize("seed", [0, 7])
 def test_inputs_byte_identical(seed):
