@@ -27,6 +27,35 @@ Phases, each fatal on failure:
    versions' errors from float64 (binomial on 256 options, nbody's
    accelerations on 256 targets, where the kernel must stay within its
    earlier error at the paper's size);
+5a. co-execute the other six programs of the suite on ``[cuda:0, cpu]``
+    as phase 3 does: ``gaussian2d`` (8192 x 8192) and ``mandelbrot2d``
+    (14,336 px, 5,000 iterations) as 2-D NDRanges whose row panels launch
+    the card's kernels on tiles, ``ray1``, ``ray2``, ``ray1_2d`` and
+    ``ray2_2d`` at 4,096 px (plain PyTorch ops on both groups, rendered in
+    bands of rows).  The card's group must run packets and not die, the
+    2-D image programs' launch counters (set to 0 just before) must be
+    above 0, and each output must match ``reference_output`` on the card:
+    Mandelbrot exactly, the blur at rtol/atol 1e-5, ray at ``RAY_TOL``
+    with no pixel flipped;
+5b. the paper's offloading modes on ``gaussian2d`` and ``mandelbrot2d``:
+    an lws-aligned sub-region with col0 != 0 (``ROI_TILES``) submitted
+    ``OFFLOAD_REPS`` times in binary mode and as often warm in ROI mode
+    (after ``register_workload``), interleaved; the median and spread of
+    the binary total, the ROI time, ``phases.init_s`` and the card's busy
+    time of each mode, and every output equal to the block of the full
+    reference;
+5c. a ``gaussian2d`` run journaled under a temporary directory, its
+    journal cut to two packets and resumed in a fresh session: replayed
+    plus executed work must cover the program, the gaps must launch the
+    card's kernel, and the output must equal the reference;
+5d. ``autotune`` on ``[cuda:0, cpu]`` with ``TUNE_SIZES`` (a cache in a
+    temporary directory): the fitted rates per group, the host terms and
+    the winner; a second call must run no micro-benchmark, and
+    ``coexec(..., tuned=...)`` must give the reference output;
+5e. time ``blur_rows`` and ``escape_counts`` at the offloading phase's
+    ROI tiles, beside their bounds, plain versions and (the blur) one
+    ``F.conv2d``: a ``roi_tile`` entry of each kernel's record, with the
+    2-D path's launches (one record per kernel, as ``long_shape`` is);
 6. serve llama3.2-1b at full width (``--small``: 2 of its 16 layers) in
    bfloat16 on ``cuda:0`` through ``repro_torch.serve.CoexecServer``: two
    replicas (throttles 1 and 2) share one copy of the weights, 16
@@ -151,6 +180,45 @@ def binomial_ops(n_options: int, steps: int) -> float:
     one step at a time 3."""
     return n_options * (2.0 * steps * (steps + 1) / 2 + 6.0 * (steps + 1)
                         + 12)
+
+
+def fleet():
+    from repro_torch.core.device import DeviceGroup
+    return [DeviceGroup("cuda0", device="cuda:0"),
+            DeviceGroup("cpu", device="cpu")]
+
+
+def probe(prog, devices):
+    """Computing power (dim-0 units/s) of each group from one packet in
+    the middle of the range (a card: 1/16 of it after a warm-up; the
+    host: one work-group), full-width row panels of a 2-D program."""
+    G, lws = prog.total_work, prog.lws
+    region = prog.work_region
+    powers = []
+    for d in devices:
+        fn, d0 = prog.build(d), region.dims[0]
+        if region.ndim == 2:
+            d1 = region.dims[1]
+
+            def call(offset, rows, fn=fn):
+                return fn(d0.offset + offset, rows, d1.offset, d1.size)
+        else:
+            def call(offset, rows, fn=fn):
+                return fn(d0.offset + offset, rows)
+        size = max(lws, G // 16 // lws * lws) if d.is_cuda else lws
+        off = (G // 2 - size // 2) // lws * lws
+        if d.is_cuda:
+            d.run_packet(call, off, size)
+        _, wg_s = d.run_packet(call, off, size)
+        powers.append(wg_s)
+    return powers
+
+
+def check_card_group(res, devices, name):
+    gpu = devices[0]
+    check(res.aborted_devices == 0, f"{name}: aborted devices")
+    check(not gpu.dead, f"{name}: the card's group was marked dead")
+    check(gpu.packets_done > 0, f"{name}: the card ran no packet")
 
 
 # ------------------------------------------------------------ serving path
@@ -376,12 +444,12 @@ def card_against_host(torch, dev0, cfg32, p32, label):
         f"card {t_card:.2f} s, host {t_host:.2f} s")
 
 
-def long_entry(r):
+def long_entry(r, label="long shape"):
     """A long shape's measurements, for its kernel's JSON record."""
     b_ms, b_by = bound(r["nbytes"], r["ops"], r["ops_per_s"])
     lib = ("none" if r["library_ms"] is None
            else f"{r['library_ms']:.4f} ms")
-    log(f"  long shape {r['shape']}: {r['ms']:.4f} ms, plain "
+    log(f"  {label} {r['shape']}: {r['ms']:.4f} ms, plain "
         f"{r['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
         f"library {lib}")
     return dict(shape=r["shape"], ms=r["ms"], plain_ms=r["plain_ms"],
@@ -640,6 +708,309 @@ def mamba_phases(args, torch, dev0, launches, record):
            library_note="no single PyTorch call computes this recurrence")
 
 
+# --------------------------------------------- program suite and modes
+SUITE_SIZES = {
+    "gaussian2d": dict(h=8192, w=8192),
+    "mandelbrot2d": dict(px=14336, max_iter=5000),
+    "ray1": dict(px=4096), "ray2": dict(px=4096),
+    "ray1_2d": dict(px=4096), "ray2_2d": dict(px=4096),
+}
+SMALL_SUITE_SIZES = {
+    "gaussian2d": dict(h=1024, w=512),
+    "mandelbrot2d": dict(px=512, max_iter=256),
+    "ray1": dict(px=256), "ray2": dict(px=256),
+    "ray1_2d": dict(px=256), "ray2_2d": dict(px=256),
+}
+# the offloading modes' sub-regions, (rows, cols) at (row0, col0), all
+# lws-aligned with col0 != 0.  Mandelbrot's straddles the main cardioid's
+# edge and the period-2 bulb (x in [-0.964, -0.536), y in [-0.214,
+# 0.214)): some of its pixels run all 5,000 iterations, so the host
+# group's 8-row packet of it takes about a second, not minutes
+ROI_TILES = {"gaussian2d": ((4096, 4000), (1024, 1056)),
+             "mandelbrot2d": ((2048, 2048), (6144, 6144))}
+SMALL_ROI_TILES = {"gaussian2d": ((512, 256), (256, 160)),
+                   "mandelbrot2d": ((128, 128), (192, 192))}
+OFFLOAD_REPS = 3
+# the autotuner's programs: the host group's whole-program span takes
+# about a second (span_grid times up to the whole program on each group)
+TUNE_SIZES = {"gaussian2d": dict(h=4096, w=4096),
+              "binomial": dict(n_options=8192)}
+SMALL_TUNE_SIZES = {"gaussian2d": dict(h=512, w=512),
+                    "binomial": dict(n_options=1024)}
+TUNE_ROUNDS = 5
+# ray, card against host packets and against the card's reference: a
+# float tolerance, and no pixel may flip (hit against miss, lit against
+# shadowed), which moves a channel by more than RAY_FLIP
+RAY_TOL = (1e-5, 1e-4)
+RAY_FLIP = 1e-2
+
+
+def compare_output(name, out, ref):
+    """``out`` against the card's reference: Mandelbrot exactly, the blur
+    at rtol/atol 1e-5, ray at ``RAY_TOL`` with no pixel flipped.  Returns
+    (max abs difference, flipped pixels)."""
+    check(out.shape == ref.shape and bool(np.isfinite(out).all()),
+          f"{name}: output of shape {out.shape}, not finite or not "
+          f"{ref.shape}")
+    diff = np.abs(out.astype(np.float64) - ref)
+    flips = 0
+    if name.startswith("mandelbrot"):
+        check(int((diff > 0).sum()) == 0,
+              f"{name}: {int((diff > 0).sum())} counts differ")
+    elif name.startswith("ray"):
+        flips = int((diff.reshape(-1, 3).max(-1) > RAY_FLIP).sum())
+        check(flips == 0, f"{name}: {flips} pixels flipped")
+        np.testing.assert_allclose(out, ref, rtol=RAY_TOL[0],
+                                   atol=RAY_TOL[1], err_msg=name)
+    else:
+        np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-5,
+                                   err_msg=name)
+    return float(diff.max()), flips
+
+
+def med_spread(xs):
+    return (f"median {float(np.median(xs)):.4f} s (min {min(xs):.4f}, "
+            f"max {max(xs):.4f})")
+
+
+def suite_phases(args, torch, dev0, attach):
+    """The whole program suite on ``[cuda:0, cpu]``, the paper's two
+    offloading modes, a journaled run resumed, and the autotuner."""
+    import tempfile
+
+    from repro_torch.api import (EngineSession, OffloadMode, Region,
+                                 RunJournal, coexec, resume_run)
+    from repro_torch.core import programs as P
+    from repro_torch.kernels.gaussian import kernel as KG, ops as gops
+    from repro_torch.kernels.gaussian import ref as RG
+    from repro_torch.kernels.mandelbrot import kernel as KM, ref as RM
+    from repro_torch.tune import TuneCache, autotune
+
+    sizes = SMALL_SUITE_SIZES if args.small else SUITE_SIZES
+    counters = {"gaussian": KG, "mandelbrot": KM}
+    uses = {"gaussian2d": "gaussian", "mandelbrot2d": "mandelbrot"}
+    launches2d, powers_of, refs = {}, {}, {}
+
+    # -------------------------------------------- the whole program suite
+    for name, kw in sizes.items():
+        t0 = time.perf_counter()
+        prog = P.PROGRAMS[name](**kw)
+        devices = fleet()
+        powers = powers_of[name] = probe(prog, devices)
+        setup_s = time.perf_counter() - t0
+        for k in counters.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        res = coexec(prog, devices, powers=powers)
+        wall = time.perf_counter() - t0
+        counts = {k: m.launches for k, m in counters.items()}
+        check_card_group(res, devices, name)
+        if name in uses:
+            launches2d[uses[name]] = counts[uses[name]]
+            check(counts[uses[name]] > 0,
+                  f"{name}: the card's {uses[name]} kernel unused")
+        ref = P.reference_output(name, device=dev0, **kw)
+        err, flips = compare_output(name, res.output, ref)
+        if name in uses:
+            refs[name] = ref
+        G = prog.total_work
+        n_gpu = sum(1 for p in res.packets if p.device == 0)
+        share = sum(p.size for p in res.packets if p.device == 0) / G
+        log(f"suite {name} {kw}: set-up {setup_s:.2f} s, run {wall:.3f} s "
+            f"wall, roi {res.total_time:.3f} s, powers "
+            f"{[round(p, 1) for p in powers]} units/s, share cuda0/cpu "
+            f"{share:.4f}/{1 - share:.4f}, packets {n_gpu}/"
+            f"{len(res.packets) - n_gpu}, launches {counts}, busy s "
+            f"cuda0/cpu {res.device_busy[0]:.3f}/{res.device_busy[1]:.3f}, "
+            f"max |out - ref| {err:.3g}, flipped pixels {flips}")
+
+    # ------------------------------- offloading modes: binary against ROI
+    tiles = SMALL_ROI_TILES if args.small else ROI_TILES
+    for name, ((rows, cols), (r0, c0)) in tiles.items():
+        kw = sizes[name]
+        prog = P.PROGRAMS[name](**kw)
+        roi = Region.rect(rows, cols, lws=tuple(
+            d.lws for d in prog.work_region.dims), offset=(r0, c0))
+        want = refs[name][r0:r0 + rows, c0:c0 + cols]
+        powers = powers_of[name]
+        times = {"binary": [], "roi": [], "init": [], "roi_init": [],
+                 "card_binary": [], "card_roi": [], "binary_roi": []}
+        roi_fleet, bin_fleet = fleet(), fleet()
+        with EngineSession(roi_fleet, name="roi") as roi_s, \
+                EngineSession(bin_fleet, name="binary") as bin_s:
+            t0 = time.perf_counter()
+            roi_s.register_workload(prog)
+            reg_s = time.perf_counter() - t0
+            for rep in range(OFFLOAD_REPS):
+                # interleaved, the order alternating each round
+                order = ("binary", "roi") if rep % 2 == 0 else ("roi",
+                                                                "binary")
+                for mode in order:
+                    counters[uses[name]].launches = 0
+                    if mode == "roi":
+                        res = roi_s.submit(prog, region=roi,
+                                           mode=OffloadMode.ROI,
+                                           powers=powers).result()
+                        times["roi"].append(res.total_time)
+                        times["roi_init"].append(res.phases.init_s)
+                        times["card_roi"].append(res.device_busy[0])
+                        devices = roi_fleet
+                    else:
+                        res = bin_s.submit(prog, region=roi,
+                                           mode=OffloadMode.BINARY,
+                                           powers=powers).result()
+                        times["binary"].append(res.binary_time)
+                        times["binary_roi"].append(res.total_time)
+                        times["init"].append(res.phases.init_s)
+                        times["card_binary"].append(res.device_busy[0])
+                        devices = bin_fleet
+                    n_launch = counters[uses[name]].launches
+                    check_card_group(res, devices, f"{name} {mode}")
+                    check(n_launch > 0, f"{name} {mode}: the card's kernel "
+                                        f"unused")
+                    compare_output(name, res.output, want)
+        log(f"modes {name} region {rows}x{cols} at ({r0}, {c0}) of {kw}, "
+            f"{OFFLOAD_REPS} each, interleaved: register_workload "
+            f"{reg_s:.4f} s")
+        log(f"  binary total (init + offload + teardown) "
+            f"{med_spread(times['binary'])}; its roi "
+            f"{med_spread(times['binary_roi'])}; init "
+            f"{med_spread(times['init'])}; card busy "
+            f"{med_spread(times['card_binary'])}")
+        log(f"  roi {med_spread(times['roi'])}; init "
+            f"{med_spread(times['roi_init'])}; card busy "
+            f"{med_spread(times['card_roi'])}")
+        gap = 1 - float(np.median(times["roi"])) / float(
+            np.median(times["binary"]))
+        log(f"  roi against binary: {gap:.1%} less time (medians)")
+
+    # ------------------------------------------ a journaled run, resumed
+    name = "gaussian2d"
+    kw = sizes[name]
+    prog = P.PROGRAMS[name](**kw)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_journal") as tmp:
+        path = str(Path(tmp) / "run.journal")
+        with EngineSession(fleet()) as session, RunJournal(path) as j:
+            session.submit(prog, journal=j, powers=powers_of[name]).result()
+        records = RunJournal.read(path)[prog.name]
+        keep = min(2, len(records) - 1)
+        trunc = RunJournal.truncate_packets(path, keep)
+        devices = fleet()
+        with EngineSession(devices) as session, RunJournal(trunc) as j2:
+            KG.launches = 0
+            t0 = time.perf_counter()
+            rep = resume_run(session, prog, j2, prog.name,
+                             powers=powers_of[name])
+            wall = time.perf_counter() - t0
+    G = prog.total_work
+    check(rep.replayed_wg + rep.executed_wg == G,
+          f"resume: replayed {rep.replayed_wg} + executed "
+          f"{rep.executed_wg} != {G}")
+    check(rep.executed_wg > 0 and KG.launches > 0,
+          "resume: no gap re-executed on the card")
+    err, _ = compare_output(name, rep.output, refs[name])
+    log(f"resume {name}: journal of {len(records)} packets cut to {keep}; "
+        f"replayed {rep.replayed_wg} + executed {rep.executed_wg} of {G} "
+        f"rows in gaps {rep.gaps}, {wall:.3f} s, launches {KG.launches}, "
+        f"max |out - ref| {err:.3g}")
+
+    # ---------------------------------------------------- the autotuner
+    tsizes = SMALL_TUNE_SIZES if args.small else TUNE_SIZES
+    programs = {k: P.PROGRAMS[k](**kw) for k, kw in tsizes.items()}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tune") as tmp:
+        devices = fleet()
+        t0 = time.perf_counter()
+        report = autotune(devices, programs, "gaussian2d",
+                          cache=TuneCache(str(Path(tmp) / "cache.json")),
+                          rounds=TUNE_ROUNDS)
+        tune_s = time.perf_counter() - t0
+        cal = TuneCache(str(Path(tmp) / "cache.json")).get_calibration(
+            report.fingerprint)
+        check(report.microbenches_run > 0, "autotune: nothing measured")
+        again = autotune(devices, programs, "gaussian2d",
+                         cache=TuneCache(str(Path(tmp) / "cache.json")),
+                         rounds=TUNE_ROUNDS)
+        check(again.microbenches_run == 0 and again.cache_hit_winner,
+              f"autotune: {again.microbenches_run} micro-benchmarks on a "
+              f"warm cache")
+    for k, per_dev in cal.kernels.items():
+        rates = {d: f"{c.throughput:.1f} units/s + {c.overhead_s * 1e3:.3f}"
+                    f" ms" for d, c in per_dev.items()}
+        log(f"autotune {k} {tsizes[k]}: fitted {rates}")
+    cfg = report.config
+    log(f"autotune: {report.microbenches_run} timed runs in {tune_s:.2f} s; "
+        f"lock crossing {cal.sched_overhead_s * 1e6:.2f} us, wake "
+        f"{cal.wake_cost_s * 1e6:.2f} us, copy {cal.transfer_base_s * 1e6:.2f}"
+        f" us + {cal.transfer_s_per_byte * 1e12:.2f} ps/B, crossover "
+        f"{cfg.async_threshold_bytes} B; winner {cfg.scheduler} "
+        f"{cfg.scheduler_kwargs} lws {cfg.lws}, lease "
+        f"{cfg.lease_params()}, predicted {cfg.predicted_s:.4f} s against "
+        f"the default's {cfg.predicted_default_s:.4f} s; the second call "
+        f"ran {again.microbenches_run} micro-benchmarks")
+    prog = programs["gaussian2d"]
+    devices = fleet()
+    KG.launches = 0
+    res = coexec(prog, devices, tuned=cfg)
+    check_card_group(res, devices, "tuned gaussian2d")
+    err, _ = compare_output("gaussian2d", res.output, P.reference_output(
+        "gaussian2d", device=dev0, **tsizes["gaussian2d"]))
+    n_gpu = sum(1 for p in res.packets if p.device == 0)
+    log(f"tuned coexec gaussian2d {tsizes['gaussian2d']}: roi "
+        f"{res.total_time:.3f} s, packets {n_gpu}/{len(res.packets) - n_gpu},"
+        f" launches {KG.launches}, max |out - ref| {err:.3g}")
+
+    # ---------------------- the two kernels at the offloading ROI tiles
+    (rows, cols), (r0, c0) = tiles["gaussian2d"]
+    img = np.random.default_rng(0).standard_normal(
+        (sizes["gaussian2d"]["h"], sizes["gaussian2d"]["w"])).astype(
+        np.float32)
+    ip, wts = gops.prepare(img)
+    ipd, wd = torch.from_numpy(ip).to(dev0), torch.from_numpy(wts).to(dev0)
+    K = wts.shape[0]
+    window = ipd[:, c0:c0 + cols + K - 1]
+    got = gops.run_region(ipd, wd, r0, rows, c0, cols)
+    want = RG.blur_rows_ref(window, wd, r0, rows)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    band = window[r0:r0 + rows + K - 1][None, None]
+    w2 = (wd[:, None] * wd[None, :])[None, None]
+    attach("gaussian", roi_tile=dict(long_entry(dict(
+        err=float((got - want).abs().max()),
+        ms=cuda_ms(lambda: KG.blur_rows(ipd, wd, r0, rows, c0, cols), torch),
+        plain_ms=cuda_ms(lambda: RG.blur_rows_ref(window, wd, r0, rows),
+                         torch, 2),
+        nbytes=4.0 * ((rows + K - 1) * (cols + K - 1) + rows * cols + K),
+        ops=2.0 * K * rows * ((cols + K - 1) + cols), ops_per_s=FP32_OPS_S,
+        library_ms=cuda_ms(lambda: torch.nn.functional.conv2d(band, w2),
+                           torch),
+        shape=f"ROI tile rows [{r0}, {r0 + rows}) x cols [{c0}, "
+              f"{c0 + cols}) of the padded {ip.shape} image (2-D path)"),
+        "gaussian"),
+        launches=launches2d["gaussian"]))
+    del ipd, wd, window, band, got, want
+    (rows, cols), (r0, c0) = tiles["mandelbrot2d"]
+    px, iters = sizes["mandelbrot2d"]["px"], sizes["mandelbrot2d"]["max_iter"]
+    got = KM.escape_counts(r0, rows, px, px, iters, c0, cols, device=dev0)
+    want = RM.escape_counts(r0, rows, px, px, iters, c0, cols, device=dev0)
+    n_bad = int((got != want).sum())
+    check(n_bad == 0, f"mandelbrot ROI tile: {n_bad} counts differ")
+    iters_done = float(got.sum())
+    attach("mandelbrot", roi_tile=dict(long_entry(dict(
+        err=0.0,
+        ms=cuda_ms(lambda: KM.escape_counts(r0, rows, px, px, iters, c0,
+                                            cols, device=dev0), torch),
+        plain_ms=cuda_ms(lambda: RM.escape_counts(r0, rows, px, px, iters,
+                                                  c0, cols, device=dev0),
+                         torch, 1),
+        nbytes=4.0 * rows * cols,
+        ops=8.0 * iters_done + 6.0 * rows * cols, ops_per_s=FP32_OPS_S,
+        library_ms=None,
+        shape=f"ROI tile rows [{r0}, {r0 + rows}) x cols [{c0}, "
+              f"{c0 + cols}) of {px} px, {iters_done:.0f} iterations "
+              f"(2-D path)"), "mandelbrot"),
+        launches=launches2d["mandelbrot"]))
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--small", action="store_true",
@@ -654,7 +1025,6 @@ def main() -> int:
     try:
         from repro_torch.api import EngineSession, OffloadMode, Region, coexec
         from repro_torch.core import programs as P
-        from repro_torch.core.device import DeviceGroup
         from repro_torch.kernels import build
         from repro_torch.kernels.binomial import kernel as KB, ref as RB
         from repro_torch.kernels.gaussian import kernel as KG, ref as RG
@@ -696,31 +1066,8 @@ def main() -> int:
         for k in kernels.values():
             k.launches = 0
 
-    def fleet():
-        return [DeviceGroup("cuda0", device="cuda:0"),
-                DeviceGroup("cpu", device="cpu")]
-
-    def probe(prog, devices):
-        """Computing power (work-groups/s) of each group from one packet
-        in the middle of the range (a card: 1/16 of it after a warm-up;
-        the host: one work-group)."""
-        G = prog.total_work
-        powers = []
-        for d in devices:
-            fn = prog.build(d)
-            size = max(1, G // 16) if d.is_cuda else 1
-            off = G // 2 - size // 2
-            if d.is_cuda:
-                d.run_packet(fn, off, size)
-            _, wg_s = d.run_packet(fn, off, size)
-            powers.append(wg_s)
-        return powers
-
     def check_group(res, devices, name, used):
-        gpu = devices[0]
-        check(res.aborted_devices == 0, f"{name}: aborted devices")
-        check(not gpu.dead, f"{name}: the card's group was marked dead")
-        check(gpu.packets_done > 0, f"{name}: the card ran no packet")
+        check_card_group(res, devices, name)
         for k in used:
             check(kernels[k].launches > 0, f"{name}: {k} kernel unused")
 
@@ -798,16 +1145,22 @@ def main() -> int:
     records = []
 
     def record(name, src, replaces, err, ms, plain_ms, nbytes, ops,
-               library_ms, shape, ops_per_s=FP32_OPS_S, **extra):
+               library_ms, shape, ops_per_s=FP32_OPS_S, n_launches=None,
+               **extra):
         b_ms, b_by = bound(nbytes, ops, ops_per_s)
+        n = launches[name] if n_launches is None else n_launches
         rec = dict(name=name, route="cuda", source=src, replaces=replaces,
-                   launches=launches[name], max_abs_err=err, ms=ms,
+                   launches=n, max_abs_err=err, ms=ms,
                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                    library_ms=library_ms, shape=shape, **extra)
         records.append(rec)
         log(f"kernel {name} {shape}: {ms:.4f} ms ({b_ms / ms:.1%} of its "
             f"bound), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}),"
             f" library {library_ms}, max abs err {err:.3g}")
+
+    def attach(name, **extra):
+        """Add entries (another shape's timings) to a kernel's record."""
+        next(r for r in records if r["name"] == name).update(extra)
 
     def time_smallest(name, ms, nbytes, ops, what):
         """Log a kernel's time at the smallest packet the card ran in the
@@ -995,6 +1348,7 @@ def main() -> int:
                   cuda_ms(lambda: KN.step_rows(pm, vel, t0s, nts), torch),
                   *nbody_bytes_ops(nts), f"{nts} targets x {N} sources")
 
+    suite_phases(args, torch, dev0, attach)
     serving_phases(args, torch, dev0, launches, record)
     mamba_phases(args, torch, dev0, launches, record)
     leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "repro")]

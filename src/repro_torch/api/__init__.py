@@ -13,7 +13,9 @@ Three tiers, increasing control:
     ``submit(..., deps=[h1, h2])`` builds a dependency DAG dispatched
     ready-set style (each node starts the moment its actual predecessors
     finish; cancelled predecessors cascade, failed ones raise
-    ``DependencyError``);
+    ``DependencyError``), and ``submit(..., journal=RunJournal(path))``
+    journals packet commits so ``resume_run`` restarts a killed graph
+    executing only never-committed packets;
     ``register_workload`` + ``submit(..., region=..., mode=OffloadMode.
     ROI)`` is the paper's ROI offloading, ``mode=OffloadMode.BINARY`` its
     self-contained binary offloading.
@@ -29,10 +31,6 @@ subsystem (``repro_torch.core.membuf``) backs ``BufferPolicy.POOLED`` — the
 default for warm ROI submits: run buffers lease from the session's
 ``BufferArena`` and staging overlaps compute on the ``TransferPipeline``
 (pooled outputs are recycled views; copy what you keep).
-
-The run journal (``RunJournal``, ``resume_run``, ``ResumeReport``) and
-the autotuner (``tuned=``) come with the later slices that port ``ckpt/``
-and ``tune/``.
 """
 from repro_torch.api.handles import (CancelledError, DependencyError,
                                      RunHandle)
@@ -40,6 +38,7 @@ from repro_torch.api.policies import (BufferPolicy, DevicePolicy,
                                       OffloadMode, StaticDevicePolicy)
 from repro_torch.api.session import EngineSession
 from repro_torch.api.tier1 import coexec
+from repro_torch.ckpt.checkpoint import ResumeReport, RunJournal, resume_run
 from repro_torch.core.membuf import (ArenaPartition, ArenaStats,
                                      BufferArena, TransferPipeline)
 from repro_torch.core.metrics import PhaseBreakdown
@@ -57,9 +56,9 @@ __all__ = [
     "ArenaPartition", "ArenaStats", "BufferArena", "BufferPolicy",
     "CancelledError", "DependencyError", "DevicePolicy", "Dim",
     "EngineSession", "FleetArbiter", "GraphProgress", "OffloadMode",
-    "PacketWindow", "PhaseBreakdown", "Program", "Region", "RunHandle",
-    "StaticDevicePolicy", "TenantConfig",
+    "PacketWindow", "PhaseBreakdown", "Program", "Region", "ResumeReport",
+    "RunHandle", "RunJournal", "StaticDevicePolicy", "TenantConfig",
     "TransferPipeline", "available_schedulers", "coexec",
     "exclusive_overlaps", "fair_share_index", "register_scheduler",
-    "scheduler_accepts", "unregister_scheduler",
+    "resume_run", "scheduler_accepts", "unregister_scheduler",
 ]

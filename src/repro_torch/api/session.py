@@ -113,12 +113,6 @@ class EngineSession:
         if tenant is not None and arbiter is None:
             raise ValueError("tenant= requires arbiter= (a TenantConfig "
                              "only means something on a shared fleet)")
-        # calibrated-constants path: the autotuner (tune/) is not ported
-        # yet, so ``tuned=`` is refused rather than silently ignored
-        if tuned is not None and tuned is not False:
-            raise NotImplementedError(
-                "tuned= needs the calibrated autotuner (tune/), which a "
-                "later slice of the PyTorch port brings (ROADMAP Queue A)")
         # how many READY submits may co-execute at once.  1 (default)
         # preserves strict FIFO: one run owns the fleet at a time.  >1 is
         # the DAG-pipelining mode: a dependent whose predecessors are done
@@ -131,6 +125,29 @@ class EngineSession:
             self._devices: List[DeviceGroup] = list(arbiter.devices)
         else:
             self._devices = self.device_policy.resolve(devices)
+        # calibrated-constants path: a TunedConfig (passed directly, as a
+        # dict, as a file path, or ``tuned=True`` for a cache lookup by
+        # this fleet's fingerprint) supplies DEFAULTS for the scheduler
+        # choice, the lease growth law, and the transfer crossover —
+        # explicit kwargs always win (repro_torch.tune).
+        self.tuned = None
+        if tuned is not None and tuned is not False:
+            from repro_torch.tune.cache import resolve_tuned
+            self.tuned = resolve_tuned(tuned, devices=self._devices)
+        if self.tuned is not None:
+            t = self.tuned
+            if scheduler is None and t.scheduler:
+                scheduler = t.scheduler
+                if scheduler_kwargs is None and t.scheduler_kwargs:
+                    scheduler_kwargs = dict(t.scheduler_kwargs)
+            if lease_overhead_s is None:
+                lease_overhead_s = t.lease_overhead_s
+            if lease_overhead_frac is None:
+                lease_overhead_frac = t.lease_overhead_frac
+            if lease_k_max is None:
+                lease_k_max = t.lease_k_max
+            if async_threshold_bytes is None:
+                async_threshold_bytes = t.async_threshold_bytes
         scheduler = scheduler or "hguided_opt"
         scheduler_spec(scheduler)            # fail fast on unknown names
         self.scheduler = scheduler
@@ -413,10 +430,8 @@ class EngineSession:
         can consume predecessor outputs in place; a ``feed`` that raises
         fails this run (and, transitively, its dependents).
 
-        ``journal`` is any object with ``append_packet(key, offset, size,
-        rows)`` (the run journal, ported with ``ckpt/`` in a later slice):
-        every committed packet
-        is appended (offset/size in the program's dim-0 frame under
+        ``journal`` is a ``repro_torch.ckpt.RunJournal``: every committed
+        packet is appended (offset/size in the program's dim-0 frame under
         ``journal_key``, default the program name) so a killed graph can
         be resumed via ``repro_torch.ckpt.resume_run`` executing only
         never-committed packets.

@@ -42,9 +42,10 @@ def coexec(program: Program,
     ``EngineSession`` and use ``register_workload`` + ROI-mode submits.
     ``dispatch`` selects the scheduler hand-off: ``"leased"`` (default,
     lock-amortized packet plans) or ``"per_packet"`` (the classic
-    one-lock-per-packet baseline).  ``tuned`` is reserved for the
-    calibrated autotuner, which a later slice ports: passing it raises
-    ``NotImplementedError``.
+    one-lock-per-packet baseline).  ``tuned`` accepts a
+    ``repro_torch.tune.TunedConfig`` (or ``True`` for a calibration-cache
+    lookup): autotuned scheduler choice, lease constants, and transfer
+    crossover become the run's defaults; explicit kwargs still win.
     """
     with EngineSession(devices,
                        scheduler=scheduler,

@@ -16,6 +16,7 @@ from repro_torch.api import (DevicePolicy, EngineSession, OffloadMode,
                              Region, coexec)
 from repro_torch.core import programs as P
 from repro_torch.core.device import DeviceGroup, reserve_feeder_cores
+from repro_torch.tune import TunedConfig
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 
@@ -122,6 +123,9 @@ def test_per_packet_dispatch_and_elastic_membership():
 def test_port_imports_neither_jax_nor_repro():
     code = ("import sys\n"
             "import repro_torch.api, repro_torch.core.programs\n"
+            "import repro_torch.ckpt.checkpoint, repro_torch.tune\n"
+            "import repro_torch.core.simulate\n"
+            "import repro_torch.configs.paper_suite\n"
             "bad = [m for m in sys.modules\n"
             "       if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
             "print(','.join(bad))\n")
@@ -144,12 +148,26 @@ def test_no_cuda_means_no_silent_cpu_fleet(monkeypatch):
         P.reference_output("binomial", **SIZES["binomial"])
 
 
-def test_device_defaults_to_cuda_and_tuned_is_refused():
+def test_device_defaults_to_cuda():
     assert DeviceGroup("g").device == torch.device("cuda")
     assert DeviceGroup("h", device="cpu").device == torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="tune"):
-        coexec(P.PROGRAMS["binomial"](**SIZES["binomial"]), devices3(),
-               tuned=True)
+
+
+def test_tuned_config_is_applied():
+    """``tuned=`` sets the run's scheduler, its kwargs, the lease constants
+    and the transfer crossover; explicit kwargs still win."""
+    cfg = TunedConfig(scheduler="dynamic", scheduler_kwargs={"n_packets": 8},
+                      lease_overhead_s=1e-4, lease_overhead_frac=0.05,
+                      lease_k_max=16, async_threshold_bytes=1 << 12)
+    with EngineSession(devices3(), tuned=cfg) as s:
+        assert (s.scheduler, s.scheduler_kwargs) == ("dynamic",
+                                                     {"n_packets": 8})
+        assert s.lease_params == cfg.lease_params()
+        assert s.async_threshold_bytes == 1 << 12
+        res = s.run(P.PROGRAMS["binomial"](**SIZES["binomial"]))
+    assert_matches("binomial", res.output, jax_ref("binomial"))
+    with EngineSession(devices3(), tuned=cfg, scheduler="static") as s:
+        assert (s.scheduler, s.scheduler_kwargs) == ("static", {})
 
 
 def test_mixed_fleet_leaves_a_core_per_card():

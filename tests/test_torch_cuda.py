@@ -13,8 +13,10 @@ from repro_torch.core import programs as P
 from repro_torch.core.device import DeviceGroup
 from repro_torch.kernels.binomial import kernel as KB, ops as OB, ref as RB
 from repro_torch.kernels.gaussian import kernel as KG, ops as OG, ref as RG
-from repro_torch.kernels.mandelbrot import kernel as KM, ref as RM
+from repro_torch.kernels.mandelbrot import kernel as KM, ops as OM
+from repro_torch.kernels.mandelbrot import ref as RM
 from repro_torch.kernels.nbody import kernel as KN, ops as ON, ref as RN
+from repro_torch.kernels.ray import ops as ORay, ref as RRay
 
 pytestmark = pytest.mark.cuda
 # card packets against host packets: those of tests/test_kernels.py
@@ -122,6 +124,68 @@ def test_gaussian_kernel_column_window(card, ksize, row0, n_rows, col0,
     torch.testing.assert_close(
         got, KG.blur_rows(ip, wt, row0, n_rows)[:, col0:col0 + n_cols],
         rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("row0,n_rows,col0,n_cols", [
+    (32, 96, 1056, 4000), (0, 40, 33, 77), (200, 1, 1, 1023)])
+def test_run_region_tiles_launch_the_kernels(card, row0, n_rows, col0,
+                                             n_cols):
+    """The 2-D programs' tile entries at widths that are no multiple of a
+    CTA's or a warp's columns, with col0 != 0: one launch each, the
+    Gaussian within 1e-5 of the plain version on the window's padded
+    columns, the Mandelbrot counts equal to it."""
+    ip, wt = _gaussian_inputs(card, 256, 5120, 31, 5)
+    before = KG.launches
+    got = OG.run_region(ip, wt, row0, n_rows, col0, n_cols)
+    assert KG.launches == before + 1 and got.shape == (n_rows, n_cols)
+    torch.testing.assert_close(got, RG.blur_rows_ref(
+        ip[:, col0:col0 + n_cols + 30], wt, row0, n_rows),
+        rtol=1e-5, atol=1e-5)
+    before = KM.launches
+    got = OM.run_region(row0, n_rows, col0, n_cols, width=5120,
+                        height=256, max_iter=300, device=card)
+    assert KM.launches == before + 1 and got.shape == (n_rows, n_cols)
+    assert torch.equal(got, RM.escape_counts(row0, n_rows, 5120, 256, 300,
+                                             col0, n_cols, device=card))
+
+
+@pytest.mark.parametrize("which", [1, 2])
+def test_banded_ray_packet_on_card_matches_host(card, monkeypatch, which):
+    """A packet of the paper's 4,096-px image rendered on the card in
+    bands of rows equals the host's, bit for bit: every operation of the
+    plain version rounds to nearest on both devices (dot products added
+    in a fixed order, the pixel coordinates computed on the host, a
+    correctly rounded square root on each)."""
+    scene = RRay.make_scene(which)
+    on_card = {k: torch.from_numpy(v).to(card) for k, v in scene.items()}
+    on_host = {k: torch.from_numpy(v) for k, v in scene.items()}
+    got = ORay.run_range(on_card, 500, 40, width=4096, height=4096)
+    assert ORay._band_rows(4096, 32) < 160       # banded at this size
+    want = ORay.run_range(on_host, 500, 40, width=4096, height=4096)
+    assert torch.equal(got.cpu(), want)
+    # a tile with col0 != 0 in one band, and in bands of 3 rows
+    whole = ORay.run_region(on_card, 2000, 20, 1000, 700, width=4096,
+                            height=4096)
+    monkeypatch.setattr(ORay, "BAND_ELEMS", 3 * 700 * 32 * 3)
+    assert torch.equal(whole, ORay.run_region(on_card, 2000, 20, 1000, 700,
+                                              width=4096, height=4096))
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("gaussian2d", dict(h=512, w=480, lws=(32, 32))),
+    ("mandelbrot2d", dict(px=256, max_iter=256)),
+    ("ray1", dict(px=256)), ("ray2_2d", dict(px=256))])
+def test_2d_and_ray_programs_on_card_and_host(card, name, kw):
+    devices = [DeviceGroup("cuda0", device=card),
+               DeviceGroup("cpu", device="cpu")]
+    res = coexec(P.PROGRAMS[name](**kw), devices, powers=[50.0, 1.0])
+    ref = P.reference_output(name, device=card, **kw)
+    assert res.aborted_devices == 0 and devices[0].packets_done > 0
+    if name.startswith(("mandelbrot", "ray")):
+        # ray rounds alike on both devices (its plain version's design)
+        np.testing.assert_array_equal(res.output, ref)
+    else:
+        np.testing.assert_allclose(res.output, ref, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("n,tgt0,n_tgt", [
