@@ -7,7 +7,7 @@
 Phases, each fatal on failure:
 
 1. print the card's name and power limit (``nvidia-smi``);
-2. build the seven CUDA kernels from ``src/repro_torch/csrc`` (timed as
+2. build the eight CUDA kernels from ``src/repro_torch/csrc`` (timed as
    set-up; the compiler's register and spill lines are printed);
 3. co-execute the paper's four kernel programs on ``[cuda:0, cpu]``
    through ``repro_torch.api.coexec``, with HGuidedOpt seeded from a
@@ -90,7 +90,36 @@ Phases, each fatal on failure:
 11. hold ``selective_scan`` against its plain version at the serving
     shape, a long shape and a ragged one with a carried state (rtol 1e-4 /
     atol 1e-5), and time kernel and plain version; no single PyTorch call
-    computes this recurrence, so it has no library time.
+    computes this recurrence, so it has no library time;
+12. train llama3.2-1b at full width (``--small``: 2 of its 16 layers) in
+    bfloat16 through ``HeteroDPTrainer``: two groups on ``cuda:0``
+    (throttles 1 and 2) sharing one copy of the weights, random weights
+    from seed 0, ``SyntheticPipeline`` (seed 1234) at TRAIN_4K's 4,096
+    tokens, a global batch of 8 (TRAIN_4K's 256 cut to 8), lws 1, AdamW
+    (lr 1e-3, warm-up 1, 8 total steps), 6 steps.  Every loss finite,
+    8 x 4,096 tokens a step, the last loss below the first, rows on both
+    groups; the launch counters, set to 0 before each step, must show 2 x
+    16 ``flash_attention`` launches (forward and rematerialised recompute)
+    and 16 ``flash_attention_bwd`` calls per packet.  Step time, tokens/s,
+    balance, rows per group, peak memory and a profile of one more step;
+    then ``launch.train`` in-process (2 steps, batch 4, accum 2) with
+    finite losses and gradient norms;
+13. card against host in float32 (TF32 off) on the first 2 layers at full
+    width, batch 2 x 128: the loss within 1e-4 relative, every gradient
+    within 1e-3 of its parameter's largest |g|, the parameters after one
+    AdamW step within 1e-3 of their largest |value| (``TRAIN_FLIPS``);
+    one ``HeteroDPTrainer`` step on ``[cuda:0, cpu]`` (batch 4, the host
+    group running rows) against one on ``[cuda:0]`` alone from the same
+    state and tokens, at the same tolerance; an ``AsyncCheckpointer`` save
+    restored into a fresh state, whose next step's loss must equal the
+    original's;
+14. hold ``flash_attention_bwd`` against ``attention_bwd_ref`` at the
+    training packet (B=1, S=4096, 32/8 heads, D=64, bfloat16), a ragged S
+    and head dims 80 and 128 in both dtypes (max |err| within 2e-2 of each
+    output's largest |value| in bfloat16, 1e-4 in float32), two calls
+    bitwise equal, and time kernel, plain version and SDPA's backward
+    (``torch.autograd.grad`` through one ``scaled_dot_product_attention``)
+    at the training packet.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  It exits non-zero, printing no result,
@@ -100,6 +129,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
@@ -706,6 +736,418 @@ def mamba_phases(args, torch, dev0, launches, record):
            serve_s["ops"], None, serve_s["shape"] + " (serving prefill)",
            long_shape=long_entry(long_s),
            library_note="no single PyTorch call computes this recurrence")
+
+
+# ------------------------------------------------------------ training path
+# the training phase: TRAIN_4K's sequence, its global batch of 256 cut to
+# 8 (two groups on one card; the 2.47 GB of bf16 weights and 9.89 GB of
+# float32 moments leave about 60 GB for rows in flight)
+TRAIN = dict(seq=4096, batch=8, steps=6, lws=1, seed=1234)
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=8)
+# card against host in float32 on the first layers at full width
+TRAIN_PARITY = dict(layers=2, batch=2, seq=128, pair_batch=4)
+# AdamW's first step moves each element by about lr * g / (|g| + eps):
+# where a gradient lies within the two sides' rounding of zero, its sign
+# may differ and the two updated values may lie up to 2 lr apart.  So the
+# updated parameters are held to 1e-3 of each parameter's largest |value|
+# everywhere but at most TRAIN_FLIPS of all elements, each within 2 lr of
+# the other side (card against host on the first 2 layers: 3 to 5 of
+# 384 million elements outside, PERF.md section 6)
+TRAIN_FLIPS = 1e-6
+# the backward kernel against its plain version: max |err| over each
+# output's largest |value|
+ATTN_BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+
+
+def check_updates(torch, got, want, lr, label):
+    """``got`` and ``want``: two updated models (same structure; ``got``
+    anywhere, ``want`` on the host).  Every element within 1e-3 of its
+    parameter's largest |value|, except at most TRAIN_FLIPS of all
+    elements, each within 2 lr more.  Returns (worst share of its tol,
+    elements outside, elements)."""
+    worst, outside, total = 0.0, 0, 0
+    for (n, a), b in zip(got.named_parameters(), want.parameters()):
+        a = a.detach().to("cpu", torch.float32)
+        b = b.detach().float()
+        tol = 1e-3 * float(b.abs().max())
+        d = (a - b).abs()
+        over = d > tol
+        outside += int(over.sum())
+        total += d.numel()
+        check(bool((d <= tol + 2 * lr).all()),
+              f"{label}: {n} differs by {float(d.max()):.3g}, above "
+              f"{tol:.3g} + 2 lr")
+        worst = max(worst, float((d * ~over).max()) / max(tol, 1e-30))
+    check(outside <= TRAIN_FLIPS * total,
+          f"{label}: {outside} of {total} elements outside 1e-3 of their "
+          f"parameter's largest |value|")
+    return worst, outside, total
+
+
+def training_phases(args, torch, dev0, launches, attach):
+    """Train llama3.2-1b at full width through ``HeteroDPTrainer`` and
+    ``launch.train`` on the card (phase 12); card against host in float32,
+    the paper's ``[cuda:0, cpu]`` pair and a checkpoint round trip
+    (phase 13)."""
+    import contextlib
+    import copy
+    import io
+    import re
+    import tempfile
+    from dataclasses import replace
+
+    from repro_torch.ckpt import checkpoint as CK
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TRAIN_4K, ShapeConfig
+    from repro_torch.core.device import DeviceGroup
+    from repro_torch.core.hetero_dp import HeteroDPTrainer
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    from repro_torch.kernels.flash_attention import kernel as KA
+    from repro_torch.launch import train as LT
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.training.step import make_grad_fn, make_train_step
+
+    cfg = get_config("llama3.2-1b")
+    if args.small:
+        cfg = replace(cfg, n_layers=2)
+    L = cfg.n_layers
+    S, B = TRAIN["seq"], TRAIN["batch"]
+    check(S == TRAIN_4K.seq_len, "training: not TRAIN_4K's sequence")
+    shape = ShapeConfig("train_4k_batch8", S, B, "train")
+    pipeline = SyntheticPipeline(cfg, shape, DataConfig(seed=TRAIN["seed"]))
+    opt = OptConfig(**TRAIN_OPT)
+
+    # ------------------------------------------- 12. train at full width
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(dev0).manual_seed(0))
+    state = adamw.init_state(params, opt)
+    torch.cuda.synchronize()
+    total, active = T.param_count(cfg)
+    log(f"train {cfg.name}: {L} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, {cfg.dtype}, {total:,} "
+        f"parameters ({T.param_bytes(params) / 1e9:.3f} GB) and float32 "
+        f"moments made on the card in {time.perf_counter() - t0:.2f} s; "
+        f"seq {S} (TRAIN_4K), global batch {B} (TRAIN_4K's "
+        f"{TRAIN_4K.global_batch} cut to {B}), lws {TRAIN['lws']}, "
+        f"{opt}")
+    groups = [DeviceGroup("g0", device=dev0, throttle=1.0),
+              DeviceGroup("g1", device=dev0, throttle=2.0)]
+    trainer = HeteroDPTrainer(cfg, opt, shape, groups, pipeline,
+                              lws=TRAIN["lws"])
+    torch.cuda.reset_peak_memory_stats(dev0)
+    reports, rows = [], {g.name: 0 for g in groups}
+    run_fwd = run_bwd = 0
+    try:
+        for i in range(TRAIN["steps"]):
+            KA.launches = KA.bwd_launches = 0
+            state, rep = trainer.step(state, i)
+            fwd, bwd = KA.launches, KA.bwd_launches
+            run_fwd += fwd
+            run_bwd += bwd
+            reports.append(rep)
+            for k, v in rep.device_rows.items():
+                rows[k] += v
+            check(math.isfinite(rep.loss), f"train step {i}: loss "
+                                           f"{rep.loss}")
+            check(rep.tokens == B * S, f"train step {i}: {rep.tokens} "
+                                       f"tokens, expected {B * S}")
+            check(fwd == 2 * L * rep.packets and bwd == L * rep.packets,
+                  f"train step {i}: {fwd} flash_attention launches and "
+                  f"{bwd} backward calls for {rep.packets} packets of "
+                  f"{L} layers (expected {2 * L} and {L} a packet)")
+            log(f"train step {i}: loss {rep.loss:.4f}, "
+                f"{rep.step_time_s:.3f} s, "
+                f"{rep.tokens / rep.step_time_s:.0f} tokens/s, balance "
+                f"{rep.balance:.3f}, {rep.packets} packets, rows "
+                f"{rep.device_rows}, launches fwd {fwd} bwd {bwd}, "
+                f"failures {rep.failures}")
+        peak = torch.cuda.max_memory_allocated(dev0)
+        # one more step under the profiler: the card's busy share and
+        # the top kernels
+        try:       # a diagnostic: the run goes on without a trace
+            from torch.profiler import ProfilerActivity, profile
+            t0 = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                state, rep = trainer.step(state, TRAIN["steps"])
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            kern = sorted(
+                ((getattr(e, "self_device_time_total",
+                          getattr(e, "self_cuda_time_total", 0.0)) / 1e3,
+                  e.key) for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA),
+                reverse=True)
+            busy = sum(ms for ms, _ in kern)
+            bwd_ms = sum(ms for ms, k in kern if "bwd_" in k)
+            fwd_ms = sum(ms for ms, k in kern if "flash_fwd" in k)
+            log(f"profile train step: {busy / 1e3:.3f} s of kernels in "
+                f"{wall:.3f} s (busy {busy / 1e3 / wall:.1%}); attention "
+                f"backward {bwd_ms / 1e3:.3f} s, forward {fwd_ms / 1e3:.3f}"
+                f" s; top: " + "; ".join(f"{ms:.1f} ms {k[:50]}"
+                                         for ms, k in kern[:10]))
+        except Exception as e:
+            log(f"profile train step: torch.profiler failed ({e!r})")
+    finally:
+        trainer.close()
+    losses = [r.loss for r in reports]
+    check(losses[-1] < losses[0],
+          f"train: loss went from {losses[0]:.4f} to {losses[-1]:.4f}")
+    check(all(v > 0 for v in rows.values()),
+          f"train: a group ran no rows ({rows})")
+    launches["flash_attention_bwd"] = run_bwd
+    steady = reports[1:]
+    step_s = sum(r.step_time_s for r in steady) / len(steady)
+    log(f"train: {len(reports)} steps, losses "
+        f"{[round(x, 4) for x in losses]}; steps 2-{len(reports)} "
+        f"{step_s:.3f} s a step, {B * S / step_s:.0f} tokens/s; balance "
+        f"{[round(r.balance, 3) for r in reports]}; rows {rows}; peak "
+        f"memory {peak / 1e9:.2f} GB (max_memory_allocated); launches in "
+        f"the run: flash_attention {run_fwd}, flash_attention_bwd "
+        f"{run_bwd}")
+    attach("flash_attention", train_launches=run_fwd)
+    del trainer
+
+    # the launcher, in-process: 2 steps of 4 rows, 2 microbatches each
+    p32 = copy.deepcopy(T.LM(params.embed,
+                             list(params.layers[:TRAIN_PARITY["layers"]]),
+                             params.final_norm, params.lm_head)
+                        ).to(torch.float32)
+    del state, params
+    torch.cuda.empty_cache()
+    argv = ["--arch", "llama3.2-1b", "--steps", "2", "--seq", str(S),
+            "--batch", "4", "--accum", "2", "--log-every", "1"]
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = LT.main(argv)
+    text = out.getvalue()
+    found = re.findall(r"loss=(\S+) gnorm=(\S+)", text)
+    check(rc == 0 and len(found) == 2
+          and all(math.isfinite(float(x)) for pair in found for x in pair),
+          f"launch.train: rc {rc}, output {text!r}")
+    log(f"launch.train {' '.join(argv)}: {time.perf_counter() - t0:.1f} s; "
+        + " | ".join(line for line in text.splitlines() if line))
+    torch.cuda.empty_cache()
+
+    # ----------------------- 13. card against host, f32, first layers
+    n_par = TRAIN_PARITY["layers"]
+    cfg32 = replace(cfg, n_layers=n_par, dtype="float32")
+    log(f"train parity {cfg.name}: depth cut to the first {n_par} of {L} "
+        f"layers at full width (host memory and time), float32, TF32 off")
+    pshape = ShapeConfig("parity", TRAIN_PARITY["seq"],
+                         TRAIN_PARITY["batch"], "train")
+    toks = SyntheticPipeline(cfg32, pshape).batch_at(0)["tokens"]
+    host32 = copy.deepcopy(p32).to("cpu")
+    grad_fn = make_grad_fn(cfg32)
+    for p in (p32, host32):
+        p.requires_grad_(True)
+    t0 = time.perf_counter()
+    (lc, _), gc = grad_fn(p32, {"tokens": torch.as_tensor(toks, device=dev0)})
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (lh, _), gh = grad_fn(host32, {"tokens": torch.from_numpy(toks)})
+    t_host = time.perf_counter() - t0
+    rel = abs(float(lc) - float(lh)) / abs(float(lh))
+    check(rel <= 1e-4, f"train parity: loss {float(lc)} on the card, "
+                       f"{float(lh)} on the host ({rel:.3g} relative)")
+    worst_g = 0.0
+    for n, w in gh.items():
+        top = float(w.abs().max())
+        err = float((gc[n].cpu() - w).abs().max())
+        check(err <= 1e-3 * top,
+              f"train parity: {n} gradient differs by {err:.3g}, above "
+              f"1e-3 of its largest |g| {top:.3g}")
+        worst_g = max(worst_g, err / max(top, 1e-30))
+    sc = adamw.apply_updates(adamw.init_state(p32, opt), gc, opt)[0]
+    sh = adamw.apply_updates(adamw.init_state(host32, opt), gh, opt)[0]
+    worst_p, outside, n_el = check_updates(torch, sc.params, sh.params,
+                                           opt.lr, "train parity")
+    log(f"train parity: loss card {float(lc):.6f} host {float(lh):.6f} "
+        f"({rel:.3g} relative, limit 1e-4); gradients within "
+        f"{worst_g:.3g} of each parameter's largest |g| (limit 1e-3); "
+        f"after one AdamW step the parameters within {worst_p:.3g} of "
+        f"1e-3 of their largest |value|, {outside} of {n_el} elements "
+        f"outside (at most {TRAIN_FLIPS:g} of them); card {t_card:.2f} s, "
+        f"host {t_host:.2f} s")
+    del gc, gh, sc, sh, host32
+
+    # the paper's pair against the card alone, one step from one state
+    class FixedBatch:
+        """Rows [r0, r1) of one batch: every packetisation trains on the
+        same tokens (the pipeline draws a row range from its own seed)."""
+
+        def __init__(self, toks):
+            self.toks = toks
+
+        def batch_at(self, step, rows=None):
+            return {"tokens": self.toks[rows or slice(None)]}
+
+    PB = TRAIN_PARITY["pair_batch"]
+    pair_shape = ShapeConfig("pair", TRAIN_PARITY["seq"], PB, "train")
+    ptoks = SyntheticPipeline(cfg32, pair_shape).batch_at(0)["tokens"]
+    start = {n: p.detach().clone() for n, p in p32.named_parameters()}
+    results = {}
+    for label, fleet_ in (
+            ("cuda0+cpu", [DeviceGroup("cuda0", device=dev0),
+                           DeviceGroup("cpu", device="cpu")]),
+            ("cuda0", [DeviceGroup("cuda0", device=dev0)])):
+        with torch.no_grad():
+            for n, p in p32.named_parameters():
+                p.copy_(start[n])
+        st = adamw.init_state(p32, opt)
+        tr = HeteroDPTrainer(cfg32, opt, pair_shape, fleet_,
+                             FixedBatch(ptoks), lws=1)
+        try:
+            t0 = time.perf_counter()
+            st, rep = tr.step(st, 0)
+            wall = time.perf_counter() - t0
+        finally:
+            tr.close()
+        results[label] = (copy.deepcopy(st.params).to("cpu"), rep)
+        log(f"train pair {label}: loss {rep.loss:.6f}, {wall:.2f} s, rows "
+            f"{rep.device_rows}, {rep.packets} packets, balance "
+            f"{rep.balance:.3f}")
+    prep, srep = results["cuda0+cpu"][1], results["cuda0"][1]
+    check(prep.device_rows.get("cpu", 0) > 0,
+          f"train pair: the host group ran no rows ({prep.device_rows})")
+    check(abs(prep.loss - srep.loss) <= 1e-4 * abs(srep.loss),
+          f"train pair: loss {prep.loss} against {srep.loss}")
+    worst_p, outside, n_el = check_updates(
+        torch, results["cuda0+cpu"][0], results["cuda0"][0], opt.lr,
+        "train pair")
+    log(f"train pair: [cuda:0, cpu] against [cuda:0] alone: parameters "
+        f"within {worst_p:.3g} of 1e-3 of their largest |value|, "
+        f"{outside} of {n_el} elements outside")
+    del results
+
+    # checkpoint: async save, restore into a fresh state, one more step
+    with torch.no_grad():
+        for n, p in p32.named_parameters():
+            p.copy_(start[n])
+    del start
+    step_fn = make_train_step(cfg32, opt)
+    batch = {"tokens": torch.as_tensor(ptoks[:2], device=dev0)}
+    state = adamw.init_state(p32, opt)
+    state, _ = step_fn(state, batch)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt") as tmp:
+        t0 = time.perf_counter()
+        ck = CK.AsyncCheckpointer(tmp)
+        ck.save(state, int(state.step))
+        t_snap = time.perf_counter() - t0
+        ck.wait()
+        t_save = time.perf_counter() - t0
+        fresh = adamw.init_state(
+            T.init_params(cfg32, torch.Generator(dev0).manual_seed(1)), opt)
+        t0 = time.perf_counter()
+        fresh, step = CK.restore(fresh, tmp)
+        t_restore = time.perf_counter() - t0
+    check(step == 1 and int(fresh.step) == 1, f"ckpt: restored step {step}")
+    _, m1 = step_fn(state, batch)
+    _, m2 = step_fn(fresh, batch)
+    check(float(m1["loss"]) == float(m2["loss"]),
+          f"ckpt: loss {float(m1['loss'])} after restore, "
+          f"{float(m2['loss'])} without")
+    log(f"ckpt: {n_par}-layer float32 state saved (snapshot "
+        f"{t_snap:.2f} s, written {t_save:.2f} s), restored in "
+        f"{t_restore:.2f} s; the next step's loss {float(m1['loss']):.6f}"
+        f" equal on both")
+    del state, fresh, p32
+    torch.cuda.empty_cache()
+
+
+def attention_bwd_phase(args, torch, dev0, record):
+    """14. The backward kernel against its plain version at the training
+    packet and other shapes, bitwise-equal across calls; kernel, plain
+    version and SDPA's backward timed beside the bound."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as KA, ref as RA
+
+    F = torch.nn.functional
+    cfg = get_config("llama3.2-1b")
+    H, KH, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    gen_t = torch.Generator(dev0).manual_seed(4)
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen_t, device=dev0).to(dtype)
+
+    def bwd_check(B, S, h, kh, d, dtype, timed=False):
+        q, k, v = (randn(s, dtype) for s in ((B, S, h, d), (B, S, kh, d),
+                                             (B, S, kh, d)))
+        out = KA.flash_attention(q, k, v)
+        dout = randn((B, S, h, d), dtype)
+        got = KA.flash_attention_bwd(q, k, v, out, dout)
+        again = KA.flash_attention_bwd(q, k, v, out, dout)
+        want = RA.attention_bwd_ref(q, k, v, out, dout)
+        tol = ATTN_BWD_TOL[str(dtype).split(".")[-1]]
+        err = 0.0
+        shape = f"B={B} S={S} H={h} KH={kh} D={d} {dtype}"
+        for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
+            check(torch.equal(g, a), f"flash_attention_bwd {shape}: {name} "
+                                     f"differs between two calls")
+            e = float((g.float() - w.float()).abs().max())
+            top = float(w.float().abs().max())
+            check(e <= tol * top, f"flash_attention_bwd {shape}: {name} "
+                                  f"max |err| {e:.3g} above {tol} x "
+                                  f"{top:.3g}")
+            err = max(err, e)
+        log(f"  flash_attention_bwd {shape}: max abs err {err:.3g}, two "
+            f"calls bitwise equal")
+        res = None
+        if timed:
+            qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                          for x in (q, k, v))
+            lib_out = F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+            dlib = dout.transpose(1, 2).contiguous()
+            elt = q.element_size()
+            res = dict(
+                err=err, shape=shape,
+                ms=cuda_ms(lambda: KA.flash_attention_bwd(q, k, v, out,
+                                                          dout), torch),
+                plain_ms=cuda_ms(lambda: RA.attention_bwd_ref(q, k, v, out,
+                                                              dout),
+                                 torch, 2),
+                library_ms=cuda_ms(lambda: torch.autograd.grad(
+                    lib_out, (qt, kt, vt), dlib, retain_graph=True), torch),
+                nbytes=elt * (4 * B * S * h * d + 4 * B * S * kh * d),
+                ops=5.0 * B * h * d * S * S,
+                ops_per_s=BF16_OPS_S if dtype == torch.bfloat16
+                else FP32_OPS_S)
+            log(f"  timed {shape}: kernel {res['ms']:.3f} ms, plain "
+                f"{res['plain_ms']:.3f} ms, SDPA backward "
+                f"{res['library_ms']:.3f} ms, kernel/SDPA "
+                f"{res['ms'] / res['library_ms']:.2f}")
+            del qt, kt, vt, lib_out, dlib
+        del q, k, v, out, dout, got, again, want
+        torch.cuda.empty_cache()
+        return res
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    log("flash_attention_bwd against its plain version:")
+    packet = bwd_check(1, TRAIN["seq"], H, KH, D, bf16, timed=True)
+    bwd_check(2, 1000, H, KH, D, bf16)            # ragged S
+    bwd_check(1, 1000, H, KH, D, f32)
+    bwd_check(2, 256, 8, 4, 80, f32)              # stablelm-3b's head dim
+    bwd_check(2, 256, 8, 4, 80, bf16)
+    bwd_check(1, 384, 16, 2, 128, f32)            # qwen3-32b's head dim
+    bwd_check(1, 384, 16, 2, 128, bf16)
+    record("flash_attention_bwd", "src/repro_torch/csrc/flash_attention_bwd.cu",
+           "src/repro/kernels/flash_attention/kernel.py:69",
+           packet["err"], packet["ms"], packet["plain_ms"], packet["nbytes"],
+           packet["ops"], packet["library_ms"],
+           packet["shape"] + " (training packet of one row)",
+           packet["ops_per_s"],
+           replaces_note="the gradient of that kernel's function: the JAX "
+                         "package differentiates its jnp attention "
+                         "(src/repro/models/layers.py:73, :123) with "
+                         "jax.value_and_grad",
+           library_note="torch.autograd.grad through one "
+                        "F.scaled_dot_product_attention(is_causal=True, "
+                        "enable_gqa=True), the backward alone")
 
 
 # --------------------------------------------- program suite and modes
@@ -1351,6 +1793,8 @@ def main() -> int:
     suite_phases(args, torch, dev0, attach)
     serving_phases(args, torch, dev0, launches, record)
     mamba_phases(args, torch, dev0, launches, record)
+    training_phases(args, torch, dev0, launches, attach)
+    attention_bwd_phase(args, torch, dev0, record)
     leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "repro")]
     check(not leaked, f"the port imported {leaked}")
 

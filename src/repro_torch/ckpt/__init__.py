@@ -1,1 +1,2 @@
-"""Persistence: the co-execution run journal (``checkpoint.py``)."""
+"""Persistence: training checkpoints and the co-execution run journal
+(``checkpoint.py``)."""

@@ -1,33 +1,189 @@
-"""The co-execution run journal (:class:`RunJournal` / :func:`resume_run`):
-the persistent run state behind DAG checkpoint/resume.
+"""Fault-tolerant checkpointing + the co-execution run journal, the JAX
+package's ``ckpt/checkpoint.py`` on PyTorch.
 
-Every packet a run commits appends one length-framed record — node key,
-absolute dim-0 span, and the committed output rows (host numpy, as the
-runtime's commit hands them over) — exactly when the scheduler's
-lease/exact-cover bookkeeping releases the packet, so the journal's
-spans tile each node's region without overlap.  A killed session resumes
-from the journal: committed spans are replayed into the output buffer
-(zero re-execution) and only the uncovered **gaps** are re-submitted as
-lws-aligned sub-region runs.  A torn tail record (the process died
-mid-append) is detected by the framing and dropped, so a crash can lose
-at most the packet being written — never corrupt the committed prefix.
+Two persistence layers live here:
 
-The on-disk format is the JAX package's byte for byte (magic, ``<I``
-header length, JSON header, payload), so a journal written by either
-package reads the same in the other.  Framework-free: numpy only.  The
-JAX package's other half of this module, sharded model-state
-checkpoints, comes with the training slice of the port.
+1. **Training checkpoints** (``save``/``restore``/``AsyncCheckpointer``):
+   Layout:  <dir>/step_<n>/
+               manifest.json     step, host count, each leaf's shape and dtype
+               host<k>.pt        ``torch.save`` of a flat dict from leaf name
+                                 ("step", "params/<name>", "mu/<name>",
+                                 "nu/<name>") to a CPU tensor
+               COMMIT            written last — a checkpoint without COMMIT
+                                 is incomplete and ignored on restore
+   Writes go to ``step_<n>.tmp`` and are atomically renamed, so a failure
+   mid-save never corrupts the latest good checkpoint.
+   ``AsyncCheckpointer`` snapshots to host memory synchronously
+   (``.detach().to("cpu", copy=True)``) and persists on a background
+   thread, so the train loop only blocks for the copy, not the I/O.  One
+   process writes ``host0``.
+
+2. **The run journal** (:class:`RunJournal` / :func:`resume_run`): the
+   persistent run state behind DAG checkpoint/resume.  Every packet a run
+   commits appends one length-framed record — node key, absolute dim-0
+   span, and the committed output rows (host numpy, as the runtime's
+   commit hands them over) — exactly when the scheduler's lease/exact-cover
+   bookkeeping releases the packet, so the journal's spans tile each
+   node's region without overlap.  A killed session resumes from the
+   journal: committed spans are replayed into the output buffer (zero
+   re-execution) and only the uncovered **gaps** are re-submitted as
+   lws-aligned sub-region runs.  A torn tail record (the process died
+   mid-append) is detected by the framing and dropped, so a crash can lose
+   at most the packet being written — never corrupt the committed prefix.
+   The on-disk format is the JAX package's byte for byte (magic, ``<I``
+   header length, JSON header, payload), so a journal written by either
+   package reads the same in the other.
 """
 from __future__ import annotations
 
 import json
 import os
+import shutil
 import struct
 import threading
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
+
+from repro_torch.optim.adamw import TrainState
+
+
+def _flatten(state: TrainState) -> Dict[str, torch.Tensor]:
+    """A train state's leaves by name: "step", then "params/<name>",
+    "mu/<name>", "nu/<name>" in ``named_parameters()`` order."""
+    flat = {"step": state.step}
+    for name, p in state.params.named_parameters():
+        flat[f"params/{name}"] = p
+    for tree in ("mu", "nu"):
+        for name, t in getattr(state, tree).items():
+            flat[f"{tree}/{name}"] = t
+    return flat
+
+
+def _write(flat: Dict[str, torch.Tensor], directory: str, step: int,
+           host_id: int, keep: int) -> str:
+    os.makedirs(directory, exist_ok=True)
+    final = os.path.join(directory, f"step_{step:08d}")
+    tmp = final + ".tmp"
+    os.makedirs(tmp, exist_ok=True)
+    torch.save(flat, os.path.join(tmp, f"host{host_id}.pt"))
+    manifest = {
+        "step": step,
+        "hosts": 1,
+        "leaves": {k: {"shape": list(v.shape),
+                       "dtype": str(v.dtype).removeprefix("torch.")}
+                   for k, v in flat.items()},
+    }
+    with open(os.path.join(tmp, "manifest.json"), "w") as f:
+        json.dump(manifest, f)
+    with open(os.path.join(tmp, "COMMIT"), "w") as f:
+        f.write("ok")
+    if os.path.exists(final):
+        shutil.rmtree(final)
+    os.rename(tmp, final)
+    _gc(directory, keep)
+    return final
+
+
+def _snapshot(state: TrainState) -> Dict[str, torch.Tensor]:
+    return {k: v.detach().to("cpu", copy=True)
+            for k, v in _flatten(state).items()}
+
+
+def save(state: TrainState, directory: str, step: int, *, host_id: int = 0,
+         keep: int = 3) -> str:
+    """Write ``state`` as ``<directory>/step_<step>`` and keep the newest
+    ``keep`` committed steps; returns the step's directory."""
+    return _write(_snapshot(state), directory, step, host_id, keep)
+
+
+def _gc(directory: str, keep: int) -> None:
+    steps = sorted(all_steps(directory))
+    for s in steps[:-keep] if keep > 0 else []:
+        shutil.rmtree(os.path.join(directory, f"step_{s:08d}"),
+                      ignore_errors=True)
+
+
+def all_steps(directory: str):
+    out = []
+    if not os.path.isdir(directory):
+        return out
+    for name in os.listdir(directory):
+        if name.startswith("step_") and not name.endswith(".tmp"):
+            p = os.path.join(directory, name)
+            if os.path.exists(os.path.join(p, "COMMIT")):
+                out.append(int(name[5:]))
+    return out
+
+
+def latest_step(directory: str) -> Optional[int]:
+    steps = all_steps(directory)
+    return max(steps) if steps else None
+
+
+def restore(template: TrainState, directory: str,
+            step: Optional[int] = None, *, host_id: int = 0):
+    """Fill ``template`` (a train state of the checkpoint's structure) in
+    place from a committed step (the latest by default): each leaf's
+    shape is checked against the manifest and its values copied onto the
+    template's tensor, on that tensor's device.  Returns (state, step)."""
+    if step is None:
+        step = latest_step(directory)
+        if step is None:
+            raise FileNotFoundError(f"no committed checkpoint in {directory}")
+    path = os.path.join(directory, f"step_{step:08d}")
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)
+    data = torch.load(os.path.join(path, f"host{host_id}.pt"),
+                      map_location="cpu")
+    with torch.no_grad():
+        for key, leaf in _flatten(template).items():
+            arr = data[key]
+            want = manifest["leaves"][key]
+            if list(arr.shape) != want["shape"] or arr.shape != leaf.shape:
+                raise ValueError(f"{path}: {key} has shape "
+                                 f"{tuple(arr.shape)}, manifest "
+                                 f"{want['shape']}, template "
+                                 f"{tuple(leaf.shape)}")
+            leaf.copy_(arr)
+    return template, step
+
+
+class AsyncCheckpointer:
+    """Snapshot synchronously, persist asynchronously; at most one pending."""
+
+    def __init__(self, directory: str, keep: int = 3):
+        self.directory = directory
+        self.keep = keep
+        self._thread: Optional[threading.Thread] = None
+        self.last_error: Optional[BaseException] = None
+
+    def wait(self):
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self.last_error is not None:
+            raise self.last_error
+
+    def save(self, state: TrainState, step: int):
+        self.wait()
+        snapshot = _snapshot(state)
+
+        def run():
+            try:
+                _write(snapshot, self.directory, step, 0, self.keep)
+            except BaseException as e:  # surfaced on next wait()
+                self.last_error = e
+
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+
+
+# ---------------------------------------------------------------------------
+# Run journal: persistent packet-commit state for resumable (DAG) runs.
+# ---------------------------------------------------------------------------
 
 _JOURNAL_MAGIC = b"RPJ1"
 

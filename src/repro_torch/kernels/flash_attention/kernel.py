@@ -1,12 +1,22 @@
-"""Wrapper of the hand-written CUDA causal flash-attention kernel
-(``csrc/flash_attention.cu``: work items of (batch, kv head, query tile)
-holding the tile's rows of all G query heads, online softmax in float32
-registers; bfloat16 on ``wgmma`` in persistent CTAs fed by TMA rings,
-with the softmax overlapped with the products, float32 on FMAs), which
-replaces the JAX package's Pallas kernel
-``kernels/flash_attention/kernel.py`` ``flash_attention``.
+"""Wrapper of the hand-written CUDA causal flash-attention kernels: the
+forward (``csrc/flash_attention.cu``: work items of (batch, kv head,
+query tile) holding the tile's rows of all G query heads, online softmax
+in float32 registers; bfloat16 on ``wgmma`` in persistent CTAs fed by TMA
+rings, with the softmax overlapped with the products, float32 on FMAs),
+which replaces the JAX package's Pallas kernel
+``kernels/flash_attention/kernel.py`` ``flash_attention``, and its
+gradient (``csrc/flash_attention_bwd.cu``: a pre-pass for each row's
+log-sum-exp and D_i, then dK/dV by key tile and dQ by query tile, float32
+FMAs, no atomics).
 
-``launches`` counts the kernel's launches and nothing else."""
+``flash_attention`` is differentiable: with grad enabled on CUDA tensors
+it runs as a ``torch.autograd.Function`` whose forward saves q, k, v and
+the output and whose backward is :func:`flash_attention_bwd`.  CPU
+tensors take the plain version ``attention_ref``, which autograd
+differentiates.
+
+``launches`` counts the forward kernel's launches and ``bwd_launches``
+the backward's calls (three kernels each), and nothing else."""
 from __future__ import annotations
 
 import torch
@@ -15,40 +25,47 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import ref as R
 
 launches = 0
+bwd_launches = 0
 
 MAX_HEAD_DIM = 128
 BF16_HEAD_DIMS = (64, 80, 128)  # the wgmma kernel's; every dense config
 MAX_GROUP = 64          # query heads per kv head: one CTA holds >= 1 position
 
 
-def flash_attention(q, k, v):
-    """Causal GQA attention.  q: (B,S,H,D); k,v: (B,S,KH,D), float32
-    (D <= 128) or bfloat16 (D of 64, 80 or 128), any S -> (B,S,H,D) in
-    q's dtype.  CPU tensors take the plain version; CUDA tensors launch
-    the kernel."""
-    global launches
-    if q.device.type == "cpu":
-        return R.attention_ref(q, k, v)
+def _check(name, q, k, v, *more):
+    """Raise on what the kernels do not take; returns (B, S, H, KH, D)."""
     if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"flash_attention: expected float32 or bfloat16, "
+        raise TypeError(f"{name}: expected float32 or bfloat16, "
                         f"got {q.dtype}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        build.check_cuda(f"flash_attention {name}", t, q.dtype, 4)
+    ts = (("q", q), ("k", k), ("v", v)) + more
+    for tn, t in ts:
+        build.check_cuda(f"{name} {tn}", t, q.dtype, 4)
         if t.device != q.device:
-            raise ValueError(f"flash_attention: {name} on another device")
+            raise ValueError(f"{name}: {tn} on another device")
     B, S, H, D = q.shape
     KH = k.shape[2]
     if k.shape != (B, S, KH, D) or v.shape != k.shape:
-        raise ValueError(f"flash_attention: k {tuple(k.shape)} / v "
+        raise ValueError(f"{name}: k {tuple(k.shape)} / v "
                          f"{tuple(v.shape)} do not fit q {tuple(q.shape)}")
+    for tn, t in more:
+        if t.shape != q.shape:
+            raise ValueError(f"{name}: {tn} {tuple(t.shape)} does not fit "
+                             f"q {tuple(q.shape)}")
     if (KH == 0 or H % KH or H // KH > MAX_GROUP or not 0 < D <= MAX_HEAD_DIM
             or (q.dtype == torch.bfloat16 and D not in BF16_HEAD_DIMS)):
-        raise ValueError(f"flash_attention: H={H}, KH={KH}, D={D}, "
+        raise ValueError(f"{name}: H={H}, KH={KH}, D={D}, "
                          f"{q.dtype} not supported (H % KH == 0, H/KH <= "
                          f"{MAX_GROUP}, D <= {MAX_HEAD_DIM}; bfloat16: D in "
                          f"{BF16_HEAD_DIMS})")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_attention: q, k, v must be 16-byte aligned")
+    if any(t.data_ptr() % 16 for _, t in ts):
+        raise ValueError(f"{name}: {', '.join(n for n, _ in ts)} must be "
+                         f"16-byte aligned")
+    return B, S, H, KH, D
+
+
+def _forward(q, k, v):
+    global launches
+    B, S, H, KH, D = _check("flash_attention", q, k, v)
     out = torch.empty_like(q)
     if B and S:
         build.launch("flash_attention_fwd", q, q.data_ptr(), k.data_ptr(),
@@ -56,3 +73,53 @@ def flash_attention(q, k, v):
                      int(q.dtype == torch.bfloat16))
         launches += 1
     return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v):
+        out = _forward(q, k, v)
+        ctx.save_for_backward(q, k, v, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        return flash_attention_bwd(q, k, v, out, dout.contiguous())
+
+
+def flash_attention(q, k, v):
+    """Causal GQA attention.  q: (B,S,H,D); k,v: (B,S,KH,D), float32
+    (D <= 128) or bfloat16 (D of 64, 80 or 128), any S -> (B,S,H,D) in
+    q's dtype.  CPU tensors take the plain version; CUDA tensors launch
+    the kernel, and with grad enabled record its backward."""
+    if q.device.type == "cpu":
+        return R.attention_ref(q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v)
+    return _forward(q, k, v)
+
+
+def flash_attention_bwd(q, k, v, out, dout):
+    """Gradient of causal GQA attention.  q, out, dout: (B,S,H,D); k, v:
+    (B,S,KH,D), all of one dtype (float32 or bfloat16, the forward's
+    limits) -> (dq, dk, dv) in that dtype.  CPU tensors take the plain
+    version ``attention_bwd_ref``; CUDA tensors launch the kernels."""
+    global bwd_launches
+    if q.device.type == "cpu":
+        return R.attention_bwd_ref(q, k, v, out, dout)
+    B, S, H, KH, D = _check("flash_attention_bwd", q, k, v, ("out", out),
+                            ("dout", dout))
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if B and S:
+        # each row's log-sum-exp and D_i, written and read by the call
+        scratch = torch.empty(2 * B * H * S, dtype=torch.float32,
+                              device=q.device)
+        build.launch("flash_attention_bwd", q, q.data_ptr(), k.data_ptr(),
+                     v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+                     dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                     scratch.data_ptr(), B, S, H, KH, D,
+                     int(q.dtype == torch.bfloat16))
+        bwd_launches += 1
+    return dq, dk, dv

@@ -8,11 +8,15 @@ keeps one module per layer with those weights flattened to the matmul
 layout of ``models/layers.py`` (``wq`` (d, H*hd), ``wo`` (H*hd, d)).  A
 Mamba layer's arrays already have the port's layouts (``x @ w``) and are
 carried over as they are; its layer has no ``ln2`` and no ``mlp``.  This
-module is the only place that knows both layouts.
+module is the only place that knows both layouts.  Any tree of the
+parameters' structure maps the same way: a JAX gradient tree or an AdamW
+moment tree becomes a dict keyed by the port's parameter names
+(:func:`named_from_jax`), and a whole JAX ``TrainState`` becomes the
+port's (:func:`state_from_jax`).
 """
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
@@ -21,11 +25,16 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.optim.adamw import TrainState
 
 
 def _tensor(a, device) -> nn.Parameter:
-    return nn.Parameter(torch.from_numpy(np.array(a)).to(device),
-                        requires_grad=False)
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":     # numpy's ml_dtypes extension type
+        t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return nn.Parameter(t.to(device), requires_grad=False)
 
 
 def params_from_jax(cfg: ModelConfig, params_np: Mapping[str, Any],
@@ -71,3 +80,24 @@ def params_from_jax(cfg: ModelConfig, params_np: Mapping[str, Any],
             else _tensor(params_np["lm_head"], device))
     return T.LM(_tensor(params_np["embed"], device), layers,
                 _tensor(params_np["final_norm"], device), head)
+
+
+def named_from_jax(cfg: ModelConfig, tree_np: Mapping[str, Any],
+                   device="cuda") -> Dict[str, torch.Tensor]:
+    """A tree of the parameters' structure (gradients, moments) -> a dict
+    from the port's parameter names (``named_parameters()``) to tensors
+    on ``device``."""
+    return {n: p.detach() for n, p in
+            params_from_jax(cfg, tree_np, device).named_parameters()}
+
+
+def state_from_jax(cfg: ModelConfig, state_np, device="cuda") -> TrainState:
+    """A JAX ``TrainState`` (step, params, mu, nu as numpy arrays) -> the
+    port's :class:`TrainState` on ``device``, its parameters trainable."""
+    params = params_from_jax(cfg, state_np.params, device)
+    params.requires_grad_(True)
+    return TrainState(
+        step=torch.tensor(int(np.asarray(state_np.step)), dtype=torch.int32,
+                          device=device),
+        params=params, mu=named_from_jax(cfg, state_np.mu, device),
+        nu=named_from_jax(cfg, state_np.nu, device))

@@ -40,10 +40,24 @@ def _frozen(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
+class _Abstract:
+    """Stands in for a ``torch.Generator`` when only the parameters'
+    shapes are wanted: every ``*_init`` then builds on the ``meta``
+    device and allocates nothing."""
+    device = torch.device("meta")
+
+
+ABSTRACT = _Abstract()
+
+
 def _dense_init(gen: torch.Generator, shape, dtype, fan_in: int,
                 scale: Optional[float] = None) -> nn.Parameter:
     """Normal(0, 1/sqrt(fan_in)) (or ``scale``) in float32, cast to
-    ``dtype``, on the generator's device; frozen (the port serves)."""
+    ``dtype``, on the generator's device; frozen (serving keeps it so,
+    training calls ``requires_grad_``).  On the ``meta`` device
+    (:data:`ABSTRACT`) only the shape and dtype are made."""
+    if gen.device.type == "meta":
+        return _frozen(torch.empty(shape, dtype=dtype, device="meta"))
     scale = scale if scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
     w = torch.randn(shape, generator=gen, dtype=torch.float32,
                     device=gen.device) * scale
@@ -323,5 +337,5 @@ def _later(what: str, item: str):
 
 
 mla_init = mla_apply = mla_cache_init = _later(
-    "MLA attention", "Queue A item 8")
-moe_init = moe_apply = _later("the MoE layer", "Queue A item 8")
+    "MLA attention", "Queue A item 5")
+moe_init = moe_apply = _later("the MoE layer", "Queue A item 5")

@@ -5,7 +5,10 @@ stablelm-3b) and of the pure Mamba1 family (falcon-mamba-7b):
 
 The JAX package stacks its layers' parameters over ``n_blocks`` and runs
 them with ``lax.scan`` (rematerialised for training); the port keeps one
-``nn.Module`` per layer and runs them in a plain Python loop.  The cache
+``nn.Module`` per layer and runs them in a plain Python loop, each layer
+under ``torch.utils.checkpoint`` when the training forward rematerialises
+(``cfg.remat_policy``; the JAX package's two-level grouping,
+``_auto_groups``, changes memory only and is not ported yet).  The cache
 is a list with one entry per layer: a GQA layer's ``{"k", "v"}`` tensors,
 which prefill and decode write in place, or a Mamba layer's ``{"h",
 "conv"}`` state, which prefill and decode replace in the list.  A Mamba
@@ -46,7 +49,7 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: only the dense GQA and pure Mamba1 families are "
             f"ported to PyTorch (MoE, MLA, hybrid and frontends: "
-            f"ROADMAP.md Queue A item 8)")
+            f"ROADMAP.md Queue A item 5)")
     if cfg.score_dtype != "float32":
         raise NotImplementedError(
             f"{cfg.name}: score_dtype {cfg.score_dtype!r}; the attention "
@@ -104,6 +107,22 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> LM:
     return LM(embed, layers, L._ones(cfg.d_model, dtype, dev), head)
 
 
+def init_abstract(cfg: ModelConfig) -> LM:
+    """The parameters' shapes and dtypes on the ``meta`` device: nothing
+    is allocated."""
+    return init_params(cfg, L.ABSTRACT)
+
+
+def param_count(cfg: ModelConfig) -> Tuple[int, int]:
+    """(total_params, active_params), as the JAX package counts them:
+    ``active`` drops the input embedding gather (the dense and Mamba
+    families route no experts), for the 6*N_active*D useful-FLOPs
+    estimate.  Computed from :func:`init_abstract`."""
+    params = init_abstract(cfg)
+    total = sum(p.numel() for p in params.parameters())
+    return total, total - params.embed.numel()
+
+
 def param_bytes(params: LM) -> int:
     return sum(p.numel() * p.element_size() for p in params.parameters())
 
@@ -144,7 +163,41 @@ def _apply_layer(cfg: ModelConfig, lp: Layer, x, positions, cache=None,
     return x, cache
 
 
-def _run(cfg, params: LM, x, positions, cache=None, pos=None):
+def _save_dots():
+    """``context_fn`` of ``torch.utils.checkpoint`` for ``remat_policy``
+    "dots": the matmuls' outputs are saved, the rest recomputed (the JAX
+    package's ``checkpoint_dots``)."""
+    from torch.utils.checkpoint import (CheckpointPolicy,
+                                        create_selective_checkpoint_contexts)
+    aten = torch.ops.aten
+    dots = {aten.mm.default, aten.bmm.default, aten.addmm.default}
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in dots
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+    return create_selective_checkpoint_contexts(policy)
+
+
+def _remat_layer(cfg: ModelConfig, lp: Layer, x, positions):
+    """One training layer, rematerialised as ``cfg.remat_policy`` says:
+    "nothing" saves only the layer's input and recomputes the rest in
+    the backward, "dots" also saves the matmul outputs."""
+    from torch.utils.checkpoint import checkpoint
+
+    def body(x):
+        return _apply_layer(cfg, lp, x, positions)[0]
+    if cfg.remat_policy == "dots":
+        return checkpoint(body, x, use_reentrant=False,
+                          context_fn=_save_dots)
+    return checkpoint(body, x, use_reentrant=False)
+
+
+def _run(cfg, params: LM, x, positions, cache=None, pos=None,
+         remat: bool = False):
+    if remat:
+        for lp in params.layers:
+            x = _remat_layer(cfg, lp, x, positions)
+        return L.rmsnorm(x, params.final_norm, cfg.norm_eps)
     for i, lp in enumerate(params.layers):
         x, layer_cache = _apply_layer(cfg, lp, x, positions,
                                       None if cache is None else cache[i],
@@ -158,13 +211,23 @@ def _run(cfg, params: LM, x, positions, cache=None, pos=None):
 # public entry points
 # ---------------------------------------------------------------------------
 
-def forward(cfg: ModelConfig, params: LM, tokens) -> Tuple[torch.Tensor,
-                                                           torch.Tensor]:
-    """Scoring forward. tokens: (B,S) int.  Returns (logits, aux_loss);
-    the dense and Mamba families have no auxiliary loss (0.0)."""
+def forward(cfg: ModelConfig, params: LM, tokens, *,
+            remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Training/scoring forward. tokens: (B,S) int.  Returns (logits,
+    aux_loss); the dense and Mamba families have no auxiliary loss (0.0).
+
+    With ``remat`` and grad enabled each layer runs under
+    ``torch.utils.checkpoint`` (``use_reentrant=False``) unless
+    ``cfg.remat_policy`` is "everything" or ``cfg.remat_inner`` is
+    "none", as the JAX package checkpoints its scan body.  Checkpointing
+    changes what the backward keeps, not the values."""
     x = embed_tokens(cfg, params, tokens)
     positions = torch.arange(x.shape[1], device=x.device)
-    logits = lm_head(cfg, params, _run(cfg, params, x, positions))
+    remat = (remat and torch.is_grad_enabled()
+             and cfg.remat_policy != "everything"
+             and cfg.remat_inner != "none")
+    logits = lm_head(cfg, params, _run(cfg, params, x, positions,
+                                       remat=remat))
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
 
 

@@ -1,0 +1,115 @@
+"""AdamW with global-norm clipping and a cosine schedule, the JAX
+package's ``optim/adamw.py`` with its arithmetic.
+
+The state keeps the parameters as the model's ``nn.Module`` and the two
+moments as dicts from parameter name (``named_parameters()``) to a tensor
+of ``moment_dtype`` on that parameter's device.  All update math is in
+float32, the bias corrections from the float32 step, and each new value
+is cast back to its parameter's dtype.  Where the JAX package builds new
+arrays, :func:`apply_updates` writes the parameters and moments in place
+under ``torch.no_grad()``: a second copy of the weights is never made.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Dict, Mapping, NamedTuple, Tuple
+
+import torch
+
+
+@dataclass(frozen=True)
+class OptConfig:
+    lr: float = 3e-4
+    betas: Tuple[float, float] = (0.9, 0.95)
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    min_lr_frac: float = 0.1
+    # moments dtype: f32 is the default; bf16 halves the optimizer's memory
+    moment_dtype: str = "float32"
+
+
+class TrainState(NamedTuple):
+    step: torch.Tensor              # () int32, on the parameters' device
+    params: Any                     # the model's nn.Module
+    mu: Dict[str, torch.Tensor]
+    nu: Dict[str, torch.Tensor]
+
+
+def lr_at(opt: OptConfig, step) -> torch.Tensor:
+    """Linear warm-up then cosine decay to ``min_lr_frac``; float32."""
+    s = torch.as_tensor(step).float()
+    warm = torch.clamp(s / max(opt.warmup_steps, 1), max=1.0)
+    t = torch.clamp((s - opt.warmup_steps)
+                    / max(opt.total_steps - opt.warmup_steps, 1), 0.0, 1.0)
+    cos = 0.5 * (1 + torch.cos(math.pi * t))
+    frac = opt.min_lr_frac + (1 - opt.min_lr_frac) * cos
+    return opt.lr * warm * frac
+
+
+def init_state(params, opt: OptConfig) -> TrainState:
+    """Zero moments for every parameter, step 0; makes the parameters
+    trainable (``requires_grad_``)."""
+    params.requires_grad_(True)
+    mdt = getattr(torch, opt.moment_dtype)
+    named = dict(params.named_parameters())
+    dev = next(iter(named.values())).device
+    return TrainState(
+        step=torch.zeros((), dtype=torch.int32, device=dev), params=params,
+        mu={n: torch.zeros(p.shape, dtype=mdt, device=p.device)
+            for n, p in named.items()},
+        nu={n: torch.zeros(p.shape, dtype=mdt, device=p.device)
+            for n, p in named.items()})
+
+
+def _reference_ndim(name: str, p: torch.Tensor) -> int:
+    """The rank of the JAX package's array for parameter ``name``: it
+    stacks every layer's parameters over a leading ``n_blocks`` axis, so
+    its ``ndim >= 2`` rule also decays each layer's norms and vectors
+    (and never ``final_norm``).  The port keeps one module per layer and
+    counts that axis back in."""
+    return p.ndim + (1 if name.startswith("layers.") else 0)
+
+
+def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                          for x in tree.values()))
+
+
+@torch.no_grad()
+def apply_updates(state: TrainState, grads: Mapping[str, torch.Tensor],
+                  opt: OptConfig) -> Tuple[TrainState, Dict]:
+    """One AdamW step with ``grads`` (name -> gradient, any dtype, on each
+    parameter's device).  Writes the parameters and moments in place and
+    returns the state with the step advanced and ``{"grad_norm", "lr"}``
+    (0-d float32 tensors)."""
+    b1, b2 = opt.betas
+    step = state.step + 1
+    gnorm = global_norm(grads)
+    scale = torch.clamp(opt.clip_norm / torch.clamp(gnorm, min=1e-9),
+                        max=1.0)
+    lr = lr_at(opt, step)
+    mdt = getattr(torch, opt.moment_dtype)
+    sf = step.float()
+    bc1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32,
+                                     device=sf.device), sf)
+    bc2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32,
+                                     device=sf.device), sf)
+    for name, p in state.params.named_parameters():
+        dev = p.device
+        g = grads[name].float() * scale.to(dev)
+        mu32 = state.mu[name].float() * b1 + (1 - b1) * g
+        nu32 = state.nu[name].float() * b2 + (1 - b2) * g * g
+        mu_hat = mu32 / bc1.to(dev)
+        nu_hat = nu32 / bc2.to(dev)
+        delta = mu_hat / (torch.sqrt(nu_hat) + opt.eps)
+        if _reference_ndim(name, p) >= 2:  # decoupled weight decay on
+            delta = delta + opt.weight_decay * p.float()   # matrices only
+        p.copy_((p.float() - lr.to(dev) * delta).to(p.dtype))
+        state.mu[name].copy_(mu32.to(mdt))
+        state.nu[name].copy_(nu32.to(mdt))
+    metrics = {"grad_norm": gnorm, "lr": lr}
+    return TrainState(step, state.params, state.mu, state.nu), metrics

@@ -290,6 +290,59 @@ def test_flash_attention_kernel_rejects_bf16_head_dim_without_tile(card):
     assert KA.launches == before
 
 
+# the backward against its plain version: max |err| within 1e-4 of each
+# output's largest |value| in float32, 2e-2 in bfloat16 (the kernel rounds
+# its float32 sums to bfloat16 once, at the end)
+ATTN_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("B,S,H,KH,D,dtype", [
+    (1, 64, 4, 2, 64, torch.float32),         # one tile
+    (2, 200, 8, 2, 64, torch.float32),        # ragged S, G = 4
+    (1, 130, 4, 4, 128, torch.float32),
+    (1, 77, 6, 3, 80, torch.float32),         # D = 80 padded to 96
+    (1, 1000, 32, 8, 64, torch.bfloat16),     # llama3.2-1b heads, ragged
+    (2, 256, 12, 2, 80, torch.bfloat16),      # G = 6
+    (1, 129, 8, 1, 128, torch.bfloat16),      # G = 8
+])
+def test_flash_attention_bwd_kernel_matches_plain(card, B, S, H, KH, D,
+                                                  dtype):
+    from repro_torch.kernels.flash_attention import kernel as KA, ref as RA
+    q, k, v = _attn_inputs(card, B, S, H, KH, D, dtype, S + 3 * D)
+    out = RA.attention_ref(q, k, v).contiguous()
+    dout = _attn_inputs(card, B, S, H, H, D, dtype, S + 5)[0]
+    before = KA.bwd_launches
+    got = KA.flash_attention_bwd(q, k, v, out, dout)
+    again = KA.flash_attention_bwd(q, k, v, out, dout)
+    torch.cuda.synchronize()
+    assert KA.bwd_launches == before + 2
+    want = RA.attention_bwd_ref(q, k, v, out, dout)
+    for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert torch.equal(g, a), f"{name}: two calls differ"
+        err = float((g.float() - w.float()).abs().max())
+        top = float(w.float().abs().max())
+        assert err <= ATTN_BWD_TOL[dtype] * top, (name, err, top)
+
+
+def test_flash_attention_autograd_launches_the_backward(card):
+    """Under autograd a CUDA flash_attention records its backward kernel:
+    torch.autograd.grad gives attention_bwd_ref's gradients."""
+    from repro_torch.kernels.flash_attention import kernel as KA, ref as RA
+    q, k, v = (t.requires_grad_() for t in _attn_inputs(
+        card, 2, 150, 8, 2, 64, torch.float32, 11))
+    dout = _attn_inputs(card, 2, 150, 8, 8, 64, torch.float32, 12)[0]
+    fwd, bwd = KA.launches, KA.bwd_launches
+    out = KA.flash_attention(q, k, v)
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    torch.cuda.synchronize()
+    assert (KA.launches, KA.bwd_launches) == (fwd + 1, bwd + 1)
+    want = RA.attention_bwd_ref(q.detach(), k.detach(), v.detach(),
+                                out.detach(), dout)
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
+
+
 @pytest.mark.parametrize("B,S,H,KH,D,pos,dtype", [
     (2, 256, 8, 4, 64, 255, torch.bfloat16),
     (1, 512, 4, 1, 128, 300, torch.bfloat16),   # masked tail of a block
@@ -470,3 +523,43 @@ def test_mamba_model_on_card_matches_host(card):
         torch.backends.cuda.matmul.allow_tf32 = tf32
     assert KS.launches == before + cfg.n_layers
     torch.testing.assert_close(got, host, rtol=2e-4, atol=2e-4)
+
+
+def test_train_step_on_card_matches_host(card):
+    """One ``make_train_step`` step of the smoke llama3.2-1b in float32
+    (TF32 off) on the card and on the host from the same weights: two
+    flash_attention launches a layer (forward and the rematerialised
+    recompute) and one backward call a layer on the card; loss, gradient
+    norm and updated parameters agree."""
+    import copy
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels.flash_attention import kernel as KA
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw as A
+    from repro_torch.training.step import make_train_step
+    cfg = get_smoke("llama3.2-1b")
+    opt = A.OptConfig(lr=1e-3, warmup_steps=1)
+    host = A.init_state(T.init_params(cfg, torch.Generator().manual_seed(0)),
+                        opt)
+    dev = A.init_state(copy.deepcopy(host.params).to(card), opt)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (4, 64)).astype(np.int32))
+    step = make_train_step(cfg, opt)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        host, mh = step(host, {"tokens": toks})
+        fwd, bwd = KA.launches, KA.bwd_launches
+        dev, md = step(dev, {"tokens": toks.to(card)})
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert (KA.launches - fwd, KA.bwd_launches - bwd) == (
+        2 * cfg.n_layers, cfg.n_layers)
+    assert int(dev.step) == 1
+    for k in ("loss", "grad_norm"):
+        np.testing.assert_allclose(float(md[k]), float(mh[k]), rtol=1e-4)
+    for (n, p), q in zip(dev.params.named_parameters(),
+                         host.params.parameters()):
+        torch.testing.assert_close(p.detach().cpu(), q.detach(), rtol=1e-4,
+                                   atol=1e-5, msg=n)
