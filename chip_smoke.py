@@ -75,7 +75,8 @@ Phases, each fatal on failure:
    dims 80 and 128 (bfloat16 at 2e-2, float32 at rtol 1e-4 / atol 2e-5),
    and time kernel, plain version and ``scaled_dot_product_attention``
    (with the kernel/SDPA ratio) at the serving shapes, the long shapes
-   and qwen3-32b's heads (D = 128); the profiler must see exactly one
+   and qwen3-32b's heads (D = 128), the forward also keeping each row's
+   log-sum-exp as training runs it; the profiler must see exactly one
    kernel on the device for one ``flash_decode`` call at the serving
    shape;
 9. serve falcon-mamba-7b at full width (``--small``: 2 of its 64 layers)
@@ -113,11 +114,16 @@ Phases, each fatal on failure:
     state and tokens, at the same tolerance; an ``AsyncCheckpointer`` save
     restored into a fresh state, whose next step's loss must equal the
     original's;
-14. hold ``flash_attention_bwd`` against ``attention_bwd_ref`` at the
-    training packet (B=1, S=4096, 32/8 heads, D=64, bfloat16), a ragged S
-    and head dims 80 and 128 in both dtypes (max |err| within 2e-2 of each
-    output's largest |value| in bfloat16, 1e-4 in float32), two calls
-    bitwise equal, and time kernel, plain version and SDPA's backward
+14. check that the bfloat16 backward's dK/dV and dQ kernels run on
+    ``wgmma`` (HGMMA in their SASS, ``cuobjdump``); hold
+    ``flash_attention_bwd``, fed the log-sum-exp that the forward keeps,
+    against ``attention_bwd_ref`` at the training packet (B=1, S=4096,
+    32/8 heads, D=64, bfloat16), a ragged S, head dims 80 and 128 in both
+    dtypes and the wgmma kernels' edges (G = 1, 4, 6, 8; S = 2, 50, 127,
+    129) in bfloat16 (max |err| within 2e-2 of each output's largest
+    |value| in bfloat16, 1e-4 in float32), two calls bitwise equal and
+    equal to a call that has the forward write the log-sum-exp again;
+    time the backward alone, plain version and SDPA's backward
     (``torch.autograd.grad`` through one ``scaled_dot_product_attention``)
     at the training packet.
 
@@ -557,13 +563,18 @@ def serving_phases(args, torch, dev0, launches, record):
         res = dict(
             err=err, shape=shape,
             ms=cuda_ms(lambda: KA.flash_attention(q, k, v), torch),
+            # the same kernel writing each row's log-sum-exp, as a training
+            # forward does: not part of the record's time
+            keep_lse_ms=cuda_ms(lambda: KA.flash_attention_fwd(
+                q, k, v, keep_lse=True), torch),
             plain_ms=cuda_ms(lambda: RA.attention_ref(q, k, v), torch, 2),
             library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True), torch),
             nbytes=elt * (2 * B * S * h * d + 2 * B * S * kh * d),
             ops=4.0 * B * h * d * S * (S + 1) / 2,
             ops_per_s=BF16_OPS_S if dtype == torch.bfloat16 else FP32_OPS_S)
-        log(f"  timed {shape}: kernel {res['ms']:.4f} ms, SDPA "
+        log(f"  timed {shape}: kernel {res['ms']:.4f} ms (keeping the "
+            f"log-sum-exp {res['keep_lse_ms']:.4f} ms), SDPA "
             f"{res['library_ms']:.4f} ms, kernel/SDPA "
             f"{res['ms'] / res['library_ms']:.3f}")
         del q, k, v, qt, kt, vt, got, want, lib
@@ -881,11 +892,15 @@ def training_phases(args, torch, dev0, launches, attach):
                  if e.device_type == torch.autograd.DeviceType.CUDA),
                 reverse=True)
             busy = sum(ms for ms, _ in kern)
-            bwd_ms = sum(ms for ms, k in kern if "bwd_" in k)
+            bwd = [(ms, k) for ms, k in kern if "bwd_" in k]
+            bwd_ms = sum(ms for ms, _ in bwd)
             fwd_ms = sum(ms for ms, k in kern if "flash_fwd" in k)
             log(f"profile train step: {busy / 1e3:.3f} s of kernels in "
                 f"{wall:.3f} s (busy {busy / 1e3 / wall:.1%}); attention "
-                f"backward {bwd_ms / 1e3:.3f} s, forward {fwd_ms / 1e3:.3f}"
+                f"backward {bwd_ms / 1e3:.3f} s ({bwd_ms / busy:.1%} of the "
+                f"kernels: " + ", ".join(
+                    f"{k.split('::')[-1].split('(')[0][:40]} {ms:.1f} ms"
+                    for ms, k in bwd) + f"), forward {fwd_ms / 1e3:.3f}"
                 f" s; top: " + "; ".join(f"{ms:.1f} ms {k[:50]}"
                                          for ms, k in kern[:10]))
         except Exception as e:
@@ -1059,11 +1074,33 @@ def training_phases(args, torch, dev0, launches, attach):
     torch.cuda.empty_cache()
 
 
+def hgmma_counts(lib_path):
+    """The SASS of the kernels' library (``cuobjdump -sass``): HGMMA
+    instructions by kernel name, or None where the toolkit has no
+    cuobjdump."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+        elif "HGMMA" in line and fn:
+            counts[fn] = counts.get(fn, 0) + 1
+    return counts
+
+
 def attention_bwd_phase(args, torch, dev0, record):
     """14. The backward kernel against its plain version at the training
-    packet and other shapes, bitwise-equal across calls; kernel, plain
-    version and SDPA's backward timed beside the bound."""
+    packet and other shapes, bitwise-equal across calls and with the
+    log-sum-exp kept by the forward or written again; its bfloat16 kernels
+    on wgmma (HGMMA in their SASS); kernel, plain version and SDPA's
+    backward timed beside the bound."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import kernel as KA, ref as RA
 
     F = torch.nn.functional
@@ -1077,17 +1114,24 @@ def attention_bwd_phase(args, torch, dev0, record):
     def bwd_check(B, S, h, kh, d, dtype, timed=False):
         q, k, v = (randn(s, dtype) for s in ((B, S, h, d), (B, S, kh, d),
                                              (B, S, kh, d)))
-        out = KA.flash_attention(q, k, v)
+        # the forward as training runs it: the output and each row's
+        # log-sum-exp, which the backward reads
+        out, lse = KA.flash_attention_fwd(q, k, v, keep_lse=True)
         dout = randn((B, S, h, d), dtype)
-        got = KA.flash_attention_bwd(q, k, v, out, dout)
-        again = KA.flash_attention_bwd(q, k, v, out, dout)
+        got = KA.flash_attention_bwd(q, k, v, out, dout, lse)
+        again = KA.flash_attention_bwd(q, k, v, out, dout, lse)
+        fresh = KA.flash_attention_bwd(q, k, v, out, dout)  # writes it again
         want = RA.attention_bwd_ref(q, k, v, out, dout)
         tol = ATTN_BWD_TOL[str(dtype).split(".")[-1]]
         err = 0.0
         shape = f"B={B} S={S} H={h} KH={kh} D={d} {dtype}"
-        for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
+        for name, g, a, f, w in zip(("dq", "dk", "dv"), got, again, fresh,
+                                    want):
             check(torch.equal(g, a), f"flash_attention_bwd {shape}: {name} "
                                      f"differs between two calls")
+            check(torch.equal(g, f), f"flash_attention_bwd {shape}: {name} "
+                                     f"differs with the log-sum-exp "
+                                     f"written again")
             e = float((g.float() - w.float()).abs().max())
             top = float(w.float().abs().max())
             check(e <= tol * top, f"flash_attention_bwd {shape}: {name} "
@@ -1095,7 +1139,7 @@ def attention_bwd_phase(args, torch, dev0, record):
                                   f"{top:.3g}")
             err = max(err, e)
         log(f"  flash_attention_bwd {shape}: max abs err {err:.3g}, two "
-            f"calls bitwise equal")
+            f"calls and the log-sum-exp written again bitwise equal")
         res = None
         if timed:
             qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
@@ -1107,7 +1151,7 @@ def attention_bwd_phase(args, torch, dev0, record):
             res = dict(
                 err=err, shape=shape,
                 ms=cuda_ms(lambda: KA.flash_attention_bwd(q, k, v, out,
-                                                          dout), torch),
+                                                          dout, lse), torch),
                 plain_ms=cuda_ms(lambda: RA.attention_bwd_ref(q, k, v, out,
                                                               dout),
                                  torch, 2),
@@ -1122,11 +1166,21 @@ def attention_bwd_phase(args, torch, dev0, record):
                 f"{res['library_ms']:.3f} ms, kernel/SDPA "
                 f"{res['ms'] / res['library_ms']:.2f}")
             del qt, kt, vt, lib_out, dlib
-        del q, k, v, out, dout, got, again, want
+        del q, k, v, out, lse, dout, got, again, fresh, want
         torch.cuda.empty_cache()
         return res
 
     bf16, f32 = torch.bfloat16, torch.float32
+    counts = hgmma_counts(build.load()._name)
+    if counts is None:
+        log("flash_attention_bwd SASS: no cuobjdump in the toolkit")
+    else:
+        bwd_mma = {k: n for k, n in counts.items() if "bwd_" in k}
+        log("flash_attention_bwd SASS: HGMMA instructions " + ", ".join(
+            f"{n} in {k[:60]}" for k, n in sorted(bwd_mma.items())))
+        check(len(bwd_mma) == 6, f"flash_attention_bwd: HGMMA in "
+                                 f"{sorted(bwd_mma)}, expected the dK/dV "
+                                 f"and dQ kernels at D = 64, 80, 128")
     log("flash_attention_bwd against its plain version:")
     packet = bwd_check(1, TRAIN["seq"], H, KH, D, bf16, timed=True)
     bwd_check(2, 1000, H, KH, D, bf16)            # ragged S
@@ -1135,6 +1189,15 @@ def attention_bwd_phase(args, torch, dev0, record):
     bwd_check(2, 256, 8, 4, 80, bf16)
     bwd_check(1, 384, 16, 2, 128, f32)            # qwen3-32b's head dim
     bwd_check(1, 384, 16, 2, 128, bf16)
+    # the wgmma kernels' edges, as tests/test_torch_cuda.py covers them:
+    # G = 1, 4, 6 (idle packed rows), 8; S = 2, below a 64-row step, below
+    # a 128-key tile, ragged.  (At S = 1 dq and dk are exactly zero, so no
+    # share of their largest |value| bounds the rounding: the card tests
+    # hold that case with an absolute floor.)
+    for B, S, h, kh, d in ((2, 2, 8, 8, 64), (2, 50, 24, 4, 80),
+                           (1, 127, 16, 2, 128), (2, 129, 8, 2, 64),
+                           (1, 1000, 12, 2, 128), (1, 333, 32, 4, 80)):
+        bwd_check(B, S, h, kh, d, bf16)
     record("flash_attention_bwd", "src/repro_torch/csrc/flash_attention_bwd.cu",
            "src/repro/kernels/flash_attention/kernel.py:69",
            packet["err"], packet["ms"], packet["plain_ms"], packet["nbytes"],

@@ -34,6 +34,16 @@
 // named barriers), with the scale folded into one FMA and ex2.approx per
 // score.
 //
+// For training both kernels can keep each row's log-sum-exp of its
+// scaled scores in base 2 (lse2, float32 (B, H, S): m * scale * log2 e +
+// log2 l from the running max m and denominator l of the epilogue), which
+// the backward (flash_attention_bwd.cu) reads instead of recomputing the
+// softmax's statistics.  The store is skipped when lse2 is null (serving,
+// prefill), and it changes nothing else: the output is the same either way.
+//
+// The wgmma helpers (fence/commit/wait, the 128-byte-swizzle descriptor,
+// the SS and RS products) are shared with the backward in hopper.cuh.
+//
 // float32 (0 < D <= 128), for the card-against-host parity checks:
 // flash_fwd_kernel, 64 rows (kRows = 64: BQ = 64/G) x 64-key tiles staged
 // in shared memory as float32; 128 threads form 16 row groups of 4 rows x
@@ -73,8 +83,9 @@ constexpr size_t smem_floats() {
 template <int DP>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, int S,
-                 int H, int KH, int D, int G, int BQ, float scale) {
+                 const float* __restrict__ v, float* __restrict__ o,
+                 float* __restrict__ lse2, int S, int H, int KH, int D, int G,
+                 int BQ, float scale) {
   constexpr int QS = DP + 4;  // row strides (floats): 16-byte aligned rows
   constexpr int KS = DP + 4;  // whose float4 reads hit distinct banks
   constexpr int VS = DP;
@@ -236,6 +247,11 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float* orow =
         o + ((static_cast<size_t>(b) * S + row_pos[i]) * H + kvh * G) * D +
         static_cast<size_t>(r % G) * D;
+    // the row's log-sum-exp of its scaled scores, in base 2, for the
+    // backward
+    if (lse2 != nullptr && cg == 0)
+      lse2[(static_cast<size_t>(b) * H + kvh * G + r % G) * S + row_pos[i]] =
+          m[i] * 1.4426950408889634f + log2f(den);
 #pragma unroll
     for (int c = 0; c < CPT; ++c)
 #pragma unroll
@@ -248,7 +264,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int DP>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int S, int H, int KH, int D, cudaStream_t stream) {
+                   float* lse2, int B, int S, int H, int KH, int D,
+                   cudaStream_t stream) {
   const int G = H / KH;
   const int BQ = kRows / G;
   const size_t smem = smem_floats<DP>() * sizeof(float);
@@ -259,8 +276,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((S + BQ - 1) / BQ, KH, B);
   flash_fwd_kernel<DP><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), S, H, KH, D, G,
-      BQ, static_cast<float>(1.0 / std::sqrt(static_cast<double>(D))));
+      static_cast<const float*>(v), static_cast<float*>(o), lse2, S, H, KH,
+      D, G, BQ, static_cast<float>(1.0 / std::sqrt(static_cast<double>(D))));
   return cudaGetLastError();
 }
 
@@ -303,93 +320,6 @@ constexpr int kWgRows = 128;    // packed query rows of a CTA
 constexpr int kBN = 128;        // keys of a K/V tile
 constexpr int kStages = 2;      // slots of the K ring and of the V ring
 constexpr int kWgThreads = 384; // consumer warpgroups 0, 1; producer 2
-
-__device__ __forceinline__ void named_sync(int id) {
-  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
-}
-__device__ __forceinline__ void named_arrive(int id) {
-  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// keep the compiler from moving reads or writes of a register across an
-// asynchronous wgmma that uses it
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled operand: 8-row
-// groups 1024 bytes apart (stride byte offset); the leading byte offset is
-// unused by these layouts (each product reads within one 64-column atom)
-__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
-  const uint64_t a = smem_u32(p);
-  return ((a & 0x3FFFFull) >> 4) | (1ull << 16) | (64ull << 32) |
-         (1ull << 62);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// d (64 x 128, float32) = (accumulate ? d : 0) + A (64 x 16) * B (128 x 16)^T,
-// A and B K-major in shared memory (128-byte swizzle)
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
-                                              uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d (64 x 64, float32) += A (64 x 16, registers) * B (16 x 64), B N-major
-// in shared memory (128-byte swizzle, transposed operand)
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(1));
-}
 
 template <int D>
 struct WgShape {
@@ -474,18 +404,6 @@ __device__ __forceinline__ void online_softmax(float (&s)[64], float (&m)[2],
     }
 }
 
-// the weights as bfloat16 A fragments of P . V, 16 keys each
-__device__ __forceinline__ void to_p(uint32_t (&p)[kBN / 16][4],
-                                     const float (&s)[64]) {
-#pragma unroll
-  for (int kk = 0; kk < kBN / 16; ++kk) {
-    p[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
-    p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-    p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-    p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
-  }
-}
-
 __device__ __forceinline__ void rescale(float (&acc)[32],
                                         const float (&corr)[2]) {
 #pragma unroll
@@ -516,8 +434,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v,
-                       __nv_bfloat16* __restrict__ o, int B, int S, int H,
-                       int KH, int G, int BQ, float scale_log2) {
+                       __nv_bfloat16* __restrict__ o,
+                       float* __restrict__ lse2, int B, int S, int H, int KH,
+                       int G, int BQ, float scale_log2) {
   using W = WgShape<D>;
   extern __shared__ uint8_t smem_raw[];
   // 1024-byte alignment: the period of the 128-byte swizzle
@@ -649,7 +568,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         online_softmax(s, m, corr, rs, 0, q0, row_pos, lane, scale_log2);
         l[0] = rs[0];
         l[1] = rs[1];
-        to_p(p, s);
+        to_afrag<kBN>(p, s);  // the weights as P's A fragments
         ++it;
       }
       // tile j: S_j and P_{j-1}.V_{j-1} on the tensor cores, then the
@@ -689,7 +608,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         for (int a = 0; a < W::NA; ++a) rescale(acc[a], corr);
 #pragma unroll
         for (int h = 0; h < 2; ++h) l[h] = l[h] * corr[h] + rs[h];
-        to_p(p, s);
+        to_afrag<kBN>(p, s);  // the weights as P's A fragments
       }
 
       // the last tile's P.V
@@ -724,6 +643,11 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         if (row_pos[h] < 0) continue;
         const int r = wg * 64 + warp * 16 + (lane >> 2) + h * 8;
         const float inv = 1.f / fmaxf(l[h], 1e-30f);
+        // the row's log-sum-exp of its scaled scores, in base 2, for the
+        // backward: m is the raw maximum, the weights ex2(s*c - m*c)
+        if (lse2 != nullptr && (lane & 3) == 0)
+          lse2[(static_cast<size_t>(b) * H + kvh * G + r % G) * S +
+               row_pos[h]] = m[h] * scale_log2 + log2f(fmaxf(l[h], 1e-30f));
         __nv_bfloat16* orow =
             o + ((static_cast<size_t>(b) * S + row_pos[h]) * H + kvh * G +
                  r % G) *
@@ -757,7 +681,7 @@ int sm_count() {
 
 template <int D>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
-                         void* o, int B, int S, int H, int KH,
+                         void* o, float* lse2, int B, int S, int H, int KH,
                          cudaStream_t stream) {
   const int G = H / KH;
   const int BQ = kWgRows / G;
@@ -778,7 +702,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   const int grid = static_cast<int>(
       n_items < sm_count() ? n_items : static_cast<long long>(sm_count()));
   flash_fwd_wgmma_kernel<D><<<grid, kWgThreads, smem, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(o), B, S, H, KH, G, BQ,
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse2, B, S, H, KH, G, BQ,
       static_cast<float>(1.4426950408889634 /
                          std::sqrt(static_cast<double>(D))));
   return cudaGetLastError();
@@ -789,31 +713,33 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
 // q, o: (B, S, H, D); k, v: (B, S, KH, D), contiguous and 16-byte
 // aligned, float32 (0 < D <= 128, on the FMA kernel) or, with is_bf16,
 // bfloat16 (D of 64, 80 or 128, on wgmma).  Causal; H % KH == 0,
-// H / KH <= 64.
+// H / KH <= 64.  lse2: null, or float32 (B, H, S) that receives each
+// row's log-sum-exp of its scaled scores in base 2 (for the backward).
 extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* o, int B, int S,
-                                   int H, int KH, int D, int is_bf16,
-                                   void* stream) {
-  if (B < 1 || S < 1 || KH < 1 || H % KH != 0 || H / KH > kRows || D < 1 ||
-      D > 128 || B > 65535 || KH > 65535 ||
+                                   const void* v, void* o, void* lse2,
+                                   int B, int S, int H, int KH, int D,
+                                   int is_bf16, void* stream) {
+  if (B < 1 || S < 1 || KH < 1 || H < KH || H % KH != 0 ||
+      H / KH > kRows || D < 1 || D > 128 || B > 65535 || KH > 65535 ||
       (is_bf16 && static_cast<long long>(S) * KH * B > (1ll << 31) - 1) ||
       (is_bf16 && D != 64 && D != 80 && D != 128)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l2 = static_cast<float*>(lse2);
   cudaError_t err;
   if (is_bf16 && D == 64) {
-    err = launch_wgmma<64>(q, k, v, o, B, S, H, KH, st);
+    err = launch_wgmma<64>(q, k, v, o, l2, B, S, H, KH, st);
   } else if (is_bf16 && D == 80) {
-    err = launch_wgmma<80>(q, k, v, o, B, S, H, KH, st);
+    err = launch_wgmma<80>(q, k, v, o, l2, B, S, H, KH, st);
   } else if (is_bf16) {
-    err = launch_wgmma<128>(q, k, v, o, B, S, H, KH, st);
+    err = launch_wgmma<128>(q, k, v, o, l2, B, S, H, KH, st);
   } else if (D <= 64) {
-    err = launch<64>(q, k, v, o, B, S, H, KH, D, st);
+    err = launch<64>(q, k, v, o, l2, B, S, H, KH, D, st);
   } else if (D <= 96) {
-    err = launch<96>(q, k, v, o, B, S, H, KH, D, st);
+    err = launch<96>(q, k, v, o, l2, B, S, H, KH, D, st);
   } else {
-    err = launch<128>(q, k, v, o, B, S, H, KH, D, st);
+    err = launch<128>(q, k, v, o, l2, B, S, H, KH, D, st);
   }
   return static_cast<int>(err);
 }

@@ -1,5 +1,6 @@
 // Causal grouped-query attention, backward: dq, dk, dv from q, k, v, the
-// forward's output o and its gradient do.
+// forward's output o, its gradient do and the log-sum-exp of every row
+// that the forward kept.
 //
 // The JAX package has no Pallas kernel for this gradient: its training
 // path differentiates its jnp attention (src/repro/models/layers.py
@@ -15,68 +16,159 @@
 // a byte in bfloat16, far past the card's ~295, so the multipliers set the
 // least time (0.174 ms at B=1, H=32 on the bf16 tensor cores).
 //
-// Design: three kernels, no atomics, so that two calls give bitwise-equal
-// gradients (every output element is summed by one thread in a fixed
-// order).  All products are float32 FMAs on tiles staged in shared memory
-// as float32 (bfloat16 inputs are widened as they are loaded), all
-// accumulation is float32; this is the simple first kernel, not a fast
-// one (mma.sync / wgmma and a forward that writes its log-sum-exp are the
-// redesign, ROADMAP Queue B2).
+// The forward writes each row's log-sum-exp of its scaled scores in base 2
+// (lse2, float32 (B, H, S)), so no kernel here recomputes the softmax's
+// statistics: P = exp2(S * scale * log2 e - lse2) directly.  No atomics:
+// every output element is summed by one CTA in a fixed order, so two calls
+// give bitwise-equal gradients.  Three launches:
 //
-//   (a) bwd_prepass_kernel, a CTA per (batch, head, 64-row query tile):
-//       recomputes each row's softmax log-sum-exp (in base 2) over the key
-//       tiles on and below the diagonal, and forms D_i = sum_d do*o, into
-//       float32 scratch of (B, H, S).  Recomputing it here leaves the
-//       forward kernel untouched.
-//   (b) bwd_dkdv_kernel, a CTA per (batch, kv head, 64-key tile): loops
-//       over the query tiles on or below the diagonal and the G query
-//       heads of the group; per tile it forms S = Q K^T and dP = dO V^T
-//       (a 4x4 block of each per thread), P = exp2(S*scale*log2e - lse)
-//       and dS = P (dP - D_i) into shared memory, then dV += P^T dO and
-//       dK += dS^T Q into float32 registers (4 keys x DP/16 columns per
-//       thread).  Heaviest tiles (key tile 0) are launched first.
-//   (c) bwd_dq_kernel, a CTA per (batch, head, 64-row query tile): loops
-//       over the key tiles up to the diagonal with the same S, dP, P, dS,
-//       then dQ += dS K (4 rows x DP/16 columns per thread).
+//   (a) bwd_dsum_bf16_kernel / bwd_dsum_kernel (float32): D_i = sum_d
+//       do * o of every row, float32, into (B, H, S) scratch; bound by
+//       reading o and do once.
+//   (b) dK and dV, a CTA per (batch, kv head, key tile), heaviest tiles
+//       (key tile 0, the most query rows) launched first;
+//   (c) dQ, a CTA per query tile (of all G heads of a kv head in
+//       bfloat16, of one head in float32), longest key range first.
 //
-// 256 threads; in the S-shaped products thread (tr, tc) = (tid/16,
+// bfloat16 (D of 64, 80 or 128), the training path: (b) and (c) on
+// wgmma, each CTA three warpgroups: two consumers of 64 rows and a
+// producer whose one thread issues TMA loads into a three-slot ring
+// guarded by full and empty mbarriers (setmaxnreg gives the consumers 240
+// registers and leaves the producer 24).  The two consumers take turns
+// issuing their products (named barriers 1 and 2), so one's exponentials
+// run while the other's products are on the tensor cores.
+//   (b) bwd_dkdv_wgmma_kernel: 128 keys, 64 a consumer.  K and V of the
+//       tile land once and stay in shared memory; the producer streams
+//       (Q, dO) tiles of 64 positions of one head (every head of the
+//       group, every query tile on or below the diagonal), and its warp's
+//       32 lanes stage the tile's lse2 and D_i beside them.  A step: S^T
+//       = K Q^T and dP^T = V dO^T (wgmma m64n64k16, both operands K-major
+//       from shared memory); P^T = ex2(S^T * scale log2 e - lse2), the
+//       causal mask on tiles that cross the diagonal only; dS^T = P^T
+//       (dP^T - D_i); then dV += P^T dO and dK += dS^T Q, P^T and dS^T
+//       from registers as bfloat16 A fragments, dO and Q read as they lie
+//       through the transposed B operand (no tile is transposed in shared
+//       memory).  At D = 64 step n's S^T and dP^T are issued together
+//       with step n-1's dV and dK products, and P^T_n, dS^T_n are formed
+//       while those run; at D = 80 and 128 dK and dV take 128 registers,
+//       too few are left for a second step's scores (ptxas serialises
+//       the wgmma, C7512), so a step's products run in turn.  dK and dV
+//       stay in float32 registers and are written once, the scale folded
+//       into dK.
+//   (c) bwd_dq_wgmma_kernel: 128 packed rows (128/G positions x the G
+//       heads of a kv head, the forward's packing), 64 a consumer; Q, dO
+//       and the rows' lse2 and D_i stay resident, (K, V) tiles of 64 keys
+//       up to the diagonal stream through the ring.  Step j: S_j = Q K^T
+//       and dP_j = dO V^T (SS) issued with tile j-1's dQ += dS K (RS, K
+//       as the transposed B operand), then dS_j in registers while that
+//       runs.
+//   Across (b) and (c) that is 7 products of the causal half against the
+//   bound's 5: dQ's own S and dP are the price of having no atomics.
+//
+// float32 (0 < D <= 128), for the card-against-host parity checks at
+// 1e-4 (tensor cores in float32 would be TF32): (b) bwd_dkdv_kernel and
+// (c) bwd_dq_kernel on float32 FMAs, 256 threads on 64 x 64 tiles staged
+// in shared memory; in the S-shaped products thread (tr, tc) = (tid/16,
 // tid%16) owns rows tr + 16*ii and columns tc + 16*jj, so a warp's float4
 // reads of K (row stride DP + 4 floats) hit distinct banks and its reads
-// of Q are broadcasts.  Positions past S (a ragged last tile, any S) and
-// head columns past D (D = 80 runs padded to 96) are zero-filled and
-// masked.
+// of Q are broadcasts.  dK/dV by (batch, kv head, 64-key tile) over the
+// G heads; dQ by (batch, head, 64-row tile).
+//
+// Positions past S (a ragged last tile, any S) and head columns past D
+// (D = 80 runs padded: to two 64-column atoms on wgmma, to 96 on FMAs)
+// are zero-filled and masked.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace repro_hopper;
+
+// ---------------------------------------------------------------------------
+// (a) D_i = sum_d do * o of every query row
+// ---------------------------------------------------------------------------
+
+constexpr int kDsumThreads = 256;
+
+// row (b, p, h) of (B, S, H, D) is (b, h, p) of (B, H, S)
+__device__ __forceinline__ void store_dsum(float* dsum, long long row,
+                                           float acc, int S, int H) {
+  const long long h = row % H, bp = row / H;
+  const long long p = bp % S, b = bp / S;
+  dsum[(b * H + h) * S + p] = acc;
+}
+
+// float32, any D: a warp a row
+__global__ void __launch_bounds__(kDsumThreads)
+bwd_dsum_kernel(const float* __restrict__ o, const float* __restrict__ dout,
+                float* __restrict__ dsum, int S, int H, int D,
+                long long n_rows) {
+  const long long row = static_cast<long long>(blockIdx.x) *
+                            (kDsumThreads / 32) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= n_rows) return;
+  const float* orow = o + row * D;
+  const float* drow = dout + row * D;
+  float acc = 0.f;
+  for (int d = lane; d < D; d += 32) acc = fmaf(drow[d], orow[d], acc);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) store_dsum(dsum, row, acc, S, H);
+}
+
+// bfloat16, D a multiple of 8: 8 lanes a row, 16-byte loads, 32 rows a
+// block, so every load instruction of a warp reads four whole rows
+__global__ void __launch_bounds__(kDsumThreads)
+bwd_dsum_bf16_kernel(const __nv_bfloat16* __restrict__ o,
+                     const __nv_bfloat16* __restrict__ dout,
+                     float* __restrict__ dsum, int S, int H, int D,
+                     long long n_rows) {
+  const long long row = static_cast<long long>(blockIdx.x) *
+                            (kDsumThreads / 8) + (threadIdx.x >> 3);
+  const int sub = threadIdx.x & 7;
+  float acc = 0.f;
+  if (row < n_rows) {
+    const uint4* orow = reinterpret_cast<const uint4*>(o + row * D);
+    const uint4* drow = reinterpret_cast<const uint4*>(dout + row * D);
+    for (int c = sub; c < D / 8; c += 8) {
+      const uint4 ov = orow[c], dv = drow[c];
+      const __nv_bfloat162* op = reinterpret_cast<const __nv_bfloat162*>(&ov);
+      const __nv_bfloat162* dp = reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 of = __bfloat1622float2(op[e]);
+        const float2 df = __bfloat1622float2(dp[e]);
+        acc = fmaf(df.x, of.x, acc);
+        acc = fmaf(df.y, of.y, acc);
+      }
+    }
+  }
+#pragma unroll
+  for (int off = 4; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (sub == 0 && row < n_rows) store_dsum(dsum, row, acc, S, H);
+}
+
+// ---------------------------------------------------------------------------
+// float32: FMAs on tiles staged in shared memory
+// ---------------------------------------------------------------------------
 
 constexpr int kThreads = 256;
 constexpr int kT = 64;          // rows of a query tile = keys of a key tile
 constexpr int kPS = kT + 4;     // row stride (floats) of the P / dS tiles
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
 // Tile of kT positions x DP columns of a (B, S, NH, D) tensor at
-// (b, p0, head) into shared memory (row stride DP + 4), float32,
-// zero-filled past S and past D.
-template <typename T, int DP>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
+// (b, p0, head) into shared memory (row stride DP + 4), zero-filled past S
+// and past D.
+template <int DP>
+__device__ __forceinline__ void load_tile(float* dst,
+                                          const float* __restrict__ src,
                                           int b, int p0, int head, int S,
                                           int NH, int D) {
   constexpr int LS = DP + 4;
@@ -85,7 +177,7 @@ __device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
     const int p = p0 + r;
     float x = 0.f;
     if (p < S && d < D)
-      x = to_f(src[((static_cast<size_t>(b) * S + p) * NH + head) * D + d]);
+      x = src[((static_cast<size_t>(b) * S + p) * NH + head) * D + d];
     dst[r * LS + d] = x;
   }
 }
@@ -152,8 +244,8 @@ __device__ __forceinline__ void cols_accum(float (&acc)[4][DP / 16],
 // rows 4 rr + r, columns 2 dc + 32 (c/2) + c%2 of acc * mul into a
 // (B, S, NH, D) tensor at (b, p0, head), rows past S and columns past D
 // dropped
-template <typename T, int DP>
-__device__ __forceinline__ void store_rows(T* __restrict__ dst,
+template <int DP>
+__device__ __forceinline__ void store_rows(float* __restrict__ dst,
                                            const float (&acc)[4][DP / 16],
                                            float mul, int b, int p0, int head,
                                            int S, int NH, int D, int rr,
@@ -162,11 +254,11 @@ __device__ __forceinline__ void store_rows(T* __restrict__ dst,
   for (int r = 0; r < 4; ++r) {
     const int p = p0 + 4 * rr + r;
     if (p >= S) continue;
-    T* row = dst + ((static_cast<size_t>(b) * S + p) * NH + head) * D;
+    float* row = dst + ((static_cast<size_t>(b) * S + p) * NH + head) * D;
 #pragma unroll
     for (int c = 0; c < DP / 16; ++c) {
       const int d = 2 * dc + 32 * (c / 2) + (c % 2);
-      if (d < D) row[d] = from_f<T>(acc[r][c] * mul);
+      if (d < D) row[d] = acc[r][c] * mul;
     }
   }
 }
@@ -176,96 +268,9 @@ __host__ __device__ constexpr size_t tile_floats() {
   return static_cast<size_t>(kT) * (DP + 4);
 }
 
-// ---------------------------------------------------------------------------
-// (a) log-sum-exp (base 2) and D_i of every query row
-// ---------------------------------------------------------------------------
-
-template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads)
-bwd_prepass_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ o, const T* __restrict__ dout,
-                   float* __restrict__ lse2, float* __restrict__ dsum, int S,
-                   int H, int KH, int D, float scale_log2) {
-  extern __shared__ float4 smem4[];
-  float* sQ = reinterpret_cast<float*>(smem4);
-  float* sK = sQ + tile_floats<DP>();
-  const int bh = blockIdx.x;
-  const int b = bh / H, h = bh - b * H;
-  const int kh = h / (H / KH);
-  const int qt = blockIdx.y;
-  const int q0 = qt * kT;
-  const int tid = threadIdx.x, tr = tid >> 4, tc = tid & 15;
-  const size_t row0 = static_cast<size_t>(bh) * S;
-
-  // D_i: a warp a row, lanes over d
-  {
-    const int warp = tid >> 5, lane = tid & 31;
-    for (int r = warp; r < kT; r += kThreads / 32) {
-      const int p = q0 + r;
-      if (p >= S) break;
-      const size_t base = ((static_cast<size_t>(b) * S + p) * H + h) * D;
-      float acc = 0.f;
-      for (int d = lane; d < D; d += 32)
-        acc = fmaf(to_f(dout[base + d]), to_f(o[base + d]), acc);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        acc += __shfl_xor_sync(0xffffffffu, acc, off);
-      if (lane == 0) dsum[row0 + p] = acc;
-    }
-  }
-
-  load_tile<T, DP>(sQ, q, b, q0, h, S, H, D);
-  float m[4], l[4];
-#pragma unroll
-  for (int ii = 0; ii < 4; ++ii) {
-    m[ii] = -INFINITY;
-    l[ii] = 0.f;
-  }
-  for (int kt = 0; kt <= qt; ++kt) {
-    const int k0 = kt * kT;
-    __syncthreads();
-    load_tile<T, DP>(sK, k, b, k0, kh, S, KH, D);
-    __syncthreads();
-    float s[4][4];
-    rows_dot<DP>(s, sQ, sK, tr, tc);
-#pragma unroll
-    for (int ii = 0; ii < 4; ++ii) {
-      const int qp = q0 + tr + 16 * ii;
-      float tmax = -INFINITY;
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int kp = k0 + tc + 16 * jj;
-        s[ii][jj] = (kp <= qp && kp < S) ? s[ii][jj] * scale_log2 : -INFINITY;
-        tmax = fmaxf(tmax, s[ii][jj]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
-      // every row has a valid key in every tile it visits (key k0 <= its
-      // position), so the new maximum is finite
-      const float mn = fmaxf(m[ii], tmax);
-      float psum = 0.f;
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) psum += exp2f(s[ii][jj] - mn);
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        psum += __shfl_xor_sync(0xffffffffu, psum, off);
-      l[ii] = l[ii] * exp2f(m[ii] - mn) + psum;
-      m[ii] = mn;
-    }
-  }
-  if (tc == 0) {
-#pragma unroll
-    for (int ii = 0; ii < 4; ++ii) {
-      const int p = q0 + tr + 16 * ii;
-      if (p < S) lse2[row0 + p] = m[ii] + log2f(l[ii]);
-    }
-  }
-}
-
 // S and dP of one (query tile, key tile) pair into P and dS:
 // P = exp2(S*scale_log2 - lse2), dS = P (dP - D_i), zero where masked.
-// Writes them at W[i][j] (kt_major false) or W[j][i] (true).
+// Writes them at W[i][j] (transposed false) or W[j][i] (true).
 template <int DP>
 __device__ __forceinline__ void probs_and_dscores(
     float* sP, float* sDS, const float* sQ, const float* sDO, const float* sK,
@@ -297,9 +302,19 @@ __device__ __forceinline__ void probs_and_dscores(
   }
 }
 
-// ---------------------------------------------------------------------------
-// (b) dK, dV of one key tile of one kv head
-// ---------------------------------------------------------------------------
+// the tile's rows' lse2 and D_i into shared memory
+__device__ __forceinline__ void load_row_stats(float* sLse, float* sDsum,
+                                               const float* __restrict__ lse2,
+                                               const float* __restrict__ dsum,
+                                               int b, int h, int q0, int S,
+                                               int H) {
+  if (threadIdx.x < kT) {
+    const int p = q0 + threadIdx.x;
+    const size_t at = (static_cast<size_t>(b) * H + h) * S + p;
+    sLse[threadIdx.x] = p < S ? lse2[at] : 0.f;
+    sDsum[threadIdx.x] = p < S ? dsum[at] : 0.f;
+  }
+}
 
 template <int DP>
 constexpr size_t dkdv_smem_bytes() {
@@ -307,13 +322,14 @@ constexpr size_t dkdv_smem_bytes() {
           2 * kT) * sizeof(float);
 }
 
-template <typename T, int DP>
+// dK, dV of one 64-key tile of one kv head, over the G heads
+template <int DP>
 __global__ void __launch_bounds__(kThreads)
-bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const T* __restrict__ dout,
+bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ dout,
                 const float* __restrict__ lse2,
-                const float* __restrict__ dsum, T* __restrict__ dk,
-                T* __restrict__ dv, int S, int H, int KH, int D,
+                const float* __restrict__ dsum, float* __restrict__ dk,
+                float* __restrict__ dv, int S, int H, int KH, int D,
                 float scale_log2, float scale) {
   extern __shared__ float4 smem4[];
   float* sK = reinterpret_cast<float*>(smem4);
@@ -332,8 +348,8 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int n_qt = (S + kT - 1) / kT;
   const int tid = threadIdx.x, tr = tid >> 4, tc = tid & 15;
 
-  load_tile<T, DP>(sK, k, b, k0, kh, S, KH, D);
-  load_tile<T, DP>(sV, v, b, k0, kh, S, KH, D);
+  load_tile<DP>(sK, k, b, k0, kh, S, KH, D);
+  load_tile<DP>(sV, v, b, k0, kh, S, KH, D);
   float adk[4][DP / 16], adv[4][DP / 16];
 #pragma unroll
   for (int r = 0; r < 4; ++r)
@@ -345,14 +361,9 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int g = 0; g < G; ++g) {
       const int h = kh * G + g;
       __syncthreads();  // the previous pair's tiles are consumed
-      load_tile<T, DP>(sQ, q, b, q0, h, S, H, D);
-      load_tile<T, DP>(sDO, dout, b, q0, h, S, H, D);
-      if (tid < kT) {
-        const int p = q0 + tid;
-        const size_t at = (static_cast<size_t>(b) * H + h) * S + p;
-        sLse[tid] = p < S ? lse2[at] : 0.f;
-        sDsum[tid] = p < S ? dsum[at] : 0.f;
-      }
+      load_tile<DP>(sQ, q, b, q0, h, S, H, D);
+      load_tile<DP>(sDO, dout, b, q0, h, S, H, D);
+      load_row_stats(sLse, sDsum, lse2, dsum, b, h, q0, S, H);
       __syncthreads();
       probs_and_dscores<DP>(sP, sDS, sQ, sDO, sK, sV, sLse, sDsum, q0, k0, S,
                             scale_log2, tr, tc, false);
@@ -361,13 +372,9 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       cols_accum<DP>(adk, sDS, sQ, tr, tc);
     }
   }
-  store_rows<T, DP>(dk, adk, scale, b, k0, kh, S, KH, D, tr, tc);
-  store_rows<T, DP>(dv, adv, 1.f, b, k0, kh, S, KH, D, tr, tc);
+  store_rows<DP>(dk, adk, scale, b, k0, kh, S, KH, D, tr, tc);
+  store_rows<DP>(dv, adv, 1.f, b, k0, kh, S, KH, D, tr, tc);
 }
-
-// ---------------------------------------------------------------------------
-// (c) dQ of one query tile of one head
-// ---------------------------------------------------------------------------
 
 template <int DP>
 constexpr size_t dq_smem_bytes() {
@@ -375,12 +382,13 @@ constexpr size_t dq_smem_bytes() {
          sizeof(float);
 }
 
-template <typename T, int DP>
+// dQ of one 64-row query tile of one head
+template <int DP>
 __global__ void __launch_bounds__(kThreads)
-bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, const T* __restrict__ dout,
+bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, const float* __restrict__ dout,
               const float* __restrict__ lse2, const float* __restrict__ dsum,
-              T* __restrict__ dq, int S, int H, int KH, int D,
+              float* __restrict__ dq, int S, int H, int KH, int D,
               float scale_log2, float scale) {
   extern __shared__ float4 smem4[];
   float* sQ = reinterpret_cast<float*>(smem4);
@@ -398,14 +406,9 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = qt * kT;
   const int tid = threadIdx.x, tr = tid >> 4, tc = tid & 15;
 
-  load_tile<T, DP>(sQ, q, b, q0, h, S, H, D);
-  load_tile<T, DP>(sDO, dout, b, q0, h, S, H, D);
-  if (tid < kT) {
-    const int p = q0 + tid;
-    const size_t at = (static_cast<size_t>(b) * H + h) * S + p;
-    sLse[tid] = p < S ? lse2[at] : 0.f;
-    sDsum[tid] = p < S ? dsum[at] : 0.f;
-  }
+  load_tile<DP>(sQ, q, b, q0, h, S, H, D);
+  load_tile<DP>(sDO, dout, b, q0, h, S, H, D);
+  load_row_stats(sLse, sDsum, lse2, dsum, b, h, q0, S, H);
   float adq[4][DP / 16];
 #pragma unroll
   for (int r = 0; r < 4; ++r)
@@ -415,105 +418,711 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = 0; kt <= qt; ++kt) {
     const int k0 = kt * kT;
     __syncthreads();  // the previous key tile is consumed
-    load_tile<T, DP>(sK, k, b, k0, kh, S, KH, D);
-    load_tile<T, DP>(sV, v, b, k0, kh, S, KH, D);
+    load_tile<DP>(sK, k, b, k0, kh, S, KH, D);
+    load_tile<DP>(sV, v, b, k0, kh, S, KH, D);
     __syncthreads();
     probs_and_dscores<DP>(nullptr, sDST, sQ, sDO, sK, sV, sLse, sDsum, q0, k0,
                           S, scale_log2, tr, tc, true);
     __syncthreads();
     cols_accum<DP>(adq, sDST, sK, tr, tc);
   }
-  store_rows<T, DP>(dq, adq, scale, b, q0, h, S, H, D, tr, tc);
+  store_rows<DP>(dq, adq, scale, b, q0, h, S, H, D, tr, tc);
 }
 
-template <typename T, int DP>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
-                   const void* dout, void* dq, void* dk, void* dv,
-                   float* lse2, float* dsum, int B, int S, int H, int KH,
-                   int D, cudaStream_t stream) {
-  const double scale_d = 1.0 / std::sqrt(static_cast<double>(D));
-  const float scale = static_cast<float>(scale_d);
-  const float scale_log2 = static_cast<float>(scale_d * 1.4426950408889634);
+template <int DP>
+cudaError_t launch_f32(const float* q, const float* k, const float* v,
+                       const float* dout, const float* lse2,
+                       const float* dsum, float* dq, float* dk, float* dv,
+                       int B, int S, int H, int KH, int D, float scale_log2,
+                       float scale, cudaStream_t stream) {
   const int n_t = (S + kT - 1) / kT;
-  const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(k);
-  const T* vp = static_cast<const T*>(v);
-  const T* op = static_cast<const T*>(o);
-  const T* dop = static_cast<const T*>(dout);
-
-  const int pre_smem = static_cast<int>(2 * tile_floats<DP>() * sizeof(float));
   const int dkdv_smem = static_cast<int>(dkdv_smem_bytes<DP>());
   const int dq_smem = static_cast<int>(dq_smem_bytes<DP>());
   cudaError_t err = cudaFuncSetAttribute(
-      bwd_prepass_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      pre_smem);
+      bwd_dkdv_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dkdv_smem);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(bwd_dkdv_kernel<T, DP>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             dkdv_smem);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(bwd_dq_kernel<T, DP>,
+  err = cudaFuncSetAttribute(bwd_dq_kernel<DP>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              dq_smem);
   if (err != cudaSuccess) return err;
-
-  bwd_prepass_kernel<T, DP><<<dim3(B * H, n_t), kThreads, pre_smem, stream>>>(
-      qp, kp, op, dop, lse2, dsum, S, H, KH, D, scale_log2);
+  bwd_dkdv_kernel<DP><<<dim3(B * KH, n_t), kThreads, dkdv_smem, stream>>>(
+      q, k, v, dout, lse2, dsum, dk, dv, S, H, KH, D, scale_log2, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  bwd_dkdv_kernel<T, DP><<<dim3(B * KH, n_t), kThreads, dkdv_smem, stream>>>(
-      qp, kp, vp, dop, lse2, dsum, static_cast<T*>(dk), static_cast<T*>(dv),
-      S, H, KH, D, scale_log2, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  bwd_dq_kernel<T, DP><<<dim3(B * H, n_t), kThreads, dq_smem, stream>>>(
-      qp, kp, vp, dop, lse2, dsum, static_cast<T*>(dq), S, H, KH, D,
-      scale_log2, scale);
+  bwd_dq_kernel<DP><<<dim3(B * H, n_t), kThreads, dq_smem, stream>>>(
+      q, k, v, dout, lse2, dsum, dq, S, H, KH, D, scale_log2, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_dp(const void* q, const void* k, const void* v,
-                      const void* o, const void* dout, void* dq, void* dk,
-                      void* dv, float* lse2, float* dsum, int B, int S, int H,
-                      int KH, int D, cudaStream_t st) {
-  if (D <= 64)
-    return launch<T, 64>(q, k, v, o, dout, dq, dk, dv, lse2, dsum, B, S, H,
-                         KH, D, st);
-  if (D <= 96)
-    return launch<T, 96>(q, k, v, o, dout, dq, dk, dv, lse2, dsum, B, S, H,
-                         KH, D, st);
-  return launch<T, 128>(q, k, v, o, dout, dq, dk, dv, lse2, dsum, B, S, H, KH,
-                        D, st);
+// ---------------------------------------------------------------------------
+// bfloat16: wgmma fed by TMA
+// ---------------------------------------------------------------------------
+
+constexpr int kBwdThreads = 384;  // consumer warpgroups 0, 1; producer 2
+constexpr int kKeys = 128;        // keys of a dK/dV CTA, 64 a consumer
+constexpr int kPacked = 128;      // packed query rows of a dQ CTA
+constexpr int kStep = 64;         // query positions (dK/dV), keys (dQ) a step
+constexpr int kRing = 3;          // slots of the streamed tiles' ring
+
+template <int D>
+struct BwdShape {
+  static constexpr int NA = (D + 63) / 64;     // 64-column atoms of a row
+  static constexpr int KD = D / 16;            // k-steps over the head dim
+  static constexpr int ATOM_BIG = 128 * 128;   // one atom of 128 rows
+  static constexpr int ATOM_STEP = kStep * 128;  // one atom of a step's rows
+  static constexpr int BIG = NA * ATOM_BIG;    // a resident 128-row tile
+  static constexpr int STEP = NA * ATOM_STEP;  // a streamed tile
+  // resident pair, the ring's pairs, (dK/dV) the ring's lse2 and D_i,
+  // barriers: one for the resident pair, a full and an empty a slot
+  static constexpr int SMEM = 1024 + 2 * BIG + kRing * 2 * STEP +
+                              kRing * 2 * kStep * 4 + (1 + 2 * kRing) * 8;
+};
+
+// s (64 x 64) = A (64 rows x D) . B (64 rows x D)^T: wgmma m64n64k16 over
+// the head dim, both operands K-major in shared memory; a_atom and b_atom
+// are the byte strides of their 64-column atoms
+template <int D>
+__device__ __forceinline__ void issue_scores(float (&s)[32],
+                                             const uint8_t* a, int a_atom,
+                                             const uint8_t* b, int b_atom) {
+#pragma unroll
+  for (int kk = 0; kk < BwdShape<D>::KD; ++kk)
+    wgmma_ss_n64(s, sw128_desc(a + (kk >> 2) * a_atom + (kk & 3) * 32),
+                 sw128_desc(b + (kk >> 2) * b_atom + (kk & 3) * 32), kk > 0);
+}
+
+// acc (64 x D) += F (64 x 64, A fragments in registers) . X (64 rows x D
+// in shared memory, read as the transposed B operand), one product per
+// 64-column atom and 16 rows of X
+template <int NA>
+__device__ __forceinline__ void issue_accum(float (&acc)[NA][32],
+                                            const uint32_t (&f)[4][4],
+                                            const uint8_t* x, int x_atom) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int a = 0; a < NA; ++a)
+      wgmma_rs_n64(acc[a], f[kk], sw128_desc(x + a * x_atom + kk * 16 * 128));
+}
+
+// acc * mul as bfloat16 into row `row` (the lane's h-th of the wgmma
+// layout) of a tensor whose rows are D long, columns past D dropped
+template <int NA>
+__device__ __forceinline__ void store_acc_row(__nv_bfloat16* row,
+                                              const float (&acc)[NA][32],
+                                              int h, int lane, int D,
+                                              float mul) {
+#pragma unroll
+  for (int a = 0; a < NA; ++a)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int col = a * 64 + i * 8 + (lane & 3) * 2;
+      if (col < D)
+        *reinterpret_cast<__nv_bfloat162*>(row + col) = __floats2bfloat162_rn(
+            acc[a][4 * i + 2 * h] * mul, acc[a][4 * i + 2 * h + 1] * mul);
+    }
+}
+
+template <int NA>
+__device__ __forceinline__ void zero_acc(float (&acc)[NA][32]) {
+#pragma unroll
+  for (int a = 0; a < NA; ++a)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[a][i] = 0.f;
+}
+
+template <int NA>
+__device__ __forceinline__ void fence_acc(float (&acc)[NA][32]) {
+#pragma unroll
+  for (int a = 0; a < NA; ++a) fence_regs(acc[a]);
+}
+
+// P^T = ex2(S^T * scale log2 e - lse2) and dS^T = P^T (dP^T - D_i) of a
+// dK/dV step, in place of S^T (s) and dP^T (dp): the lane's keys key[0],
+// key[1] (rows), query positions q0 + 8i + 2(lane%4) + e (columns), whose
+// lse2 and D_i are ls[.], dsm[.]; zero where a key is past a position
+__device__ __forceinline__ void dkdv_probs(float (&s)[32], float (&dp)[32],
+                                           const float* ls, const float* dsm,
+                                           int q0, const int (&key)[2],
+                                           int kbase, int lane,
+                                           float scale_log2) {
+  const bool masked = kbase + 63 > q0;  // some key past some row
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int c = 8 * i + 2 * (lane & 3);
+    const float2 l2 = *reinterpret_cast<const float2*>(ls + c);
+    const float2 d2 = *reinterpret_cast<const float2*>(dsm + c);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int x = 4 * i + e;
+      const float lv = (e & 1) ? l2.y : l2.x;
+      const float di = (e & 1) ? d2.y : d2.x;
+      float p = ex2(fmaf(s[x], scale_log2, -lv));
+      if (masked && key[e >> 1] > q0 + c + (e & 1)) p = 0.f;
+      s[x] = p;
+      dp[x] = p * (dp[x] - di);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_do,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      const float* __restrict__ lse2,
+                      const float* __restrict__ dsum,
+                      __nv_bfloat16* __restrict__ dk,
+                      __nv_bfloat16* __restrict__ dv, int S, int H, int KH,
+                      int G, float scale_log2, float scale) {
+  using W = BwdShape<D>;
+  extern __shared__ uint8_t smem_raw[];
+  // 1024-byte alignment: the period of the 128-byte swizzle
+  uint8_t* Ks = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t{1023});
+  uint8_t* Vs = Ks + W::BIG;
+  uint8_t* Qs = Vs + W::BIG;           // kRing slots
+  uint8_t* DOs = Qs + kRing * W::STEP;  // kRing slots
+  float* lse_s = reinterpret_cast<float*>(DOs + kRing * W::STEP);
+  float* dsum_s = lse_s + kRing * kStep;
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(dsum_s + kRing * kStep);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + kRing;
+
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int b = blockIdx.x / KH, kvh = blockIdx.x - b * KH;
+  const int k0 = blockIdx.y * kKeys;  // key tile 0, the most rows, first
+  const int qt0 = k0 / kStep;         // the first query tile it sees
+  const int n_steps = ((S + kStep - 1) / kStep - qt0) * G;
+  if (tid == 0) {
+    mbar_init(kv_full, 1);
+    for (int st = 0; st < kRing; ++st) {
+      // the TMA thread's expect_tx, then the 32 lanes that stage lse2/D_i
+      mbar_init(&full[st], 33);
+      mbar_init(&empty[st], 8);  // lane 0 of each consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // -------------------------------------------------------- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (tid < 256 + 32) {
+      const int lane = tid & 31;
+      if (lane == 0) {
+        tma_prefetch(&tm_q);
+        tma_prefetch(&tm_do);
+        mbar_expect_tx(kv_full, 2 * W::BIG);
+#pragma unroll
+        for (int a = 0; a < W::NA; ++a) {
+          tma_load_4d(Ks + a * W::ATOM_BIG, &tm_k, kv_full, a * 64, kvh, k0,
+                      b);
+          tma_load_4d(Vs + a * W::ATOM_BIG, &tm_v, kv_full, a * 64, kvh, k0,
+                      b);
+        }
+      }
+      for (int n = 0; n < n_steps; ++n) {
+        const int st = n % kRing, ph = (n / kRing) & 1;
+        const int q0 = (qt0 + n / G) * kStep;
+        const int h = kvh * G + n % G;
+        mbar_wait(&empty[st], ph ^ 1);
+        if (lane == 0) {
+          mbar_expect_tx(&full[st], 2 * W::STEP);
+#pragma unroll
+          for (int a = 0; a < W::NA; ++a) {
+            tma_load_4d(Qs + st * W::STEP + a * W::ATOM_STEP, &tm_q,
+                        &full[st], a * 64, h, q0, b);
+            tma_load_4d(DOs + st * W::STEP + a * W::ATOM_STEP, &tm_do,
+                        &full[st], a * 64, h, q0, b);
+          }
+        }
+        // rows past S: lse2 = +inf, so their P is 0
+        const size_t row0 = (static_cast<size_t>(b) * H + h) * S;
+        for (int j = lane; j < kStep; j += 32) {
+          const int p = q0 + j;
+          lse_s[st * kStep + j] = p < S ? lse2[row0 + p] : INFINITY;
+          dsum_s[st * kStep + j] = p < S ? dsum[row0 + p] : 0.f;
+        }
+        mbar_arrive(&full[st]);
+      }
+    }
+  } else {
+    // ------------------------------------------------------- consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int t = tid & 127, warp = t >> 5, lane = t & 31;
+    // this lane's keys: rows h = 0, 1 of the wgmma layout
+    const int kbase = k0 + wg * 64;
+    int key[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      key[h] = kbase + warp * 16 + (lane >> 2) + 8 * h;
+    float adk[W::NA][32], adv[W::NA][32];
+    zero_acc(adk);
+    zero_acc(adv);
+    const uint8_t* krows = Ks + wg * 64 * 128;
+    const uint8_t* vrows = Vs + wg * 64 * 128;
+    const int bar_me = 1 + wg, bar_other = 2 - wg;
+    // S^T (s) and dP^T (dp) of step n, then its P^T and dS^T: key rows,
+    // query columns 8i + 2(lane%4) + e; pf, dsf: step n-1's P^T and dS^T
+    // as the A fragments of dV and dK
+    float s[32], dp[32];
+    uint32_t pf[4][4], dsf[4][4];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    mbar_wait(kv_full, 0);
+    if (wg == 1) named_arrive(1);  // warpgroup 0 issues first
+
+    if constexpr (W::NA == 1) {
+      // step 0: S^T and dP^T alone
+      {
+        mbar_wait(&full[0], 0);
+        named_sync(bar_me);
+        fence_regs(s);
+        fence_regs(dp);
+        wgmma_fence();
+        issue_scores<D>(s, krows, W::ATOM_BIG, Qs, W::ATOM_STEP);
+        issue_scores<D>(dp, vrows, W::ATOM_BIG, DOs, W::ATOM_STEP);
+        wgmma_commit();
+        named_arrive(bar_other);  // the other warpgroup's products next
+        wgmma_wait<0>();
+        fence_regs(s);
+        fence_regs(dp);
+        dkdv_probs(s, dp, lse_s, dsum_s, qt0 * kStep, key, kbase, lane,
+                   scale_log2);
+        to_afrag<64>(pf, s);
+        to_afrag<64>(dsf, dp);
+      }
+      // step n: S^T_n, dP^T_n and step n-1's dV, dK on the tensor cores,
+      // then P^T_n and dS^T_n while dV, dK may still run
+      for (int n = 1; n < n_steps; ++n) {
+        const int st = n % kRing, ph = (n / kRing) & 1;
+        const int pst = (n - 1) % kRing;  // step n-1's slot
+        mbar_wait(&full[st], ph);
+        named_sync(bar_me);
+        fence_regs(s);
+        fence_regs(dp);
+        fence_acc(adk);
+        fence_acc(adv);
+        fence_regs(pf);
+        fence_regs(dsf);
+        wgmma_fence();
+        issue_scores<D>(s, krows, W::ATOM_BIG, Qs + st * W::STEP, W::ATOM_STEP);
+        issue_scores<D>(dp, vrows, W::ATOM_BIG, DOs + st * W::STEP,
+                        W::ATOM_STEP);
+        wgmma_commit();
+        issue_accum<W::NA>(adv, pf, DOs + pst * W::STEP, W::ATOM_STEP);
+        issue_accum<W::NA>(adk, dsf, Qs + pst * W::STEP, W::ATOM_STEP);
+        wgmma_commit();
+        named_arrive(bar_other);
+        wgmma_wait<1>();  // S^T_n and dP^T_n done
+        fence_regs(s);
+        fence_regs(dp);
+        dkdv_probs(s, dp, lse_s + st * kStep, dsum_s + st * kStep,
+                   (qt0 + n / G) * kStep, key, kbase, lane, scale_log2);
+        wgmma_wait<0>();  // step n-1's dV, dK done: free its slot
+        fence_acc(adk);
+        fence_acc(adv);
+        fence_regs(pf);
+        fence_regs(dsf);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[pst]);
+        to_afrag<64>(pf, s);
+        to_afrag<64>(dsf, dp);
+      }
+      // the last step's dV, dK
+      {
+        const int pst = (n_steps - 1) % kRing;
+        named_sync(bar_me);
+        fence_acc(adk);
+        fence_acc(adv);
+        fence_regs(pf);
+        fence_regs(dsf);
+        wgmma_fence();
+        issue_accum<W::NA>(adv, pf, DOs + pst * W::STEP, W::ATOM_STEP);
+        issue_accum<W::NA>(adk, dsf, Qs + pst * W::STEP, W::ATOM_STEP);
+        wgmma_commit();
+        // warpgroup 1 arrived once ahead of its first turn: its last turn
+        // hands nothing on, so every arrival meets a wait
+        if (wg == 0) named_arrive(bar_other);
+        wgmma_wait<0>();
+        fence_acc(adk);
+        fence_acc(adv);
+        fence_regs(pf);
+        fence_regs(dsf);
+      }
+    } else {
+      // two 64-column atoms: dK and dV take 128 registers, too many to
+      // hold a second step's S^T and dP^T, so a step's products run one
+      // after the other; the two warpgroups still take turns
+      for (int n = 0; n < n_steps; ++n) {
+        const int st = n % kRing, ph = (n / kRing) & 1;
+        const uint8_t* qs = Qs + st * W::STEP;
+        const uint8_t* dos = DOs + st * W::STEP;
+        mbar_wait(&full[st], ph);
+        named_sync(bar_me);
+        fence_regs(s);
+        fence_regs(dp);
+        wgmma_fence();
+        issue_scores<D>(s, krows, W::ATOM_BIG, qs, W::ATOM_STEP);
+        issue_scores<D>(dp, vrows, W::ATOM_BIG, dos, W::ATOM_STEP);
+        wgmma_commit();
+        named_arrive(bar_other);
+        wgmma_wait<0>();
+        fence_regs(s);
+        fence_regs(dp);
+        dkdv_probs(s, dp, lse_s + st * kStep, dsum_s + st * kStep,
+                   (qt0 + n / G) * kStep, key, kbase, lane, scale_log2);
+        to_afrag<64>(pf, s);
+        to_afrag<64>(dsf, dp);
+        named_sync(bar_me);
+        fence_acc(adk);
+        fence_acc(adv);
+        fence_regs(pf);
+        fence_regs(dsf);
+        wgmma_fence();
+        issue_accum<W::NA>(adv, pf, dos, W::ATOM_STEP);
+        issue_accum<W::NA>(adk, dsf, qs, W::ATOM_STEP);
+        wgmma_commit();
+        // warpgroup 1 arrived once ahead of its first turn: its last
+        // turn hands nothing on
+        if (wg == 0 || n < n_steps - 1) named_arrive(bar_other);
+        wgmma_wait<0>();
+        fence_acc(adk);
+        fence_acc(adv);
+        fence_regs(pf);
+        fence_regs(dsf);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[st]);
+      }
+    }
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (key[h] >= S) continue;
+      const size_t at = ((static_cast<size_t>(b) * S + key[h]) * KH + kvh) * D;
+      store_acc_row(dk + at, adk, h, lane, D, scale);
+      store_acc_row(dv + at, adv, h, lane, D, 1.f);
+    }
+  }
+}
+
+// dS = P (dP - D_i), P = ex2(S * scale log2 e - lse2), of a dQ step, in
+// place of dP (dp): the lane's rows at positions row_pos[0], row_pos[1]
+// (-1: an idle row), keys k0 + 8i + 2(lane%4) + e (columns); zero where a
+// key is past a position
+__device__ __forceinline__ void dq_dscores(const float (&s)[32],
+                                           float (&dp)[32], int k0, int q0,
+                                           const int (&row_pos)[2],
+                                           const float (&lse_r)[2],
+                                           const float (&di_r)[2], int lane,
+                                           float scale_log2) {
+  const bool masked = k0 + kStep - 1 > q0;  // some key past some row
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int x = 4 * i + e, h = e >> 1;
+      const int key = k0 + 8 * i + 2 * (lane & 3) + (e & 1);
+      float p = ex2(fmaf(s[x], scale_log2, -lse_r[h]));
+      if (masked && key > row_pos[h]) p = 0.f;
+      dp[x] = p * (dp[x] - di_r[h]);
+    }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_do,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const float* __restrict__ lse2,
+                    const float* __restrict__ dsum,
+                    __nv_bfloat16* __restrict__ dq, int S, int H, int KH,
+                    int G, int BQ, float scale_log2, float scale) {
+  using W = BwdShape<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* Qs = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t{1023});
+  uint8_t* DOs = Qs + W::BIG;
+  uint8_t* Ks = DOs + W::BIG;          // kRing slots
+  uint8_t* Vs = Ks + kRing * W::STEP;  // kRing slots
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + kRing * W::STEP);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kRing;
+
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int b = blockIdx.x / KH, kvh = blockIdx.x - b * KH;
+  const int n_qt = (S + BQ - 1) / BQ;
+  const int qt = n_qt - 1 - static_cast<int>(blockIdx.y);  // longest first
+  const int q0 = qt * BQ;
+  const int R = BQ * G;  // packed rows: position q0 + r/G, head kvh*G + r%G
+  const int n_kt = (min(q0 + BQ, S) - 1) / kStep + 1;  // up to the diagonal
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < kRing; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], 8);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // -------------------------------------------------------- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (tid == 256) {
+      tma_prefetch(&tm_k);
+      tma_prefetch(&tm_v);
+      // one box of G heads x BQ positions lands as the packed rows
+      mbar_expect_tx(q_full, 2 * W::NA * R * 128);
+#pragma unroll
+      for (int a = 0; a < W::NA; ++a) {
+        tma_load_4d(Qs + a * W::ATOM_BIG, &tm_q, q_full, a * 64, kvh * G, q0,
+                    b);
+        tma_load_4d(DOs + a * W::ATOM_BIG, &tm_do, q_full, a * 64, kvh * G,
+                    q0, b);
+      }
+      for (int j = 0; j < n_kt; ++j) {
+        const int st = j % kRing, ph = (j / kRing) & 1;
+        mbar_wait(&empty[st], ph ^ 1);
+        mbar_expect_tx(&full[st], 2 * W::STEP);
+#pragma unroll
+        for (int a = 0; a < W::NA; ++a) {
+          tma_load_4d(Ks + st * W::STEP + a * W::ATOM_STEP, &tm_k, &full[st],
+                      a * 64, kvh, j * kStep, b);
+          tma_load_4d(Vs + st * W::STEP + a * W::ATOM_STEP, &tm_v, &full[st],
+                      a * 64, kvh, j * kStep, b);
+        }
+      }
+    }
+  } else {
+    // ------------------------------------------------------- consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int t = tid & 127, warp = t >> 5, lane = t & 31;
+    // this lane's rows r and r + 8 of its warp's 16; rows past R or S are
+    // computed on whatever the buffers hold there and never written
+    int row_pos[2], head[2];
+    float lse_r[2], di_r[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = wg * 64 + warp * 16 + (lane >> 2) + 8 * h;
+      const int pos = q0 + r / G;
+      const bool valid = r < R && pos < S;
+      row_pos[h] = valid ? pos : -1;
+      head[h] = kvh * G + r % G;
+      const size_t at = (static_cast<size_t>(b) * H + head[h]) * S + pos;
+      lse_r[h] = valid ? lse2[at] : INFINITY;
+      di_r[h] = valid ? dsum[at] : 0.f;
+    }
+    float adq[W::NA][32];
+    zero_acc(adq);
+    const uint8_t* qrows = Qs + wg * 64 * 128;
+    const uint8_t* dorows = DOs + wg * 64 * 128;
+    const int bar_me = 1 + wg, bar_other = 2 - wg;
+    // S (s) and dP (dp) of key tile j, then its dS: query rows, key
+    // columns 8i + 2(lane%4) + e; dsf: tile j-1's dS as dQ's A fragments
+    float s[32], dp[32];
+    uint32_t dsf[4][4];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    mbar_wait(q_full, 0);
+    if (wg == 1) named_arrive(1);  // warpgroup 0 issues first
+
+    // key tile 0: S and dP alone
+    {
+      mbar_wait(&full[0], 0);
+      named_sync(bar_me);
+      fence_regs(s);
+      fence_regs(dp);
+      wgmma_fence();
+      issue_scores<D>(s, qrows, W::ATOM_BIG, Ks, W::ATOM_STEP);
+      issue_scores<D>(dp, dorows, W::ATOM_BIG, Vs, W::ATOM_STEP);
+      wgmma_commit();
+      named_arrive(bar_other);
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+      dq_dscores(s, dp, 0, q0, row_pos, lse_r, di_r, lane, scale_log2);
+      to_afrag<64>(dsf, dp);
+    }
+    // key tile j: S_j, dP_j and tile j-1's dQ product on the tensor
+    // cores, then dS_j while the dQ product may still run
+    for (int j = 1; j < n_kt; ++j) {
+      const int st = j % kRing, ph = (j / kRing) & 1;
+      const int pst = (j - 1) % kRing;  // tile j-1's slot
+      mbar_wait(&full[st], ph);
+      named_sync(bar_me);
+      fence_regs(s);
+      fence_regs(dp);
+      fence_acc(adq);
+      fence_regs(dsf);
+      wgmma_fence();
+      issue_scores<D>(s, qrows, W::ATOM_BIG, Ks + st * W::STEP, W::ATOM_STEP);
+      issue_scores<D>(dp, dorows, W::ATOM_BIG, Vs + st * W::STEP,
+                      W::ATOM_STEP);
+      wgmma_commit();
+      issue_accum<W::NA>(adq, dsf, Ks + pst * W::STEP, W::ATOM_STEP);
+      wgmma_commit();
+      named_arrive(bar_other);
+      wgmma_wait<1>();  // S_j and dP_j done
+      fence_regs(s);
+      fence_regs(dp);
+      dq_dscores(s, dp, j * kStep, q0, row_pos, lse_r, di_r, lane,
+                 scale_log2);
+      wgmma_wait<0>();  // tile j-1's dQ product done: free its slot
+      fence_acc(adq);
+      fence_regs(dsf);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[pst]);
+      to_afrag<64>(dsf, dp);
+    }
+    // the last tile's dQ product
+    {
+      const int pst = (n_kt - 1) % kRing;
+      named_sync(bar_me);
+      fence_acc(adq);
+      fence_regs(dsf);
+      wgmma_fence();
+      issue_accum<W::NA>(adq, dsf, Ks + pst * W::STEP, W::ATOM_STEP);
+      wgmma_commit();
+      if (wg == 0) named_arrive(bar_other);  // see bwd_dkdv_wgmma_kernel
+      wgmma_wait<0>();
+      fence_acc(adq);
+      fence_regs(dsf);
+    }
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (row_pos[h] < 0) continue;
+      store_acc_row(
+          dq + ((static_cast<size_t>(b) * S + row_pos[h]) * H + head[h]) * D,
+          adq, h, lane, D, scale);
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         const void* dout, const float* lse2,
+                         const float* dsum, void* dq, void* dk, void* dv,
+                         int B, int S, int H, int KH, float scale_log2,
+                         float scale, cudaStream_t stream) {
+  using W = BwdShape<D>;
+  const int G = H / KH;
+  const int BQ = kPacked / G;
+  // dK/dV: (Q, dO) boxes of kStep positions of one head, (K, V) of the
+  // CTA's 128 keys; dQ: (Q, dO) boxes of G heads x BQ positions (the
+  // packed rows), (K, V) of kStep keys
+  CUtensorMap q1, do1, k128, v128, qp, dop, k64, v64;
+  if (!rows_map(&q1, q, 2, B, S, S, H, D, kStep) ||
+      !rows_map(&do1, dout, 2, B, S, S, H, D, kStep) ||
+      !rows_map(&k128, k, 2, B, S, S, KH, D, kKeys) ||
+      !rows_map(&v128, v, 2, B, S, S, KH, D, kKeys) ||
+      !rows_map(&qp, q, 2, B, S, S, H, D, BQ, G) ||
+      !rows_map(&dop, dout, 2, B, S, S, H, D, BQ, G) ||
+      !rows_map(&k64, k, 2, B, S, S, KH, D, kStep) ||
+      !rows_map(&v64, v, 2, B, S, S, KH, D, kStep))
+    return cudaErrorNotSupported;
+  cudaError_t err = cudaFuncSetAttribute(
+      bwd_dkdv_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      W::SMEM);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(bwd_dq_wgmma_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             W::SMEM);
+  if (err != cudaSuccess) return err;
+  bwd_dkdv_wgmma_kernel<D>
+      <<<dim3(B * KH, (S + kKeys - 1) / kKeys), kBwdThreads, W::SMEM,
+         stream>>>(q1, do1, k128, v128, lse2, dsum,
+                   static_cast<__nv_bfloat16*>(dk),
+                   static_cast<__nv_bfloat16*>(dv), S, H, KH, G, scale_log2,
+                   scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  bwd_dq_wgmma_kernel<D>
+      <<<dim3(B * KH, (S + BQ - 1) / BQ), kBwdThreads, W::SMEM, stream>>>(
+          qp, dop, k64, v64, lse2, dsum, static_cast<__nv_bfloat16*>(dq), S,
+          H, KH, G, BQ, scale_log2, scale);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // q, o, dout, dq: (B, S, H, D); k, v, dk, dv: (B, S, KH, D); float32 or
-// bfloat16 (is_bf16), contiguous.  scratch: 2*B*H*S float32 (the rows'
-// log-sum-exp and D_i), written and read by the call.
+// bfloat16 (is_bf16: D of 64, 80 or 128), contiguous and 16-byte aligned.
+// lse2: float32 (B, H, S), each row's log-sum-exp of its scaled scores in
+// base 2, as the forward writes it.  scratch: B*H*S float32 (the rows'
+// D_i), written and read by the call.
 extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* o,
-                                   const void* dout, void* dq, void* dk,
-                                   void* dv, void* scratch, int B, int S,
-                                   int H, int KH, int D, int is_bf16,
+                                   const void* dout, const void* lse2,
+                                   void* dq, void* dk, void* dv,
+                                   void* scratch, int B, int S, int H,
+                                   int KH, int D, int is_bf16,
                                    void* stream) {
-  if (B < 1 || S < 1 || KH < 1 || H % KH != 0 || H / KH > 64 || D < 1 ||
-      D > 128 || static_cast<long long>(B) * H > (1ll << 31) - 1 ||
+  if (B < 1 || S < 1 || KH < 1 || H < KH || H % KH != 0 || H / KH > 64 ||
+      D < 1 || D > 128 || static_cast<long long>(B) * H > (1ll << 31) - 1 ||
       (S + kT - 1) / kT > 65535 ||
-      (is_bf16 && D != 64 && D != 80 && D != 128)) {
+      (is_bf16 && (D != 64 && D != 80 && D != 128)) ||
+      (is_bf16 && (S + kPacked / (H / KH) - 1) / (kPacked / (H / KH)) >
+                      65535)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* lse2 = static_cast<float*>(scratch);
-  float* dsum = lse2 + static_cast<size_t>(B) * H * S;
-  cudaError_t err;
+  const float* l2 = static_cast<const float*>(lse2);
+  float* dsum = static_cast<float*>(scratch);
+  const double scale_d = 1.0 / std::sqrt(static_cast<double>(D));
+  const float scale = static_cast<float>(scale_d);
+  const float scale_log2 = static_cast<float>(scale_d * 1.4426950408889634);
+  const long long n_rows = static_cast<long long>(B) * S * H;
+  const int rows_a_block = kDsumThreads / (is_bf16 ? 8 : 32);
+  const long long n_blocks = (n_rows + rows_a_block - 1) / rows_a_block;
+  if (n_blocks > (1ll << 31) - 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 dsum_grid(static_cast<unsigned>(n_blocks));
   if (is_bf16) {
-    err = launch_dp<__nv_bfloat16>(q, k, v, o, dout, dq, dk, dv, lse2, dsum,
-                                   B, S, H, KH, D, st);
+    bwd_dsum_bf16_kernel<<<dsum_grid, kDsumThreads, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(o),
+        static_cast<const __nv_bfloat16*>(dout), dsum, S, H, D, n_rows);
   } else {
-    err = launch_dp<float>(q, k, v, o, dout, dq, dk, dv, lse2, dsum, B, S, H,
-                           KH, D, st);
+    bwd_dsum_kernel<<<dsum_grid, kDsumThreads, 0, st>>>(
+        static_cast<const float*>(o), static_cast<const float*>(dout), dsum,
+        S, H, D, n_rows);
   }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (is_bf16) {
+    if (D == 64)
+      err = launch_wgmma<64>(q, k, v, dout, l2, dsum, dq, dk, dv, B, S, H, KH,
+                             scale_log2, scale, st);
+    else if (D == 80)
+      err = launch_wgmma<80>(q, k, v, dout, l2, dsum, dq, dk, dv, B, S, H, KH,
+                             scale_log2, scale, st);
+    else
+      err = launch_wgmma<128>(q, k, v, dout, l2, dsum, dq, dk, dv, B, S, H,
+                              KH, scale_log2, scale, st);
+    return static_cast<int>(err);
+  }
+  const float* qf = static_cast<const float*>(q);
+  const float* kf = static_cast<const float*>(k);
+  const float* vf = static_cast<const float*>(v);
+  const float* df = static_cast<const float*>(dout);
+  float* dqf = static_cast<float*>(dq);
+  float* dkf = static_cast<float*>(dk);
+  float* dvf = static_cast<float*>(dv);
+  if (D <= 64)
+    err = launch_f32<64>(qf, kf, vf, df, l2, dsum, dqf, dkf, dvf, B, S, H, KH,
+                         D, scale_log2, scale, st);
+  else if (D <= 96)
+    err = launch_f32<96>(qf, kf, vf, df, l2, dsum, dqf, dkf, dvf, B, S, H, KH,
+                         D, scale_log2, scale, st);
+  else
+    err = launch_f32<128>(qf, kf, vf, df, l2, dsum, dqf, dkf, dvf, B, S, H,
+                          KH, D, scale_log2, scale, st);
   return static_cast<int>(err);
 }

@@ -496,11 +496,6 @@ __device__ __forceinline__ void mma_rows8(float (&c)[4], uint32_t a0,
       : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 template <int NA, int HC>
 struct MmaShape {
   static constexpr int W = 16 / NA;    // warps of a CTA

@@ -5,15 +5,18 @@ in float32 registers; bfloat16 on ``wgmma`` in persistent CTAs fed by TMA
 rings, with the softmax overlapped with the products, float32 on FMAs),
 which replaces the JAX package's Pallas kernel
 ``kernels/flash_attention/kernel.py`` ``flash_attention``, and its
-gradient (``csrc/flash_attention_bwd.cu``: a pre-pass for each row's
-log-sum-exp and D_i, then dK/dV by key tile and dQ by query tile, float32
-FMAs, no atomics).
+gradient (``csrc/flash_attention_bwd.cu``: a pass for each row's D_i,
+then dK/dV by key tile and dQ by query tile, no atomics; bfloat16 on
+``wgmma`` fed by TMA, float32 on FMAs).  The forward can keep each row's
+log-sum-exp (base 2, float32 (B, H, S)), so that the backward forms the
+probabilities without recomputing the softmax's statistics.
 
 ``flash_attention`` is differentiable: with grad enabled on CUDA tensors
-it runs as a ``torch.autograd.Function`` whose forward saves q, k, v and
-the output and whose backward is :func:`flash_attention_bwd`.  CPU
-tensors take the plain version ``attention_ref``, which autograd
-differentiates.
+it runs as a ``torch.autograd.Function`` whose forward keeps the
+log-sum-exp and saves it with q, k, v and the output, and whose backward
+is :func:`flash_attention_bwd`.  Without grad (serving, prefill) the
+forward stores no log-sum-exp.  CPU tensors take the plain version
+``attention_ref``, which autograd differentiates.
 
 ``launches`` counts the forward kernel's launches and ``bwd_launches``
 the backward's calls (three kernels each), and nothing else."""
@@ -63,29 +66,35 @@ def _check(name, q, k, v, *more):
     return B, S, H, KH, D
 
 
-def _forward(q, k, v):
+def flash_attention_fwd(q, k, v, keep_lse=False):
+    """The forward kernel alone, outside autograd, on CUDA tensors: the
+    output; with ``keep_lse`` also each row's log-sum-exp of its scaled
+    scores (float32 (B, H, S), base 2), which the kernel then writes."""
     global launches
     B, S, H, KH, D = _check("flash_attention", q, k, v)
     out = torch.empty_like(q)
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+           if keep_lse else None)
     if B and S:
         build.launch("flash_attention_fwd", q, q.data_ptr(), k.data_ptr(),
-                     v.data_ptr(), out.data_ptr(), B, S, H, KH, D,
-                     int(q.dtype == torch.bfloat16))
+                     v.data_ptr(), out.data_ptr(),
+                     None if lse is None else lse.data_ptr(), B, S, H, KH,
+                     D, int(q.dtype == torch.bfloat16))
         launches += 1
-    return out
+    return (out, lse) if keep_lse else out
 
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v):
-        out = _forward(q, k, v)
-        ctx.save_for_backward(q, k, v, out)
+        out, lse = flash_attention_fwd(q, k, v, keep_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
-        return flash_attention_bwd(q, k, v, out, dout.contiguous())
+        q, k, v, out, lse = ctx.saved_tensors
+        return flash_attention_bwd(q, k, v, out, dout.contiguous(), lse)
 
 
 def flash_attention(q, k, v):
@@ -98,28 +107,36 @@ def flash_attention(q, k, v):
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _FlashAttention.apply(q, k, v)
-    return _forward(q, k, v)
+    return flash_attention_fwd(q, k, v)
 
 
-def flash_attention_bwd(q, k, v, out, dout):
+def flash_attention_bwd(q, k, v, out, dout, lse=None):
     """Gradient of causal GQA attention.  q, out, dout: (B,S,H,D); k, v:
     (B,S,KH,D), all of one dtype (float32 or bfloat16, the forward's
-    limits) -> (dq, dk, dv) in that dtype.  CPU tensors take the plain
-    version ``attention_bwd_ref``; CUDA tensors launch the kernels."""
+    limits) -> (dq, dk, dv) in that dtype.  ``lse``: each row's
+    log-sum-exp as the forward keeps it (float32 (B, H, S), base 2); when
+    it is None the forward kernel first runs again to write it.  CPU
+    tensors take the plain version ``attention_bwd_ref``; CUDA tensors
+    launch the kernels."""
     global bwd_launches
     if q.device.type == "cpu":
-        return R.attention_bwd_ref(q, k, v, out, dout)
+        return R.attention_bwd_ref(q, k, v, out, dout, lse)
     B, S, H, KH, D = _check("flash_attention_bwd", q, k, v, ("out", out),
                             ("dout", dout))
+    if lse is None:
+        lse = flash_attention_fwd(q, k, v, keep_lse=True)[1]
+    build.check_cuda("flash_attention_bwd lse", lse, torch.float32, 3)
+    if lse.shape != (B, H, S) or lse.device != q.device:
+        raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)} on "
+                         f"{lse.device}, expected {(B, H, S)} on "
+                         f"{q.device}")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if B and S:
-        # each row's log-sum-exp and D_i, written and read by the call
-        scratch = torch.empty(2 * B * H * S, dtype=torch.float32,
-                              device=q.device)
+        dsum = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
         build.launch("flash_attention_bwd", q, q.data_ptr(), k.data_ptr(),
                      v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-                     dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                     scratch.data_ptr(), B, S, H, KH, D,
+                     lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                     dv.data_ptr(), dsum.data_ptr(), B, S, H, KH, D,
                      int(q.dtype == torch.bfloat16))
         bwd_launches += 1
     return dq, dk, dv

@@ -2,9 +2,14 @@
 plain version of the backward kernel (``attention_bwd_ref``, the
 explicit formulas with P materialised) against ``jax.vjp`` of the JAX
 package's oracle ``kernels/flash_attention/ref.py`` ``attention_ref`` and
-against torch autograd of the port's ``attention_ref``, in float32 at
-rtol 1e-5 / atol 1e-6.  The CUDA kernel itself is held against the plain
-version in ``tests/test_torch_cuda.py``."""
+against torch autograd of the port's ``attention_ref``; the log-sum-exp
+that the forward keeps for the backward (``attention_lse_ref``) against
+``jax.nn.logsumexp`` of the oracle's scores, and the plain backward fed
+with it against the one that forms its own softmax.  All in float32 at
+rtol 1e-5 / atol 1e-6.  The CUDA kernels themselves are held against the
+plain versions in ``tests/test_torch_cuda.py``."""
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -75,5 +80,67 @@ def test_cpu_wrappers_take_the_plain_versions():
     grads = torch.autograd.grad(out, leaves, dout)
     for g, w in zip(grads, KA.flash_attention_bwd(q, k, v, out.detach(),
                                                   dout)):
+        torch.testing.assert_close(g, w, **TOL)
+    assert (KA.launches, KA.bwd_launches) == counts
+
+
+def _jax_lse2(q, k):
+    """Base-2 log-sum-exp of each row's scores, formed as the JAX oracle
+    ``attention_ref`` forms them (scaled, causal mask to -inf)."""
+    B, S, H, D = q.shape
+    KH = k.shape[2]
+    qg = jnp.asarray(q).reshape(B, S, KH, H // KH, D)
+    s = jnp.einsum("bskgd,btkd->bkgst", qg, jnp.asarray(k)) / math.sqrt(D)
+    s = jnp.where(jnp.tril(jnp.ones((S, S), bool))[None, None, None], s,
+                  -jnp.inf)
+    return np.asarray(jax.nn.logsumexp(s, axis=-1) / math.log(2.0)).reshape(
+        B, H, S)
+
+
+@pytest.mark.parametrize("B,S,H,KH,D", SHAPES)
+def test_attention_lse_ref_matches_jax_logsumexp(B, S, H, KH, D):
+    q, k, v, _ = _inputs(B, S, H, KH, D, 5 * S + H)
+    got = RA.attention_lse_ref(*map(torch.from_numpy, (q, k, v)))
+    assert got.dtype == torch.float32 and got.shape == (B, H, S)
+    np.testing.assert_allclose(got.numpy(), _jax_lse2(q, k), **TOL)
+
+
+@pytest.mark.parametrize("B,S,H,KH,D", SHAPES)
+def test_attention_bwd_ref_with_lse_matches_without(B, S, H, KH, D):
+    """P formed from the kept log-sum-exp, as the kernel forms it, gives
+    the softmax's gradients."""
+    q, k, v, dout = (torch.from_numpy(x)
+                     for x in _inputs(B, S, H, KH, D, 7 * S + D))
+    out = RA.attention_ref(q, k, v)
+    lse = RA.attention_lse_ref(q, k, v)
+    got = RA.attention_bwd_ref(q, k, v, out, dout, lse=lse)
+    want = RA.attention_bwd_ref(q, k, v, out, dout)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **TOL)
+
+
+def test_attention_bwd_ref_rejects_a_misshapen_lse():
+    q, k, v, dout = (torch.from_numpy(x) for x in _inputs(1, 9, 4, 2, 8, 1))
+    out = RA.attention_ref(q, k, v)
+    lse = RA.attention_lse_ref(q, k, v)
+    for bad in (lse[:, :, :-1], lse.transpose(1, 2), lse.double()):
+        with pytest.raises(ValueError, match="lse"):
+            RA.attention_bwd_ref(q, k, v, out, dout, lse=bad)
+
+
+def test_cpu_backward_wrapper_takes_lse():
+    """On the host ``flash_attention_bwd`` with the kept log-sum-exp is
+    the plain version fed with it, and gives the plain gradients; no
+    kernel counter moves."""
+    q, k, v, dout = (torch.from_numpy(x)
+                     for x in _inputs(2, 21, 4, 2, 8, 3))
+    out = RA.attention_ref(q, k, v)
+    lse = RA.attention_lse_ref(q, k, v)
+    counts = (KA.launches, KA.bwd_launches)
+    got = KA.flash_attention_bwd(q, k, v, out, dout, lse)
+    for g, fed, w in zip(got,
+                         RA.attention_bwd_ref(q, k, v, out, dout, lse=lse),
+                         RA.attention_bwd_ref(q, k, v, out, dout)):
+        torch.testing.assert_close(g, fed, rtol=0, atol=0)
         torch.testing.assert_close(g, w, **TOL)
     assert (KA.launches, KA.bwd_launches) == counts

@@ -343,6 +343,73 @@ def test_flash_attention_autograd_launches_the_backward(card):
         assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
 
 
+# the forward's log-sum-exp (base 2) against the plain version's: float32
+# sums of up to S exponentials in another order, ex2.approx (2 ulp) in
+# bfloat16, on scores from the same inputs
+ATTN_LSE_TOL = dict(rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("B,S,H,KH,D,dtype", [
+    (1, 100, 8, 4, 64, torch.float32),        # ragged S
+    (1, 77, 6, 3, 80, torch.float32),
+    (1, 1, 4, 4, 128, torch.float32),         # one position
+    (2, 1000, 32, 8, 64, torch.bfloat16),     # llama3.2-1b heads, ragged
+    (1, 200, 12, 2, 80, torch.bfloat16),      # G = 6
+    (1, 129, 8, 1, 128, torch.bfloat16),      # G = 8
+    (2, 1, 4, 4, 64, torch.bfloat16),         # one position, G = 1
+])
+def test_flash_attention_keeps_lse_matching_plain(card, B, S, H, KH, D,
+                                                  dtype):
+    """The forward's kept log-sum-exp matches ``attention_lse_ref``, and
+    keeping it leaves the output bitwise as it is without."""
+    from repro_torch.kernels.flash_attention import kernel as KA, ref as RA
+    q, k, v = _attn_inputs(card, B, S, H, KH, D, dtype, 2 * S + D)
+    out, lse = KA.flash_attention_fwd(q, k, v, keep_lse=True)
+    plain = KA.flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain)
+    assert lse.dtype == torch.float32 and lse.shape == (B, H, S)
+    torch.testing.assert_close(lse, RA.attention_lse_ref(q, k, v),
+                               **ATTN_LSE_TOL)
+
+
+@pytest.mark.parametrize("D", [64, 80, 128])
+@pytest.mark.parametrize("G", [1, 4, 6, 8])
+@pytest.mark.parametrize("S", [1, 50, 127, 129, 1000])
+def test_flash_attention_bwd_bf16_tiles_and_edges(card, S, G, D):
+    """The wgmma backward across its 128-key dK/dV CTA, its 64-row steps
+    and its 128 packed dQ rows (S = 50, 127, 129, 1000), one position,
+    every G of the dense configs and G = 6 (idle packed rows), every
+    bfloat16 head dim: against the plain version, two calls bitwise
+    equal, and the log-sum-exp kept by the forward giving bitwise the
+    gradients of a call that has the forward write it again."""
+    from repro_torch.kernels.flash_attention import kernel as KA, ref as RA
+    B = 2 if S < 1000 else 1
+    q, k, v = _attn_inputs(card, B, S, 2 * G, 2, D, torch.bfloat16,
+                           S * 5 + G * 7 + D)
+    dout = _attn_inputs(card, B, S, 2 * G, 2 * G, D, torch.bfloat16,
+                        S + 9)[0]
+    out, lse = KA.flash_attention_fwd(q, k, v, keep_lse=True)
+    before = KA.bwd_launches
+    got = KA.flash_attention_bwd(q, k, v, out, dout, lse)
+    again = KA.flash_attention_bwd(q, k, v, out, dout, lse)
+    fresh = KA.flash_attention_bwd(q, k, v, out, dout)
+    torch.cuda.synchronize()
+    assert KA.bwd_launches == before + 3
+    want = RA.attention_bwd_ref(q, k, v, out, dout)
+    for name, g, a, f, w in zip(("dq", "dk", "dv"), got, again, fresh, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        assert torch.equal(g, a), f"{name}: two calls differ"
+        assert torch.equal(g, f), f"{name}: kept and rewritten lse differ"
+        err = float((g.float() - w.float()).abs().max())
+        top = float(w.float().abs().max())
+        # plus 1e-5 absolute where the exact gradient is zero: at S = 1,
+        # dP = D_i, so dq = dk = 0, and both sides hold the float32
+        # rounding of dO.V (terms of order 1; observed ~1e-7)
+        assert err <= ATTN_BWD_TOL[torch.bfloat16] * top + 1e-5, (
+            name, err, top)
+
+
 @pytest.mark.parametrize("B,S,H,KH,D,pos,dtype", [
     (2, 256, 8, 4, 64, 255, torch.bfloat16),
     (1, 512, 4, 1, 128, 300, torch.bfloat16),   # masked tail of a block
