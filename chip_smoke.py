@@ -8,13 +8,16 @@ Phases, each fatal on failure:
 
 1. print the card's name and power limit (``nvidia-smi``);
 2. build the eight CUDA kernels from ``src/repro_torch/csrc`` (timed as
-   set-up; the compiler's register and spill lines are printed);
+   set-up; the compiler's register and spill lines are printed) and the
+   host routines of ``src/repro_torch/csrc/host`` with ``g++``;
 3. co-execute the paper's four kernel programs on ``[cuda:0, cpu]``
    through ``repro_torch.api.coexec``, with HGuidedOpt seeded from a
-   one-packet probe on each group.  Every kernel's launch counter is set to
-   0 just before each run and read just after; the card's group must have
-   run packets, not died, and launched its kernel, and the output must
-   match ``reference_output`` on the card (Mandelbrot exactly);
+   one-packet probe on each group.  Every kernel's launch counter and
+   host-routine counter is set to 0 just before each run and read just
+   after; the card's group must have run packets, not died, and launched
+   its kernel, the host group's routine must have run once for each of its
+   packets, and the output must match ``reference_output`` on the card
+   (Mandelbrot exactly);
 4. register binomial as a workload and re-offload sub-regions of it in ROI
    mode (pooled buffers, pipelined loop), with the same checks;
 5. hold each kernel against its plain PyTorch version on the card, at the
@@ -32,9 +35,11 @@ Phases, each fatal on failure:
     (14,336 px, 5,000 iterations) as 2-D NDRanges whose row panels launch
     the card's kernels on tiles, ``ray1``, ``ray2``, ``ray1_2d`` and
     ``ray2_2d`` at 4,096 px (plain PyTorch ops on both groups, rendered in
-    bands of rows).  The card's group must run packets and not die, the
-    2-D image programs' launch counters (set to 0 just before) must be
-    above 0, and each output must match ``reference_output`` on the card:
+    bands of rows; the host group runs the compiled host routines).  The
+    card's group must run packets and not die, the 2-D image programs'
+    launch counters (set to 0 just before) must be above 0, the host
+    routine must have run once for each host packet, and each output must
+    match ``reference_output`` on the card:
     Mandelbrot exactly, the blur at rtol/atol 1e-5, ray at ``RAY_TOL``
     with no pixel flipped;
 5b. the paper's offloading modes on ``gaussian2d`` and ``mandelbrot2d``:
@@ -42,8 +47,8 @@ Phases, each fatal on failure:
     ``OFFLOAD_REPS`` times in binary mode and as often warm in ROI mode
     (after ``register_workload``), interleaved; the median and spread of
     the binary total, the ROI time, ``phases.init_s`` and the card's busy
-    time of each mode, and every output equal to the block of the full
-    reference;
+    time of each mode, every output equal to the block of the full
+    reference, and the host routine run for each host packet;
 5c. a ``gaussian2d`` run journaled under a temporary directory, its
     journal cut to two packets and resumed in a fresh session: replayed
     plus executed work must cover the program, the gaps must launch the
@@ -56,6 +61,15 @@ Phases, each fatal on failure:
     ROI tiles, beside their bounds, plain versions and (the blur) one
     ``F.conv2d``: a ``roi_tile`` entry of each kernel's record, with the
     2-D path's launches (one record per kernel, as ``long_shape`` is);
+5f. log the host CPU (``lscpu``), torch's thread count and the host
+    library's build time; hold each host routine (Mandelbrot, the blur,
+    binomial, nbody, ray) against its plain version on the host at the
+    host group's largest packet of phases 3 and 5a (``HOST_CHECK_WG``
+    work-groups of it; Mandelbrot exactly, ray at ``RAY_TOL`` with no
+    pixel flipped, the rest at ``TOLERANCES``), time both, log nbody's
+    host error from float64 on 256 targets, and give each routine a
+    ``host`` entry: in its kernel's JSON record, ray's (it has no card
+    kernel) under the line's ``host`` key with the host CPU;
 6. serve llama3.2-1b at full width (``--small``: 2 of its 16 layers) in
    bfloat16 on ``cuda:0`` through ``repro_torch.serve.CoexecServer``: two
    replicas (throttles 1 and 2) share one copy of the weights, 16
@@ -255,6 +269,28 @@ def check_card_group(res, devices, name):
     check(res.aborted_devices == 0, f"{name}: aborted devices")
     check(not gpu.dead, f"{name}: the card's group was marked dead")
     check(gpu.packets_done > 0, f"{name}: the card ran no packet")
+
+
+def check_host_group(res, host_calls, name):
+    """Every packet of the host group (device 1) ran its compiled host
+    routine: ``host_calls``, set to 0 before the run, is at least their
+    number (above 0 wherever the host ran a packet)."""
+    n_cpu = sum(1 for p in res.packets if p.device == 1)
+    check(host_calls >= n_cpu, f"{name}: the host group ran {n_cpu} "
+                               f"packets but its routine {host_calls} times")
+
+
+def host_run(res, kw, host_calls):
+    """What phase 5f needs of a run: the host group's packets (dim-0
+    offset and size, absolute for a 2-D program), its routine's calls and
+    busy time, and the dim-0 units the card ran."""
+    pkts = [(p.region.dims[0].offset, p.region.dims[0].size)
+            if p.region is not None and p.region.ndim == 2
+            else (p.offset, p.size) for p in res.packets if p.device == 1]
+    return dict(kw=kw, packets=pkts, host_calls=host_calls,
+                busy_s=res.device_busy[1], roi_s=res.total_time,
+                card_units=sum(p.size for p in res.packets
+                               if p.device == 0))
 
 
 # ------------------------------------------------------------ serving path
@@ -1278,9 +1314,10 @@ def med_spread(xs):
             f"max {max(xs):.4f})")
 
 
-def suite_phases(args, torch, dev0, attach):
+def suite_phases(args, torch, dev0, attach, host_runs):
     """The whole program suite on ``[cuda:0, cpu]``, the paper's two
-    offloading modes, a journaled run resumed, and the autotuner."""
+    offloading modes, a journaled run resumed, and the autotuner.  Each
+    suite run's host packets go into ``host_runs`` for phase 5f."""
     import tempfile
 
     from repro_torch.api import (EngineSession, OffloadMode, Region,
@@ -1289,11 +1326,14 @@ def suite_phases(args, torch, dev0, attach):
     from repro_torch.kernels.gaussian import kernel as KG, ops as gops
     from repro_torch.kernels.gaussian import ref as RG
     from repro_torch.kernels.mandelbrot import kernel as KM, ref as RM
+    from repro_torch.kernels.ray import ops as RO
     from repro_torch.tune import TuneCache, autotune
 
     sizes = SMALL_SUITE_SIZES if args.small else SUITE_SIZES
     counters = {"gaussian": KG, "mandelbrot": KM}
     uses = {"gaussian2d": "gaussian", "mandelbrot2d": "mandelbrot"}
+    # the module whose host routine each program's host group runs
+    host_mod = {"gaussian2d": KG, "mandelbrot2d": KM}
     launches2d, powers_of, refs = {}, {}, {}
 
     # -------------------------------------------- the whole program suite
@@ -1303,13 +1343,18 @@ def suite_phases(args, torch, dev0, attach):
         devices = fleet()
         powers = powers_of[name] = probe(prog, devices)
         setup_s = time.perf_counter() - t0
-        for k in counters.values():
+        hm = host_mod.get(name, RO)
+        for k in (*counters.values(), hm):
             k.launches = 0
+            k.host_calls = 0
         t0 = time.perf_counter()
         res = coexec(prog, devices, powers=powers)
         wall = time.perf_counter() - t0
         counts = {k: m.launches for k, m in counters.items()}
+        host_calls = hm.host_calls
         check_card_group(res, devices, name)
+        check_host_group(res, host_calls, name)
+        host_runs[name] = host_run(res, kw, host_calls)
         if name in uses:
             launches2d[uses[name]] = counts[uses[name]]
             check(counts[uses[name]] > 0,
@@ -1325,9 +1370,10 @@ def suite_phases(args, torch, dev0, attach):
             f"wall, roi {res.total_time:.3f} s, powers "
             f"{[round(p, 1) for p in powers]} units/s, share cuda0/cpu "
             f"{share:.4f}/{1 - share:.4f}, packets {n_gpu}/"
-            f"{len(res.packets) - n_gpu}, launches {counts}, busy s "
-            f"cuda0/cpu {res.device_busy[0]:.3f}/{res.device_busy[1]:.3f}, "
-            f"max |out - ref| {err:.3g}, flipped pixels {flips}")
+            f"{len(res.packets) - n_gpu}, launches {counts}, host calls "
+            f"{host_calls}, busy s cuda0/cpu {res.device_busy[0]:.3f}/"
+            f"{res.device_busy[1]:.3f}, max |out - ref| {err:.3g}, "
+            f"flipped pixels {flips}")
 
     # ------------------------------- offloading modes: binary against ROI
     tiles = SMALL_ROI_TILES if args.small else ROI_TILES
@@ -1352,6 +1398,7 @@ def suite_phases(args, torch, dev0, attach):
                                                                 "binary")
                 for mode in order:
                     counters[uses[name]].launches = 0
+                    counters[uses[name]].host_calls = 0
                     if mode == "roi":
                         res = roi_s.submit(prog, region=roi,
                                            mode=OffloadMode.ROI,
@@ -1371,6 +1418,8 @@ def suite_phases(args, torch, dev0, attach):
                         devices = bin_fleet
                     n_launch = counters[uses[name]].launches
                     check_card_group(res, devices, f"{name} {mode}")
+                    check_host_group(res, counters[uses[name]].host_calls,
+                                     f"{name} {mode}")
                     check(n_launch > 0, f"{name} {mode}: the card's kernel "
                                         f"unused")
                     compare_output(name, res.output, want)
@@ -1516,6 +1565,248 @@ def suite_phases(args, torch, dev0, attach):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------- host routines (phase 5f)
+# each host routine: its source, the JAX package's jax.jit entries it
+# stands for, and the programs whose host packets it ran
+HOST_ROUTINES = {
+    "mandelbrot": ("src/repro_torch/csrc/host/mandelbrot.cpp",
+                   "src/repro/kernels/mandelbrot/ops.py:20,38",
+                   ("mandelbrot", "mandelbrot2d")),
+    "gaussian": ("src/repro_torch/csrc/host/gaussian.cpp",
+                 "src/repro/kernels/gaussian/ops.py:29,60",
+                 ("gaussian", "gaussian2d")),
+    "binomial": ("src/repro_torch/csrc/host/binomial.cpp",
+                 "src/repro/kernels/binomial/ops.py:27", ("binomial",)),
+    "nbody": ("src/repro_torch/csrc/host/nbody.cpp",
+              "src/repro/kernels/nbody/ops.py:25", ("nbody",)),
+    "ray": ("src/repro_torch/csrc/host/ray.cpp",
+            "src/repro/kernels/ray/ops.py:15,29",
+            ("ray1", "ray2", "ray1_2d", "ray2_2d")),
+}
+# the most work-groups of a host packet held against the plain version,
+# which redoes the routine's work in eager tensor ops: one for Mandelbrot,
+# whose work-group of 8 rows x 14,336 px at 5,000 iterations takes the
+# plain version seconds
+HOST_CHECK_WG = {"mandelbrot": 1, "mandelbrot2d": 1, "binomial": 8}
+HOST_CHECK_WG_DEFAULT = 4
+HOST_REPS = 3
+
+
+def host_cpu():
+    """(model, logical CPUs) of the host, from ``lscpu``; where it names
+    no model, its vendor, family and model numbers."""
+    import os
+    import platform
+    info = {}
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                             check=True).stdout
+        info = dict((k.strip(), v.strip()) for k, v in (
+            line.split(":", 1) for line in out.splitlines() if ":" in line))
+    except (OSError, subprocess.CalledProcessError):
+        pass
+    model = info.get("Model name", "")
+    if model in ("", "unknown"):
+        model = (f"{model or 'unnamed'} ({info.get('Vendor ID', '?')} "
+                 f"family {info.get('CPU family', '?')} model "
+                 f"{info.get('Model', '?')}, {platform.machine()})")
+    return model, int(info.get("CPU(s)") or os.cpu_count() or 0)
+
+
+def host_ms(fn, reps: int = HOST_REPS) -> float:
+    """Mean wall time of ``fn`` (a host call, synchronous) over ``reps``
+    calls after one warm-up."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def readback_s(torch, dev0, n_elem: int, dtype) -> float:
+    """Seconds to bring ``n_elem`` card elements of ``dtype`` to the host
+    as the runtime's commit does: ``.cpu().numpy()`` and a copy into a
+    host array."""
+    x = torch.zeros(n_elem, dtype=torch.from_numpy(
+        np.empty(0, dtype)).dtype, device=dev0)
+    out = np.empty(n_elem, dtype)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out[:] = x.detach().cpu().numpy()
+    dt = time.perf_counter() - t0
+    del x
+    return dt
+
+
+def host_cases(name, kw, torch):
+    """(host, plain) of program ``name`` on the host: ``host(off, n)``
+    runs the program's range entry (its host routine) on dim-0 units
+    [off, off + n) (work-groups of a 1-D program, rows of a 2-D one),
+    ``plain(off, n)`` the plain version on the same inputs."""
+    from repro_torch.kernels.binomial import ops as bops, ref as RB
+    from repro_torch.kernels.gaussian import ops as gops, ref as RG
+    from repro_torch.kernels.mandelbrot import ops as mops, ref as RM
+    from repro_torch.kernels.nbody import ops as nops, ref as RN
+    from repro_torch.kernels.ray import ops as rops, ref as RR
+
+    if name.startswith("gaussian"):
+        img = np.random.default_rng(0).standard_normal(
+            (kw["h"], kw["w"])).astype(np.float32)
+        ip, w = (torch.from_numpy(x) for x in gops.prepare(img))
+        if name == "gaussian":
+            return (lambda o, n: gops.run_range(ip, w, o, n),
+                    lambda o, n: RG.blur_rows_ref(ip, w, o * gops.LWS,
+                                                  n * gops.LWS))
+        return (lambda o, n: gops.run_region(ip, w, o, n, 0, kw["w"]),
+                lambda o, n: RG.blur_rows_ref(ip, w, o, n))
+    if name.startswith("mandelbrot"):
+        px, it = kw["px"], kw["max_iter"]
+        if name == "mandelbrot":
+            return (lambda o, n: mops.run_range(o, n, width=px, height=px,
+                                                max_iter=it, device="cpu"),
+                    lambda o, n: RM.escape_counts(o * mops.LWS,
+                                                  n * mops.LWS, px, px, it))
+        return (lambda o, n: mops.run_region(o, n, 0, px, width=px,
+                                             height=px, max_iter=it,
+                                             device="cpu"),
+                lambda o, n: RM.escape_counts(o, n, px, px, it))
+    if name == "binomial":
+        s0, k0, ty = (torch.from_numpy(x)
+                      for x in bops.make_inputs(kw["n_options"]))
+        L = bops.LWS
+        return (lambda o, n: bops.run_range(s0, k0, ty, o, n),
+                lambda o, n: RB.price_options(s0[o * L:(o + n) * L],
+                                              k0[o * L:(o + n) * L],
+                                              ty[o * L:(o + n) * L]))
+    if name == "nbody":
+        pm, vel = (torch.from_numpy(x)
+                   for x in nops.make_inputs(kw["n_bodies"]))
+        return (lambda o, n: nops.run_range(pm, vel, o, n),
+                lambda o, n: RN.step_rows(pm, vel, o * nops.LWS,
+                                          n * nops.LWS))
+    px = kw["px"]
+    scene = {k: torch.from_numpy(v)
+             for k, v in RR.make_scene(int(name[3])).items()}
+    ax = {k: torch.from_numpy(v) for k, v in RR.pixel_axes(px, px).items()}
+    if name.endswith("_2d"):
+        return (lambda o, n: rops.run_region(scene, o, n, 0, px, width=px,
+                                             height=px, axes=ax),
+                lambda o, n: RR.render_rows(scene, o, n, px, px, 0, px, ax))
+    return (lambda o, n: rops.run_range(scene, o, n, width=px, height=px,
+                                        axes=ax),
+            lambda o, n: RR.render_rows(scene, o * rops.LWS, n * rops.LWS,
+                                        px, px, 0, px, ax))
+
+
+def host_phase(args, torch, dev0, attach, host_runs, build_s):
+    """Phase 5f: each host routine against its plain version on the host
+    at the host group's largest packet of phases 3 and 5a (one work-group
+    in the middle of the range where the host ran none), capped at
+    ``HOST_CHECK_WG`` work-groups for the comparison; host routine and
+    plain version timed; a ``host`` entry for each routine."""
+    from repro_torch.core import programs as P
+    from repro_torch.kernels.nbody import kernel as KN, ops as nops
+    from repro_torch.kernels.nbody import ref as RN
+
+    model, cores = host_cpu()
+    threads = torch.get_num_threads()
+    log(f"host CPU: {model}, {cores} logical CPUs, torch threads {threads};"
+        f" host library build {build_s[0]:.2f} s wall (g++ "
+        f"{build_s[1]:.2f} s)")
+    entries = {}
+    for routine, (src, replaces, programs) in HOST_ROUTINES.items():
+        cases = []
+        for name in programs:
+            run = host_runs[name]
+            kw = run["kw"]
+            host, plain = host_cases(name, kw, torch)
+            # dim-0 units a work-group: 1 (1-D) or the 2-D program's lws
+            prog = P.PROGRAMS[name](**kw)
+            region = prog.work_region.dims[0]
+            wg = region.lws
+            if run["packets"]:
+                off, size = max(run["packets"], key=lambda p: p[1])
+                where = "the host group's largest packet"
+            else:
+                size = wg
+                off = region.offset + (region.size // 2) // wg * wg
+                where = "one work-group (the host group ran no packet)"
+            n = min(size, HOST_CHECK_WG.get(name, HOST_CHECK_WG_DEFAULT) * wg)
+            t0 = time.perf_counter()
+            want = plain(off, n)
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            got = host(off, n)
+            got_np, want_np = got.numpy(), want.reshape(got.shape).numpy()
+            if routine == "ray":
+                err, _ = compare_output(name, got_np.reshape(-1, 3),
+                                        want_np.reshape(-1, 3))
+            elif routine == "mandelbrot":
+                err, _ = compare_output(name, got_np, want_np)
+            else:
+                rtol, atol = TOLERANCES[routine]
+                np.testing.assert_allclose(got_np, want_np, rtol=rtol,
+                                           atol=atol, err_msg=name)
+                err = float(np.abs(got_np.astype(np.float64)
+                                   - want_np).max())
+            ms = host_ms(lambda: host(off, n))
+            packet_ms = ms if n == size else host_ms(lambda: host(off, size))
+            case = dict(program=name, packet=[off, size], where=where,
+                        checked=[off, n], host_packets=len(run["packets"]),
+                        host_calls=run["host_calls"],
+                        host_busy_s=run["busy_s"], roi_s=run["roi_s"],
+                        ms=ms, plain_ms=plain_ms, packet_ms=packet_ms,
+                        max_abs_err=err)
+            log(f"host {routine} on {name} {kw}: units [{off}, {off + n}) "
+                f"of {where} [{off}, {off + size}): {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms ({plain_ms / ms:.1f}x), whole packet "
+                f"{packet_ms:.4f} ms, max abs err {err:.3g}; main path: "
+                f"{len(run['packets'])} host packets, {run['host_calls']} "
+                f"host calls, host busy {run['busy_s']:.3f} s of the "
+                f"{run['roi_s']:.3f} s ROI")
+            if prog.work_region.ndim == 1:
+                # what the runtime's commit does with the card's rows (a
+                # read-back into pageable memory and a copy into the
+                # output), once for all of them, on the card's thread's
+                # clock (not part of the card's busy time)
+                case["card_readback_s"] = readback_s(
+                    torch, dev0, run["card_units"] * prog.out_rows_per_wg
+                    * prog.out_cols, prog.out_dtype)
+                log(f"  the card's {run['card_units']} work-groups of "
+                    f"{name} read back and copied: "
+                    f"{case['card_readback_s']:.3f} s")
+            cases.append(case)
+        entries[routine] = dict(source=src, replaces=replaces, cpu=model,
+                                cores=cores, threads=threads, cases=cases)
+
+    # nbody on the host against float64 at the main path's size, as phase
+    # 5 measures the card's kernel
+    kw = host_runs["nbody"]["kw"]
+    pm_np, vel_np = nops.make_inputs(kw["n_bodies"])
+    pm, vel = torch.from_numpy(pm_np), torch.from_numpy(vel_np)
+    pkts = host_runs["nbody"]["packets"]
+    t0n = max(pkts, key=lambda p: p[1])[0] * nops.LWS if pkts else 0
+    nt = min(256, pm.shape[0] - t0n)
+    acc64 = RN.accelerations(pm.double().to(dev0), t0n, nt).cpu()
+    rel = {}
+    for label, rows in (("host", KN.step_rows(pm, vel, t0n, nt)),
+                        ("plain", RN.step_rows(pm, vel, t0n, nt))):
+        acc = (rows[:, 4:7].double() - vel[t0n:t0n + nt].double()) / RN.DT
+        rel[label] = float(((acc - acc64).norm(dim=1)
+                            / acc64.norm(dim=1)).max())
+    log(f"  nbody |acc - acc_f64| / |acc_f64| over {nt} targets from "
+        f"{t0n} on the host: host routine {rel['host']:.3g}, plain "
+        f"{rel['plain']:.3g} (the card's kernel at most {NBODY_F64_REL})")
+    entries["nbody"]["f64_rel"] = rel["host"]
+    entries["nbody"]["plain_f64_rel"] = rel["plain"]
+    del acc64
+    torch.cuda.empty_cache()
+
+    for routine in ("mandelbrot", "gaussian", "binomial", "nbody"):
+        attach(routine, host=entries[routine])
+    return dict(cpu=model, cores=cores, threads=threads,
+                build_s=build_s[0], gxx_s=build_s[1], ray=entries["ray"])
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--small", action="store_true",
@@ -1530,7 +1821,7 @@ def main() -> int:
     try:
         from repro_torch.api import EngineSession, OffloadMode, Region, coexec
         from repro_torch.core import programs as P
-        from repro_torch.kernels import build
+        from repro_torch.kernels import build, host_build
         from repro_torch.kernels.binomial import kernel as KB, ref as RB
         from repro_torch.kernels.gaussian import kernel as KG, ref as RG
         from repro_torch.kernels.mandelbrot import kernel as KM, ref as RM
@@ -1562,6 +1853,11 @@ def main() -> int:
         for line in rep.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {src}: {line.strip()}")
+    t0 = time.perf_counter()
+    host_build.load()
+    host_build_s = (time.perf_counter() - t0, host_build.build_seconds)
+    log(f"host build: {host_build_s[0]:.2f} s wall (g++ "
+        f"{host_build_s[1]:.2f} s)")
 
     sizes = SMALL_SIZES if args.small else PAPER_SIZES
     kernels = {"gaussian": KG, "binomial": KB, "mandelbrot": KM,
@@ -1570,15 +1866,17 @@ def main() -> int:
     def reset_counts():
         for k in kernels.values():
             k.launches = 0
+            k.host_calls = 0
 
     def check_group(res, devices, name, used):
         check_card_group(res, devices, name)
         for k in used:
             check(kernels[k].launches > 0, f"{name}: {k} kernel unused")
+            check_host_group(res, kernels[k].host_calls, name)
 
     # ----------------------------------------------------- main path
     launches, largest, smallest = {}, {}, {}
-    outputs = {}
+    outputs, host_runs = {}, {}
     for name, kw in sizes.items():
         t0 = time.perf_counter()
         prog = P.PROGRAMS[name](**kw)
@@ -1590,8 +1888,10 @@ def main() -> int:
         res = coexec(prog, devices, powers=powers)
         wall = time.perf_counter() - t0
         counts = {k: m.launches for k, m in kernels.items()}
+        host_calls = kernels[name].host_calls
         check_group(res, devices, name, [name])
         launches[name] = counts[name]
+        host_runs[name] = host_run(res, kw, host_calls)
         G = prog.total_work
         share = [sum(p.size for p in res.packets if p.device == i) / G
                  for i in range(len(devices))]
@@ -1620,7 +1920,7 @@ def main() -> int:
             f"{[round(p, 1) for p in powers]} wg/s, share cuda0/cpu "
             f"{share[0]:.4f}/{share[1]:.4f}, packets "
             f"{len(gpu_pkts)}/{len(res.packets) - len(gpu_pkts)}, "
-            f"launches {counts}, busy s cuda0/cpu "
+            f"launches {counts}, host calls {host_calls}, busy s cuda0/cpu "
             f"{res.device_busy[0]:.3f}/{res.device_busy[1]:.3f}, "
             f"max |out - ref| {err:.3g}")
 
@@ -1637,14 +1937,14 @@ def main() -> int:
             roi = Region.line(size, offset=off)
             res = session.submit(prog, region=roi, mode=OffloadMode.ROI,
                                  powers=powers).result()
-            n_launch = KB.launches
+            n_launch, n_host = KB.launches, KB.host_calls
             check_group(res, devices, "binomial ROI", ["binomial"])
             want = outputs["binomial"][off * 128:(off + size) * 128]
             np.testing.assert_allclose(res.output, want, rtol=1e-4,
                                        atol=1e-3)
             log(f"ROI binomial [{off}, {off + size}) of {G}: roi "
                 f"{res.total_time:.3f} s, init {res.phases.init_s:.4f} s, "
-                f"launches {n_launch}")
+                f"launches {n_launch}, host calls {n_host}")
 
     # ---------------------------------- kernels against plain versions
     records = []
@@ -1853,7 +2153,9 @@ def main() -> int:
                   cuda_ms(lambda: KN.step_rows(pm, vel, t0s, nts), torch),
                   *nbody_bytes_ops(nts), f"{nts} targets x {N} sources")
 
-    suite_phases(args, torch, dev0, attach)
+    suite_phases(args, torch, dev0, attach, host_runs)
+    host_info = host_phase(args, torch, dev0, attach, host_runs,
+                           host_build_s)
     serving_phases(args, torch, dev0, launches, record)
     mamba_phases(args, torch, dev0, launches, record)
     training_phases(args, torch, dev0, launches, attach)
@@ -1861,7 +2163,7 @@ def main() -> int:
     leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "repro")]
     check(not leaked, f"the port imported {leaked}")
 
-    print(json.dumps({"kernels": records}))
+    print(json.dumps({"kernels": records, "host": host_info}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -82,8 +82,9 @@ class DeviceGroup:
 
 def reserve_feeder_cores(devices: Sequence[DeviceGroup]) -> None:
     """On a fleet that mixes cards and a host-CPU group, cap torch's
-    intra-op threads so the CPU group's kernels leave one core per card
-    for the thread that launches that card's packets."""
+    intra-op threads (which the host routines of ``csrc/host`` also take
+    as their thread count) so the CPU group leaves one core per card for
+    the thread that launches that card's packets."""
     n_cuda = sum(1 for d in devices if d.is_cuda)
     if n_cuda and any(not d.is_cuda for d in devices):
         torch.set_num_threads(max(1, (os.cpu_count() or 1) - n_cuda))

@@ -13,8 +13,10 @@ Two geometries:
 
 Each build stages the inputs on the group's device (``DeviceGroup.put``);
 the range function then returns the packet's rows or tile on that device,
-computed by the hand-written kernel on a card and by the plain version on
-the CPU (ray: plain PyTorch ops on both).
+computed by the hand-written kernel on a card and by the compiled host
+routine on the CPU (``csrc/host``, C++ built with ``g++`` at first use, the
+counterpart of the JAX package's ``jax.jit`` entries on XLA:CPU); ray runs
+plain PyTorch ops on a card and its host routine on the CPU.
 
 Default sizes are small so the CPU tests stay fast; the paper's sizes are
 in each ``kernels/*/ref.py`` docstring."""
@@ -198,14 +200,15 @@ def reference_output(program_name: str, device="cuda",
 
     Runs on the card (``device="cuda"``) by default, where one launch of
     the program's kernel covers the whole range; ``device="cpu"`` runs the
-    plain version on the host.  2-D programs return (rows, cols*out_cols).
+    host routines (never the plain versions).  2-D programs return (rows,
+    cols*out_cols).
     Raises ``RuntimeError`` when the card is asked for and CUDA is
     unavailable: it never falls back to the CPU."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"reference_output({program_name!r}): CUDA is unavailable; "
-            "pass device='cpu' to run the plain version on the host")
+            "pass device='cpu' to run the host routines")
     prog = PROGRAMS[program_name](**kwargs)
     group = DeviceGroup("reference", device=device)
     fn = prog.build(group)

@@ -116,26 +116,36 @@ def _compile(out: Path) -> None:
     build_seconds = time.perf_counter() - t0
 
 
+def load_library(out: Path, lock_path: Path, compile_fn,
+                 prototypes) -> ctypes.CDLL:
+    """Load the shared library ``out``, first running ``compile_fn(out)``
+    under the file lock ``lock_path`` (another process building it waits)
+    if it is not built yet; every entry point of ``prototypes`` returns
+    int."""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    with open(lock_path, "w") as lock_file:
+        fcntl.flock(lock_file, fcntl.LOCK_EX)
+        try:
+            if not out.exists():
+                compile_fn(out)
+        finally:
+            fcntl.flock(lock_file, fcntl.LOCK_UN)
+    lib = ctypes.CDLL(str(out))
+    for name, argtypes in prototypes.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def load() -> ctypes.CDLL:
     """The kernels' shared library, built first if its sources changed."""
     global _lib
     with _lock:
         if _lib is not None:
             return _lib
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        out = BUILD_DIR / f"libreprotorch_{_digest()}.so"
-        with open(BUILD_DIR / "lock", "w") as lock_file:
-            fcntl.flock(lock_file, fcntl.LOCK_EX)
-            try:
-                if not out.exists():
-                    _compile(out)
-            finally:
-                fcntl.flock(lock_file, fcntl.LOCK_UN)
-        lib = ctypes.CDLL(str(out))
-        for name, argtypes in PROTOTYPES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+        lib = load_library(BUILD_DIR / f"libreprotorch_{_digest()}.so",
+                           BUILD_DIR / "lock", _compile, PROTOTYPES)
         lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

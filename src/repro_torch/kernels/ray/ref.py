@@ -3,12 +3,13 @@ scenes, lws=128, custom structs, irregular workload).
 
 Plain PyTorch version of a sphere-scene raytracer with one bounce of
 Lambert shading + hard shadows, a transcription of the JAX package's op
-for op.  It has no hand-written kernel, on either device: the JAX package
-has no Pallas kernel for it either, since per-ray control flow is
-data-dependent branching (shadow rays, misses) that ``torch.where``
-already expresses as masked lanes.  Two scenes ("ray1", "ray2") differ in
-sphere layout, giving different irregularity profiles (paper's Ray vs
-Ray2).
+for op.  It has no hand-written kernel on a card: the JAX package has no
+Pallas kernel for it either, since per-ray control flow is data-dependent
+branching (shadow rays, misses) that ``torch.where`` already expresses as
+masked lanes.  On the host, ``ops.py`` runs the compiled routine
+``csrc/host/ray.cpp``, which rounds as this version does.  Two scenes
+("ray1", "ray2") differ in sphere layout, giving different irregularity
+profiles (paper's Ray vs Ray2).
 """
 from __future__ import annotations
 

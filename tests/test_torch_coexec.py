@@ -16,6 +16,10 @@ from repro_torch.api import (DevicePolicy, EngineSession, OffloadMode,
                              Region, coexec)
 from repro_torch.core import programs as P
 from repro_torch.core.device import DeviceGroup, reserve_feeder_cores
+from repro_torch.kernels.binomial import kernel as KB
+from repro_torch.kernels.gaussian import kernel as KG
+from repro_torch.kernels.mandelbrot import kernel as KM
+from repro_torch.kernels.nbody import kernel as KN
 from repro_torch.tune import TunedConfig
 
 SRC = Path(__file__).resolve().parents[1] / "src"
@@ -70,6 +74,19 @@ def test_coexec_matches_jax_reference(name, sched):
     np.testing.assert_array_equal(res.output, ref)
     assert res.aborted_devices == 0
     assert res.total_time > 0 and res.binary_time >= res.total_time
+
+
+@pytest.mark.parametrize("name", list(SIZES))
+def test_host_groups_run_the_compiled_routines(name):
+    """Every packet of a host group goes through the program's compiled
+    host routine (``host_calls``); no card kernel launches."""
+    mod = {"gaussian": KG, "binomial": KB, "mandelbrot": KM,
+           "nbody": KN}[name]
+    before = mod.host_calls
+    res = coexec(P.PROGRAMS[name](**SIZES[name]), devices3(),
+                 scheduler="dynamic", scheduler_kwargs={"n_packets": 8})
+    assert mod.host_calls - before >= len(res.packets) > 0
+    assert mod.launches == 0
 
 
 def test_device_failure_absorbed():

@@ -76,8 +76,13 @@ def test_binomial_range_and_monotone_in_spot():
     assert bool((torch.diff(v) >= -1e-5).all())
     s0, k0, ty = (_t(x) for x in OB.make_inputs(1024, seed=3))
     parts = [OB.run_range(s0, k0, ty, i, 2) for i in range(0, 8, 2)]
-    np.testing.assert_array_equal(torch.cat(parts).numpy(),
-                                  RB.price_options(s0, k0, ty).numpy())
+    # on the CPU the range entry runs the host routine: its packets tile
+    # its whole-range call exactly, and that holds the plain version at
+    # the kernel tests' rtol=1e-4, atol=1e-3 (expf against torch's exp)
+    whole = KB.price_options(s0, k0, ty).numpy()
+    np.testing.assert_array_equal(torch.cat(parts).numpy(), whole)
+    np.testing.assert_allclose(whole, RB.price_options(s0, k0, ty).numpy(),
+                               rtol=1e-4, atol=1e-3)
 
 
 # -------------------------------------------------------------- mandelbrot
@@ -465,12 +470,26 @@ def _wrapper_calls():
     ]
 
 
+# a wrapper's host routine against its plain version: exactly where the
+# routine keeps the plain version's order of operations (the blur,
+# Mandelbrot), else at the kernel tests' tolerances (binomial: expf
+# against torch's exp; nbody: the sum over sources in another order)
+WRAPPER_TOL = [(1e-4, 1e-3), None, None, (2e-4, 2e-4)]
+
+
 @pytest.mark.parametrize("which", range(4))
 def test_wrapper_on_cpu_takes_plain_version(which):
+    """A CPU tensor takes the host routine (``host_calls``), never the
+    card's kernel (``launches``), and gets the plain version's values."""
     mod, wrapped, plain = _wrapper_calls()[which]
-    before = mod.launches
-    np.testing.assert_array_equal(wrapped().numpy(), plain().numpy())
-    assert mod.launches == before == 0
+    before = mod.host_calls
+    got, want = wrapped().numpy(), plain().numpy()
+    if WRAPPER_TOL[which] is None:
+        np.testing.assert_array_equal(got, want)
+    else:
+        rtol, atol = WRAPPER_TOL[which]
+        np.testing.assert_allclose(got, want, rtol=rtol, atol=atol)
+    assert mod.launches == 0 and mod.host_calls == before + 1
 
 
 @pytest.mark.parametrize("which", range(4))

@@ -34,6 +34,8 @@ from repro_torch.api import (EngineSession, OffloadMode, Region, RunJournal,
 from repro_torch.ckpt.checkpoint import merge_spans
 from repro_torch.core import programs as P
 from repro_torch.core.device import DeviceGroup
+from repro_torch.kernels.gaussian import kernel as KG
+from repro_torch.kernels.mandelbrot import kernel as KM
 from repro_torch.kernels.ray import ops as RO
 from repro_torch.kernels.ray import ref as RR
 
@@ -171,6 +173,18 @@ def test_coexec_equals_reference_exactly(name, sched):
     if name.endswith("2d"):
         assert all(p.region is not None and p.region.ndim == 2
                    for p in res.packets)
+
+
+@pytest.mark.parametrize("name", list(SIZES))
+def test_host_groups_run_the_compiled_routines(name):
+    """Every packet of a host group goes through the program's compiled
+    host routine (``host_calls``); no card kernel launches."""
+    mod = {"gaussian2d": KG, "mandelbrot2d": KM}.get(name, RO)
+    before = mod.host_calls
+    res = coexec(P.PROGRAMS[name](**SIZES[name]), devices3(),
+                 scheduler="dynamic", scheduler_kwargs={"n_packets": 8})
+    assert mod.host_calls - before >= len(res.packets) > 0
+    assert getattr(mod, "launches", 0) == 0
 
 
 @pytest.mark.parametrize("name,roi", [
