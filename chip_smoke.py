@@ -139,7 +139,29 @@ Phases, each fatal on failure:
     equal to a call that has the forward write the log-sum-exp again;
     time the backward alone, plain version and SDPA's backward
     (``torch.autograd.grad`` through one ``scaled_dot_product_attention``)
-    at the training packet.
+    at the training packet;
+15. hold ``flash_attention`` at MLA's head dim 192 (deepseek-v2-lite-16b:
+    128 nope + 64 rope columns, H = KH = 16) against its plain version at
+    the MLA prefill shape (B=4, S=256), the long shape (B=1, S=4096;
+    ``--small``: 1024), a ragged S and G = 2, bfloat16 at 2e-2 and
+    float32 at rtol 1e-4 / atol 2e-5, and time kernel, plain version and
+    SDPA at the prefill and the long shape (the ``flash_attention_d192``
+    record);
+16. serve deepseek-v2-lite-16b at full width (``--small``: 2 of its 27
+    layers, the dense one and one MoE layer) in bfloat16 with the set-up
+    of phase 6.  All must be served; the launch counters, set to 0 after
+    a warm-up, must show one ``flash_attention`` launch per layer and
+    prefill (MLA's expanded prefill at D = 192) and none of any kernel in
+    a decode step (the absorbed decode runs plain products); a fresh
+    replica must give the same tokens.  Prefill and decode-step times
+    from CUDA events beside the weight-read bound (all 64 experts' weights:
+    the capacity formulation runs every expert), a profile of each, peak
+    memory and each replica group's busy time;
+17. card against host as phase 7 on the first 3 of its 27 layers (the
+    dense one and two MoE layers; a cut of depth that bounds the host's
+    memory and time): the logits within 1e-3 of the largest, every token
+    routed to the same experts on both sides, and the smallest margin
+    between the k-th and (k+1)-th router probability logged.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  It exits non-zero, printing no result,
@@ -394,14 +416,21 @@ def serve_model(torch, dev0, cfg, params, launches, per_prefill, per_step):
         warmup=False))
     reqs = make_requests([0.0] * n_req, slo=600.0,
                          prompt_fn=lambda i: prompts[i])
+    held_gb = torch.cuda.memory_allocated(dev0) / 1e9
+    torch.cuda.reset_peak_memory_stats(dev0)
     for k in counters.values():
         k.launches = 0
     try:
         out = server.run(RequestQueue(reqs))
+        torch.cuda.synchronize()
+        counts = {name: k.launches for name, k in counters.items()}
+        # each group waits on its own stream only, so its busy time is its
+        # own packets' (and its throttle's sleep), not the other replica's
+        groups = [(g.name, g.busy_time, g.kernel_time, g.packets_done)
+                  for g in server.session.devices]
     finally:
         server.close()
-    torch.cuda.synchronize()
-    counts = {name: k.launches for name, k in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated(dev0) / 1e9
     calls = sum(r.calls for r in reps)
     steps = sum(r.steps for r in reps)
     for name in set(per_prefill) | set(per_step):
@@ -422,7 +451,12 @@ def serve_model(torch, dev0, cfg, params, launches, per_prefill, per_step):
     log(f"serve: {st.row()} dispatch={st.dispatch} "
         f"duration={st.duration:.3f} s, decode {n_req * gen / st.duration:.1f}"
         f" tokens/s, {calls} prefills and {steps} decode steps, launches "
-        + " ".join(f"{name} {n}" for name, n in counts.items()))
+        + " ".join(f"{name} {n}" for name, n in counts.items())
+        + f"; peak memory {peak_gb:.2f} GB ({w_bytes / 1e9:.2f} GB of "
+        f"weights; {held_gb:.2f} GB allocated before the run)")
+    log("serve: replica groups (host-clock busy s, between their stream's "
+        "events s, packets): " + "; ".join(
+            f"{n} {b:.3f} / {k:.3f} / {c}" for n, b, k, c in groups))
     # replica invariance: four requests again on a fresh replica
     # (one packet alone, its time against the server's shared-card rounds)
     first = out.requests[:4]
@@ -529,6 +563,54 @@ def long_entry(r, label="long shape"):
                 library_ms=r["library_ms"], max_abs_err=r["err"])
 
 
+def attn_check(torch, randn, B, S, h, kh, d, dtype, timed=False):
+    """Hold ``flash_attention`` against ``attention_ref`` on (B, S, h, d)
+    queries and (B, S, kh, d) keys and values from ``randn`` at
+    ``ATTN_TOL``; with ``timed``, time kernel, plain version and SDPA and
+    return the measurements for a kernel record."""
+    from repro_torch.kernels.flash_attention import kernel as KA, ref as RA
+    F = torch.nn.functional
+    q, k, v = (randn(s, dtype) for s in ((B, S, h, d), (B, S, kh, d),
+                                         (B, S, kh, d)))
+    got = KA.flash_attention(q, k, v)
+    want = RA.attention_ref(q, k, v)
+    rtol, atol = ATTN_TOL[str(dtype).split(".")[-1]]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+    err = float((got.float() - want.float()).abs().max())
+    shape = f"B={B} S={S} H={h} KH={kh} D={d} {dtype}"
+    log(f"  flash_attention {shape}: max abs err {err:.3g}")
+    if not timed:
+        return None
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                         enable_gqa=True)
+    lib_err = float((lib.transpose(1, 2).float() - got.float()).abs()
+                    .max())
+    log(f"  sdpa vs kernel max abs diff {lib_err:.3g}")
+    elt = q.element_size()
+    res = dict(
+        err=err, shape=shape,
+        ms=cuda_ms(lambda: KA.flash_attention(q, k, v), torch),
+        # the same kernel writing each row's log-sum-exp, as a training
+        # forward does: not part of the record's time
+        keep_lse_ms=cuda_ms(lambda: KA.flash_attention_fwd(
+            q, k, v, keep_lse=True), torch),
+        plain_ms=cuda_ms(lambda: RA.attention_ref(q, k, v), torch, 2),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), torch),
+        nbytes=elt * (2 * B * S * h * d + 2 * B * S * kh * d),
+        ops=4.0 * B * h * d * S * (S + 1) / 2,
+        ops_per_s=BF16_OPS_S if dtype == torch.bfloat16 else FP32_OPS_S)
+    log(f"  timed {shape}: kernel {res['ms']:.4f} ms (keeping the "
+        f"log-sum-exp {res['keep_lse_ms']:.4f} ms), SDPA "
+        f"{res['library_ms']:.4f} ms, kernel/SDPA "
+        f"{res['ms'] / res['library_ms']:.3f}")
+    del q, k, v, qt, kt, vt, got, want, lib
+    torch.cuda.empty_cache()
+    return res
+
+
 def make_params(torch, dev0, cfg):
     from repro_torch.models import transformer as T
     t0 = time.perf_counter()
@@ -546,7 +628,6 @@ def serving_phases(args, torch, dev0, launches, record):
     from dataclasses import replace
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import kernel as KA, ref as RA
     from repro_torch.kernels.flash_decode import kernel as KD, ref as RD
 
     F = torch.nn.functional
@@ -575,47 +656,6 @@ def serving_phases(args, torch, dev0, launches, record):
 
     def randn(shape, dtype):
         return torch.randn(shape, generator=gen_t, device=dev0).to(dtype)
-
-    def attn_check(B, S, h, kh, d, dtype, timed=False):
-        q, k, v = (randn(s, dtype) for s in ((B, S, h, d), (B, S, kh, d),
-                                             (B, S, kh, d)))
-        got = KA.flash_attention(q, k, v)
-        want = RA.attention_ref(q, k, v)
-        rtol, atol = ATTN_TOL[str(dtype).split(".")[-1]]
-        torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
-                                   atol=atol)
-        err = float((got.float() - want.float()).abs().max())
-        shape = f"B={B} S={S} H={h} KH={kh} D={d} {dtype}"
-        log(f"  flash_attention {shape}: max abs err {err:.3g}")
-        if not timed:
-            return None
-        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                             enable_gqa=True)
-        lib_err = float((lib.transpose(1, 2).float() - got.float()).abs()
-                        .max())
-        log(f"  sdpa vs kernel max abs diff {lib_err:.3g}")
-        elt = q.element_size()
-        res = dict(
-            err=err, shape=shape,
-            ms=cuda_ms(lambda: KA.flash_attention(q, k, v), torch),
-            # the same kernel writing each row's log-sum-exp, as a training
-            # forward does: not part of the record's time
-            keep_lse_ms=cuda_ms(lambda: KA.flash_attention_fwd(
-                q, k, v, keep_lse=True), torch),
-            plain_ms=cuda_ms(lambda: RA.attention_ref(q, k, v), torch, 2),
-            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True), torch),
-            nbytes=elt * (2 * B * S * h * d + 2 * B * S * kh * d),
-            ops=4.0 * B * h * d * S * (S + 1) / 2,
-            ops_per_s=BF16_OPS_S if dtype == torch.bfloat16 else FP32_OPS_S)
-        log(f"  timed {shape}: kernel {res['ms']:.4f} ms (keeping the "
-            f"log-sum-exp {res['keep_lse_ms']:.4f} ms), SDPA "
-            f"{res['library_ms']:.4f} ms, kernel/SDPA "
-            f"{res['ms'] / res['library_ms']:.3f}")
-        del q, k, v, qt, kt, vt, got, want, lib
-        torch.cuda.empty_cache()
-        return res
 
     def decode_check(B, Smax, h, kh, d, pos, dtype, timed=False):
         q = randn((B, h, d), dtype)
@@ -658,17 +698,18 @@ def serving_phases(args, torch, dev0, launches, record):
 
     bf16, f32 = torch.bfloat16, torch.float32
     log("kernels of the serving path against their plain versions:")
-    serve_a = attn_check(lws, P, H, KH, D, bf16, timed=True)
+    serve_a = attn_check(torch, randn, lws, P, H, KH, D, bf16, timed=True)
     long_S = 1024 if args.small else 4096
-    long_a = attn_check(2, long_S, H, KH, D, bf16, timed=True)
+    long_a = attn_check(torch, randn, 2, long_S, H, KH, D, bf16, timed=True)
     # qwen3-32b's heads: D = 128 runs another instantiation of the kernel
-    d128_a = attn_check(1, long_S, 64, 8, 128, bf16, timed=True)
-    attn_check(2, 1000, H, KH, D, bf16)           # ragged S
-    attn_check(1, 1000, H, KH, D, f32)
-    attn_check(2, 256, 8, 4, 80, f32)             # stablelm-3b's head dim
-    attn_check(2, 256, 8, 4, 80, bf16)
-    attn_check(1, 384, 16, 2, 128, f32)           # qwen3-32b's head dim
-    attn_check(1, 384, 16, 2, 128, bf16)
+    d128_a = attn_check(torch, randn, 1, long_S, 64, 8, 128, bf16,
+                        timed=True)
+    attn_check(torch, randn, 2, 1000, H, KH, D, bf16)     # ragged S
+    attn_check(torch, randn, 1, 1000, H, KH, D, f32)
+    attn_check(torch, randn, 2, 256, 8, 4, 80, f32)   # stablelm-3b's D
+    attn_check(torch, randn, 2, 256, 8, 4, 80, bf16)
+    attn_check(torch, randn, 1, 384, 16, 2, 128, f32)  # qwen3-32b's D
+    attn_check(torch, randn, 1, 384, 16, 2, 128, bf16)
     serve_d = decode_check(lws, P + gen, H, KH, D, P + gen - 1, bf16,
                            timed=True)
     # one flash_decode call is one kernel on the device: no combine pass,
@@ -785,6 +826,105 @@ def mamba_phases(args, torch, dev0, launches, record):
            library_note="no single PyTorch call computes this recurrence")
 
 
+# ------------------------------------------------ MLA and MoE (deepseek)
+# the card-against-host check runs the dense first layer and two MoE layers
+MOE_PARITY_LAYERS = 3
+
+
+def mla_phases(args, torch, dev0, record):
+    """flash_attention at MLA's head dim against its plain version (phase
+    15); serve deepseek-v2-lite-16b at full width (phase 16); card against
+    host in float32 on its first layers, with the routing equal (17)."""
+    import copy
+    import gc
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    # what the earlier phases left in reference cycles goes before the
+    # 31.4 GB of weights come
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"deepseek phases: {torch.cuda.memory_allocated(dev0) / 1e9:.2f} GB "
+        f"allocated on the card before them")
+    cfg = get_config("deepseek-v2-lite-16b")
+    if args.small:
+        cfg = replace(cfg, n_layers=2)       # the dense layer and one MoE
+    m = cfg.mla
+    H, D = cfg.n_heads, m.nope_head_dim + m.rope_head_dim
+    P, lws = SERVE["prompt"], SERVE["lws"]
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    # ------------------------------- phase 15: the kernel at D = 192
+    gen_t = torch.Generator(dev0).manual_seed(4)
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen_t, device=dev0).to(dtype)
+
+    log(f"flash_attention at MLA's head dim {D} against its plain version:")
+    mla_a = attn_check(torch, randn, lws, P, H, H, D, bf16, timed=True)
+    long_S = 1024 if args.small else 4096
+    long_a = attn_check(torch, randn, 1, long_S, H, H, D, bf16, timed=True)
+    attn_check(torch, randn, 2, 1000, H, H, D, bf16)      # ragged S
+    attn_check(torch, randn, 2, 77, 4, 2, D, bf16)        # G = 2, ragged
+    attn_check(torch, randn, lws, P, H, H, D, f32)
+    attn_check(torch, randn, 1, 1000, H, H, D, f32)       # ragged S
+
+    # ---------------------------- phase 16: serve at full width, bf16
+    params = make_params(torch, dev0, cfg)
+    served = {}
+    serve_model(torch, dev0, cfg, params, served,
+                per_prefill={"flash_attention": cfg.n_layers}, per_step={})
+    record("flash_attention_d192", "src/repro_torch/csrc/flash_attention.cu",
+           "src/repro/kernels/flash_attention/kernel.py:69", mla_a["err"],
+           mla_a["ms"], mla_a["plain_ms"], mla_a["nbytes"], mla_a["ops"],
+           mla_a["library_ms"], mla_a["shape"] + " (MLA prefill)",
+           mla_a["ops_per_s"], n_launches=served["flash_attention"],
+           long_shape=long_entry(long_a))
+
+    # ------------- phase 17: card against host, f32, first layers only
+    n_par = min(MOE_PARITY_LAYERS, cfg.n_layers)
+    head = T.LM(params.embed, list(params.layers[:n_par]),
+                params.final_norm, params.lm_head)
+    p32 = copy.deepcopy(head).to(torch.float32)
+    del params, head
+    torch.cuda.empty_cache()
+    log(f"parity {cfg.name}: depth cut to the first {n_par} of "
+        f"{cfg.n_layers} layers at full width (host memory and time)")
+    routes = []
+    route = L.moe_route
+
+    def recorded_route(cfg_, p, x):
+        probs, gates, idx = route(cfg_, p, x)
+        routes.append((probs.float().cpu(), idx.cpu()))
+        return probs, gates, idx
+
+    L.moe_route = recorded_route
+    try:
+        card_against_host(torch, dev0,
+                          replace(cfg, n_layers=n_par, dtype="float32"), p32,
+                          f"{cfg.name} ({n_par} layers)")
+    finally:
+        L.moe_route = route
+    del p32
+    n = len(routes) // 2
+    check(n > 0 and len(routes) == 2 * n, f"parity: {len(routes)} routings")
+    k = cfg.moe.top_k
+    margin = min(float((pr.sort(-1, descending=True).values[..., k - 1]
+                        - pr.sort(-1, descending=True).values[..., k]).min())
+                 for pr, _ in routes[n:])
+    same = all(torch.equal(a[1], b[1]) for a, b in zip(routes[:n],
+                                                        routes[n:]))
+    log(f"parity {cfg.name}: {n} routings a side, the experts chosen "
+        f"{'equal' if same else 'NOT equal'} card against host; smallest "
+        f"margin between the {k}th and {k + 1}th router probability "
+        f"{margin:.3g}")
+    check(same, "parity: the card and the host route tokens to other "
+                "experts")
+
+
 # ------------------------------------------------------------ training path
 # the training phase: TRAIN_4K's sequence, its global batch of 256 cut to
 # 8 (two groups on one card; the 2.47 GB of bf16 weights and 9.89 GB of
@@ -884,6 +1024,7 @@ def training_phases(args, torch, dev0, launches, attach):
     trainer = HeteroDPTrainer(cfg, opt, shape, groups, pipeline,
                               lws=TRAIN["lws"])
     torch.cuda.reset_peak_memory_stats(dev0)
+    retries0 = torch.cuda.memory_stats(dev0).get("num_alloc_retries", 0)
     reports, rows = [], {g.name: 0 for g in groups}
     run_fwd = run_bwd = 0
     try:
@@ -911,6 +1052,11 @@ def training_phases(args, torch, dev0, launches, attach):
                 f"{rep.device_rows}, launches fwd {fwd} bwd {bwd}, "
                 f"failures {rep.failures}")
         peak = torch.cuda.max_memory_allocated(dev0)
+        peak_reserved = torch.cuda.max_memory_reserved(dev0)
+        # a retry frees the allocator's cached blocks and synchronises
+        # the card (each group's stream has blocks of its own)
+        retries = (torch.cuda.memory_stats(dev0).get("num_alloc_retries", 0)
+                   - retries0)
         # one more step under the profiler: the card's busy share and
         # the top kernels
         try:       # a diagnostic: the run goes on without a trace
@@ -955,7 +1101,9 @@ def training_phases(args, torch, dev0, launches, attach):
         f"{[round(x, 4) for x in losses]}; steps 2-{len(reports)} "
         f"{step_s:.3f} s a step, {B * S / step_s:.0f} tokens/s; balance "
         f"{[round(r.balance, 3) for r in reports]}; rows {rows}; peak "
-        f"memory {peak / 1e9:.2f} GB (max_memory_allocated); launches in "
+        f"memory {peak / 1e9:.2f} GB (max_memory_allocated; reserved "
+        f"{peak_reserved / 1e9:.2f} GB, {retries} allocator retries in the "
+        f"{len(reports)} steps); launches in "
         f"the run: flash_attention {run_fwd}, flash_attention_bwd "
         f"{run_bwd}")
     attach("flash_attention", train_launches=run_fwd)
@@ -2160,6 +2308,7 @@ def main() -> int:
     mamba_phases(args, torch, dev0, launches, record)
     training_phases(args, torch, dev0, launches, attach)
     attention_bwd_phase(args, torch, dev0, record)
+    mla_phases(args, torch, dev0, record)
     leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "repro")]
     check(not leaked, f"the port imported {leaked}")
 

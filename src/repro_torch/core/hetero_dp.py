@@ -23,9 +23,14 @@ The trainer's session keeps per-group state across steps
 (``reset_device_stats=False``): throughput EWMAs carry into the next step's
 profiles and a failed group stays excluded until removed/replaced.
 
-Groups run their packets in threads of their own and share the leaf
-parameters, so a packet's gradients come from ``torch.autograd.grad``,
-never ``.backward()`` (accumulating into ``.grad`` would race).  A group
+Groups run their packets in threads of their own and share the
+parameters' storage, so a packet's gradients come from
+``torch.autograd.grad``, never ``.backward()`` (accumulating into
+``.grad`` would race).  A CUDA group on the parameters' card runs on
+leaves of its own that alias that storage: autograd keeps a leaf's
+gradient sink on the stream of the group that first used the leaf, and
+a shared leaf would make one group's backward wait on the other group's
+stream, where each group now waits on its own work only.  A group
 whose device is not the parameters' device (the host CPU beside
 ``cuda:0``: the paper's pair) computes on a replica of the parameters on
 its device, refreshed in place from the state's parameters each time a
@@ -82,8 +87,11 @@ class HeteroDPTrainer:
                                      name="hetero_dp")
         self._grad = make_grad_fn(cfg)
         self._err = None      # compression error-feedback buffers
-        # device -> (the parameters it copies, their replica there)
+        # device -> (the parameters it copies, their replica there); a
+        # CUDA group on the parameters' card: its name -> (the parameters,
+        # leaves of its own over their storage)
         self._replicas: Dict[torch.device, Tuple] = {}
+        self._aliases: Dict[str, Tuple] = {}
         self._replica_lock = threading.Lock()
 
     # -- elastic membership -------------------------------------------------
@@ -102,11 +110,24 @@ class HeteroDPTrainer:
         self.session.close()
 
     # -- parameters on each group's device ------------------------------------
-    def _params_on(self, params, device: torch.device):
-        """``params`` itself on its own device; elsewhere a replica on
-        ``device`` (made once, then refreshed in place)."""
+    def _params_on(self, params, group: DeviceGroup):
+        """``params`` itself on its own device (for a CUDA group, the same
+        modules over leaves of the group's own that alias the parameters'
+        storage, made once); elsewhere a replica on the group's device
+        (made once, then refreshed in place)."""
+        device = group.device
         if next(params.parameters()).device == device:
-            return params
+            if not group.is_cuda:
+                return params
+            with self._replica_lock:
+                src, rep = self._aliases.get(group.name, (None, None))
+                if src is not params:
+                    memo = {id(p): torch.nn.Parameter(
+                        p.detach(), requires_grad=p.requires_grad)
+                        for p in params.parameters()}
+                    rep = copy.deepcopy(params, memo)
+                    self._aliases[group.name] = (params, rep)
+                return rep
         with self._replica_lock:
             src, rep = self._replicas.get(device, (None, None))
             if src is not params:
@@ -136,7 +157,7 @@ class HeteroDPTrainer:
         lws = self.lws
 
         def build(dev: DeviceGroup):
-            params = self._params_on(state.params, dev.device)
+            params = self._params_on(state.params, dev)
 
             def fn(offset: int, size: int):
                 rows = slice(offset * lws, (offset + size) * lws)

@@ -23,7 +23,8 @@
 // that share its kv head, the JAX kernel's (bq*G, D) packing, so every
 // K/V tile read from device memory serves G heads.
 //
-// bfloat16 (D of 64, 80 or 128; every dense model of the repo), the
+// bfloat16 (D of 64, 80 or 128, every dense model of the repo, and 192,
+// MLA's prefill: 128 nope + 64 rope columns, v zero-padded to 192), the
 // serving path: flash_fwd_wgmma_kernel below.  Work items of 128 packed
 // rows, taken by one persistent CTA an SM, longest key range first; two
 // consumer warpgroups on wgmma and one TMA producer thread feeding two Q
@@ -44,7 +45,7 @@
 // The wgmma helpers (fence/commit/wait, the 128-byte-swizzle descriptor,
 // the SS and RS products) are shared with the backward in hopper.cuh.
 //
-// float32 (0 < D <= 128), for the card-against-host parity checks:
+// float32 (0 < D <= 192), for the card-against-host parity checks:
 // flash_fwd_kernel, 64 rows (kRows = 64: BQ = 64/G) x 64-key tiles staged
 // in shared memory as float32; 128 threads form 16 row groups of 4 rows x
 // 8 column groups, each thread computes a 4x8 block of scores from
@@ -54,7 +55,9 @@
 // 4 x (DP/8) slice of the output accumulator.  Positions past S (a ragged
 // last tile, any S) and head columns past D (D = 80 runs padded to 96)
 // are zero-filled and masked.  Products are plain float32 FMAs, so
-// float32 inputs keep float32 accuracy.
+// float32 inputs keep float32 accuracy.  At D = 192 (DP = 192) the tiles
+// take 166,912 bytes of shared memory and a thread holds 4 x 24 output
+// columns.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -292,11 +295,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 // prefills in one wave.  Three warpgroups: 0 and 1 are consumers of 64
 // rows each, 2 a producer whose one thread loads each item's Q (one TMA
 // box of G heads x BQ positions lands as the packed rows, into one of two
-// buffers) and keeps a ring of kStages K tiles and kStages V tiles of kBN
-// keys in flight, each slot guarded by a full and an empty mbarrier (K
-// and V have rings of their own, so a K slot is free again as soon as
-// Q.K^T has read it).  A row of K, V or Q
-// in shared memory is one or two 128-byte swizzle atoms of 64 columns;
+// buffers) and keeps a ring of kStages K tiles and kStages V tiles of BN
+// keys (128; 64 at D = 192) in flight, each slot guarded by a full and an
+// empty mbarrier (K and V have rings of their own, so a K slot is free
+// again as soon as Q.K^T has read it).  A row of K, V or Q in shared
+// memory is one to three 128-byte swizzle atoms of 64 columns;
 // D = 80 is padded to two atoms (128 columns) and TMA fills the 48
 // columns past D with zeros, because the 128-byte swizzle, which the
 // wgmma descriptors need to read without bank conflicts, is 64 bf16
@@ -314,48 +317,65 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 // exponential is ex2.approx; the running max, the denominator and O stay
 // in float32 registers.  setmaxnreg gives the consumers 240 registers and
 // leaves the producer 24.
+//
+// D = 192 (MLA) is three atoms a row.  With 128-key tiles its two Q
+// buffers (2 x 48 KiB) and two-slot K and V rings (4 x 48 KiB) would take
+// 288 KiB of the 227 KiB a CTA may have, so at D = 192 a K/V tile holds
+// 64 keys (24 KiB): the same 193 KiB as D = 128, S_j is one m64n64k16
+// product a k-step, and a consumer holds 96 accumulator registers of O and
+// 32 of S.
 // ---------------------------------------------------------------------------
 
 constexpr int kWgRows = 128;    // packed query rows of a CTA
-constexpr int kBN = 128;        // keys of a K/V tile
 constexpr int kStages = 2;      // slots of the K ring and of the V ring
 constexpr int kWgThreads = 384; // consumer warpgroups 0, 1; producer 2
+constexpr int kMaxSmem = 232448;  // dynamic shared memory a CTA may have
 
 template <int D>
 struct WgShape {
+  static constexpr int BN = D > 128 ? 64 : 128;  // keys of a K/V tile
   static constexpr int NA = (D + 63) / 64;     // 64-column atoms of a row
   static constexpr int KD = D / 16;            // k-steps of Q.K^T
   static constexpr int Q_ATOM = kWgRows * 128; // bytes of one atom column
-  static constexpr int KV_ATOM = kBN * 128;
+  static constexpr int KV_ATOM = BN * 128;
   static constexpr int QBUF = NA * Q_ATOM;     // bytes of a Q buffer
   static constexpr int TILE = NA * KV_ATOM;    // bytes of a K or V tile
   static constexpr int SMEM = 1024 + 2 * QBUF + 2 * kStages * TILE +
                               (4 * kStages + 4) * 8;  // slack, barriers
+  static_assert(SMEM <= kMaxSmem, "the wgmma kernel's tiles do not fit");
 };
 
-// S (64 rows x kBN keys) = Q (this warpgroup's 64 rows) . K^T, both
+// S (64 rows x BN keys) = Q (this warpgroup's 64 rows) . K^T, both
 // K-major in shared memory
 template <int D>
-__device__ __forceinline__ void issue_s(float (&s)[64], const uint8_t* qrows,
+__device__ __forceinline__ void issue_s(float (&s)[WgShape<D>::BN / 2],
+                                        const uint8_t* qrows,
                                         const uint8_t* ktile) {
   using W = WgShape<D>;
 #pragma unroll
-  for (int kk = 0; kk < W::KD; ++kk)
-    wgmma_ss_n128(
-        s, sw128_desc(qrows + (kk >> 2) * W::Q_ATOM + (kk & 3) * 32),
-        sw128_desc(ktile + (kk >> 2) * W::KV_ATOM + (kk & 3) * 32), kk > 0);
+  for (int kk = 0; kk < W::KD; ++kk) {
+    const uint64_t da =
+        sw128_desc(qrows + (kk >> 2) * W::Q_ATOM + (kk & 3) * 32);
+    const uint64_t db =
+        sw128_desc(ktile + (kk >> 2) * W::KV_ATOM + (kk & 3) * 32);
+    if constexpr (W::BN == 128) {
+      wgmma_ss_n128(s, da, db, kk > 0);
+    } else {
+      wgmma_ss_n64(s, da, db, kk > 0);
+    }
+  }
   wgmma_commit();
 }
 
 // O += P . V, P from registers, V N-major in shared memory, one product
 // per 64-column atom
 template <int D>
-__device__ __forceinline__ void issue_pv(float (&acc)[WgShape<D>::NA][32],
-                                         const uint32_t (&p)[kBN / 16][4],
-                                         const uint8_t* vtile) {
+__device__ __forceinline__ void issue_pv(
+    float (&acc)[WgShape<D>::NA][32],
+    const uint32_t (&p)[WgShape<D>::BN / 16][4], const uint8_t* vtile) {
   using W = WgShape<D>;
 #pragma unroll
-  for (int kk = 0; kk < kBN / 16; ++kk)
+  for (int kk = 0; kk < W::BN / 16; ++kk)
 #pragma unroll
     for (int a = 0; a < W::NA; ++a)
       wgmma_rs_n64(acc[a], p[kk],
@@ -363,19 +383,21 @@ __device__ __forceinline__ void issue_pv(float (&acc)[WgShape<D>::NA][32],
   wgmma_commit();
 }
 
-// online softmax of the scores of keys k0 ... in s (rows: this lane's
-// two), in base 2 with the scale folded into one FMA: s becomes the exp2
-// weights, rs their sums over the lane's columns, corr the factors that
-// rescale the rows' earlier state, m the running maxima
-__device__ __forceinline__ void online_softmax(float (&s)[64], float (&m)[2],
+// online softmax of the scores of the BN keys k0 ... in s (rows: this
+// lane's two), in base 2 with the scale folded into one FMA: s becomes the
+// exp2 weights, rs their sums over the lane's columns, corr the factors
+// that rescale the rows' earlier state, m the running maxima
+template <int BN>
+__device__ __forceinline__ void online_softmax(float (&s)[BN / 2],
+                                               float (&m)[2],
                                                float (&corr)[2],
                                                float (&rs)[2], int k0,
                                                int q0, const int (&row_pos)[2],
                                                int lane, float scale_log2) {
-  const bool masked = k0 + kBN - 1 > q0;  // some key past some row
+  const bool masked = k0 + BN - 1 > q0;  // some key past some row
   float mx[2] = {m[0], m[1]};
 #pragma unroll
-  for (int i = 0; i < 16; ++i)
+  for (int i = 0; i < BN / 8; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int h = e >> 1;
@@ -395,7 +417,7 @@ __device__ __forceinline__ void online_softmax(float (&s)[64], float (&m)[2],
     rs[h] = 0.f;
   }
 #pragma unroll
-  for (int i = 0; i < 16; ++i)
+  for (int i = 0; i < BN / 8; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const float x = ex2(fmaf(s[4 * i + e], scale_log2, -mc[e >> 1]));
@@ -488,7 +510,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         for (int a = 0; a < W::NA; ++a)
           tma_load_4d(Qs + qb * W::QBUF + a * W::Q_ATOM, &tm_q, &full_q[qb],
                       a * 64, kvh * G, qt * BQ, b);
-        const int n_tiles = (min(qt * BQ + BQ, S) - 1) / kBN + 1;
+        const int n_tiles = (min(qt * BQ + BQ, S) - 1) / W::BN + 1;
         for (int j = 0; j < n_tiles; ++j, ++it) {
           const int st = it % kStages, ph = (it / kStages) & 1;
           mbar_wait(&empty_k[st], ph ^ 1);
@@ -496,13 +518,13 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
           for (int a = 0; a < W::NA; ++a)
             tma_load_4d(Ks + st * W::TILE + a * W::KV_ATOM, &tm_k,
-                        &full_k[st], a * 64, kvh, j * kBN, b);
+                        &full_k[st], a * 64, kvh, j * W::BN, b);
           mbar_wait(&empty_v[st], ph ^ 1);
           mbar_expect_tx(&full_v[st], W::TILE);
 #pragma unroll
           for (int a = 0; a < W::NA; ++a)
             tma_load_4d(Vs + st * W::TILE + a * W::KV_ATOM, &tm_v,
-                        &full_v[st], a * 64, kvh, j * kBN, b);
+                        &full_v[st], a * 64, kvh, j * W::BN, b);
         }
       }
     }
@@ -515,7 +537,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     int qt, kvh, b, it = 0;
     for (int n = 0; work_item(n, n_items, KH, B, n_qt, qt, kvh, b); ++n) {
       const int q0 = qt * BQ;
-      const int n_tiles = (min(q0 + BQ, S) - 1) / kBN + 1;
+      const int n_tiles = (min(q0 + BQ, S) - 1) / W::BN + 1;
       const int qb = n & 1;
       // is this the CTA's last item?
       int nqt, nkvh, nb;
@@ -532,17 +554,18 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         row_pos[h] = (r < R && pos < S) ? pos : -1;
       }
       float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-      float s[64];  // S_j: s[4i+e], row h = e/2, key 8i + 2(lane%4) + e%2
-      float acc[W::NA][32];     // O: the same layout, 64 columns an atom
-      uint32_t p[kBN / 16][4];  // P_{j-1} as A fragments, 16 keys each
+      // S_j: s[4i+e], row h = e/2, key 8i + 2(lane%4) + e%2
+      float s[W::BN / 2];
+      float acc[W::NA][32];       // O: the same layout, 64 columns an atom
+      uint32_t p[W::BN / 16][4];  // P_{j-1} as A fragments, 16 keys each
 #pragma unroll
-      for (int i = 0; i < 64; ++i) s[i] = 0.f;
+      for (int i = 0; i < W::BN / 2; ++i) s[i] = 0.f;
 #pragma unroll
       for (int a = 0; a < W::NA; ++a)
 #pragma unroll
         for (int i = 0; i < 32; ++i) acc[a][i] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < kBN / 16; ++kk)
+      for (int kk = 0; kk < W::BN / 16; ++kk)
 #pragma unroll
         for (int e = 0; e < 4; ++e) p[kk][e] = 0u;
       const uint8_t* qrows = Qs + qb * W::QBUF + wg * 64 * 128;
@@ -565,10 +588,11 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
           if (n_tiles == 1) mbar_arrive(&empty_q[qb]);  // Q read
         }
         float corr[2], rs[2];
-        online_softmax(s, m, corr, rs, 0, q0, row_pos, lane, scale_log2);
+        online_softmax<W::BN>(s, m, corr, rs, 0, q0, row_pos, lane,
+                              scale_log2);
         l[0] = rs[0];
         l[1] = rs[1];
-        to_afrag<kBN>(p, s);  // the weights as P's A fragments
+        to_afrag<W::BN>(p, s);  // the weights as P's A fragments
         ++it;
       }
       // tile j: S_j and P_{j-1}.V_{j-1} on the tensor cores, then the
@@ -596,8 +620,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
           if (j == n_tiles - 1) mbar_arrive(&empty_q[qb]);
         }
         float corr[2], rs[2];
-        online_softmax(s, m, corr, rs, j * kBN, q0, row_pos, lane,
-                       scale_log2);
+        online_softmax<W::BN>(s, m, corr, rs, j * W::BN, q0, row_pos, lane,
+                              scale_log2);
         wgmma_wait<0>();  // P_{j-1}.V_{j-1} done: free its V slot
 #pragma unroll
         for (int a = 0; a < W::NA; ++a) fence_regs(acc[a]);
@@ -608,7 +632,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         for (int a = 0; a < W::NA; ++a) rescale(acc[a], corr);
 #pragma unroll
         for (int h = 0; h < 2; ++h) l[h] = l[h] * corr[h] + rs[h];
-        to_afrag<kBN>(p, s);  // the weights as P's A fragments
+        to_afrag<W::BN>(p, s);  // the weights as P's A fragments
       }
 
       // the last tile's P.V
@@ -689,8 +713,8 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   // an item's packed rows, in the order p*G + g
   CUtensorMap mq, mk, mv;
   if (!rows_map(&mq, q, 2, B, S, S, H, D, BQ, G) ||
-      !rows_map(&mk, k, 2, B, S, S, KH, D, kBN) ||
-      !rows_map(&mv, v, 2, B, S, S, KH, D, kBN))
+      !rows_map(&mk, k, 2, B, S, S, KH, D, WgShape<D>::BN) ||
+      !rows_map(&mv, v, 2, B, S, S, KH, D, WgShape<D>::BN))
     return cudaErrorNotSupported;
   const int smem = WgShape<D>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
@@ -711,8 +735,8 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
 }  // namespace
 
 // q, o: (B, S, H, D); k, v: (B, S, KH, D), contiguous and 16-byte
-// aligned, float32 (0 < D <= 128, on the FMA kernel) or, with is_bf16,
-// bfloat16 (D of 64, 80 or 128, on wgmma).  Causal; H % KH == 0,
+// aligned, float32 (0 < D <= 192, on the FMA kernel) or, with is_bf16,
+// bfloat16 (D of 64, 80, 128 or 192, on wgmma).  Causal; H % KH == 0,
 // H / KH <= 64.  lse2: null, or float32 (B, H, S) that receives each
 // row's log-sum-exp of its scaled scores in base 2 (for the backward).
 extern "C" int flash_attention_fwd(const void* q, const void* k,
@@ -720,9 +744,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    int B, int S, int H, int KH, int D,
                                    int is_bf16, void* stream) {
   if (B < 1 || S < 1 || KH < 1 || H < KH || H % KH != 0 ||
-      H / KH > kRows || D < 1 || D > 128 || B > 65535 || KH > 65535 ||
+      H / KH > kRows || D < 1 || D > 192 || B > 65535 || KH > 65535 ||
       (is_bf16 && static_cast<long long>(S) * KH * B > (1ll << 31) - 1) ||
-      (is_bf16 && D != 64 && D != 80 && D != 128)) {
+      (is_bf16 && D != 64 && D != 80 && D != 128 && D != 192)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -732,14 +756,18 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
     err = launch_wgmma<64>(q, k, v, o, l2, B, S, H, KH, st);
   } else if (is_bf16 && D == 80) {
     err = launch_wgmma<80>(q, k, v, o, l2, B, S, H, KH, st);
-  } else if (is_bf16) {
+  } else if (is_bf16 && D == 128) {
     err = launch_wgmma<128>(q, k, v, o, l2, B, S, H, KH, st);
+  } else if (is_bf16) {
+    err = launch_wgmma<192>(q, k, v, o, l2, B, S, H, KH, st);
   } else if (D <= 64) {
     err = launch<64>(q, k, v, o, l2, B, S, H, KH, D, st);
   } else if (D <= 96) {
     err = launch<96>(q, k, v, o, l2, B, S, H, KH, D, st);
-  } else {
+  } else if (D <= 128) {
     err = launch<128>(q, k, v, o, l2, B, S, H, KH, D, st);
+  } else {
+    err = launch<192>(q, k, v, o, l2, B, S, H, KH, D, st);
   }
   return static_cast<int>(err);
 }

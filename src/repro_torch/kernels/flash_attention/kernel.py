@@ -18,6 +18,11 @@ is :func:`flash_attention_bwd`.  Without grad (serving, prefill) the
 forward stores no log-sum-exp.  CPU tensors take the plain version
 ``attention_ref``, which autograd differentiates.
 
+Head dim 192 (MLA's prefill: 128 nope + 64 rope columns, v zero-padded)
+runs forward only: the backward kernel stops at 128, so a CUDA call at D
+> 128 that would record a gradient raises ``NotImplementedError`` before
+it launches anything (MLA training: ROADMAP.md Queue A item 10).
+
 ``launches`` counts the forward kernel's launches and ``bwd_launches``
 the backward's calls (three kernels each), and nothing else."""
 from __future__ import annotations
@@ -30,8 +35,10 @@ from repro_torch.kernels.flash_attention import ref as R
 launches = 0
 bwd_launches = 0
 
-MAX_HEAD_DIM = 128
-BF16_HEAD_DIMS = (64, 80, 128)  # the wgmma kernel's; every dense config
+MAX_HEAD_DIM = 192
+# the wgmma kernel's: every dense config's, and MLA's 128 + 64
+BF16_HEAD_DIMS = (64, 80, 128, 192)
+BWD_MAX_HEAD_DIM = 128  # the backward kernel's
 MAX_GROUP = 64          # query heads per kv head: one CTA holds >= 1 position
 
 
@@ -97,15 +104,24 @@ class _FlashAttention(torch.autograd.Function):
         return flash_attention_bwd(q, k, v, out, dout.contiguous(), lse)
 
 
+def _no_backward(name, D):
+    if D > BWD_MAX_HEAD_DIM:
+        raise NotImplementedError(
+            f"{name}: no backward kernel at head dim {D} (it stops at "
+            f"{BWD_MAX_HEAD_DIM}; MLA training is ROADMAP.md Queue A "
+            f"item 10)")
+
+
 def flash_attention(q, k, v):
     """Causal GQA attention.  q: (B,S,H,D); k,v: (B,S,KH,D), float32
-    (D <= 128) or bfloat16 (D of 64, 80 or 128), any S -> (B,S,H,D) in
-    q's dtype.  CPU tensors take the plain version; CUDA tensors launch
-    the kernel, and with grad enabled record its backward."""
+    (D <= 192) or bfloat16 (D of 64, 80, 128 or 192), any S -> (B,S,H,D)
+    in q's dtype.  CPU tensors take the plain version; CUDA tensors launch
+    the kernel, and with grad enabled record its backward (D <= 128)."""
     if q.device.type == "cpu":
         return R.attention_ref(q, k, v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
+        _no_backward("flash_attention", q.shape[-1])
         return _FlashAttention.apply(q, k, v)
     return flash_attention_fwd(q, k, v)
 
@@ -117,10 +133,11 @@ def flash_attention_bwd(q, k, v, out, dout, lse=None):
     log-sum-exp as the forward keeps it (float32 (B, H, S), base 2); when
     it is None the forward kernel first runs again to write it.  CPU
     tensors take the plain version ``attention_bwd_ref``; CUDA tensors
-    launch the kernels."""
+    launch the kernels (D <= 128)."""
     global bwd_launches
     if q.device.type == "cpu":
         return R.attention_bwd_ref(q, k, v, out, dout, lse)
+    _no_backward("flash_attention_bwd", q.shape[-1])
     B, S, H, KH, D = _check("flash_attention_bwd", q, k, v, ("out", out),
                             ("dout", dout))
     if lse is None:

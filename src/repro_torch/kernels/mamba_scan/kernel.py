@@ -5,6 +5,11 @@ sequence, y summed across the channel's lanes with warp shuffles), which
 replaces the JAX package's Pallas kernel ``kernels/mamba_scan/kernel.py``
 ``selective_scan``.
 
+The kernel has no backward yet: with grad enabled on a CUDA input that
+requires grad the wrapper raises ``NotImplementedError`` rather than
+return outputs that autograd cannot differentiate (ROADMAP.md Queue B
+item 3).  The plain version, which CPU tensors take, is differentiable.
+
 ``launches`` counts the kernel's launches and nothing else."""
 from __future__ import annotations
 
@@ -23,10 +28,17 @@ def selective_scan(a, b, C, h0=None):
     """a, b: (B,S,di,ds); C: (B,S,ds); h0: (B,di,ds) or None (zeros); all
     float32, ds <= 32, any S and di -> (y (B,S,di), h_T (B,di,ds)) in
     float32.  CPU tensors take the plain version; CUDA tensors launch the
-    kernel."""
+    kernel, which has no backward: under grad, inputs that require grad
+    raise ``NotImplementedError``."""
     global launches
     if a.device.type == "cpu":
         return R.selective_scan(a, b, C, h0)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (a, b, C, h0)):
+        raise NotImplementedError(
+            "selective_scan: the CUDA kernel has no backward yet, so its "
+            "outputs cannot carry a gradient (the scan's backward is "
+            "ROADMAP.md Queue B item 3)")
     f32 = torch.float32
     build.check_cuda("selective_scan a", a, f32, 4)
     build.check_cuda("selective_scan b", b, f32, 4)

@@ -12,6 +12,9 @@ published shapes, drawn from a ``torch.Generator`` seeded with 0.
       --replicas r0:1,r1:2
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
       --requests 16 --prompt-len 256 --gen 32 --replicas r0:1,r1:2
+
+``--arch deepseek-v2-lite-16b`` serves the MLA + MoE model the same way
+(on a card: all 27 layers, 31.4 GB of bfloat16 weights).
 """
 from __future__ import annotations
 

@@ -2,13 +2,18 @@
 
 The JAX package stacks every layer's parameters over a leading
 ``n_blocks`` axis under ``params["blocks"]["sub<i>"]`` (one ``sub`` per
-layer of the repeating period) and keeps the attention weights as
-``wq``/``wk``/``wv`` (d, heads, hd) and ``wo`` (heads, hd, d).  The port
-keeps one module per layer with those weights flattened to the matmul
-layout of ``models/layers.py`` (``wq`` (d, H*hd), ``wo`` (H*hd, d)).  A
-Mamba layer's arrays already have the port's layouts (``x @ w``) and are
-carried over as they are; its layer has no ``ln2`` and no ``mlp``.  This
-module is the only place that knows both layouts.  Any tree of the
+layer of the repeating period), keeps its leading dense layers
+(deepseek's first) unstacked in the list ``params["pre_blocks"]``, and
+keeps the attention weights as ``wq``/``wk``/``wv`` (d, heads, hd) and
+``wo`` (heads, hd, d), MLA's as ``wq`` (d, H, nope+rope), ``wkv_b`` (R,
+H, nope+v) and ``wo`` (H, v, d).  The port keeps one module per layer,
+the pre-blocks first, with those weights flattened to the matmul layout
+of ``models/layers.py`` (``wq`` (d, H*hd), ``wo`` (H*hd, d)).  MLA's
+``wkv_a`` and ``kv_norm``, the MoE layer's arrays (``router``, the
+stacked experts, the ``shared`` MLP) and a Mamba layer's already have the
+port's layouts and are carried over as they are; a Mamba layer has no
+``ln2`` and no ``mlp``.  This module is the only place that knows both
+layouts.  Any tree of the
 parameters' structure maps the same way: a JAX gradient tree or an AdamW
 moment tree becomes a dict keyed by the port's parameter names
 (:func:`named_from_jax`), and a whole JAX ``TrainState`` becomes the
@@ -46,36 +51,56 @@ def params_from_jax(cfg: ModelConfig, params_np: Mapping[str, Any],
     P = cfg.block_period
     blocks = params_np["blocks"]
     n_blocks = np.asarray(blocks["sub0"]["ln1"]).shape[0]
-    if n_blocks * P != cfg.n_layers:
-        raise ValueError(f"{cfg.name}: {n_blocks} blocks of {P} layers, "
-                         f"config has {cfg.n_layers}")
-    layers = []
+    pre = list(params_np.get("pre_blocks", []))
+    if len(pre) + n_blocks * P != cfg.n_layers:
+        raise ValueError(f"{cfg.name}: {len(pre)} leading layers and "
+                         f"{n_blocks} blocks of {P} layers, config has "
+                         f"{cfg.n_layers}")
+
+    def t(a):
+        return _tensor(a, device)
+
+    def flat(a, lead):       # (lead, ..., last) -> (lead, -1) or (-1, last)
+        a = np.asarray(a)
+        return t(a.reshape(a.shape[0], -1) if lead else
+                 a.reshape(-1, a.shape[-1]))
+
+    def layer(lp):
+        """One layer's JAX arrays (a block already sliced) -> Layer."""
+        mx = lp["mixer"]
+        if T._is_ssm(cfg):
+            return T.Layer(t(lp["ln1"]), None,
+                           L.Mamba(*(t(mx[n]) for n in L.Mamba.NAMES)),
+                           None)
+        if cfg.attn_kind == "mla":
+            mixer = L.MLA(flat(mx["wq"], True), t(mx["wkv_a"]),
+                          t(mx["kv_norm"]), flat(mx["wkv_b"], True),
+                          flat(mx["wo"], False))
+        else:
+            norms = ((t(mx["q_norm"]), t(mx["k_norm"]))
+                     if cfg.qk_norm else (None, None))
+            mixer = L.GQA(flat(mx["wq"], True), flat(mx["wk"], True),
+                          flat(mx["wv"], True), flat(mx["wo"], False),
+                          *norms)
+        mlp = lp["mlp"]
+        dense = ("w_gate", "w_up", "w_down")
+        if "router" in mlp:
+            shared = (L.MLP(*(t(mlp["shared"][n]) for n in dense))
+                      if "shared" in mlp else None)
+            mlp = L.MoE(*(t(mlp[n]) for n in L.MoE.NAMES), shared)
+        else:
+            mlp = L.MLP(*(t(mlp[n]) for n in dense))
+        return T.Layer(t(lp["ln1"]), t(lp["ln2"]), mixer, mlp)
+
+    def sliced(tree, b):
+        if isinstance(tree, Mapping):
+            return {k: sliced(v, b) for k, v in tree.items()}
+        return np.asarray(tree)[b]
+
+    layers = [layer(lp) for lp in pre]
     for b in range(n_blocks):
         for i in range(P):
-            lp = blocks[f"sub{i}"]
-            mx = lp["mixer"]
-            if T._is_ssm(cfg):
-                layers.append(T.Layer(
-                    _tensor(lp["ln1"][b], device), None,
-                    L.Mamba(*(_tensor(np.asarray(mx[n])[b], device)
-                              for n in L.Mamba.NAMES)), None))
-                continue
-            mlp = lp["mlp"]
-            wq, wk, wv, wo = (np.asarray(mx[n])[b]
-                              for n in ("wq", "wk", "wv", "wo"))
-            d = wq.shape[0]
-            norms = ((_tensor(mx["q_norm"][b], device),
-                      _tensor(mx["k_norm"][b], device))
-                     if cfg.qk_norm else (None, None))
-            mixer = L.GQA(_tensor(wq.reshape(d, -1), device),
-                          _tensor(wk.reshape(d, -1), device),
-                          _tensor(wv.reshape(d, -1), device),
-                          _tensor(wo.reshape(-1, wo.shape[-1]), device),
-                          *norms)
-            layers.append(T.Layer(
-                _tensor(lp["ln1"][b], device), _tensor(lp["ln2"][b], device),
-                mixer, L.MLP(*(_tensor(mlp[n][b], device)
-                               for n in ("w_gate", "w_up", "w_down")))))
+            layers.append(layer(sliced(blocks[f"sub{i}"], b)))
     head = (None if cfg.tie_embeddings
             else _tensor(params_np["lm_head"], device))
     return T.LM(_tensor(params_np["embed"], device), layers,

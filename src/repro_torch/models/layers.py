@@ -1,7 +1,7 @@
-"""Model layers of the dense GQA decoder: RMSNorm, RoPE, causal attention
-(prefill) and cached single-token attention (decode), the GQA attention
-layer and the SwiGLU MLP.  A PyTorch port of the dense part of the JAX
-package's ``models/layers.py``, with its numerics.
+"""Model layers: RMSNorm, RoPE, causal attention (prefill) and cached
+single-token attention (decode), the GQA and MLA attention layers, the
+SwiGLU MLP, the token-dropping MoE layer and the Mamba1 block.  A PyTorch
+port of the JAX package's ``models/layers.py``, with its numerics.
 
 Attention goes through the two hand-written CUDA kernels: causal prefill
 attention through ``kernels/flash_attention`` and cached decode attention
@@ -15,11 +15,28 @@ Parameters are ``nn.Module``s in a matmul layout (``x @ w``): ``wq`` is
 d_model); ``models/convert.py`` maps the JAX package's (d, H, hd) and
 (H, hd, d) arrays onto them.
 
+MLA (deepseek-v2) keeps ``wq`` (d, H*(nope+rope)), ``wkv_a`` (d,
+R+rope), ``kv_norm`` (R,), ``wkv_b`` (R, H*(nope+v)) and ``wo`` (H*v, d)
+in the same layout and caches the compressed ``ckv`` (B, Smax, R) and the
+shared rotated key ``krope`` (B, Smax, rope).  Its prefill expands the
+keys and values per head and runs the shared causal core at head dim
+nope + rope = 192 (v zero-padded to it), hence ``flash_attention``; its
+decode step stays in the latent space (the absorbed path) in plain
+products with float32 results, as the JAX package computes it outside
+any Pallas kernel.
+
+The MoE layer keeps the JAX package's layouts: a float32 ``router`` (d,
+E), stacked experts ``w_gate``/``w_up`` (E, d, f) and ``w_down`` (E, f,
+d), and an optional ``shared`` MLP.  Dispatch drops tokens past each
+expert's capacity exactly as the JAX package does (top-k of the float32
+softmax, sorted descending, renormalised gates, an exclusive cumsum over
+(token, choice) order, a pad slot at E*C); the expert products are
+batched ``torch.bmm``, as the JAX package leaves them to XLA.
+
 The Mamba1 block (falcon-mamba) keeps the JAX package's parameter names
 and layouts; its prefill scan goes through the hand-written CUDA kernel
 of ``kernels/mamba_scan``, and its decode step is one recurrence step in
-plain ops, as in the JAX package.  MLA and MoE layers are later slices of
-the port.
+plain ops, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -180,6 +197,106 @@ def gqa_cache_init(cfg: ModelConfig, batch, max_seq, dtype, device):
 
 
 # ---------------------------------------------------------------------------
+# MLA attention (DeepSeek-V2): compressed kv cache, absorbed decode path
+# ---------------------------------------------------------------------------
+
+class MLA(nn.Module):
+    """Multi-head latent attention weights (matmul layout)."""
+
+    def __init__(self, wq, wkv_a, kv_norm, wkv_b, wo):
+        super().__init__()
+        self.wq, self.wkv_a, self.kv_norm = wq, wkv_a, kv_norm
+        self.wkv_b, self.wo = wkv_b, wo
+
+
+def mla_init(cfg: ModelConfig, gen: torch.Generator, dtype) -> MLA:
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.n_heads
+    qk_dim = m.nope_head_dim + m.rope_head_dim
+    R = m.kv_lora_rank
+    return MLA(_dense_init(gen, (d, H * qk_dim), dtype, d),
+               _dense_init(gen, (d, R + m.rope_head_dim), dtype, d),
+               _ones(R, dtype, gen.device),
+               _dense_init(gen, (R, H * (m.nope_head_dim + m.v_head_dim)),
+                           dtype, R),
+               _dense_init(gen, (H * m.v_head_dim, d), dtype, H,
+                           scale=1.0 / math.sqrt(H * m.v_head_dim)))
+
+
+def _f32_einsum(eq, *xs):
+    """``jnp.einsum(..., preferred_element_type=float32)`` of the JAX
+    package's absorbed decode: the products and their sums in float32,
+    whatever the operands' dtype (a bfloat16 ``torch.matmul`` would round
+    its output to bfloat16)."""
+    return torch.einsum(eq, *(x.float() for x in xs))
+
+
+def mla_apply(cfg: ModelConfig, p: MLA, x, positions, *,
+              cache: Optional[Dict] = None, pos: Optional[int] = None):
+    """x: (B,S,d).  Train/prefill (the expanded path; the compressed
+    prefix is written into ``cache`` in place when one is given) or one
+    decode step (S == 1 with ``cache``/``pos``: the absorbed path over
+    the cache's first ``pos`` + 1 rows).  Returns (y, cache)."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H, R = cfg.n_heads, m.kv_lora_rank
+    nope, rope_d, vd = m.nope_head_dim, m.rope_head_dim, m.v_head_dim
+    q = (x @ p.wq).view(B, S, H, nope + rope_d)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    kv_a = x @ p.wkv_a
+    ckv = rmsnorm(kv_a[..., :R], p.kv_norm, cfg.norm_eps)
+    cos, sin = rope_cos_sin(positions, rope_d, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, cos, sin)
+    k_rope = apply_rope(kv_a[..., None, R:], cos, sin)[..., 0, :]
+
+    if cache is not None and pos is not None and S == 1:
+        # absorbed decode: never expand the per-token K/V.  The JAX
+        # package inserts with a functional dynamic_update_slice and masks
+        # the rows past pos; the port writes the cache in place and reads
+        # its live prefix (the masked rows add exact zeros)
+        cache["ckv"][:, pos:pos + 1] = ckv
+        cache["krope"][:, pos:pos + 1] = k_rope
+        ckv_c = cache["ckv"][:, :pos + 1]
+        kr_c = cache["krope"][:, :pos + 1]
+        wkv_b = p.wkv_b.view(R, H, nope + vd)
+        q_lat = _f32_einsum("bshk,rhk->bshr", q_nope, wkv_b[..., :nope])
+        s = _f32_einsum("bshr,btr->bhst", q_lat.to(ckv_c.dtype), ckv_c)
+        s = s + _f32_einsum("bshk,btk->bhst", q_rope.to(kr_c.dtype), kr_c)
+        s = s * (1.0 / math.sqrt(nope + rope_d))
+        w = torch.softmax(s, dim=-1)
+        o_lat = _f32_einsum("bhst,btr->bshr", w.to(ckv_c.dtype), ckv_c)
+        out = _f32_einsum("bshr,rhv->bshv", o_lat.to(wkv_b.dtype),
+                          wkv_b[..., nope:]).to(x.dtype)
+    else:
+        # expanded path: per-head keys and values, the shared causal core
+        # at head dim nope + rope with v zero-padded to it, sliced back
+        kv = (ckv @ p.wkv_b).view(B, S, H, nope + vd)
+        k = torch.cat([kv[..., :nope],
+                       k_rope[:, :, None, :].expand(B, S, H, rope_d)],
+                      dim=-1)
+        qq = torch.cat([q_nope, q_rope], dim=-1)
+        pad = nope + rope_d - vd
+        v = F.pad(kv[..., nope:], (0, pad)) if pad > 0 else kv[..., nope:]
+        out = blocked_causal_attention(qq, k, v.contiguous(),
+                                       cfg.attn_chunk)[..., :vd]
+        if cache is not None:  # prefill: write the whole prefix in place
+            cache["ckv"][:, :S] = ckv
+            cache["krope"][:, :S] = k_rope
+    y = out.reshape(B, S, H * vd) @ p.wo
+    return y, cache
+
+
+def mla_cache_init(cfg: ModelConfig, batch, max_seq, dtype, device):
+    """{"ckv": (batch, max_seq, R), "krope": (batch, max_seq, rope)} of
+    zeros in ``dtype``."""
+    m = cfg.mla
+    return {"ckv": torch.zeros((batch, max_seq, m.kv_lora_rank),
+                               dtype=dtype, device=device),
+            "krope": torch.zeros((batch, max_seq, m.rope_head_dim),
+                                 dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
 # SwiGLU MLP
 # ---------------------------------------------------------------------------
 
@@ -200,6 +317,120 @@ def mlp_init(cfg: ModelConfig, gen: torch.Generator, dtype,
 def mlp_apply(cfg: ModelConfig, p: MLP, x):
     h = torch.nn.functional.silu(x @ p.w_gate) * (x @ p.w_up)
     return h @ p.w_down
+
+
+# ---------------------------------------------------------------------------
+# MoE: top-k router + capacity dispatch (token dropping)
+# ---------------------------------------------------------------------------
+
+class MoE(nn.Module):
+    """Routed experts in the JAX package's layouts: ``router`` (d, E)
+    float32, ``w_gate``/``w_up`` (E, d, f), ``w_down`` (E, f, d), and
+    ``shared`` (an :class:`MLP` of n_shared * f) or None."""
+
+    NAMES = ("router", "w_gate", "w_up", "w_down")
+
+    def __init__(self, router, w_gate, w_up, w_down, shared=None):
+        super().__init__()
+        self.router = router
+        self.w_gate, self.w_up, self.w_down = w_gate, w_up, w_down
+        self.shared = shared
+
+
+def moe_init(cfg: ModelConfig, gen: torch.Generator, dtype) -> MoE:
+    d, f, E = cfg.d_model, cfg.moe_d_ff, cfg.moe.n_routed
+    shared = (mlp_init(cfg, gen, dtype, d_ff=cfg.moe.n_shared * f)
+              if cfg.moe.n_shared else None)
+    return MoE(_dense_init(gen, (d, E), torch.float32, d),
+               _dense_init(gen, (E, d, f), dtype, d),
+               _dense_init(gen, (E, d, f), dtype, d),
+               _dense_init(gen, (E, f, d), dtype, f), shared)
+
+
+def moe_route(cfg: ModelConfig, p: MoE, x):
+    """The router: x (..., d) -> (probs (..., E) float32 softmax of the
+    float32 logits, gates (..., k) the top-k probabilities renormalised,
+    gate_idx (..., k) their experts, descending)."""
+    probs = torch.softmax(x.float() @ p.router, dim=-1)
+    gate_vals, gate_idx = torch.topk(probs, cfg.moe.top_k, dim=-1)
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+    return probs, gate_vals, gate_idx
+
+
+def _capacity(cfg: ModelConfig, n_tokens: int) -> int:
+    E, k = cfg.moe.n_routed, cfg.moe.top_k
+    return int(max(1, math.ceil(cfg.moe.capacity_factor * k * n_tokens / E)))
+
+
+def _dispatch(cfg: ModelConfig, p: MoE, x, gate_vals, gate_idx, C):
+    """Capacity dispatch within each group (leading dim G of x (G, T, d)
+    and of gate_vals/gate_idx (G, T, k)): slot = the choice's exclusive
+    running count of its expert over (token, choice) order; choices at
+    slot >= C are dropped (sent to the pad row E*C, never read back).
+    The experts run on their (G*C, d) rows as three batched products;
+    returns the gate-weighted sum over each token's kept choices, (G, T,
+    d) in x's dtype."""
+    G, T, d = x.shape
+    E, k = cfg.moe.n_routed, cfg.moe.top_k
+    flat_idx = gate_idx.reshape(G, T * k)
+    onehot = F.one_hot(flat_idx, E)                        # (G, T*k, E)
+    pos_in_e = onehot.cumsum(dim=1) - onehot               # exclusive
+    slot = pos_in_e.gather(2, flat_idx[..., None])[..., 0]
+    keep = slot < C
+    dest = torch.where(keep, flat_idx * C + slot,
+                       torch.full_like(flat_idx, E * C))
+    buf = x.new_zeros((G, E * C + 1, d))
+    # distinct rows but for the pad row, whose contents are discarded
+    buf.scatter_(1, dest[..., None].expand(G, T * k, d),
+                 x.repeat_interleave(k, dim=1))
+    xe = buf[:, :E * C].view(G, E, C, d).transpose(0, 1).reshape(E, G * C, d)
+    h = F.silu(torch.bmm(xe, p.w_gate)) * torch.bmm(xe, p.w_up)
+    out_e = torch.bmm(h, p.w_down)                          # (E, G*C, d)
+    out_b = out_e.view(E, G, C, d).transpose(0, 1).reshape(G, E * C, d)
+    safe = dest.clamp_max(E * C - 1)
+    gathered = out_b.gather(1, safe[..., None].expand(G, T * k, d))
+    gathered = torch.where(keep[..., None], gathered,
+                           torch.zeros((), dtype=x.dtype, device=x.device))
+    return (gathered.view(G, T, k, d)
+            * gate_vals[..., None].to(x.dtype)).sum(dim=2)
+
+
+def _moe_global_dispatch(cfg: ModelConfig, p: MoE, x):
+    """The whole batch as one group of B*S tokens (the JAX package's
+    naive scatter).  Returns (y (B,S,d), probs (B*S, E), gate_idx (B*S,
+    k))."""
+    B, S, d = x.shape
+    xt = x.reshape(1, B * S, d)
+    probs, gate_vals, gate_idx = moe_route(cfg, p, xt)
+    y = _dispatch(cfg, p, xt, gate_vals, gate_idx, _capacity(cfg, B * S))
+    return (y.view(B, S, d), probs.view(B * S, -1),
+            gate_idx.view(B * S, -1))
+
+
+def _moe_grouped_dispatch(cfg: ModelConfig, p: MoE, x):
+    """Each batch row a group of S tokens (GShard-style: the position
+    cumsum, scatter and combine stay local to the row).  Returns (y
+    (B,S,d), probs (B*S, E), gate_idx (B*S, k))."""
+    B, S, d = x.shape
+    probs, gate_vals, gate_idx = moe_route(cfg, p, x)
+    y = _dispatch(cfg, p, x, gate_vals, gate_idx, _capacity(cfg, S))
+    return y, probs.view(B * S, -1), gate_idx.view(B * S, -1)
+
+
+def moe_apply(cfg: ModelConfig, p: MoE, x):
+    """x: (B,S,d) -> (y (B,S,d), aux): token-dropping capacity MoE, plus
+    the shared MLP, with the Switch-style load-balancing loss E *
+    sum_e(density_e * mean_prob_e) in float32."""
+    if cfg.moe.dispatch == "grouped":
+        y, probs, gate_idx = _moe_grouped_dispatch(cfg, p, x)
+    else:
+        y, probs, gate_idx = _moe_global_dispatch(cfg, p, x)
+    if p.shared is not None:
+        y = y + mlp_apply(cfg, p.shared, x)
+    E = cfg.moe.n_routed
+    density = F.one_hot(gate_idx, E).float().mean(dim=(0, 1))
+    aux = E * (density * probs.mean(dim=0)).sum()
+    return y, aux
 
 
 # ---------------------------------------------------------------------------
@@ -324,18 +555,3 @@ def mamba_cache_init(cfg: ModelConfig, batch, dtype, device):
                                 device=device)
     return c
 
-
-# ---------------------------------------------------------------------------
-# later slices of the port
-# ---------------------------------------------------------------------------
-
-def _later(what: str, item: str):
-    def missing(*args, **kwargs):
-        raise NotImplementedError(
-            f"{what} is not ported to PyTorch yet ({item} of ROADMAP.md)")
-    return missing
-
-
-mla_init = mla_apply = mla_cache_init = _later(
-    "MLA attention", "Queue A item 5")
-moe_init = moe_apply = _later("the MoE layer", "Queue A item 5")

@@ -1,5 +1,6 @@
 """Decoder LM of the dense GQA family (llama3.2-1b, qwen3-32b, yi-9b,
-stablelm-3b) and of the pure Mamba1 family (falcon-mamba-7b):
+stablelm-3b), of the MoE family with GQA or MLA attention (dbrx-132b,
+deepseek-v2-lite-16b) and of the pure Mamba1 family (falcon-mamba-7b):
 ``embed -> layers -> norm -> head``.  A PyTorch port of the JAX package's
 ``models/transformer.py`` for those families.
 
@@ -8,13 +9,19 @@ them with ``lax.scan`` (rematerialised for training); the port keeps one
 ``nn.Module`` per layer and runs them in a plain Python loop, each layer
 under ``torch.utils.checkpoint`` when the training forward rematerialises
 (``cfg.remat_policy``; the JAX package's two-level grouping,
-``_auto_groups``, changes memory only and is not ported yet).  The cache
-is a list with one entry per layer: a GQA layer's ``{"k", "v"}`` tensors,
-which prefill and decode write in place, or a Mamba layer's ``{"h",
-"conv"}`` state, which prefill and decode replace in the list.  A Mamba
-layer has no MLP and no second norm.  MoE, MLA, hybrid and the modality
-frontends raise ``NotImplementedError``: they are later slices of the
-port.
+``_auto_groups``, changes memory only and is not ported yet).  Layer i's
+mixer and MLP follow ``cfg.mixer_kind(i)`` and ``cfg.mlp_kind(i)``: the
+JAX package's leading dense layers (``pre_blocks``, deepseek's first)
+are the first entries of the list, its stacked blocks the rest.  An MoE
+layer's auxiliary load-balancing loss is summed over the layers and
+returned by :func:`forward`, as the JAX package returns it.  The cache
+is a list with one entry per layer: a GQA layer's ``{"k", "v"}`` tensors
+or an MLA layer's compressed ``{"ckv", "krope"}``, which prefill and
+decode write in place, or a Mamba layer's ``{"h", "conv"}`` state, which
+prefill and decode replace in the list.  A Mamba layer has no MLP and no
+second norm.  The hybrid period (jamba), a recurrent family with MoE and
+the modality frontends raise ``NotImplementedError``: they are later
+slices of the port.
 """
 from __future__ import annotations
 
@@ -39,17 +46,29 @@ def _is_ssm(cfg: ModelConfig) -> bool:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is a dense GQA decoder or a pure Mamba1 stack,
-    without MoE or a frontend: the families the port covers so far."""
+    """Raise unless ``cfg`` is an attention decoder (GQA or MLA, dense or
+    MoE MLPs) or a pure Mamba1 stack, without a frontend: the families
+    the port covers so far."""
     cfg.validate()
-    dense = (cfg.attn_kind == "gqa" and not cfg.is_recurrent
-             and cfg.attn_every <= 1 and cfg.d_ff > 0)
-    ssm = _is_ssm(cfg) and cfg.d_ff == 0
-    if not (dense or ssm) or cfg.moe.n_routed or cfg.frontend:
+    later = None
+    if cfg.frontend:
+        later = f"the {cfg.frontend} frontend"
+    elif cfg.is_recurrent and cfg.moe.n_routed:
+        later = "a recurrent family with MoE"
+    elif cfg.attn_every > 1 or (cfg.is_recurrent and not _is_ssm(cfg)):
+        later = "the hybrid attention/Mamba period"
+    elif _is_ssm(cfg):
+        if cfg.d_ff:
+            later = "a Mamba stack with MLPs"
+    elif cfg.attn_kind not in ("gqa", "mla"):
+        later = f"attention kind {cfg.attn_kind!r}"
+    elif not (cfg.d_ff > 0 or cfg.moe.n_routed):
+        later = "an attention stack without MLPs"
+    if later is not None:
         raise NotImplementedError(
-            f"{cfg.name}: only the dense GQA and pure Mamba1 families are "
-            f"ported to PyTorch (MoE, MLA, hybrid and frontends: "
-            f"ROADMAP.md Queue A item 5)")
+            f"{cfg.name}: {later} is not ported to PyTorch yet (the dense "
+            f"and MoE attention families and pure Mamba1 are; ROADMAP.md "
+            f"Queue A item 5)")
     if cfg.score_dtype != "float32":
         raise NotImplementedError(
             f"{cfg.name}: score_dtype {cfg.score_dtype!r}; the attention "
@@ -57,8 +76,9 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 class Layer(nn.Module):
-    """One decoder layer: a GQA mixer with its MLP and second norm, or a
-    Mamba mixer alone (``ln2`` and ``mlp`` None)."""
+    """One decoder layer: a GQA or MLA mixer with its MLP (dense or MoE)
+    and second norm, or a Mamba mixer alone (``ln2`` and ``mlp``
+    None)."""
 
     def __init__(self, ln1, ln2, mixer, mlp):
         super().__init__()
@@ -93,13 +113,15 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> LM:
     embed = L._dense_init(generator, (cfg.vocab_size, cfg.d_model), dtype,
                           cfg.vocab_size, scale=0.02)
     layers = []
-    for _ in range(cfg.n_layers):
+    for i in range(cfg.n_layers):
         if _is_ssm(cfg):
             layers.append(Layer(L._ones(cfg.d_model, dtype, dev), None,
                                 L.mamba_init(cfg, generator, dtype), None))
             continue
-        mixer = L.gqa_init(cfg, generator, dtype)
-        mlp = L.mlp_init(cfg, generator, dtype)
+        mixer = (L.mla_init if cfg.attn_kind == "mla"
+                 else L.gqa_init)(cfg, generator, dtype)
+        mlp = (L.moe_init if cfg.mlp_kind(i) == "moe"
+               else L.mlp_init)(cfg, generator, dtype)
         layers.append(Layer(L._ones(cfg.d_model, dtype, dev),
                             L._ones(cfg.d_model, dtype, dev), mixer, mlp))
     head = None if cfg.tie_embeddings else L._dense_init(
@@ -115,12 +137,19 @@ def init_abstract(cfg: ModelConfig) -> LM:
 
 def param_count(cfg: ModelConfig) -> Tuple[int, int]:
     """(total_params, active_params), as the JAX package counts them:
-    ``active`` drops the input embedding gather (the dense and Mamba
-    families route no experts), for the 6*N_active*D useful-FLOPs
-    estimate.  Computed from :func:`init_abstract`."""
+    ``active`` discounts the routed experts to their activated fraction
+    (top_k / n_routed) and drops the input embedding gather, for the
+    6*N_active*D useful-FLOPs estimate.  Computed from
+    :func:`init_abstract`."""
     params = init_abstract(cfg)
     total = sum(p.numel() for p in params.parameters())
-    return total, total - params.embed.numel()
+    routed = sum(getattr(m, n).numel() for m in params.modules()
+                 if isinstance(m, L.MoE)
+                 for n in ("w_gate", "w_up", "w_down"))
+    active = total
+    if cfg.moe.n_routed:
+        active = total - routed + routed * cfg.moe.top_k / cfg.moe.n_routed
+    return total, int(active - params.embed.numel())
 
 
 def param_bytes(params: LM) -> int:
@@ -147,20 +176,25 @@ def lm_head(cfg: ModelConfig, params: LM, x):
 
 def _apply_layer(cfg: ModelConfig, lp: Layer, x, positions, cache=None,
                  pos=None):
-    """Returns (x, the layer's cache entry); decode when ``pos`` is
-    given."""
+    """Returns (x, the layer's aux loss (float32; 0 but for an MoE
+    layer), the layer's cache entry); decode when ``pos`` is given."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = L.rmsnorm(x, lp.ln1, cfg.norm_eps)
     if isinstance(lp.mixer, L.Mamba):
         h, cache = L.mamba_apply(cfg, lp.mixer, h, cache=cache,
                                  decode=pos is not None)
     else:
-        h, cache = L.gqa_apply(cfg, lp.mixer, h, positions, cache=cache,
-                               pos=pos)
+        fn = L.mla_apply if isinstance(lp.mixer, L.MLA) else L.gqa_apply
+        h, cache = fn(cfg, lp.mixer, h, positions, cache=cache, pos=pos)
     x = x + h
     if lp.mlp is not None:
         h = L.rmsnorm(x, lp.ln2, cfg.norm_eps)
-        x = x + L.mlp_apply(cfg, lp.mlp, h)
-    return x, cache
+        if isinstance(lp.mlp, L.MoE):
+            h, aux = L.moe_apply(cfg, lp.mlp, h)
+        else:
+            h = L.mlp_apply(cfg, lp.mlp, h)
+        x = x + h
+    return x, aux, cache
 
 
 def _save_dots():
@@ -181,11 +215,12 @@ def _save_dots():
 def _remat_layer(cfg: ModelConfig, lp: Layer, x, positions):
     """One training layer, rematerialised as ``cfg.remat_policy`` says:
     "nothing" saves only the layer's input and recomputes the rest in
-    the backward, "dots" also saves the matmul outputs."""
+    the backward, "dots" also saves the matmul outputs.  Returns (x,
+    the layer's aux loss)."""
     from torch.utils.checkpoint import checkpoint
 
     def body(x):
-        return _apply_layer(cfg, lp, x, positions)[0]
+        return _apply_layer(cfg, lp, x, positions)[:2]
     if cfg.remat_policy == "dots":
         return checkpoint(body, x, use_reentrant=False,
                           context_fn=_save_dots)
@@ -194,17 +229,19 @@ def _remat_layer(cfg: ModelConfig, lp: Layer, x, positions):
 
 def _run(cfg, params: LM, x, positions, cache=None, pos=None,
          remat: bool = False):
-    if remat:
-        for lp in params.layers:
-            x = _remat_layer(cfg, lp, x, positions)
-        return L.rmsnorm(x, params.final_norm, cfg.norm_eps)
+    """The layers and the final norm; returns (x, the summed aux loss)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, lp in enumerate(params.layers):
-        x, layer_cache = _apply_layer(cfg, lp, x, positions,
-                                      None if cache is None else cache[i],
-                                      pos)
-        if cache is not None:
-            cache[i] = layer_cache
-    return L.rmsnorm(x, params.final_norm, cfg.norm_eps)
+        if remat:
+            x, a = _remat_layer(cfg, lp, x, positions)
+        else:
+            x, a, layer_cache = _apply_layer(
+                cfg, lp, x, positions, None if cache is None else cache[i],
+                pos)
+            if cache is not None:
+                cache[i] = layer_cache
+        aux = aux + a
+    return L.rmsnorm(x, params.final_norm, cfg.norm_eps), aux
 
 
 # ---------------------------------------------------------------------------
@@ -214,7 +251,8 @@ def _run(cfg, params: LM, x, positions, cache=None, pos=None,
 def forward(cfg: ModelConfig, params: LM, tokens, *,
             remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """Training/scoring forward. tokens: (B,S) int.  Returns (logits,
-    aux_loss); the dense and Mamba families have no auxiliary loss (0.0).
+    aux_loss): the MoE layers' load-balancing losses summed (float32; 0.0
+    for the dense and Mamba families).
 
     With ``remat`` and grad enabled each layer runs under
     ``torch.utils.checkpoint`` (``use_reentrant=False``) unless
@@ -226,41 +264,44 @@ def forward(cfg: ModelConfig, params: LM, tokens, *,
     remat = (remat and torch.is_grad_enabled()
              and cfg.remat_policy != "everything"
              and cfg.remat_inner != "none")
-    logits = lm_head(cfg, params, _run(cfg, params, x, positions,
-                                       remat=remat))
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    x, aux = _run(cfg, params, x, positions, remat=remat)
+    return lm_head(cfg, params, x), aux
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                device="cuda") -> Cache:
-    """One zeroed cache per layer: ``{"k", "v"}`` of (batch, max_seq, KH,
-    hd) in ``cfg.dtype`` for a GQA layer; ``{"h", "conv"}`` for a Mamba
-    layer (``mamba_cache_init``: its size does not depend on
-    ``max_seq``)."""
+    """One zeroed cache per layer, in ``cfg.dtype``: ``{"k", "v"}`` of
+    (batch, max_seq, KH, hd) for a GQA layer; ``{"ckv", "krope"}`` of
+    (batch, max_seq, kv_lora_rank) and (batch, max_seq, rope_head_dim)
+    for an MLA layer; ``{"h", "conv"}`` for a Mamba layer
+    (``mamba_cache_init``: its size does not depend on ``max_seq``)."""
     check_supported(cfg)
     if _is_ssm(cfg):
         return [L.mamba_cache_init(cfg, batch, _dtype(cfg), device)
                 for _ in range(cfg.n_layers)]
-    return [L.gqa_cache_init(cfg, batch, max_seq, _dtype(cfg), device)
+    make = (L.mla_cache_init if cfg.attn_kind == "mla"
+            else L.gqa_cache_init)
+    return [make(cfg, batch, max_seq, _dtype(cfg), device)
             for _ in range(cfg.n_layers)]
 
 
 def prefill(cfg: ModelConfig, params: LM, tokens, cache: Cache):
-    """Fill the cache with the prompt (GQA layers in place, Mamba layers'
-    entries replaced in the list); returns (logits of the last position
+    """Fill the cache with the prompt (GQA and MLA layers in place, Mamba
+    layers' entries replaced in the list); returns (logits of the last position
     (B,1,V), cache)."""
     x = embed_tokens(cfg, params, tokens)
     positions = torch.arange(x.shape[1], device=x.device)
-    x = _run(cfg, params, x, positions, cache)
+    x, _ = _run(cfg, params, x, positions, cache)
     return lm_head(cfg, params, x[:, -1:]), cache
 
 
 def decode_step(cfg: ModelConfig, params: LM, token, cache: Cache,
                 pos: int):
     """One decode step. token: (B,1) int; ``pos`` a Python int.  Writes
-    the new k/v at ``pos`` in place (GQA) or replaces the layer's state
-    (Mamba); returns (logits (B,1,V), cache)."""
+    the new k/v (GQA) or compressed row (MLA) at ``pos`` in place, or
+    replaces the layer's state (Mamba); returns (logits (B,1,V),
+    cache)."""
     x = embed_tokens(cfg, params, token)
     positions = torch.full((1,), pos, device=x.device)
-    x = _run(cfg, params, x, positions, cache, pos)
+    x, _ = _run(cfg, params, x, positions, cache, pos)
     return lm_head(cfg, params, x), cache

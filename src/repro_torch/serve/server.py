@@ -110,7 +110,8 @@ class CoexecServer:
             policy=cfg.policy, gen=cfg.gen, min_gen=cfg.min_gen,
             round_quantum_s=cfg.round_quantum_s, unit_work=True))
         # each dispatch group runs on its replica's device: a card's group
-        # synchronises the card before it reads a packet's time
+        # runs its packets on a stream of its own and waits only on them
+        # before it reads a packet's time
         self.session = EngineSession(
             [DeviceGroup(r.name, device=r.device,
                          power_model=cfg.power_models.get(r.name,

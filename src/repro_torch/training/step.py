@@ -32,6 +32,12 @@ def make_loss_fn(cfg: ModelConfig):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.frontend} loss is not ported to PyTorch "
             f"yet (ROADMAP.md Queue A item 5)")
+    if cfg.moe.n_routed or cfg.attn_kind == "mla":
+        raise NotImplementedError(
+            f"{cfg.name}: training MoE and MLA models is not ported to "
+            f"PyTorch yet: the port serves them (ROADMAP.md Queue A item "
+            f"10: the aux loss in the step, flash_attention_bwd at head "
+            f"dim 192)")
 
     def loss_fn(params, batch):
         tokens = batch["tokens"]

@@ -249,6 +249,10 @@ ATTN_TOL = {torch.bfloat16: (2e-2, 2e-2), torch.float32: (1e-4, 2e-5)}
     (1, 200, 12, 2, 80, torch.bfloat16),      # G = 6
     (1, 130, 8, 8, 128, torch.bfloat16),
     (1, 77, 4, 2, 96, torch.float32),         # ragged S, unpadded D = 96
+    (4, 256, 16, 16, 192, torch.bfloat16),    # MLA's prefill (deepseek)
+    (1, 100, 16, 16, 192, torch.float32),     # ragged S, MLA's heads
+    (2, 77, 4, 2, 192, torch.bfloat16),       # ragged S, G = 2
+    (1, 130, 4, 4, 160, torch.float32),       # unpadded D = 160
 ])
 def test_flash_attention_kernel_matches_plain(card, B, S, H, KH, D, dtype):
     from repro_torch.kernels.flash_attention import kernel as KA, ref as RA
@@ -279,6 +283,40 @@ def test_flash_attention_bf16_tiles_and_edges(card, S, G, D):
     assert KA.launches == before + 1 and got.dtype == torch.bfloat16
     want = RA.attention_ref(q, k, v).float()
     torch.testing.assert_close(got.float(), want, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("G", [1, 3])
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 127, 128, 129, 1000])
+def test_flash_attention_bf16_head_dim_192_tiles_and_edges(card, S, G):
+    """The wgmma kernel at D = 192 (three swizzle atoms a row, 64-key K/V
+    tiles): across its 64-key tile and its 128-row CTA, and with idle
+    rows (G = 3)."""
+    from repro_torch.kernels.flash_attention import kernel as KA, ref as RA
+    q, k, v = _attn_inputs(card, 2, S, 2 * G, 2, 192, torch.bfloat16,
+                           S * 5 + G)
+    before = KA.launches
+    got = KA.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert KA.launches == before + 1 and got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), RA.attention_ref(q, k, v).float(),
+                               rtol=2e-2, atol=2e-2)
+
+
+def test_flash_attention_refuses_grad_at_head_dim_192(card):
+    """The backward kernel stops at D = 128: a D = 192 call that would
+    record a gradient raises before it launches anything."""
+    from repro_torch.kernels.flash_attention import kernel as KA
+    q, k, v = _attn_inputs(card, 1, 64, 4, 4, 192, torch.bfloat16, 1)
+    q.requires_grad_()
+    before = KA.launches
+    with pytest.raises(NotImplementedError, match="Queue A item 10"):
+        KA.flash_attention(q, k, v)
+    with pytest.raises(NotImplementedError, match="head dim 192"):
+        KA.flash_attention_bwd(q.detach(), k, v, q.detach(), q.detach())
+    assert KA.launches == before
+    with torch.no_grad():                     # serving: no gradient
+        assert KA.flash_attention(q, k, v).shape == q.shape
+    assert KA.launches == before + 1
 
 
 def test_flash_attention_kernel_rejects_bf16_head_dim_without_tile(card):
@@ -557,6 +595,23 @@ def test_selective_scan_kernel_rejects_what_it_does_not_take(card):
     assert KS.launches == before
 
 
+def test_selective_scan_refuses_grad_on_the_card(card):
+    """The scan kernel has no backward: CUDA inputs that require grad
+    raise instead of returning outputs that autograd cannot
+    differentiate; without grad it launches as before."""
+    from repro_torch.kernels.mamba_scan import kernel as KS
+    a = torch.full((1, 8, 4, 2), 0.9, device=card)
+    b = torch.randn((1, 8, 4, 2), device=card, requires_grad=True)
+    C = torch.randn((1, 8, 2), device=card)
+    before = KS.launches
+    with pytest.raises(NotImplementedError, match="Queue B item 3"):
+        KS.selective_scan(a, b, C)
+    assert KS.launches == before
+    with torch.no_grad():
+        y, h = KS.selective_scan(a, b, C)
+    assert KS.launches == before + 1 and y.grad_fn is None
+
+
 def test_mamba_model_on_card_matches_host(card):
     """The smoke falcon-mamba-7b in float32 (TF32 off): prefill through
     the scan kernel (one launch per layer) and decode steps in plain ops
@@ -630,3 +685,86 @@ def test_train_step_on_card_matches_host(card):
                          host.params.parameters()):
         torch.testing.assert_close(p.detach().cpu(), q.detach(), rtol=1e-4,
                                    atol=1e-5, msg=n)
+
+
+# ------------------------------------ device groups sharing one card
+def test_groups_on_one_card_time_only_their_own_work(card):
+    """Two groups share the card: while group a's packet runs a long
+    kernel on a's stream, group b's short packet ends (and is timed)
+    without waiting for it."""
+    import threading
+    a, b = DeviceGroup("a", device=card), DeviceGroup("b", device=card)
+    x = torch.ones(1 << 16, device=card)
+    for g in (a, b):                          # streams, first launches
+        g.run_packet(lambda off, size: x * 2, 0, 1)
+    started = threading.Event()
+
+    def long_packet(off, size):
+        torch.cuda._sleep(1_000_000_000)      # ~0.5 s at the card's clock
+        started.set()
+        return x + 1
+
+    th = threading.Thread(target=a.run_packet, args=(long_packet, 0, 1))
+    th.start()
+    started.wait()
+    out, _ = b.run_packet(lambda off, size: x * 3, 0, 1)
+    short_running = th.is_alive()
+    th.join()
+    assert short_running, "b's packet waited for a's kernel"
+    assert float(out[0]) == 3.0
+    assert b.busy_time < 0.25 * a.kernel_time, (b.busy_time, a.kernel_time)
+    assert a.kernel_time > 0.1
+
+
+def test_run_packet_output_is_ready_on_the_callers_stream(card):
+    """A packet's output, made on the group's stream, is complete and
+    readable on the caller's stream after ``run_packet`` returns."""
+    g = DeviceGroup("g", device=card)
+    x = torch.arange(1 << 20, device=card, dtype=torch.float32)
+
+    def packet(off, size):
+        torch.cuda._sleep(50_000_000)
+        return {"y": (x[off:off + size] * 2,)}
+
+    out, _ = g.run_packet(packet, 10, 1000)
+    torch.testing.assert_close(out["y"][0].cpu(),
+                               torch.arange(10, 1010).float() * 2)
+    assert g.stream != torch.cuda.current_stream(card)
+
+
+def test_deepseek_smoke_on_card_matches_host(card):
+    """The smoke deepseek-v2-lite-16b (MLA + MoE) in float32 (TF32 off):
+    prefill through flash_attention at its head dim (one launch a layer),
+    absorbed decode steps in plain products (no attention kernel),
+    against the same weights on the host."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels.flash_attention import kernel as KA
+    from repro_torch.kernels.flash_decode import kernel as KD
+    from repro_torch.models import transformer as T
+    cfg = get_smoke("deepseek-v2-lite-16b")
+    params = T.init_params(cfg, torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (2, 24)).astype(np.int64))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def run(device, p):
+        t = toks.to(device)
+        cache = T.init_cache(cfg, 2, 24, device=device)
+        lg, cache = T.prefill(cfg, p, t[:, :20], cache)
+        outs = [lg[:, 0]]
+        for i in range(20, 24):
+            lg, cache = T.decode_step(cfg, p, t[:, i:i + 1], cache, i)
+            outs.append(lg[:, 0])
+        return torch.stack(outs, 1).cpu()
+
+    try:
+        with torch.inference_mode():
+            host = run("cpu", params)
+            fa, fd = KA.launches, KD.launches
+            got = run(card, params.to(card))
+            torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert (KA.launches - fa, KD.launches - fd) == (cfg.n_layers, 0)
+    torch.testing.assert_close(got, host, rtol=2e-4, atol=2e-4)

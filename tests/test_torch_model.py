@@ -102,8 +102,7 @@ def test_own_init_is_seeded_and_shaped():
     assert a.lm_head is None and len(a.layers) == cfg.n_layers
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "dbrx-132b",
-                                  "jamba-v0.1-52b", "internvl2-1b",
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "internvl2-1b",
                                   "musicgen-large"])
 def test_other_families_are_later_slices(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
