@@ -92,7 +92,8 @@ Phases, each fatal on failure:
    and qwen3-32b's heads (D = 128), the forward also keeping each row's
    log-sum-exp as training runs it; the profiler must see exactly one
    kernel on the device for one ``flash_decode`` call at the serving
-   shape;
+   shape (a trace that lacks the spin kernels around its window has
+   lost events and is taken again, up to 3 times);
 9. serve falcon-mamba-7b at full width (``--small``: 2 of its 64 layers)
    in bfloat16 with the set-up of phase 6.  All must be served; the launch
    counters, set to 0 after a warm-up, must show one ``selective_scan``
@@ -161,9 +162,49 @@ Phases, each fatal on failure:
     dense one and two MoE layers; a cut of depth that bounds the host's
     memory and time): the logits within 1e-3 of the largest, every token
     routed to the same experts on both sides, and the smallest margin
-    between the k-th and (k+1)-th router probability logged.
+    between the k-th and (k+1)-th router probability logged;
+18. hold ``flash_attention`` and ``flash_decode`` against their plain
+    versions at jamba-v0.1-52b's heads (H = 32, KH = 8, D = 128, the
+    serving shapes, timed: the ``jamba_shape`` entries); serve
+    jamba-v0.1-52b at full width on 16 of its 32 layers (two periods of
+    8: 52.11 GB of bfloat16 weights; ``--small``: one period of 4,
+    ``attn_every`` 4 at offset 2, the smoke config's period) with the
+    set-up of phase 6.  All must be served; the launch counters, set to 0
+    after a warm-up, must show one ``flash_attention`` launch per
+    attention layer (2) and one ``selective_scan`` launch per Mamba layer
+    (14) a prefill, one ``flash_decode`` launch per attention layer and no
+    scan a decode step; a fresh replica must give the same tokens.
+    Prefill and decode-step times beside the weight-read bound (the
+    capacity dispatch runs all 16 experts), a profile of each, peak
+    memory and each replica group's busy time;
+19. card against host as phase 17 on layers 0, 1, 4 and 5 of the served
+    model (Mamba + MoE, Mamba + MLP, attention + MoE, Mamba + MLP) run as
+    one period of 4 at full width, in float32 (about 27.5 GB on each
+    side): the logits within 1e-3 of the largest, every token routed to
+    the same experts on both sides, the smallest top-2 margin logged;
+20. internvl2-1b at full width (``--small``: 2 of its 24 layers): hold
+    both attention kernels at its G = 7 (14 query heads over 2, D = 64;
+    the ``g7_shape`` entries, timed at the serving shapes) against their
+    plain versions; serve it as phase 6 does, without patches, as the JAX
+    package's server serves it (one ``flash_attention`` launch per layer
+    a prefill, one ``flash_decode`` launch per layer a decode step); run
+    a prefill of 256 patch embeddings and 256 tokens (batch 4) and 32
+    greedy steps, with the same launch counts; card against host in
+    float32 on all its layers with patches;
+21. hold both attention kernels at musicgen-large's heads (H = KH = 32,
+    D = 64; the ``musicgen_shape`` entries, timed at its shapes, and a
+    ragged S in both dtypes) against their plain versions; run
+    musicgen-large at full width (48 layers, ``--small``: 2) through
+    ``prefill`` and ``decode_step``: batch 4, a 256-position prompt of 4
+    codebooks, 32 greedy steps (argmax per codebook, (4, 1, 4) tokens a
+    step), 48 ``flash_attention`` launches a prefill and 48
+    ``flash_decode`` launches a step; prefill and decode-step times
+    beside the weight-read bound, and a profile; card against host in
+    float32 on its first 8 layers (logits (B, 1, 4, V)).
 
-The line before the last is the kernels' JSON record; the last line is
+Phases 18–21 add their launches to the records of ``flash_attention``,
+``flash_decode`` and ``selective_scan`` (``launches_by_path``).  The line
+before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  It exits non-zero, printing no result,
 without a card or outside a checkout of the repository.
 """
@@ -351,26 +392,82 @@ def profile_window(torch, fn, n: int):
     return sum(ms for ms, _ in rows), rows[:8]
 
 
-def device_ops_per_call(torch, fn, n: int):
+def device_ops_per_call(torch, fn, n: int, tries: int = 3):
     """(device operations per call, their names) of ``n`` calls of
     ``fn``, from ``torch.profiler``: every kernel, copy and memset the
-    calls put on the device."""
+    calls put on the device.  A trace that lacks one of the two spin
+    kernels around the window has lost events (it may come back empty):
+    it is taken again, up to ``tries`` times, and the last one counts."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        # a spin kernel on either side of the window, so that the trace's
-        # first and last events are not the calls' own
-        torch.cuda._sleep(100_000)
-        for _ in range(n):
-            fn()
-        torch.cuda._sleep(100_000)
-        torch.cuda.synchronize()
-    ops = [(e.key, e.count) for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA
-           and "spin_kernel" not in e.key]
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            # a spin kernel on either side of the window, so that the
+            # trace's first and last events are not the calls' own
+            torch.cuda._sleep(100_000)
+            for _ in range(n):
+                fn()
+            torch.cuda._sleep(100_000)
+            torch.cuda.synchronize()
+        events = [(e.key, e.count) for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        spins = sum(c for k, c in events if "spin_kernel" in k)
+        ops = [(k, c) for k, c in events if "spin_kernel" not in k]
+        if spins == 2:
+            break
+        log(f"  profiler trace {attempt + 1} of {tries} holds {spins} of "
+            f"the 2 spin kernels: it lost events")
     return sum(c for _, c in ops) / n, sorted(k for k, _ in ops)
+
+
+def free_card(torch, dev0, what):
+    """Collect what earlier phases left in reference cycles and return the
+    cached blocks, then log what the card and the host still hold."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    avail = next((int(ln.split()[1]) * 1024 / 1e9
+                  for ln in open("/proc/meminfo")
+                  if ln.startswith("MemAvailable:")), float("nan"))
+    log(f"{what}: {torch.cuda.memory_allocated(dev0) / 1e9:.2f} GB allocated "
+        f"on the card, {avail:.1f} GB available on the host")
+
+
+def counted_kernels():
+    from repro_torch.kernels.flash_attention import kernel as KA
+    from repro_torch.kernels.flash_decode import kernel as KD
+    from repro_torch.kernels.mamba_scan import kernel as KS
+    return {"flash_attention": KA, "flash_decode": KD, "selective_scan": KS}
+
+
+def time_steps(torch, prefill, step, prefill_what, step_what, w_bytes,
+               who="serve"):
+    """Time a prefill and a decode step with CUDA events, beside the least
+    time to read the weights once, and profile both (a diagnostic: the run
+    goes on without a trace)."""
+    prefill_ms = cuda_ms(prefill, torch, 5)
+    step_ms = cuda_ms(step, torch, 20)
+    log(f"{who}: prefill ({prefill_what}) {prefill_ms:.3f} ms, decode step "
+        f"({step_what}) {step_ms:.3f} ms; reading the weights once takes "
+        f"at least {w_bytes / HBM_BYTES_S * 1e3:.3f} ms")
+    for label, fn, ms_call in (("prefill", prefill, prefill_ms),
+                               ("decode step", step, step_ms)):
+        try:
+            prof = profile_window(torch, fn, 3)
+        except Exception as e:
+            prof = None
+            log(f"profile {label}: torch.profiler failed ({e!r})")
+        if prof is None:
+            log(f"profile {label}: no device time in the trace")
+            continue
+        dev_ms, top = prof
+        log(f"profile {label}: {dev_ms:.3f} ms of kernels per call "
+            f"against {ms_call:.3f} ms between CUDA events (busy "
+            f"{dev_ms / ms_call:.1%}); "
+            + "; ".join(f"{ms:.3f} ms {k[:60]}" for ms, k in top))
+    return prefill_ms, step_ms
 
 
 def serve_model(torch, dev0, cfg, params, launches, per_prefill, per_step):
@@ -380,15 +477,11 @@ def serve_model(torch, dev0, cfg, params, launches, per_prefill, per_step):
     times a decode step (and the others never), and that the tokens are
     replica-invariant; time a prefill and a decode step and profile
     both.  Records the path's launch counts in ``launches``."""
-    from repro_torch.kernels.flash_attention import kernel as KA
-    from repro_torch.kernels.flash_decode import kernel as KD
-    from repro_torch.kernels.mamba_scan import kernel as KS
     from repro_torch.models import transformer as T
     from repro_torch.serve import (CoexecServer, Replica, RequestQueue,
                                    ServerConfig, make_requests)
 
-    counters = {"flash_attention": KA, "flash_decode": KD,
-                "selective_scan": KS}
+    counters = counted_kernels()
     n_req, P, gen, lws = (SERVE[k] for k in ("requests", "prompt", "gen",
                                                "lws"))
     w_bytes = T.param_bytes(params)
@@ -473,53 +566,39 @@ def serve_model(torch, dev0, cfg, params, launches, per_prefill, per_step):
     with torch.inference_mode():
         batch = torch.as_tensor(prompts[:lws], device=dev0)
         cache = T.init_cache(cfg, lws, P + gen, dev0)
-        prefill_ms = cuda_ms(lambda: T.prefill(cfg, params, batch, cache),
-                             torch, 5)
-        tok = batch[:, :1]
-        pos = P + gen // 2
-        step_ms = cuda_ms(lambda: T.decode_step(cfg, params, tok, cache,
-                                                pos), torch, 20)
-        log(f"serve: prefill (batch {lws} x {P}) {prefill_ms:.3f} ms, "
-            f"decode step (batch {lws}, pos {pos}) {step_ms:.3f} ms; "
-            f"reading the weights once takes at least "
-            f"{w_bytes / HBM_BYTES_S * 1e3:.3f} ms")
-        for label, fn, ms_call in (
-                ("prefill", lambda: T.prefill(cfg, params, batch, cache),
-                 prefill_ms),
-                ("decode step", lambda: T.decode_step(cfg, params, tok,
-                                                      cache, pos), step_ms)):
-            try:       # a diagnostic: the run goes on without a trace
-                prof = profile_window(torch, fn, 3)
-            except Exception as e:
-                prof = None
-                log(f"profile {label}: torch.profiler failed ({e!r})")
-            if prof is None:
-                log(f"profile {label}: no device time in the trace")
-                continue
-            dev_ms, top = prof
-            log(f"profile {label}: {dev_ms:.3f} ms of kernels per call "
-                f"against {ms_call:.3f} ms between CUDA events (busy "
-                f"{dev_ms / ms_call:.1%}); "
-                + "; ".join(f"{ms:.3f} ms {k[:60]}" for ms, k in top))
-    del server, reps, cache, out
+        time_steps(torch, lambda: T.prefill(cfg, params, batch, cache),
+                   lambda: T.decode_step(cfg, params, batch[:, :1], cache,
+                                         P + gen // 2),
+                   f"batch {lws} x {P}", f"batch {lws}, pos {P + gen // 2}",
+                   w_bytes)
+    del server, reps, out
     torch.cuda.empty_cache()
 
 
-def card_against_host(torch, dev0, cfg32, p32, label):
+def card_against_host(torch, dev0, cfg32, p32, label, prompt=None,
+                      patches=None):
     """Teacher-forced ``PARITY`` in float32 (TF32 off) with ``p32`` on
     the card (kernels) and then on the host (plain versions); the logits
-    must agree within 1e-3 of the largest.  Moves ``p32`` to the host."""
+    must agree within 1e-3 of the largest.  ``prompt`` replaces PARITY's
+    prompt length; ``patches`` (numpy, (batch, n, d)) go to the prefill
+    (the ``vit_stub`` frontend); an ``encodec_stub`` model takes tokens
+    of all its codebooks.  Moves ``p32`` to the host."""
     from repro_torch.models import transformer as T
 
     B2, P2, n_steps = (PARITY[k] for k in ("batch", "prompt", "steps"))
+    P2 = prompt or P2
+    cb = ((cfg32.n_codebooks,) if cfg32.frontend == "encodec_stub"
+          else ())
     ptoks = np.random.default_rng(1).integers(
-        0, cfg32.vocab_size, (B2, P2 + n_steps)).astype(np.int32)
+        0, cfg32.vocab_size, (B2, P2 + n_steps) + cb).astype(np.int32)
 
     def teacher_forced(device):
         with torch.inference_mode():
             t = torch.as_tensor(ptoks, device=device)
+            pt = (None if patches is None
+                  else torch.as_tensor(patches, device=device))
             cache = T.init_cache(cfg32, B2, P2 + n_steps, device)
-            lg, cache = T.prefill(cfg32, p32, t[:, :P2], cache)
+            lg, cache = T.prefill(cfg32, p32, t[:, :P2], cache, patches=pt)
             outs = [lg[:, 0]]
             for i in range(P2, P2 + n_steps):
                 lg, cache = T.decode_step(cfg32, p32, t[:, i:i + 1], cache, i)
@@ -611,6 +690,53 @@ def attn_check(torch, randn, B, S, h, kh, d, dtype, timed=False):
     return res
 
 
+def decode_check(torch, randn, B, Smax, h, kh, d, pos, dtype, timed=False):
+    """Hold ``flash_decode`` against ``decode_attention`` on (B, h, d)
+    queries and (B, Smax, kh, d) caches from ``randn`` at ``ATTN_TOL``,
+    attending to [0, pos]; with ``timed``, time kernel, plain version and
+    SDPA over the live prefix and return the measurements for a kernel
+    record."""
+    from repro_torch.kernels.flash_decode import kernel as KD, ref as RD
+    F = torch.nn.functional
+    q = randn((B, h, d), dtype)
+    kc, vc = randn((B, Smax, kh, d), dtype), randn((B, Smax, kh, d), dtype)
+    got = KD.flash_decode(q, kc, vc, pos)
+    want = RD.decode_attention(q, kc, vc, pos)
+    rtol, atol = ATTN_TOL[str(dtype).split(".")[-1]]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+    err = float((got.float() - want.float()).abs().max())
+    shape = f"B={B} Smax={Smax} pos={pos} H={h} KH={kh} D={d} {dtype}"
+    log(f"  flash_decode {shape}: max abs err {err:.3g}")
+    if not timed:
+        return None
+    ms = cuda_ms(lambda: KD.flash_decode(q, kc, vc, pos), torch)
+    plain_ms = cuda_ms(lambda: RD.decode_attention(q, kc, vc, pos),
+                       torch, 1)
+    # the library yardstick attends over the live prefix, copied to
+    # its (B, KH, L, D) layout outside the timed call
+    qt = q[:, :, None]
+    kt, vt = (c[:, :pos + 1].transpose(1, 2).contiguous()
+              for c in (kc, vc))
+    lib = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True)
+    log(f"  sdpa vs kernel max abs diff "
+        f"{float((lib[:, :, 0].float() - got.float()).abs().max()):.3g}")
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, enable_gqa=True), torch)
+    elt = q.element_size()
+    res = dict(err=err, shape=shape, ms=ms, plain_ms=plain_ms,
+               library_ms=library_ms,
+               nbytes=elt * (2 * B * (pos + 1) * kh * d + 2 * B * h * d),
+               ops=4.0 * B * h * d * (pos + 1),
+               ops_per_s=BF16_OPS_S if dtype == torch.bfloat16
+               else FP32_OPS_S)
+    log(f"  timed {shape}: kernel {ms:.4f} ms, SDPA {library_ms:.4f} "
+        f"ms, kernel/SDPA {ms / library_ms:.3f}")
+    del q, kc, vc, kt, vt, got, want, lib
+    torch.cuda.empty_cache()
+    return res
+
+
 def make_params(torch, dev0, cfg):
     from repro_torch.models import transformer as T
     t0 = time.perf_counter()
@@ -628,9 +754,8 @@ def serving_phases(args, torch, dev0, launches, record):
     from dataclasses import replace
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_decode import kernel as KD, ref as RD
+    from repro_torch.kernels.flash_decode import kernel as KD
 
-    F = torch.nn.functional
     cfg = get_config("llama3.2-1b")
     if args.small:
         cfg = replace(cfg, n_layers=2)
@@ -657,45 +782,6 @@ def serving_phases(args, torch, dev0, launches, record):
     def randn(shape, dtype):
         return torch.randn(shape, generator=gen_t, device=dev0).to(dtype)
 
-    def decode_check(B, Smax, h, kh, d, pos, dtype, timed=False):
-        q = randn((B, h, d), dtype)
-        kc, vc = randn((B, Smax, kh, d), dtype), randn((B, Smax, kh, d), dtype)
-        got = KD.flash_decode(q, kc, vc, pos)
-        want = RD.decode_attention(q, kc, vc, pos)
-        rtol, atol = ATTN_TOL[str(dtype).split(".")[-1]]
-        torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
-                                   atol=atol)
-        err = float((got.float() - want.float()).abs().max())
-        shape = f"B={B} Smax={Smax} pos={pos} H={h} KH={kh} D={d} {dtype}"
-        log(f"  flash_decode {shape}: max abs err {err:.3g}")
-        if not timed:
-            return None
-        ms = cuda_ms(lambda: KD.flash_decode(q, kc, vc, pos), torch)
-        plain_ms = cuda_ms(lambda: RD.decode_attention(q, kc, vc, pos),
-                           torch, 1)
-        # the library yardstick attends over the live prefix, copied to
-        # its (B, KH, L, D) layout outside the timed call
-        qt = q[:, :, None]
-        kt, vt = (c[:, :pos + 1].transpose(1, 2).contiguous()
-                  for c in (kc, vc))
-        lib = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True)
-        log(f"  sdpa vs kernel max abs diff "
-            f"{float((lib[:, :, 0].float() - got.float()).abs().max()):.3g}")
-        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, enable_gqa=True), torch)
-        elt = q.element_size()
-        res = dict(err=err, shape=shape, ms=ms, plain_ms=plain_ms,
-                   library_ms=library_ms,
-                   nbytes=elt * (2 * B * (pos + 1) * kh * d + 2 * B * h * d),
-                   ops=4.0 * B * h * d * (pos + 1),
-                   ops_per_s=BF16_OPS_S if dtype == torch.bfloat16
-                   else FP32_OPS_S)
-        log(f"  timed {shape}: kernel {ms:.4f} ms, SDPA {library_ms:.4f} "
-            f"ms, kernel/SDPA {ms / library_ms:.3f}")
-        del q, kc, vc, kt, vt, got, want, lib
-        torch.cuda.empty_cache()
-        return res
-
     bf16, f32 = torch.bfloat16, torch.float32
     log("kernels of the serving path against their plain versions:")
     serve_a = attn_check(torch, randn, lws, P, H, KH, D, bf16, timed=True)
@@ -710,8 +796,8 @@ def serving_phases(args, torch, dev0, launches, record):
     attn_check(torch, randn, 2, 256, 8, 4, 80, bf16)
     attn_check(torch, randn, 1, 384, 16, 2, 128, f32)  # qwen3-32b's D
     attn_check(torch, randn, 1, 384, 16, 2, 128, bf16)
-    serve_d = decode_check(lws, P + gen, H, KH, D, P + gen - 1, bf16,
-                           timed=True)
+    serve_d = decode_check(torch, randn, lws, P + gen, H, KH, D,
+                           P + gen - 1, bf16, timed=True)
     # one flash_decode call is one kernel on the device: no combine pass,
     # no memset of the split counters
     qd = randn((lws, H, D), bf16)
@@ -724,11 +810,11 @@ def serving_phases(args, torch, dev0, launches, record):
                       f"expected one kernel ({names})")
     del qd, kcd, vcd
     long_B, long_Smax = (16, 4096) if args.small else (128, 32768)
-    long_d = decode_check(long_B, long_Smax, H, KH, D, long_Smax - 1, bf16,
-                          timed=True)
-    decode_check(3, 1000, H, KH, D, 700, f32)
-    decode_check(2, 512, 8, 4, 80, 300, bf16)
-    decode_check(2, 512, 16, 2, 128, 511, f32)
+    long_d = decode_check(torch, randn, long_B, long_Smax, H, KH, D,
+                          long_Smax - 1, bf16, timed=True)
+    decode_check(torch, randn, 3, 1000, H, KH, D, 700, f32)
+    decode_check(torch, randn, 2, 512, 8, 4, 80, 300, bf16)
+    decode_check(torch, randn, 2, 512, 16, 2, 128, 511, f32)
 
     for name, res, lng, more, src, replaces in (
             ("flash_attention", serve_a, long_a,
@@ -831,24 +917,54 @@ def mamba_phases(args, torch, dev0, launches, record):
 MOE_PARITY_LAYERS = 3
 
 
+def routed_card_against_host(torch, dev0, cfg32, p32, label, **kw):
+    """``card_against_host`` of an MoE model, which must also route every
+    token to the same experts on both sides; logs the smallest margin
+    between the k-th and (k+1)-th router probability on the host."""
+    from repro_torch.models import layers as L
+
+    routes = []
+    route = L.moe_route
+
+    def recorded_route(cfg_, p, x):
+        probs, gates, idx = route(cfg_, p, x)
+        routes.append((probs.float().cpu(), idx.cpu()))
+        return probs, gates, idx
+
+    L.moe_route = recorded_route
+    try:
+        card_against_host(torch, dev0, cfg32, p32, label, **kw)
+    finally:
+        L.moe_route = route
+    n = len(routes) // 2
+    check(n > 0 and len(routes) == 2 * n, f"parity: {len(routes)} routings")
+    k = cfg32.moe.top_k
+    margin = min(float((pr.sort(-1, descending=True).values[..., k - 1]
+                        - pr.sort(-1, descending=True).values[..., k]).min())
+                 for pr, _ in routes[n:])
+    same = all(torch.equal(a[1], b[1]) for a, b in zip(routes[:n],
+                                                        routes[n:]))
+    log(f"parity {label}: {n} routings a side, the experts chosen "
+        f"{'equal' if same else 'NOT equal'} card against host; smallest "
+        f"margin between the {k}th and {k + 1}th router probability "
+        f"{margin:.3g}")
+    check(same, "parity: the card and the host route tokens to other "
+                "experts")
+
+
 def mla_phases(args, torch, dev0, record):
     """flash_attention at MLA's head dim against its plain version (phase
     15); serve deepseek-v2-lite-16b at full width (phase 16); card against
     host in float32 on its first layers, with the routing equal (17)."""
     import copy
-    import gc
     from dataclasses import replace
 
     from repro_torch.configs import get_config
-    from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
 
     # what the earlier phases left in reference cycles goes before the
     # 31.4 GB of weights come
-    gc.collect()
-    torch.cuda.empty_cache()
-    log(f"deepseek phases: {torch.cuda.memory_allocated(dev0) / 1e9:.2f} GB "
-        f"allocated on the card before them")
+    free_card(torch, dev0, "deepseek phases")
     cfg = get_config("deepseek-v2-lite-16b")
     if args.small:
         cfg = replace(cfg, n_layers=2)       # the dense layer and one MoE
@@ -893,36 +1009,290 @@ def mla_phases(args, torch, dev0, record):
     torch.cuda.empty_cache()
     log(f"parity {cfg.name}: depth cut to the first {n_par} of "
         f"{cfg.n_layers} layers at full width (host memory and time)")
-    routes = []
-    route = L.moe_route
+    routed_card_against_host(torch, dev0,
+                             replace(cfg, n_layers=n_par, dtype="float32"),
+                             p32, f"{cfg.name} ({n_par} layers)")
 
-    def recorded_route(cfg_, p, x):
-        probs, gates, idx = route(cfg_, p, x)
-        routes.append((probs.float().cpu(), idx.cpu()))
-        return probs, gates, idx
 
-    L.moe_route = recorded_route
-    try:
-        card_against_host(torch, dev0,
-                          replace(cfg, n_layers=n_par, dtype="float32"), p32,
-                          f"{cfg.name} ({n_par} layers)")
-    finally:
-        L.moe_route = route
+# ------------------------------ the hybrid period (jamba) and the frontends
+# jamba-v0.1-52b's 32 layers hold 103.1 GB of bfloat16 weights: the card
+# serves two of its four periods of 8 (16 layers, 52.11 GB)
+JAMBA_SERVED_LAYERS = 16
+# one period of 4 at full width (the smoke config's period): ``--small``
+# serves it, and the card-against-host check runs layers 0, 1, 4 and 5 of
+# the served model under it (Mamba + MoE, Mamba + MLP, attention + MoE,
+# Mamba + MLP: each of the three layer kinds)
+JAMBA_PERIOD4 = dict(n_layers=4, attn_every=4, attn_offset=2)
+JAMBA_PARITY_LAYERS = (0, 1, 4, 5)
+# internvl2-1b's patch run: 256 patch positions, then 256 text tokens
+VLM_RUN = dict(batch=4, patches=256, text=256, gen=32)
+# musicgen-large's card-against-host check runs its first 8 layers
+AUDIO_PARITY_LAYERS = 8
+# the kernels whose records add up the launches of phases 18-21's paths,
+# and the path that counted them before
+SERVED_KERNELS = {"flash_attention": "llama3.2-1b",
+                  "flash_decode": "llama3.2-1b",
+                  "selective_scan": "falcon-mamba-7b"}
+
+
+def jamba_phases(args, torch, dev0):
+    """Hold the attention kernels at jamba's heads (D = 128, H = 32, KH =
+    8) and serve jamba-v0.1-52b at full width on 16 of its 32 layers
+    (phase 18); card against host in float32 on one period of 4 of its
+    layers, with the routing equal (19).  Returns (the served path's
+    launches, the two kernels' measurements at jamba's shapes)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    free_card(torch, dev0, "jamba phases")
+    full = get_config("jamba-v0.1-52b")
+    cfg = (replace(full, **JAMBA_PERIOD4) if args.small
+           else replace(full, n_layers=JAMBA_SERVED_LAYERS))
+    kinds = [(cfg.mixer_kind(i), cfg.mlp_kind(i))
+             for i in range(cfg.n_layers)]
+    n_attn = sum(m == "attn" for m, _ in kinds)
+    log(f"jamba: {cfg.n_layers} of {full.n_layers} layers, {n_attn} "
+        f"attention and {cfg.n_layers - n_attn} Mamba, "
+        f"{sum(f == 'moe' for _, f in kinds)} MoE: "
+        + " ".join(f"{m}+{f}" for m, f in kinds))
+    H, KH, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    P, gen, lws = (SERVE[k] for k in ("prompt", "gen", "lws"))
+    bf16 = torch.bfloat16
+    gen_t = torch.Generator(dev0).manual_seed(5)
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen_t, device=dev0).to(dtype)
+
+    log("kernels at jamba's attention heads against their plain versions:")
+    attn = attn_check(torch, randn, lws, P, H, KH, D, bf16, timed=True)
+    dec = decode_check(torch, randn, lws, P + gen, H, KH, D, P + gen - 1,
+                       bf16, timed=True)
+
+    # ------------------ phase 18: serve at full width, 16 layers, bf16
+    params = make_params(torch, dev0, cfg)
+    served = {}
+    serve_model(torch, dev0, cfg, params, served,
+                per_prefill={"flash_attention": n_attn,
+                             "selective_scan": cfg.n_layers - n_attn},
+                per_step={"flash_decode": n_attn})
+
+    # ------- phase 19: card against host, f32, one period of 4 layers
+    keep = range(cfg.n_layers) if args.small else JAMBA_PARITY_LAYERS
+    cut = replace(full, dtype="float32", **JAMBA_PERIOD4)
+    check([(cut.mixer_kind(i), cut.mlp_kind(i)) for i in range(4)]
+          == [kinds[i] for i in keep], "jamba parity: the cut's kinds")
+    head = T.LM(params.embed, [params.layers[i] for i in keep],
+                params.final_norm, params.lm_head)
+    del params
+    free_card(torch, dev0, f"jamba parity, layers {list(keep)}")
+    # in place, tensor by tensor: no second bfloat16 copy on the card
+    p32 = head.to(torch.float32)
+    log(f"parity {cut.name}: layers {list(keep)} of the served model as "
+        f"one period of 4 at full width, "
+        f"{T.param_bytes(p32) / 1e9:.2f} GB in float32 on each side")
+    routed_card_against_host(torch, dev0, cut, p32,
+                             f"{cut.name} (layers {list(keep)})")
+    del head, p32
+    return served, attn, dec
+
+
+def vlm_phase(args, torch, dev0):
+    """Phase 20: hold the attention kernels at internvl2-1b's heads (G =
+    7), serve internvl2-1b at full width without patches, run a prefill
+    with 256 patch embeddings and greedy decode steps, and compare card
+    against host in float32 on all its layers with patches.  Returns (the
+    path's launches, the two kernels' measurements at G = 7)."""
+    import copy
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    free_card(torch, dev0, "internvl2-1b phase")
+    cfg = get_config("internvl2-1b")
+    if args.small:
+        cfg = replace(cfg, n_layers=2)
+    H, KH, D, L = (cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
+                   cfg.n_layers)
+    P, gen, lws = (SERVE[k] for k in ("prompt", "gen", "lws"))
+    bf16, f32 = torch.bfloat16, torch.float32
+    gen_t = torch.Generator(dev0).manual_seed(6)
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen_t, device=dev0).to(dtype)
+
+    log(f"kernels at G = {H // KH} ({H} query heads over {KH}, D = {D}) "
+        f"against their plain versions:")
+    attn = attn_check(torch, randn, lws, P, H, KH, D, bf16, timed=True)
+    attn_check(torch, randn, 2, 1000, H, KH, D, bf16)      # ragged S
+    attn_check(torch, randn, 3, 19, H, KH, D, bf16)        # one item + 1
+    attn_check(torch, randn, lws, P, H, KH, D, f32)
+    attn_check(torch, randn, 1, 1000, H, KH, D, f32)       # ragged S
+    dec = decode_check(torch, randn, lws, P + gen, H, KH, D, P + gen - 1,
+                       bf16, timed=True)
+    decode_check(torch, randn, 3, 1000, H, KH, D, 700, bf16)
+    decode_check(torch, randn, 2, 4096, H, KH, D, 4000, f32)
+
+    # ------------- serve without patches, as the JAX package's server does
+    params = make_params(torch, dev0, cfg)
+    served = {}
+    serve_model(torch, dev0, cfg, params, served,
+                per_prefill={"flash_attention": L},
+                per_step={"flash_decode": L})
+
+    # ------------------- a prefill with patch embeddings, greedy decoding
+    B, n, text, gen_p = (VLM_RUN[k] for k in ("batch", "patches", "text",
+                                              "gen"))
+    rng = np.random.default_rng(6)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, n + text))
+                           .astype(np.int32), device=dev0)
+    # precomputed patch embeddings at the token embeddings' scale
+    patches_np = (0.02 * rng.standard_normal((B, n, cfg.d_model))).astype(
+        np.float32)
+    patches = torch.as_tensor(patches_np, device=dev0)
+    kernels = counted_kernels()
+    for k in kernels.values():
+        k.launches = 0
+    with torch.inference_mode():
+        cache = T.init_cache(cfg, B, n + text + gen_p, dev0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = T.prefill(cfg, params, toks, cache, patches=patches)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        first = lg
+        tok = lg[:, -1].argmax(-1, keepdim=True)
+        out = []
+        t0 = time.perf_counter()
+        for i in range(gen_p):
+            out.append(tok)
+            lg, cache = T.decode_step(cfg, params, tok, cache, n + text + i)
+            tok = lg[:, -1].argmax(-1, keepdim=True)
+        out = torch.cat(out, 1).cpu().numpy()
+        decode_s = time.perf_counter() - t0
+    counts = {name: k.launches for name, k in kernels.items()}
+    want = {"flash_attention": L, "flash_decode": L * gen_p,
+            "selective_scan": 0}
+    check(counts == want, f"internvl2-1b with patches: launches {counts}, "
+                          f"expected {want}")
+    check(bool(torch.isfinite(first).all()) and first.shape == (
+        B, 1, cfg.vocab_size), "internvl2-1b with patches: logits")
+    check(out.shape == (B, gen_p) and int(out.min()) >= 0
+          and int(out.max()) < cfg.vocab_size,
+          "internvl2-1b with patches: tokens out of range")
+    for name, c in counts.items():
+        served[name] = served.get(name, 0) + c
+    log(f"internvl2-1b with patches: prefill (batch {B}, {n} patch "
+        f"positions + {text} tokens) {prefill_s * 1e3:.3f} ms, {gen_p} "
+        f"greedy steps {decode_s:.3f} s (host clock), launches {counts}")
+    del cache, first, lg
+
+    # ------------- card against host, f32, all layers, with patches
+    p32 = copy.deepcopy(params).to(torch.float32)
+    del params
+    torch.cuda.empty_cache()
+    card_against_host(torch, dev0, replace(cfg, dtype="float32"), p32,
+                      f"{cfg.name} ({n} patches)",
+                      prompt=n + PARITY["prompt"],
+                      patches=patches_np[:PARITY["batch"]])
     del p32
-    n = len(routes) // 2
-    check(n > 0 and len(routes) == 2 * n, f"parity: {len(routes)} routings")
-    k = cfg.moe.top_k
-    margin = min(float((pr.sort(-1, descending=True).values[..., k - 1]
-                        - pr.sort(-1, descending=True).values[..., k]).min())
-                 for pr, _ in routes[n:])
-    same = all(torch.equal(a[1], b[1]) for a, b in zip(routes[:n],
-                                                        routes[n:]))
-    log(f"parity {cfg.name}: {n} routings a side, the experts chosen "
-        f"{'equal' if same else 'NOT equal'} card against host; smallest "
-        f"margin between the {k}th and {k + 1}th router probability "
-        f"{margin:.3g}")
-    check(same, "parity: the card and the host route tokens to other "
-                "experts")
+    return served, attn, dec
+
+
+def audio_phase(args, torch, dev0):
+    """Phase 21: hold the attention kernels at musicgen-large's heads (G =
+    1, H = 32, D = 64), run musicgen-large at full width through
+    ``prefill`` and ``decode_step`` (4 codebooks a position, greedy by
+    codebook), its times beside the weight-read bound, and card against
+    host in float32 on its first layers.  Returns (the path's launches,
+    the two kernels' measurements at its heads)."""
+    import copy
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    free_card(torch, dev0, "musicgen-large phase")
+    cfg = get_config("musicgen-large")
+    if args.small:
+        cfg = replace(cfg, n_layers=2)
+    P, gen, B = (SERVE[k] for k in ("prompt", "gen", "lws"))
+    L, CB, V = cfg.n_layers, cfg.n_codebooks, cfg.vocab_size
+    H, KH, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    bf16, f32 = torch.bfloat16, torch.float32
+    gen_t = torch.Generator(dev0).manual_seed(7)
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen_t, device=dev0).to(dtype)
+
+    log(f"kernels at musicgen-large's heads ({H} query heads over {KH}, "
+        f"D = {D}) against their plain versions:")
+    attn = attn_check(torch, randn, B, P, H, KH, D, bf16, timed=True)
+    attn_check(torch, randn, 2, 1000, H, KH, D, bf16)      # ragged S
+    attn_check(torch, randn, B, P, H, KH, D, f32)
+    attn_check(torch, randn, 1, 1000, H, KH, D, f32)       # ragged S
+    dec = decode_check(torch, randn, B, P + gen, H, KH, D, P + gen - 1,
+                       bf16, timed=True)
+    decode_check(torch, randn, 3, 1000, H, KH, D, 700, bf16)
+    decode_check(torch, randn, 2, 1000, H, KH, D, 700, f32)
+
+    params = make_params(torch, dev0, cfg)
+    w_bytes = T.param_bytes(params)
+    toks = torch.as_tensor(np.random.default_rng(7).integers(
+        0, V, (B, P, CB)).astype(np.int32), device=dev0)
+    kernels = counted_kernels()
+    for k in kernels.values():
+        k.launches = 0
+    with torch.inference_mode():
+        cache = T.init_cache(cfg, B, P + gen, dev0)
+        lg, cache = T.prefill(cfg, params, toks, cache)
+        first = lg
+        tok = lg[:, -1].argmax(-1)[:, None]               # (B, 1, CB)
+        out = []
+        t0 = time.perf_counter()
+        for i in range(gen):
+            out.append(tok)
+            lg, cache = T.decode_step(cfg, params, tok, cache, P + i)
+            tok = lg[:, -1].argmax(-1)[:, None]
+        out = torch.cat(out, 1).cpu().numpy()
+        decode_s = time.perf_counter() - t0
+    counts = {name: k.launches for name, k in kernels.items()}
+    want = {"flash_attention": L, "flash_decode": L * gen,
+            "selective_scan": 0}
+    check(counts == want, f"musicgen-large: launches {counts}, expected "
+                          f"{want}")
+    check(bool(torch.isfinite(first).all())
+          and first.shape == (B, 1, CB, V), "musicgen-large: logits")
+    check(out.shape == (B, gen, CB) and int(out.min()) >= 0
+          and int(out.max()) < V, "musicgen-large: tokens out of range")
+    log(f"musicgen-large: batch {B}, prompt {P} x {CB} codebooks, {gen} "
+        f"greedy steps (argmax per codebook) {decode_s:.3f} s (host "
+        f"clock), tokens {out.shape}, launches {counts}")
+    with torch.inference_mode():
+        time_steps(torch, lambda: T.prefill(cfg, params, toks, cache),
+                   lambda: T.decode_step(cfg, params, toks[:, :1], cache,
+                                         P + gen // 2),
+                   f"batch {B} x {P} x {CB} codebooks",
+                   f"batch {B}, pos {P + gen // 2}", w_bytes,
+                   who="musicgen-large")
+    del cache, first, lg
+
+    # ------------- card against host, f32, first layers only
+    n_par = min(AUDIO_PARITY_LAYERS, L)
+    head = T.LM(params.embed, list(params.layers[:n_par]),
+                params.final_norm, params.lm_head)
+    p32 = copy.deepcopy(head).to(torch.float32)
+    del params, head
+    torch.cuda.empty_cache()
+    log(f"parity {cfg.name}: depth cut to the first {n_par} of {L} layers "
+        f"at full width (host memory and time)")
+    card_against_host(torch, dev0,
+                      replace(cfg, n_layers=n_par, dtype="float32"), p32,
+                      f"{cfg.name} ({n_par} layers)")
+    del p32
+    return counts, attn, dec
 
 
 # ------------------------------------------------------------ training path
@@ -2309,6 +2679,24 @@ def main() -> int:
     training_phases(args, torch, dev0, launches, attach)
     attention_bwd_phase(args, torch, dev0, record)
     mla_phases(args, torch, dev0, record)
+    paths = {}
+    paths["jamba-v0.1-52b"], jamba_a, jamba_d = jamba_phases(args, torch,
+                                                             dev0)
+    paths["internvl2-1b"], g7_a, g7_d = vlm_phase(args, torch, dev0)
+    paths["musicgen-large"], mg_a, mg_d = audio_phase(args, torch, dev0)
+    # phases 18-21 add their paths' launches to the three kernels' records
+    for rec in records:
+        if rec["name"] not in SERVED_KERNELS:
+            continue
+        by = {SERVED_KERNELS[rec["name"]]: rec["launches"]}
+        by.update((m, c[rec["name"]]) for m, c in paths.items()
+                  if c.get(rec["name"]))
+        rec.update(launches=sum(by.values()), launches_by_path=by)
+    for name, g7, jamba, mg in (("flash_attention", g7_a, jamba_a, mg_a),
+                                ("flash_decode", g7_d, jamba_d, mg_d)):
+        attach(name, g7_shape=long_entry(g7, "G = 7 (internvl2-1b)"),
+               jamba_shape=long_entry(jamba, "jamba-v0.1-52b's heads"),
+               musicgen_shape=long_entry(mg, "musicgen-large's heads"))
     leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "repro")]
     check(not leaked, f"the port imported {leaked}")
 

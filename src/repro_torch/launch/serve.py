@@ -14,7 +14,13 @@ published shapes, drawn from a ``torch.Generator`` seeded with 0.
       --requests 16 --prompt-len 256 --gen 32 --replicas r0:1,r1:2
 
 ``--arch deepseek-v2-lite-16b`` serves the MLA + MoE model the same way
-(on a card: all 27 layers, 31.4 GB of bfloat16 weights).
+(on a card: all 27 layers, 31.4 GB of bfloat16 weights), ``--arch
+jamba-v0.1-52b`` the hybrid attention/Mamba period with MoE (its 32
+layers hold 103.1 GB of bfloat16 weights, more than one card) and
+``--arch internvl2-1b`` the VLM without patch embeddings, as the JAX
+package's server serves it.  ``--arch musicgen-large`` is refused with
+``ValueError`` before its weights are built: its positions hold 4
+codebooks, and replicas serve one token a position.
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ from repro_torch.core.scheduler import available_schedulers
 from repro_torch.models import transformer as T
 from repro_torch.serve import (ARRIVALS, CoexecServer, Replica, RequestQueue,
                          ServerConfig, make_requests, trace_arrivals)
+from repro_torch.serve.replica import check_servable
 
 
 def main(argv=None) -> int:
@@ -70,6 +77,7 @@ def main(argv=None) -> int:
         args.gen = min(args.gen, 8)
 
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    check_servable(cfg)               # before its weights are built
     device = torch.device(args.device)
     params = T.init_params(cfg, torch.Generator(device).manual_seed(0))
     replicas = []

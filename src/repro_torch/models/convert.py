@@ -11,9 +11,11 @@ the pre-blocks first, with those weights flattened to the matmul layout
 of ``models/layers.py`` (``wq`` (d, H*hd), ``wo`` (H*hd, d)).  MLA's
 ``wkv_a`` and ``kv_norm``, the MoE layer's arrays (``router``, the
 stacked experts, the ``shared`` MLP) and a Mamba layer's already have the
-port's layouts and are carried over as they are; a Mamba layer has no
-``ln2`` and no ``mlp``.  This module is the only place that knows both
-layouts.  Any tree of the
+port's layouts and are carried over as they are; a layer has ``ln2`` and
+an ``mlp`` where the JAX layer has them (jamba's Mamba layers do,
+falcon-mamba's do not).  The ``encodec_stub`` frontend's (CB, V, d)
+embedding and (d, V*CB) head come across as they are.  This module is
+the only place that knows both layouts.  Any tree of the
 parameters' structure maps the same way: a JAX gradient tree or an AdamW
 moment tree becomes a dict keyed by the port's parameter names
 (:func:`named_from_jax`), and a whole JAX ``TrainState`` becomes the
@@ -66,13 +68,13 @@ def params_from_jax(cfg: ModelConfig, params_np: Mapping[str, Any],
                  a.reshape(-1, a.shape[-1]))
 
     def layer(lp):
-        """One layer's JAX arrays (a block already sliced) -> Layer."""
+        """One layer's JAX arrays (a block already sliced) -> Layer: its
+        mixer by its own arrays (a Mamba block has ``in_proj``), an MLP
+        and ``ln2`` only where the JAX layer has them."""
         mx = lp["mixer"]
-        if T._is_ssm(cfg):
-            return T.Layer(t(lp["ln1"]), None,
-                           L.Mamba(*(t(mx[n]) for n in L.Mamba.NAMES)),
-                           None)
-        if cfg.attn_kind == "mla":
+        if "in_proj" in mx:
+            mixer = L.Mamba(*(t(mx[n]) for n in L.Mamba.NAMES))
+        elif cfg.attn_kind == "mla":
             mixer = L.MLA(flat(mx["wq"], True), t(mx["wkv_a"]),
                           t(mx["kv_norm"]), flat(mx["wkv_b"], True),
                           flat(mx["wo"], False))
@@ -82,6 +84,8 @@ def params_from_jax(cfg: ModelConfig, params_np: Mapping[str, Any],
             mixer = L.GQA(flat(mx["wq"], True), flat(mx["wk"], True),
                           flat(mx["wv"], True), flat(mx["wo"], False),
                           *norms)
+        if "mlp" not in lp:
+            return T.Layer(t(lp["ln1"]), None, mixer, None)
         mlp = lp["mlp"]
         dense = ("w_gate", "w_up", "w_down")
         if "router" in mlp:

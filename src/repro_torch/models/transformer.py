@@ -1,8 +1,11 @@
-"""Decoder LM of the dense GQA family (llama3.2-1b, qwen3-32b, yi-9b,
-stablelm-3b), of the MoE family with GQA or MLA attention (dbrx-132b,
-deepseek-v2-lite-16b) and of the pure Mamba1 family (falcon-mamba-7b):
-``embed -> layers -> norm -> head``.  A PyTorch port of the JAX package's
-``models/transformer.py`` for those families.
+"""Decoder LM of every family the JAX package covers: dense GQA
+(llama3.2-1b, qwen3-32b, yi-9b, stablelm-3b), MoE with GQA or MLA
+attention (dbrx-132b, deepseek-v2-lite-16b), pure Mamba1
+(falcon-mamba-7b), the hybrid attention/Mamba period with MoE
+(jamba-v0.1-52b) and the two modality frontends (internvl2-1b's
+``vit_stub``, musicgen-large's ``encodec_stub``): ``embed -> layers ->
+norm -> head``.  A PyTorch port of the JAX package's
+``models/transformer.py``.
 
 The JAX package stacks its layers' parameters over ``n_blocks`` and runs
 them with ``lax.scan`` (rematerialised for training); the port keeps one
@@ -10,18 +13,27 @@ them with ``lax.scan`` (rematerialised for training); the port keeps one
 under ``torch.utils.checkpoint`` when the training forward rematerialises
 (``cfg.remat_policy``; the JAX package's two-level grouping,
 ``_auto_groups``, changes memory only and is not ported yet).  Layer i's
-mixer and MLP follow ``cfg.mixer_kind(i)`` and ``cfg.mlp_kind(i)``: the
-JAX package's leading dense layers (``pre_blocks``, deepseek's first)
-are the first entries of the list, its stacked blocks the rest.  An MoE
+mixer and MLP follow ``cfg.mixer_kind(i)`` and ``cfg.mlp_kind(i)``, as
+the JAX package's ``_layer_init`` builds them: an attention (GQA or MLA)
+or Mamba mixer; an MoE MLP, else a dense one when ``d_ff > 0``, else no
+MLP and no second norm (falcon-mamba).  The JAX package's leading dense
+layers (``pre_blocks``, deepseek's first) are the first entries of the
+list, its stacked blocks the rest; it gives sub-layer i of every block
+the kinds of layer ``first_dense + i``, which are those of the port's
+plain index because the kinds repeat with the block's period.  An MoE
 layer's auxiliary load-balancing loss is summed over the layers and
 returned by :func:`forward`, as the JAX package returns it.  The cache
 is a list with one entry per layer: a GQA layer's ``{"k", "v"}`` tensors
 or an MLA layer's compressed ``{"ckv", "krope"}``, which prefill and
 decode write in place, or a Mamba layer's ``{"h", "conv"}`` state, which
-prefill and decode replace in the list.  A Mamba layer has no MLP and no
-second norm.  The hybrid period (jamba), a recurrent family with MoE and
-the modality frontends raise ``NotImplementedError``: they are later
-slices of the port.
+prefill and decode replace in the list.
+
+Frontends, as the JAX package stubs them: ``vit_stub`` takes
+precomputed patch embeddings (B, n, d) in place of the first n
+positions' token embeddings; ``encodec_stub`` takes (B, S, CB) tokens of
+CB codebooks, sums their embeddings (``embed`` is (CB, V, d)) and
+predicts every codebook at each position (``lm_head`` (d, V*CB), logits
+(..., CB, V)).
 """
 from __future__ import annotations
 
@@ -40,35 +52,14 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def _is_ssm(cfg: ModelConfig) -> bool:
-    """A pure Mamba1 stack: every layer a Mamba block, no MLP."""
-    return cfg.family == "ssm" and cfg.attn_kind == "none"
-
-
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is an attention decoder (GQA or MLA, dense or
-    MoE MLPs) or a pure Mamba1 stack, without a frontend: the families
-    the port covers so far."""
+    """Raise unless ``cfg`` is valid and its attention scores are kept in
+    float32, as the attention kernels keep them."""
     cfg.validate()
-    later = None
-    if cfg.frontend:
-        later = f"the {cfg.frontend} frontend"
-    elif cfg.is_recurrent and cfg.moe.n_routed:
-        later = "a recurrent family with MoE"
-    elif cfg.attn_every > 1 or (cfg.is_recurrent and not _is_ssm(cfg)):
-        later = "the hybrid attention/Mamba period"
-    elif _is_ssm(cfg):
-        if cfg.d_ff:
-            later = "a Mamba stack with MLPs"
-    elif cfg.attn_kind not in ("gqa", "mla"):
-        later = f"attention kind {cfg.attn_kind!r}"
-    elif not (cfg.d_ff > 0 or cfg.moe.n_routed):
-        later = "an attention stack without MLPs"
-    if later is not None:
+    if cfg.attn_kind not in ("gqa", "mla", "none"):
         raise NotImplementedError(
-            f"{cfg.name}: {later} is not ported to PyTorch yet (the dense "
-            f"and MoE attention families and pure Mamba1 are; ROADMAP.md "
-            f"Queue A item 5)")
+            f"{cfg.name}: attention kind {cfg.attn_kind!r} (the port has "
+            f"gqa, mla and none)")
     if cfg.score_dtype != "float32":
         raise NotImplementedError(
             f"{cfg.name}: score_dtype {cfg.score_dtype!r}; the attention "
@@ -76,8 +67,8 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 class Layer(nn.Module):
-    """One decoder layer: a GQA or MLA mixer with its MLP (dense or MoE)
-    and second norm, or a Mamba mixer alone (``ln2`` and ``mlp``
+    """One decoder layer: a GQA, MLA or Mamba mixer with its MLP (dense
+    or MoE) and second norm, or the mixer alone (``ln2`` and ``mlp``
     None)."""
 
     def __init__(self, ln1, ln2, mixer, mlp):
@@ -87,9 +78,10 @@ class Layer(nn.Module):
 
 
 class LM(nn.Module):
-    """Parameters of the decoder: ``embed`` (vocab, d), ``layers``,
-    ``final_norm`` and, unless the config ties it to ``embed``,
-    ``lm_head`` (d, vocab)."""
+    """Parameters of the decoder: ``embed`` (vocab, d), or (CB, vocab, d)
+    with the ``encodec_stub`` frontend, ``layers``, ``final_norm`` and,
+    unless the config ties it to ``embed``, ``lm_head`` (d, vocab), or
+    (d, vocab*CB)."""
 
     def __init__(self, embed, layers, final_norm, lm_head=None):
         super().__init__()
@@ -103,6 +95,30 @@ class LM(nn.Module):
 # init
 # ---------------------------------------------------------------------------
 
+def _codebooks(cfg: ModelConfig) -> int:
+    """The ``encodec_stub`` frontend's codebooks, else 0."""
+    return cfg.n_codebooks if cfg.frontend == "encodec_stub" else 0
+
+
+def _layer_init(cfg: ModelConfig, i: int, gen: torch.Generator,
+                dtype) -> Layer:
+    """Layer i, as the JAX package's ``_layer_init`` builds it."""
+    if cfg.mixer_kind(i) == "attn":
+        mixer = (L.mla_init if cfg.attn_kind == "mla"
+                 else L.gqa_init)(cfg, gen, dtype)
+    else:
+        mixer = L.mamba_init(cfg, gen, dtype)
+    if cfg.mlp_kind(i) == "moe":
+        mlp = L.moe_init(cfg, gen, dtype)
+    elif cfg.d_ff > 0:
+        mlp = L.mlp_init(cfg, gen, dtype)
+    else:
+        return Layer(L._ones(cfg.d_model, dtype, gen.device), None, mixer,
+                     None)
+    return Layer(L._ones(cfg.d_model, dtype, gen.device),
+                 L._ones(cfg.d_model, dtype, gen.device), mixer, mlp)
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator) -> LM:
     """Random weights of the published shapes, in ``cfg.dtype``, on the
     generator's device.  ``torch.Generator`` and ``jax.random`` draw
@@ -110,23 +126,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> LM:
     package's weights over where the two must agree."""
     check_supported(cfg)
     dtype, dev = _dtype(cfg), generator.device
-    embed = L._dense_init(generator, (cfg.vocab_size, cfg.d_model), dtype,
-                          cfg.vocab_size, scale=0.02)
-    layers = []
-    for i in range(cfg.n_layers):
-        if _is_ssm(cfg):
-            layers.append(Layer(L._ones(cfg.d_model, dtype, dev), None,
-                                L.mamba_init(cfg, generator, dtype), None))
-            continue
-        mixer = (L.mla_init if cfg.attn_kind == "mla"
-                 else L.gqa_init)(cfg, generator, dtype)
-        mlp = (L.moe_init if cfg.mlp_kind(i) == "moe"
-               else L.mlp_init)(cfg, generator, dtype)
-        layers.append(Layer(L._ones(cfg.d_model, dtype, dev),
-                            L._ones(cfg.d_model, dtype, dev), mixer, mlp))
+    V, d, cb = cfg.vocab_size, cfg.d_model, _codebooks(cfg)
+    embed = L._dense_init(generator, (cb, V, d) if cb else (V, d), dtype,
+                          V, scale=0.02)
+    layers = [_layer_init(cfg, i, generator, dtype)
+              for i in range(cfg.n_layers)]
     head = None if cfg.tie_embeddings else L._dense_init(
-        generator, (cfg.d_model, cfg.vocab_size), dtype, cfg.d_model)
-    return LM(embed, layers, L._ones(cfg.d_model, dtype, dev), head)
+        generator, (d, V * max(cb, 1)), dtype, d)
+    return LM(embed, layers, L._ones(d, dtype, dev), head)
 
 
 def init_abstract(cfg: ModelConfig) -> LM:
@@ -160,14 +167,35 @@ def param_bytes(params: LM) -> int:
 # embedding / head
 # ---------------------------------------------------------------------------
 
-def embed_tokens(cfg: ModelConfig, params: LM, tokens):
-    return params.embed[tokens.long()]
+def embed_tokens(cfg: ModelConfig, params: LM, tokens, patches=None):
+    """tokens: (B,S) int, or (B,S,CB) with the ``encodec_stub`` frontend
+    (the codebooks' embeddings summed in order); with the ``vit_stub``
+    frontend, ``patches`` (B,n,d) take the first n positions' places."""
+    tokens = tokens.long()
+    if _codebooks(cfg):
+        x = params.embed[0][tokens[..., 0]]
+        for cb in range(1, cfg.n_codebooks):
+            x = x + params.embed[cb][tokens[..., cb]]
+    else:
+        x = params.embed[tokens]
+    if cfg.frontend == "vit_stub" and patches is not None:
+        n = patches.shape[1]
+        x = torch.cat([patches.to(x.dtype), x[:, n:]], dim=1)
+    return x
 
 
 def lm_head(cfg: ModelConfig, params: LM, x):
+    """(..., d) -> logits (..., V), or (..., CB, V) with the
+    ``encodec_stub`` frontend (a tied head reads the codebooks'
+    embeddings as one (CB*V, d) table)."""
     if cfg.tie_embeddings:
-        return x @ params.embed.T
-    return x @ params.lm_head
+        logits = x @ params.embed.reshape(-1, cfg.d_model).T
+    else:
+        logits = x @ params.lm_head
+    if _codebooks(cfg):
+        logits = logits.reshape(logits.shape[:-1]
+                                + (cfg.n_codebooks, cfg.vocab_size))
+    return logits
 
 
 # ---------------------------------------------------------------------------
@@ -248,18 +276,19 @@ def _run(cfg, params: LM, x, positions, cache=None, pos=None,
 # public entry points
 # ---------------------------------------------------------------------------
 
-def forward(cfg: ModelConfig, params: LM, tokens, *,
+def forward(cfg: ModelConfig, params: LM, tokens, *, patches=None,
             remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Training/scoring forward. tokens: (B,S) int.  Returns (logits,
+    """Training/scoring forward. tokens: (B,S) int (or (B,S,CB));
+    ``patches`` (B,n,d) for the ``vit_stub`` frontend.  Returns (logits,
     aux_loss): the MoE layers' load-balancing losses summed (float32; 0.0
-    for the dense and Mamba families).
+    without MoE layers).
 
     With ``remat`` and grad enabled each layer runs under
     ``torch.utils.checkpoint`` (``use_reentrant=False``) unless
     ``cfg.remat_policy`` is "everything" or ``cfg.remat_inner`` is
     "none", as the JAX package checkpoints its scan body.  Checkpointing
     changes what the backward keeps, not the values."""
-    x = embed_tokens(cfg, params, tokens)
+    x = embed_tokens(cfg, params, tokens, patches)
     positions = torch.arange(x.shape[1], device=x.device)
     remat = (remat and torch.is_grad_enabled()
              and cfg.remat_policy != "everything"
@@ -274,22 +303,27 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     (batch, max_seq, KH, hd) for a GQA layer; ``{"ckv", "krope"}`` of
     (batch, max_seq, kv_lora_rank) and (batch, max_seq, rope_head_dim)
     for an MLA layer; ``{"h", "conv"}`` for a Mamba layer
-    (``mamba_cache_init``: its size does not depend on ``max_seq``)."""
+    (``mamba_cache_init``: its size does not depend on ``max_seq``),
+    each layer's as its mixer kind says."""
     check_supported(cfg)
-    if _is_ssm(cfg):
-        return [L.mamba_cache_init(cfg, batch, _dtype(cfg), device)
-                for _ in range(cfg.n_layers)]
-    make = (L.mla_cache_init if cfg.attn_kind == "mla"
-            else L.gqa_cache_init)
-    return [make(cfg, batch, max_seq, _dtype(cfg), device)
-            for _ in range(cfg.n_layers)]
+    dtype = _dtype(cfg)
+
+    def layer_cache(i):
+        if cfg.mixer_kind(i) == "mamba":
+            return L.mamba_cache_init(cfg, batch, dtype, device)
+        make = (L.mla_cache_init if cfg.attn_kind == "mla"
+                else L.gqa_cache_init)
+        return make(cfg, batch, max_seq, dtype, device)
+    return [layer_cache(i) for i in range(cfg.n_layers)]
 
 
-def prefill(cfg: ModelConfig, params: LM, tokens, cache: Cache):
+def prefill(cfg: ModelConfig, params: LM, tokens, cache: Cache, *,
+            patches=None):
     """Fill the cache with the prompt (GQA and MLA layers in place, Mamba
-    layers' entries replaced in the list); returns (logits of the last position
-    (B,1,V), cache)."""
-    x = embed_tokens(cfg, params, tokens)
+    layers' entries replaced in the list); ``patches`` as in
+    :func:`forward`.  Returns (logits of the last position (B,1,V), or
+    (B,1,CB,V), cache)."""
+    x = embed_tokens(cfg, params, tokens, patches)
     positions = torch.arange(x.shape[1], device=x.device)
     x, _ = _run(cfg, params, x, positions, cache)
     return lm_head(cfg, params, x[:, -1:]), cache
@@ -297,10 +331,10 @@ def prefill(cfg: ModelConfig, params: LM, tokens, cache: Cache):
 
 def decode_step(cfg: ModelConfig, params: LM, token, cache: Cache,
                 pos: int):
-    """One decode step. token: (B,1) int; ``pos`` a Python int.  Writes
-    the new k/v (GQA) or compressed row (MLA) at ``pos`` in place, or
-    replaces the layer's state (Mamba); returns (logits (B,1,V),
-    cache)."""
+    """One decode step. token: (B,1) int, or (B,1,CB); ``pos`` a Python
+    int.  Writes the new k/v (GQA) or compressed row (MLA) at ``pos`` in
+    place, or replaces the layer's state (Mamba); returns (logits (B,1,V)
+    or (B,1,CB,V), cache)."""
     x = embed_tokens(cfg, params, token)
     positions = torch.full((1,), pos, device=x.device)
     x, _ = _run(cfg, params, x, positions, cache, pos)

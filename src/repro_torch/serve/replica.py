@@ -16,11 +16,24 @@ from repro_torch.core.device import DeviceGroup
 from repro_torch.models import transformer as T
 
 
+def check_servable(cfg) -> None:
+    """Replicas serve (B, P) prompts of one token a position.  A model whose
+    positions hold several codebooks (``encodec_stub``) takes (B, S, CB)
+    tokens, so it is refused here with ``ValueError``: run it through
+    ``transformer.prefill`` and ``transformer.decode_step``."""
+    if cfg.frontend == "encodec_stub":
+        raise ValueError(
+            f"{cfg.name}: replicas serve (B, P) prompts; its positions hold "
+            f"{cfg.n_codebooks} codebooks, so (B, P, CB) prompts are not "
+            f"served: call transformer.prefill/decode_step")
+
+
 class Replica:
     """One model replica with its own decode loop."""
 
     def __init__(self, name: str, cfg, params, throttle: float = 1.0,
                  device="cuda"):
+        check_servable(cfg)
         self.name = name
         self.cfg = cfg
         self.device = torch.device(device)

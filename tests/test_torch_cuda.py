@@ -253,6 +253,15 @@ ATTN_TOL = {torch.bfloat16: (2e-2, 2e-2), torch.float32: (1e-4, 2e-5)}
     (1, 100, 16, 16, 192, torch.float32),     # ragged S, MLA's heads
     (2, 77, 4, 2, 192, torch.bfloat16),       # ragged S, G = 2
     (1, 130, 4, 4, 160, torch.float32),       # unpadded D = 160
+    # internvl2-1b's G = 7: the wgmma kernel packs 18 positions x 7 heads
+    # into 126 of its 128 rows (a TMA box of 7 heads), the float32 kernel
+    # 9 x 7 into 63 of 64; one position, across one item (S = 18, 19),
+    # the 128-key tile, the serving prefill and a ragged S
+    *((B, S, 14, 2, 64, dt) for dt in (torch.bfloat16, torch.float32)
+      for B, S in ((2, 1), (2, 9), (2, 18), (2, 19), (2, 127), (4, 256),
+                   (2, 1000))),
+    (4, 256, 32, 32, 64, torch.bfloat16),     # musicgen-large's prefill
+    (2, 1000, 32, 32, 64, torch.float32),     # ragged S, musicgen's heads
 ])
 def test_flash_attention_kernel_matches_plain(card, B, S, H, KH, D, dtype):
     from repro_torch.kernels.flash_attention import kernel as KA, ref as RA
@@ -458,6 +467,13 @@ def test_flash_attention_bwd_bf16_tiles_and_edges(card, S, G, D):
     (2, 256, 8, 4, 64, 200, torch.float32),
     (1, 300, 8, 2, 80, 299, torch.float32),
     (1, 4096, 8, 1, 128, 4000, torch.float32),  # several splits
+    # internvl2-1b's G = 7 at the serving shape, one key, several splits
+    # and a ragged tail
+    *((B, S, 14, 2, 64, pos, dt) for dt in (torch.bfloat16, torch.float32)
+      for B, S, pos in ((4, 288, 287), (4, 288, 0), (2, 4096, 4000),
+                        (3, 700, 500))),
+    (4, 288, 32, 32, 64, 287, torch.bfloat16),  # musicgen-large's decode
+    (3, 1000, 32, 32, 64, 700, torch.float32),
 ])
 def test_flash_decode_kernel_matches_plain(card, B, S, H, KH, D, pos, dtype):
     from repro_torch.kernels.flash_decode import kernel as KD, ref as RD
@@ -767,4 +783,56 @@ def test_deepseek_smoke_on_card_matches_host(card):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
     assert (KA.launches - fa, KD.launches - fd) == (cfg.n_layers, 0)
+    torch.testing.assert_close(got, host, rtol=2e-4, atol=2e-4)
+
+
+def test_jamba_smoke_served_on_card(card):
+    """The smoke jamba-v0.1-52b (one period: Mamba + MoE, Mamba + MLP,
+    attention + MoE, Mamba + MLP) in float32 (TF32 off): a replica on the
+    card launches one flash_attention and three selective_scan kernels a
+    prefill and one flash_decode and no scan a decode step, as
+    ``chip_smoke.py`` phase 18 counts them at full width; and the
+    teacher-forced logits on the card equal the host's."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels.flash_attention import kernel as KA
+    from repro_torch.kernels.flash_decode import kernel as KD
+    from repro_torch.kernels.mamba_scan import kernel as KS
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import Replica
+    cfg = get_smoke("jamba-v0.1-52b")
+    n_attn = sum(cfg.mixer_kind(i) == "attn" for i in range(cfg.n_layers))
+    assert (n_attn, cfg.n_layers - n_attn) == (1, 3)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(5)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                         (2, 24)).astype(np.int64))
+    prompts = rng.integers(0, cfg.vocab_size, (4, 16)).astype(np.int32)
+    gen = 5
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def run(device, p):
+        t = toks.to(device)
+        cache = T.init_cache(cfg, 2, 24, device=device)
+        lg, cache = T.prefill(cfg, p, t[:, :20], cache)
+        outs = [lg[:, 0]]
+        for i in range(20, 24):
+            lg, cache = T.decode_step(cfg, p, t[:, i:i + 1], cache, i)
+            outs.append(lg[:, 0])
+        return torch.stack(outs, 1).cpu()
+
+    try:
+        with torch.inference_mode():
+            host = run("cpu", params)
+            on_card = params.to(card)
+            got = run(card, on_card)
+        before = (KA.launches, KD.launches, KS.launches)
+        out = Replica("r0", cfg, on_card, device=card).serve(prompts, gen)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    counts = tuple(m.launches - b for m, b in zip((KA, KD, KS), before))
+    assert counts == (n_attn, gen * n_attn, cfg.n_layers - n_attn)
+    assert out.shape == (4, gen)
+    assert 0 <= out.min() <= out.max() < cfg.vocab_size
     torch.testing.assert_close(got, host, rtol=2e-4, atol=2e-4)

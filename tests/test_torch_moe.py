@@ -236,17 +236,36 @@ def test_training_refuses_moe_and_mla(arch):
         make_loss_fn(get_smoke(arch))
 
 
-@pytest.mark.parametrize("arch,cut,what", [
-    ("jamba-v0.1-52b", {}, "recurrent family with MoE"),
-    ("jamba-v0.1-52b", {"moe": None}, "hybrid"),
-    ("internvl2-1b", {}, "frontend"),
+# The case ids keep the names of the families these cases once found
+# refused; ``refused`` is what ``check_supported`` names now (None: it
+# accepts the config).
+@pytest.mark.parametrize("arch,cut,refused", [
+    pytest.param("jamba-v0.1-52b", {}, None,
+                 id="jamba-v0.1-52b-cut0-recurrent family with MoE"),
+    pytest.param("jamba-v0.1-52b", {"moe": None}, None,
+                 id="jamba-v0.1-52b-cut1-hybrid"),
+    pytest.param("internvl2-1b", {}, None, id="internvl2-1b-cut2-frontend"),
+    pytest.param("llama3.2-1b", {"score_dtype": "bfloat16"}, "score_dtype",
+                 id="llama3.2-1b-cut3-score_dtype"),
 ])
-def test_check_supported_names_what_is_missing(arch, cut, what):
-    cfg = get_smoke(arch)
+def test_check_supported_names_what_is_missing(arch, cut, refused):
+    """What is missing is a score dtype other than float32 (the attention
+    kernels keep their scores in float32): ``check_supported`` names it.
+    A recurrent family with MoE, the hybrid period without MoE and a
+    frontend are accepted, and their weights have the JAX package's
+    count."""
+    cfg, jcfg = get_smoke(arch), jax_get_smoke(arch)
     if "moe" in cut:
-        cfg = replace(cfg, moe=replace(cfg.moe, n_routed=0))
-    with pytest.raises(NotImplementedError, match=what):
-        T.check_supported(cfg)
+        cfg, jcfg = (replace(c, moe=replace(c.moe, n_routed=0))
+                     for c in (cfg, jcfg))
+    if refused:
+        with pytest.raises(NotImplementedError, match=refused):
+            T.check_supported(replace(cfg, **cut))
+        return
+    T.check_supported(cfg)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0))
+    assert sum(p.numel() for p in params.parameters()) == (
+        JT.param_count(jcfg)[0])
 
 
 def test_plain_scan_keeps_its_gradient():

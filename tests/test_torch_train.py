@@ -292,7 +292,7 @@ def test_param_count_matches_jax():
                 continue
             assert T.param_count(cfg) == JT.param_count(jcfg), cfg.name
             counted += 1
-    assert counted == 14          # 7 configs the port covers, full + smoke
+    assert counted == 20          # all 10 configs, full + smoke
     assert T.param_count(get_config(ARCH))[0] == 1_235_814_400
 
 
