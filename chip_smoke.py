@@ -7,7 +7,7 @@
 Phases, each fatal on failure:
 
 1. print the card's name and power limit (``nvidia-smi``);
-2. build the eight CUDA kernels from ``src/repro_torch/csrc`` (timed as
+2. build the nine CUDA kernels from ``src/repro_torch/csrc`` (timed as
    set-up; the compiler's register and spill lines are printed) and the
    host routines of ``src/repro_torch/csrc/host`` with ``g++``;
 3. co-execute the paper's four kernel programs on ``[cuda:0, cpu]``
@@ -202,8 +202,48 @@ Phases, each fatal on failure:
     beside the weight-read bound, and a profile; card against host in
     float32 on its first 8 layers (logits (B, 1, 4, V)).
 
-Phases 18–21 add their launches to the records of ``flash_attention``,
-``flash_decode`` and ``selective_scan`` (``launches_by_path``).  The line
+22. hold ``selective_scan_bwd``, fed the states the forward keeps,
+    against ``selective_scan_bwd_ref`` at the training packet (B=1,
+    S=4096, di=8192, ds=16; ``--small``: S=1024; timed: kernel, plain
+    version, bound) and at its edges (S not a multiple of 16, S = 1, ds =
+    8 and 32, di not a multiple of a CTA's channels, non-zero h0 and
+    dhT), max |err| within 1e-4 of each output's largest |value| + 1e-5,
+    two calls bitwise equal;
+23. hold ``flash_attention_bwd`` at jamba's heads (32/8, D = 128; timed
+    at S=4096 with SDPA's backward); train jamba-v0.1-52b at full width
+    on 2 layers (attention + MoE, Mamba + MLP: 3.68 B parameters) in
+    bfloat16 through ``HeteroDPTrainer`` with phase 12's set-up, a global
+    batch of 4 x 2,048 tokens (TRAIN_4K's 4,096 ran out of the card's
+    memory; ``--small``: 2 x 1,024), 4 steps: every loss finite, the
+    objective on a held-out batch lower after the steps than before
+    them (each step's loss is on its own tokens), rows on both groups,
+    and per packet
+    2 ``flash_attention``, 1 ``flash_attention_bwd``, 2 ``selective_scan``
+    and 1 ``selective_scan_bwd`` launches (counters set to 0 before each
+    step); step time, tokens/s, peak memory and a profile of one more
+    step;
+24. card against host in float32 (TF32 off) on those 2 layers, batch 1
+    x 256: the loss within 1e-4 relative, every gradient within 1e-3 of
+    its parameter's largest |g|, every token routed to the same experts
+    on both sides and in the rematerialised recompute as in the forward
+    (the smallest top-2 margin logged); falcon-mamba-7b on 8 of its 64
+    layers (``--small``: 2), 2 ``make_train_step`` steps of batch 2 x
+    4,096: finite losses and gradient norms, 2 scan and 1 backward
+    launches a layer; card against host on its first 2 layers;
+25. hold ``flash_attention_bwd`` at internvl2-1b's G = 7 (14/2, D = 64)
+    and musicgen-large's 32/32 heads (D = 64), timed at S=4096 with SDPA's
+    backward, and at ragged S in both dtypes; train internvl2-1b (24
+    layers, 256 patches a row) and musicgen-large (8 of 48 layers, (B,
+    S, 4) tokens; ``--small``: 2 layers each) 3 steps each through
+    ``HeteroDPTrainer`` with the launch counts of phase 23 and finite
+    losses; card against host in float32 on 2 layers of each (internvl2-
+    1b with 256 patch positions, which the loss leaves out; musicgen's
+    loss averaged over its codebooks).
+
+Phases 18–25 add their launches to the records of ``flash_attention``,
+``flash_attention_bwd``, ``flash_decode`` and ``selective_scan``
+(``launches_by_path``); phase 22's record is ``selective_scan_bwd``,
+whose launches are phases 23–25's.  The line
 before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  It exits non-zero, printing no result,
 without a card or outside a checkout of the repository.
@@ -211,6 +251,7 @@ without a card or outside a checkout of the repository.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import subprocess
@@ -917,31 +958,44 @@ def mamba_phases(args, torch, dev0, launches, record):
 MOE_PARITY_LAYERS = 3
 
 
-def routed_card_against_host(torch, dev0, cfg32, p32, label, **kw):
-    """``card_against_host`` of an MoE model, which must also route every
-    token to the same experts on both sides; logs the smallest margin
-    between the k-th and (k+1)-th router probability on the host."""
+@contextlib.contextmanager
+def recorded_routes():
+    """Record every MoE routing while the block runs: a list of (the
+    router's probabilities on the host, the chosen experts)."""
     from repro_torch.models import layers as L
 
-    routes = []
-    route = L.moe_route
+    routes, route = [], L.moe_route
 
     def recorded_route(cfg_, p, x):
         probs, gates, idx = route(cfg_, p, x)
-        routes.append((probs.float().cpu(), idx.cpu()))
+        routes.append((probs.detach().float().cpu(), idx.cpu()))
         return probs, gates, idx
 
     L.moe_route = recorded_route
     try:
-        card_against_host(torch, dev0, cfg32, p32, label, **kw)
+        yield routes
     finally:
         L.moe_route = route
+
+
+def top_k_margin(routes, k):
+    """The smallest margin between the k-th and (k+1)-th router
+    probability over ``routes``."""
+    return min(float((pr.sort(-1, descending=True).values[..., k - 1]
+                      - pr.sort(-1, descending=True).values[..., k]).min())
+               for pr, _ in routes)
+
+
+def routed_card_against_host(torch, dev0, cfg32, p32, label, **kw):
+    """``card_against_host`` of an MoE model, which must also route every
+    token to the same experts on both sides; logs the smallest margin
+    between the k-th and (k+1)-th router probability on the host."""
+    with recorded_routes() as routes:
+        card_against_host(torch, dev0, cfg32, p32, label, **kw)
     n = len(routes) // 2
     check(n > 0 and len(routes) == 2 * n, f"parity: {len(routes)} routings")
     k = cfg32.moe.top_k
-    margin = min(float((pr.sort(-1, descending=True).values[..., k - 1]
-                        - pr.sort(-1, descending=True).values[..., k]).min())
-                 for pr, _ in routes[n:])
+    margin = top_k_margin(routes[n:], k)
     same = all(torch.equal(a[1], b[1]) for a, b in zip(routes[:n],
                                                         routes[n:]))
     log(f"parity {label}: {n} routings a side, the experts chosen "
@@ -1295,6 +1349,571 @@ def audio_phase(args, torch, dev0):
     return counts, attn, dec
 
 
+# ------------------------------- training the other families (22-25)
+# the scan's backward against its plain version: max |err| within
+# rtol x each output's largest |value| + atol
+SCAN_BWD_TOL = (1e-4, 1e-5)
+# jamba-v0.1-52b trained at full width on 2 layers: layer 0 attention +
+# MoE (the kind of its layer 4), layer 1 Mamba + MLP (layers 1, 3, 5, 7);
+# 3.68 B parameters, 7.36 GB of bfloat16 weights and 29.4 GB of float32
+# moments (its period of 4, 6.88 B parameters, does not fit one card with
+# its moments and a gradient)
+JAMBA_TRAIN = dict(n_layers=2, attn_every=2, attn_offset=0)
+# TRAIN_4K's global batch of 256 cut to 4, 4 steps, and its 4,096 tokens
+# cut to 2,048: at 4,096 the two groups' first step ran out of the card's
+# memory (67.60 GiB allocated and 8.80 GiB reserved unallocated when a
+# 2 GiB block of a packet's backward was asked for: each packet's Mamba
+# backward holds several (1, S, 8192, 16) float32 tensors beside the
+# 36.8 GB of weights and moments and the gradients in flight)
+JAMBA_TRAIN_RUN = dict(batch=4, steps=4, seq=2048)
+# card against host in float32 on a training step: batch 1 x 256 (the
+# internvl2-1b run: 256 patch positions and 256 text tokens)
+TRAIN_PARITY_SEQ = 256
+# falcon-mamba-7b trained on 8 of its 64 layers: make_train_step, 2 steps
+# of batch 2 x 4,096; card against host on its first 2 layers
+FALCON_TRAIN = dict(layers=8, batch=2, steps=2, parity_layers=2)
+# the frontends: internvl2-1b whole, musicgen-large on 8 of its 48 layers,
+# 3 steps each of TRAIN_4K's batch cut to 4; card against host on 2 layers
+FRONTEND_TRAIN = {"internvl2-1b": 0, "musicgen-large": 8}
+FRONTEND_TRAIN_RUN = dict(batch=4, steps=3, parity_layers=2)
+
+
+def train_kernels():
+    """The four kernel counters a training packet runs."""
+    from repro_torch.kernels.flash_attention import kernel as KA
+    from repro_torch.kernels.mamba_scan import kernel as KS
+    return {"flash_attention": (KA, "launches"),
+            "flash_attention_bwd": (KA, "bwd_launches"),
+            "selective_scan": (KS, "launches"),
+            "selective_scan_bwd": (KS, "bwd_launches")}
+
+
+def read_counts(reset=False):
+    out = {}
+    for name, (mod, attr) in train_kernels().items():
+        out[name] = getattr(mod, attr)
+        if reset:
+            setattr(mod, attr, 0)
+    return out
+
+
+def per_packet(cfg):
+    """Launches a training packet makes: each attention and Mamba layer's
+    forward kernel twice (the forward and its rematerialised recompute)
+    and its backward once."""
+    n_attn = sum(cfg.mixer_kind(i) == "attn" for i in range(cfg.n_layers))
+    n_mamba = cfg.n_layers - n_attn
+    return {"flash_attention": 2 * n_attn, "flash_attention_bwd": n_attn,
+            "selective_scan": 2 * n_mamba, "selective_scan_bwd": n_mamba}
+
+
+def profile_step(torch, fn):
+    """Run ``fn`` (one training step) under ``torch.profiler``: returns
+    (its result, a log line of the card's busy share and top kernels, the
+    busy share) or (result, a line saying why not, None)."""
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    try:           # a diagnostic: the run goes on without a breakdown
+        kern = sorted(
+            ((getattr(e, "self_device_time_total",
+                      getattr(e, "self_cuda_time_total", 0.0)) / 1e3,
+              e.key) for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA),
+            reverse=True)
+    except Exception as e:
+        return out, f"no breakdown ({e!r})", None
+    busy = sum(ms for ms, _ in kern)
+    if busy <= 0:
+        return out, "no device time in the trace", None
+    by = {what: sum(ms for ms, k in kern if any(x in k for x in keys))
+          for what, keys in (
+              ("scan forward", ("selective_scan_kernel",)),
+              ("scan backward", ("selective_scan_bwd",)),
+              ("dC sum", ("scan_dc_sum",)),
+              ("attention forward", ("flash_fwd",)),
+              ("attention backward", ("bwd_dkdv", "bwd_dq", "bwd_dsum")))}
+    line = (f"{busy / 1e3:.3f} s of kernels in {wall:.3f} s (busy "
+            f"{busy / 1e3 / wall:.1%}); " + ", ".join(
+                f"{k} {ms:.1f} ms" for k, ms in by.items() if ms)
+            + "; top: " + "; ".join(f"{ms:.1f} ms {k[:50]}"
+                                    for ms, k in kern[:8]))
+    return out, line, busy / 1e3 / wall
+
+
+def held_out_loss(torch, dev0, cfg, params, pipeline, step):
+    """(objective, loss, aux) of ``make_loss_fn`` on the pipeline's whole
+    batch at ``step``, one row at a time without gradients, averaged over
+    the rows.  The losses a training step reports are each on its own
+    step's tokens, and a packet's tokens depend on its rows (the pipeline
+    seeds a packet by its row range), so two steps' losses differ by their
+    data as well as by the training between them; this one batch is the
+    same before and after."""
+    from repro_torch.training.step import make_loss_fn
+    loss_fn = make_loss_fn(cfg)
+    data = pipeline.batch_at(step)
+    rows = len(data["tokens"])
+    out = np.zeros(3)
+    with torch.no_grad():
+        for r in range(rows):
+            total, m = loss_fn(params, {
+                k: torch.as_tensor(v[r:r + 1], device=dev0)
+                for k, v in data.items()})
+            out += [float(total), float(m["loss"]), float(m["aux"])]
+    return tuple(out / rows)
+
+
+def hetero_train(torch, dev0, cfg, seq, batch, steps, label,
+                 must_learn=False, held_out=False):
+    """Train ``cfg`` (random weights from seed 0) through
+    ``HeteroDPTrainer``: two groups on ``dev0`` (throttles 1 and 2),
+    ``SyntheticPipeline`` (seed 1234), lws 1, AdamW (``TRAIN_OPT``).
+    Every loss finite, every step's tokens, rows on both groups (with
+    ``must_learn``, the last loss below the first) and each kernel's
+    launches (counters set to 0 before each step) ``per_packet`` times
+    the step's packets; one more step under the profiler.  With
+    ``held_out``, the objective on one batch that no step trains on
+    (``held_out_loss``) is lower after the steps and the profiled step
+    than before the first.  Returns (the parameters, a summary with the
+    launches of the checked steps)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.device import DeviceGroup
+    from repro_torch.core.hetero_dp import HeteroDPTrainer
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import OptConfig
+
+    t0 = time.perf_counter()
+    opt = OptConfig(**TRAIN_OPT)
+    params = T.init_params(cfg, torch.Generator(dev0).manual_seed(0))
+    state = adamw.init_state(params, opt)
+    torch.cuda.synchronize()
+    total, active = T.param_count(cfg)
+    log(f"train {label}: {cfg.n_layers} layers ("
+        + " ".join(f"{cfg.mixer_kind(i)}+{cfg.mlp_kind(i)}"
+                   for i in range(cfg.n_layers))
+        + f"), d_model {cfg.d_model}, {cfg.dtype}, {total:,} parameters "
+        f"({T.param_bytes(params) / 1e9:.3f} GB) and float32 moments made "
+        f"on the card in {time.perf_counter() - t0:.2f} s; seq {seq}, "
+        f"global batch {batch}, lws {TRAIN['lws']}, {steps} steps")
+    shape = ShapeConfig(f"train_{seq}_batch{batch}", seq, batch, "train")
+    pipeline = SyntheticPipeline(cfg, shape, DataConfig(seed=TRAIN["seed"]))
+    groups = [DeviceGroup("g0", device=dev0, throttle=1.0),
+              DeviceGroup("g1", device=dev0, throttle=2.0)]
+    trainer = HeteroDPTrainer(cfg, opt, shape, groups, pipeline,
+                              lws=TRAIN["lws"])
+    want1 = per_packet(cfg)
+    run = dict.fromkeys(want1, 0)
+    if held_out:
+        before = held_out_loss(torch, dev0, cfg, state.params, pipeline,
+                               steps + 1)
+    reports, rows = [], {g.name: 0 for g in groups}
+    torch.cuda.reset_peak_memory_stats(dev0)
+    retries0 = torch.cuda.memory_stats(dev0).get("num_alloc_retries", 0)
+    try:
+        for i in range(steps):
+            read_counts(reset=True)
+            state, rep = trainer.step(state, i)
+            got = read_counts()
+            want = {k: v * rep.packets for k, v in want1.items()}
+            check(got == want, f"train {label} step {i}: launches {got}, "
+                               f"expected {want} ({rep.packets} packets)")
+            check(math.isfinite(rep.loss), f"train {label} step {i}: loss "
+                                           f"{rep.loss}")
+            check(rep.tokens == batch * seq, f"train {label} step {i}: "
+                                             f"{rep.tokens} tokens")
+            for k in run:
+                run[k] += got[k]
+            for k, v in rep.device_rows.items():
+                rows[k] += v
+            reports.append(rep)
+            log(f"train {label} step {i}: loss {rep.loss:.4f}, "
+                f"{rep.step_time_s:.3f} s, "
+                f"{rep.tokens / rep.step_time_s:.0f} tokens/s, balance "
+                f"{rep.balance:.3f}, {rep.packets} packets, rows "
+                f"{rep.device_rows}, launches {got}, failures "
+                f"{rep.failures}")
+        peak = torch.cuda.max_memory_allocated(dev0)
+        reserved = torch.cuda.max_memory_reserved(dev0)
+        # a retry frees the allocator's cached blocks and synchronises
+        # the card (each group's stream has blocks of its own)
+        retries = (torch.cuda.memory_stats(dev0).get("num_alloc_retries", 0)
+                   - retries0)
+        (state, rep), line, busy = profile_step(
+            torch, lambda: trainer.step(state, steps))
+        log(f"profile train {label} step: {line}")
+    finally:
+        trainer.close()
+    losses = [r.loss for r in reports]
+    check(all(v > 0 for v in rows.values()),
+          f"train {label}: a group ran no rows ({rows})")
+    if must_learn:
+        check(losses[-1] < losses[0], f"train {label}: loss went from "
+                                      f"{losses[0]:.4f} to {losses[-1]:.4f}")
+    if held_out:
+        after = held_out_loss(torch, dev0, cfg, state.params, pipeline,
+                              steps + 1)
+        log(f"train {label}: on the held-out batch (step {steps + 1}) "
+            f"objective {before[0]:.6f} -> {after[0]:.6f}, loss "
+            f"{before[1]:.6f} -> {after[1]:.6f}, aux {before[2]:.5f} -> "
+            f"{after[2]:.5f} after {steps + 1} steps")
+        check(after[0] < before[0], f"train {label}: the held-out objective "
+                                    f"went from {before[0]:.6f} to "
+                                    f"{after[0]:.6f}")
+    steady = reports[1:] or reports
+    step_s = sum(r.step_time_s for r in steady) / len(steady)
+    summary = dict(step_s=step_s, tokens_s=batch * seq / step_s, busy=busy,
+                   peak_gb=peak / 1e9, launches=run, losses=losses)
+    log(f"train {label}: losses {[round(x, 4) for x in losses]}; steps "
+        f"2-{len(reports)} {step_s:.3f} s a step, "
+        f"{batch * seq / step_s:.0f} tokens/s; rows {rows}; peak memory "
+        f"{peak / 1e9:.2f} GB (max_memory_allocated; reserved "
+        f"{reserved / 1e9:.2f} GB, {retries} allocator retries in the "
+        f"{len(reports)} steps); launches in the run {run}")
+    del trainer, state
+    return params, summary
+
+
+def train_card_against_host(torch, dev0, cfg32, p32, batch, label):
+    """One loss and gradient in float32 (TF32 off), ``p32`` on the card
+    (kernels) and a copy on the host (plain versions), on the numpy
+    ``batch``: the loss within 1e-4 relative and every gradient within
+    1e-3 of its parameter's largest |g|.  With MoE layers, every token
+    routed to the same experts on both sides and in the rematerialised
+    recompute as in the forward; the smallest top-k margin is logged."""
+    import copy
+
+    from repro_torch.training.step import make_grad_fn
+
+    memo = {id(p): torch.nn.Parameter(p.detach().to("cpu"),
+                                      requires_grad=True)
+            for p in p32.parameters()}
+    host32 = copy.deepcopy(p32, memo)
+    p32.requires_grad_(True)
+    grad_fn = make_grad_fn(cfg32)
+    with recorded_routes() as routes:
+        t0 = time.perf_counter()
+        (lc, mc), gc = grad_fn(p32, {k: torch.as_tensor(v, device=dev0)
+                                     for k, v in batch.items()})
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        n_card = len(routes)
+        t0 = time.perf_counter()
+        (lh, mh), gh = grad_fn(host32, {k: torch.from_numpy(v)
+                                        for k, v in batch.items()})
+        t_host = time.perf_counter() - t0
+    rel = abs(float(lc) - float(lh)) / abs(float(lh))
+    check(math.isfinite(float(lc)) and rel <= 1e-4,
+          f"train parity {label}: loss {float(lc)} on the card, "
+          f"{float(lh)} on the host ({rel:.3g} relative)")
+    worst = 0.0
+    for n, w in gh.items():
+        top = float(w.abs().max())
+        err = float((gc[n].cpu() - w).abs().max())
+        check(err <= 1e-3 * top,
+              f"train parity {label}: {n} gradient differs by {err:.3g}, "
+              f"above 1e-3 of its largest |g| {top:.3g}")
+        worst = max(worst, err / max(top, 1e-30))
+    route_note = ""
+    if cfg32.moe.n_routed:
+        card_r, host_r = routes[:n_card], routes[n_card:]
+        m = len(host_r) // 2
+        check(m > 0 and len(card_r) == len(host_r) == 2 * m,
+              f"train parity {label}: {len(card_r)} and {len(host_r)} "
+              f"routings")
+        check(all(torch.equal(a[1], b[1]) for a, b in zip(card_r, host_r)),
+              f"train parity {label}: the card and the host route tokens "
+              f"to other experts")
+        # the recompute runs the layers in reverse
+        for side, rs in (("card", card_r), ("host", host_r)):
+            check(all(torch.equal(rs[i][1], rs[2 * m - 1 - i][1])
+                      for i in range(m)),
+                  f"train parity {label}: the recompute on the {side} "
+                  f"routes other than the forward")
+        k = cfg32.moe.top_k
+        margin = top_k_margin(host_r, k)
+        route_note = (f"; {m} routings a pass, experts equal card against "
+                      f"host and recompute against forward, smallest "
+                      f"top-{k} margin {margin:.3g}")
+    log(f"train parity {label} float32 (TF32 off): loss card "
+        f"{float(lc):.6f} host {float(lh):.6f} ({rel:.3g} relative, limit "
+        f"1e-4), aux card {float(mc['aux']):.6g} host "
+        f"{float(mh['aux']):.6g}; gradients within {worst:.3g} of each "
+        f"parameter's largest |g| (limit 1e-3){route_note}; card "
+        f"{t_card:.2f} s, host {t_host:.2f} s")
+    del gc, gh, host32
+
+
+def scan_bwd_check(torch, dev0, gen_t, B, S, d, s, nonzero=False,
+                   timed=False):
+    """Hold ``selective_scan_bwd``, fed the states the forward keeps,
+    against ``selective_scan_bwd_ref`` at ``SCAN_BWD_TOL``, two calls
+    bitwise equal; with ``timed``, time kernel and plain version and
+    return the measurements for a kernel record."""
+    from repro_torch.kernels.mamba_scan import kernel as KS, ref as RS
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen_t, device=dev0)
+
+    a = 0.5 + 0.49 * torch.rand((B, S, d, s), generator=gen_t, device=dev0)
+    b, C, dy = randn(B, S, d, s) * 0.1, randn(B, S, s), randn(B, S, d)
+    h0, dhT = ((randn(B, d, s), randn(B, d, s)) if nonzero
+               else (None, None))
+    _, _, states = KS.selective_scan_fwd(a, b, C, h0, keep_states=True)
+    got = KS.selective_scan_bwd(a, b, C, h0, dy, dhT, states)
+    again = KS.selective_scan_bwd(a, b, C, h0, dy, dhT, states)
+    want = RS.selective_scan_bwd_ref(a, b, C, h0, dy, dhT)
+    shape = (f"B={B} S={S} di={d} ds={s} float32"
+             + (" h0 dhT" if nonzero else ""))
+    rtol, atol = SCAN_BWD_TOL
+    err = 0.0
+    for name, g, r, w in zip(("da", "db", "dC", "dh0"), got, again, want):
+        check(torch.equal(g, r), f"selective_scan_bwd {shape}: {name} "
+                                 f"differs between two calls")
+        e, top = float((g - w).abs().max()), float(w.abs().max())
+        check(e <= rtol * top + atol, f"selective_scan_bwd {shape}: {name} "
+                                      f"max |err| {e:.3g} above {rtol} x "
+                                      f"{top:.3g} + {atol}")
+        err = max(err, e)
+    log(f"  selective_scan_bwd {shape}: max abs err {err:.3g}, two calls "
+        f"bitwise equal")
+    res = None
+    if timed:
+        # a, b, C, dy, the kept states (and h0, dhT) read once; da, db, dC
+        # and dh0 written once; per (t, d, s) about 8 operations: the
+        # state's recompute (2), g (2), da (1), the carry (1), dC's term
+        # and its share of the sum (2)
+        n_st = states.numel()
+        res = dict(
+            err=err, shape=shape,
+            ms=cuda_ms(lambda: KS.selective_scan_bwd(a, b, C, h0, dy, dhT,
+                                                     states), torch),
+            plain_ms=cuda_ms(lambda: RS.selective_scan_bwd_ref(
+                a, b, C, h0, dy, dhT), torch, 1),
+            library_ms=None,
+            nbytes=4.0 * (4 * B * S * d * s + 2 * B * S * s + B * S * d
+                          + n_st + B * d * s * (3 if nonzero else 1)),
+            ops=8.0 * B * S * d * s, ops_per_s=FP32_OPS_S)
+        log(f"  timed {shape}: kernel {res['ms']:.3f} ms, plain "
+            f"{res['plain_ms']:.3f} ms")
+    del a, b, C, dy, h0, dhT, states, got, again, want
+    torch.cuda.empty_cache()
+    return res
+
+
+def scan_bwd_phase(args, torch, dev0):
+    """Phase 22: the scan's backward kernel against its plain version at
+    the training packet (timed) and at its edges.  Returns the training
+    packet's measurements."""
+    from repro_torch.configs import get_config
+
+    free_card(torch, dev0, "selective_scan_bwd phase")
+    cfg = get_config("jamba-v0.1-52b")
+    di, ds = cfg.d_inner, cfg.ssm.d_state
+    gen_t = torch.Generator(dev0).manual_seed(8)
+    log("selective_scan_bwd against its plain version:")
+    S = 1024 if args.small else TRAIN["seq"]
+    packet = scan_bwd_check(torch, dev0, gen_t, 1, S, di, ds, timed=True)
+    # S not a multiple of 16, S = 1, ds = 8 and 32, di not a multiple of
+    # a CTA's channels, non-zero h0 and dhT
+    for B, S, d, s in ((2, 1000, 1000, 16), (1, 1, 8192, 16),
+                       (2, 333, 520, 8), (1, 77, 300, 32), (3, 16, 33, 5)):
+        scan_bwd_check(torch, dev0, gen_t, B, S, d, s, nonzero=True)
+    scan_bwd_check(torch, dev0, gen_t, 1, 100, 4100, 16)
+    return packet
+
+
+def jamba_train_phases(args, torch, dev0):
+    """Phase 23: the attention backward at jamba's heads, then
+    jamba-v0.1-52b trained at full width on 2 layers through
+    ``HeteroDPTrainer``; phase 24 (first half): card against host in
+    float32 on those 2 layers with the routing equal.  Returns (the
+    training run's summary, the attention backward at jamba's heads)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticPipeline
+    from repro_torch.configs.base import ShapeConfig
+
+    free_card(torch, dev0, "jamba training phases")
+    full = get_config("jamba-v0.1-52b")
+    cfg = replace(full, **JAMBA_TRAIN)
+    check([(cfg.mixer_kind(i), cfg.mlp_kind(i)) for i in range(2)]
+          == [("attn", "moe"), ("mamba", "dense")]
+          and (full.mixer_kind(4), full.mlp_kind(4)) == ("attn", "moe")
+          and (full.mixer_kind(1), full.mlp_kind(1)) == ("mamba", "dense"),
+          "jamba training: the cut's layer kinds")
+    H, KH, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    gen_t = torch.Generator(dev0).manual_seed(9)
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen_t, device=dev0).to(dtype)
+
+    S = 1024 if args.small else TRAIN["seq"]
+    log(f"flash_attention_bwd at jamba's heads ({H}/{KH}, D = {D}):")
+    attn = attn_bwd_check(torch, randn, 1, S, H, KH, D, torch.bfloat16,
+                          timed=True)
+    attn_bwd_check(torch, randn, 1, 1000, H, KH, D, torch.float32)
+
+    # --------------------- phase 23: train at full width, 2 layers, bf16
+    B, S = ((2, 1024) if args.small
+            else (JAMBA_TRAIN_RUN["batch"], JAMBA_TRAIN_RUN["seq"]))
+    params, summary = hetero_train(
+        torch, dev0, cfg, S, B, JAMBA_TRAIN_RUN["steps"],
+        f"{cfg.name} (2 of {full.n_layers} layers)", held_out=True)
+
+    # ------------- phase 24: card against host, f32, the same 2 layers
+    free_card(torch, dev0, "jamba training parity")
+    p32 = params.to(torch.float32)       # in place, tensor by tensor
+    cfg32 = replace(cfg, dtype="float32")
+    batch = SyntheticPipeline(cfg32, ShapeConfig(
+        "parity", TRAIN_PARITY_SEQ, 1, "train")).batch_at(0)
+    train_card_against_host(torch, dev0, cfg32, p32, batch,
+                            f"{cfg.name} (2 layers)")
+    del params, p32
+    return summary, attn
+
+
+def falcon_train_phase(args, torch, dev0):
+    """Phase 24 (second half): falcon-mamba-7b on 8 of its 64 layers, 2
+    ``make_train_step`` steps of batch 2 x 4,096 (8 scan backward calls a
+    step) and one more under the profiler, then card against host in
+    float32 on its first 2 layers."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.training.step import make_train_step
+
+    free_card(torch, dev0, "falcon-mamba-7b training phase")
+    full = get_config("falcon-mamba-7b")
+    n = 2 if args.small else FALCON_TRAIN["layers"]
+    cfg = replace(full, n_layers=n)
+    B, S = FALCON_TRAIN["batch"], 1024 if args.small else TRAIN["seq"]
+    opt = OptConfig(**TRAIN_OPT)
+    params = T.init_params(cfg, torch.Generator(dev0).manual_seed(0))
+    state = adamw.init_state(params, opt)
+    pipeline = SyntheticPipeline(cfg, ShapeConfig("falcon", S, B, "train"),
+                                 DataConfig(seed=TRAIN["seed"]))
+    step_fn = make_train_step(cfg, opt)
+    want = per_packet(cfg)
+    run = dict.fromkeys(want, 0)
+    torch.cuda.reset_peak_memory_stats(dev0)
+    times = []
+    for i in range(FALCON_TRAIN["steps"]):
+        batch = {k: torch.as_tensor(v, device=dev0)
+                 for k, v in pipeline.batch_at(i).items()}
+        read_counts(reset=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        times.append(time.perf_counter() - t0)
+        got = read_counts()
+        check(got == want, f"train {cfg.name} step {i}: launches {got}, "
+                           f"expected {want}")
+        check(math.isfinite(loss) and math.isfinite(gnorm),
+              f"train {cfg.name} step {i}: loss {loss}, grad norm {gnorm}")
+        for k in run:
+            run[k] += got[k]
+        log(f"train {cfg.name} ({n} of {full.n_layers} layers) step {i}: "
+            f"loss {loss:.4f}, grad norm {gnorm:.4f}, {times[-1]:.3f} s, "
+            f"{B * S / times[-1]:.0f} tokens/s, launches {got}")
+    peak = torch.cuda.max_memory_allocated(dev0)
+    batch = {k: torch.as_tensor(v, device=dev0)
+             for k, v in pipeline.batch_at(len(times)).items()}
+    (state, _), line, busy = profile_step(torch,
+                                          lambda: step_fn(state, batch))
+    log(f"profile train {cfg.name} step: {line}")
+    log(f"train {cfg.name}: batch {B} x {S}, peak memory "
+        f"{peak / 1e9:.2f} GB")
+    n_par = min(FALCON_TRAIN["parity_layers"], n)
+    head = T.LM(params.embed, list(params.layers[:n_par]),
+                params.final_norm, params.lm_head)
+    del state, params
+    free_card(torch, dev0, "falcon-mamba-7b training parity")
+    p32 = head.to(torch.float32)
+    cfg32 = replace(cfg, n_layers=n_par, dtype="float32")
+    batch = SyntheticPipeline(cfg32, ShapeConfig(
+        "parity", TRAIN_PARITY_SEQ, 1, "train")).batch_at(0)
+    train_card_against_host(torch, dev0, cfg32, p32, batch,
+                            f"{cfg.name} (first {n_par} layers)")
+    del head, p32
+    step_s = times[-1]
+    return dict(step_s=step_s, tokens_s=B * S / step_s, busy=busy,
+                peak_gb=peak / 1e9, launches=run)
+
+
+def frontend_train_phase(args, torch, dev0):
+    """Phase 25: the attention backward at internvl2-1b's G = 7 and
+    musicgen-large's 32/32 heads; each model trained 3 steps through
+    ``HeteroDPTrainer`` (internvl2-1b with 256 patches a row, musicgen's
+    (B, S, 4) tokens); card against host in float32 on 2 layers of each
+    (the patch positions out of the loss, the codebooks averaged).
+    Returns ({model: summary}, {model: the attention backward at its
+    heads})."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticPipeline
+    from repro_torch.models import transformer as T
+
+    summaries, attn = {}, {}
+    bf16, f32 = torch.bfloat16, torch.float32
+    gen_t = torch.Generator(dev0).manual_seed(10)
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen_t, device=dev0).to(dtype)
+
+    S = 1024 if args.small else TRAIN["seq"]
+    for name, layers in FRONTEND_TRAIN.items():
+        free_card(torch, dev0, f"{name} training phase")
+        full = get_config(name)
+        n = 2 if args.small else (layers or full.n_layers)
+        cfg = replace(full, n_layers=n)
+        H, KH, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        log(f"flash_attention_bwd at {name}'s heads ({H}/{KH}, G = "
+            f"{H // KH}, D = {D}):")
+        attn[name] = attn_bwd_check(torch, randn, 1, S, H, KH, D, bf16,
+                                    timed=True)
+        attn_bwd_check(torch, randn, 2, 1000, H, KH, D, bf16)   # ragged S
+        attn_bwd_check(torch, randn, 1, 1000, H, KH, D, f32)
+        attn_bwd_check(torch, randn, 3, 19, H, KH, D, bf16)
+        params, summaries[name] = hetero_train(
+            torch, dev0, cfg, S, FRONTEND_TRAIN_RUN["batch"],
+            FRONTEND_TRAIN_RUN["steps"],
+            f"{name} ({n} of {full.n_layers} layers)")
+        n_par = min(FRONTEND_TRAIN_RUN["parity_layers"], n)
+        head = T.LM(params.embed, list(params.layers[:n_par]),
+                    params.final_norm, params.lm_head)
+        del params
+        free_card(torch, dev0, f"{name} training parity")
+        p32 = head.to(torch.float32)
+        cfg32 = replace(cfg, n_layers=n_par, dtype="float32")
+        # internvl2-1b: 256 patch positions, then 256 text tokens
+        seq = TRAIN_PARITY_SEQ + (cfg.n_patches
+                                  if cfg.frontend == "vit_stub" else 0)
+        batch = SyntheticPipeline(cfg32, ShapeConfig(
+            "parity", seq, 1, "train")).batch_at(0)
+        train_card_against_host(torch, dev0, cfg32, p32, batch,
+                                f"{name} (first {n_par} layers, "
+                                f"tokens {batch['tokens'].shape}"
+                                + (f", patches {batch['patches'].shape}"
+                                   if "patches" in batch else "") + ")")
+        del head, p32
+    return summaries, attn
+
+
 # ------------------------------------------------------------ training path
 # the training phase: TRAIN_4K's sequence, its global batch of 256 cut to
 # 8 (two groups on one card; the 2.47 GB of bf16 weights and 9.89 GB of
@@ -1358,8 +1977,7 @@ def training_phases(args, torch, dev0, launches, attach):
     from repro_torch.configs.base import TRAIN_4K, ShapeConfig
     from repro_torch.core.device import DeviceGroup
     from repro_torch.core.hetero_dp import HeteroDPTrainer
-    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
-    from repro_torch.kernels.flash_attention import kernel as KA
+    from repro_torch.data.pipeline import SyntheticPipeline
     from repro_torch.launch import train as LT
     from repro_torch.models import transformer as T
     from repro_torch.optim import adamw
@@ -1372,119 +1990,21 @@ def training_phases(args, torch, dev0, launches, attach):
     L = cfg.n_layers
     S, B = TRAIN["seq"], TRAIN["batch"]
     check(S == TRAIN_4K.seq_len, "training: not TRAIN_4K's sequence")
-    shape = ShapeConfig("train_4k_batch8", S, B, "train")
-    pipeline = SyntheticPipeline(cfg, shape, DataConfig(seed=TRAIN["seed"]))
     opt = OptConfig(**TRAIN_OPT)
 
     # ------------------------------------------- 12. train at full width
-    t0 = time.perf_counter()
-    params = T.init_params(cfg, torch.Generator(dev0).manual_seed(0))
-    state = adamw.init_state(params, opt)
-    torch.cuda.synchronize()
-    total, active = T.param_count(cfg)
-    log(f"train {cfg.name}: {L} layers, d_model {cfg.d_model}, "
-        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, {cfg.dtype}, {total:,} "
-        f"parameters ({T.param_bytes(params) / 1e9:.3f} GB) and float32 "
-        f"moments made on the card in {time.perf_counter() - t0:.2f} s; "
-        f"seq {S} (TRAIN_4K), global batch {B} (TRAIN_4K's "
-        f"{TRAIN_4K.global_batch} cut to {B}), lws {TRAIN['lws']}, "
-        f"{opt}")
-    groups = [DeviceGroup("g0", device=dev0, throttle=1.0),
-              DeviceGroup("g1", device=dev0, throttle=2.0)]
-    trainer = HeteroDPTrainer(cfg, opt, shape, groups, pipeline,
-                              lws=TRAIN["lws"])
-    torch.cuda.reset_peak_memory_stats(dev0)
-    retries0 = torch.cuda.memory_stats(dev0).get("num_alloc_retries", 0)
-    reports, rows = [], {g.name: 0 for g in groups}
-    run_fwd = run_bwd = 0
-    try:
-        for i in range(TRAIN["steps"]):
-            KA.launches = KA.bwd_launches = 0
-            state, rep = trainer.step(state, i)
-            fwd, bwd = KA.launches, KA.bwd_launches
-            run_fwd += fwd
-            run_bwd += bwd
-            reports.append(rep)
-            for k, v in rep.device_rows.items():
-                rows[k] += v
-            check(math.isfinite(rep.loss), f"train step {i}: loss "
-                                           f"{rep.loss}")
-            check(rep.tokens == B * S, f"train step {i}: {rep.tokens} "
-                                       f"tokens, expected {B * S}")
-            check(fwd == 2 * L * rep.packets and bwd == L * rep.packets,
-                  f"train step {i}: {fwd} flash_attention launches and "
-                  f"{bwd} backward calls for {rep.packets} packets of "
-                  f"{L} layers (expected {2 * L} and {L} a packet)")
-            log(f"train step {i}: loss {rep.loss:.4f}, "
-                f"{rep.step_time_s:.3f} s, "
-                f"{rep.tokens / rep.step_time_s:.0f} tokens/s, balance "
-                f"{rep.balance:.3f}, {rep.packets} packets, rows "
-                f"{rep.device_rows}, launches fwd {fwd} bwd {bwd}, "
-                f"failures {rep.failures}")
-        peak = torch.cuda.max_memory_allocated(dev0)
-        peak_reserved = torch.cuda.max_memory_reserved(dev0)
-        # a retry frees the allocator's cached blocks and synchronises
-        # the card (each group's stream has blocks of its own)
-        retries = (torch.cuda.memory_stats(dev0).get("num_alloc_retries", 0)
-                   - retries0)
-        # one more step under the profiler: the card's busy share and
-        # the top kernels
-        try:       # a diagnostic: the run goes on without a trace
-            from torch.profiler import ProfilerActivity, profile
-            t0 = time.perf_counter()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                state, rep = trainer.step(state, TRAIN["steps"])
-                torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            kern = sorted(
-                ((getattr(e, "self_device_time_total",
-                          getattr(e, "self_cuda_time_total", 0.0)) / 1e3,
-                  e.key) for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA),
-                reverse=True)
-            busy = sum(ms for ms, _ in kern)
-            bwd = [(ms, k) for ms, k in kern if "bwd_" in k]
-            bwd_ms = sum(ms for ms, _ in bwd)
-            fwd_ms = sum(ms for ms, k in kern if "flash_fwd" in k)
-            log(f"profile train step: {busy / 1e3:.3f} s of kernels in "
-                f"{wall:.3f} s (busy {busy / 1e3 / wall:.1%}); attention "
-                f"backward {bwd_ms / 1e3:.3f} s ({bwd_ms / busy:.1%} of the "
-                f"kernels: " + ", ".join(
-                    f"{k.split('::')[-1].split('(')[0][:40]} {ms:.1f} ms"
-                    for ms, k in bwd) + f"), forward {fwd_ms / 1e3:.3f}"
-                f" s; top: " + "; ".join(f"{ms:.1f} ms {k[:50]}"
-                                         for ms, k in kern[:10]))
-        except Exception as e:
-            log(f"profile train step: torch.profiler failed ({e!r})")
-    finally:
-        trainer.close()
-    losses = [r.loss for r in reports]
-    check(losses[-1] < losses[0],
-          f"train: loss went from {losses[0]:.4f} to {losses[-1]:.4f}")
-    check(all(v > 0 for v in rows.values()),
-          f"train: a group ran no rows ({rows})")
-    launches["flash_attention_bwd"] = run_bwd
-    steady = reports[1:]
-    step_s = sum(r.step_time_s for r in steady) / len(steady)
-    log(f"train: {len(reports)} steps, losses "
-        f"{[round(x, 4) for x in losses]}; steps 2-{len(reports)} "
-        f"{step_s:.3f} s a step, {B * S / step_s:.0f} tokens/s; balance "
-        f"{[round(r.balance, 3) for r in reports]}; rows {rows}; peak "
-        f"memory {peak / 1e9:.2f} GB (max_memory_allocated; reserved "
-        f"{peak_reserved / 1e9:.2f} GB, {retries} allocator retries in the "
-        f"{len(reports)} steps); launches in "
-        f"the run: flash_attention {run_fwd}, flash_attention_bwd "
-        f"{run_bwd}")
-    attach("flash_attention", train_launches=run_fwd)
-    del trainer
+    params, run = hetero_train(torch, dev0, cfg, S, B, TRAIN["steps"],
+                               cfg.name, must_learn=True)
+    launches["flash_attention_bwd"] = run["launches"]["flash_attention_bwd"]
+    attach("flash_attention", train_launches=run["launches"]
+           ["flash_attention"])
 
     # the launcher, in-process: 2 steps of 4 rows, 2 microbatches each
     p32 = copy.deepcopy(T.LM(params.embed,
                              list(params.layers[:TRAIN_PARITY["layers"]]),
                              params.final_norm, params.lm_head)
                         ).to(torch.float32)
-    del state, params
+    del params
     torch.cuda.empty_cache()
     argv = ["--arch", "llama3.2-1b", "--steps", "2", "--seq", str(S),
             "--batch", "4", "--accum", "2", "--log-every", "1"]
@@ -1647,6 +2167,74 @@ def hgmma_counts(lib_path):
     return counts
 
 
+def attn_bwd_check(torch, randn, B, S, h, kh, d, dtype, timed=False):
+    """Hold ``flash_attention_bwd``, fed the log-sum-exp the forward
+    keeps, against ``attention_bwd_ref`` on inputs from ``randn`` at
+    ``ATTN_BWD_TOL``, two calls bitwise equal and equal to a call that
+    has the forward write the log-sum-exp again; with ``timed``, time
+    kernel, plain version and SDPA's backward and return the
+    measurements for a kernel record."""
+    from repro_torch.kernels.flash_attention import kernel as KA, ref as RA
+    F = torch.nn.functional
+    q, k, v = (randn(s, dtype) for s in ((B, S, h, d), (B, S, kh, d),
+                                         (B, S, kh, d)))
+    # the forward as training runs it: the output and each row's
+    # log-sum-exp, which the backward reads
+    out, lse = KA.flash_attention_fwd(q, k, v, keep_lse=True)
+    dout = randn((B, S, h, d), dtype)
+    got = KA.flash_attention_bwd(q, k, v, out, dout, lse)
+    again = KA.flash_attention_bwd(q, k, v, out, dout, lse)
+    fresh = KA.flash_attention_bwd(q, k, v, out, dout)  # writes it again
+    want = RA.attention_bwd_ref(q, k, v, out, dout)
+    tol = ATTN_BWD_TOL[str(dtype).split(".")[-1]]
+    err = 0.0
+    shape = f"B={B} S={S} H={h} KH={kh} D={d} {dtype}"
+    for name, g, a, f, w in zip(("dq", "dk", "dv"), got, again, fresh,
+                                want):
+        check(torch.equal(g, a), f"flash_attention_bwd {shape}: {name} "
+                                 f"differs between two calls")
+        check(torch.equal(g, f), f"flash_attention_bwd {shape}: {name} "
+                                 f"differs with the log-sum-exp "
+                                 f"written again")
+        e = float((g.float() - w.float()).abs().max())
+        top = float(w.float().abs().max())
+        check(e <= tol * top, f"flash_attention_bwd {shape}: {name} "
+                              f"max |err| {e:.3g} above {tol} x "
+                              f"{top:.3g}")
+        err = max(err, e)
+    log(f"  flash_attention_bwd {shape}: max abs err {err:.3g}, two "
+        f"calls and the log-sum-exp written again bitwise equal")
+    res = None
+    if timed:
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                      for x in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+        dlib = dout.transpose(1, 2).contiguous()
+        elt = q.element_size()
+        res = dict(
+            err=err, shape=shape,
+            ms=cuda_ms(lambda: KA.flash_attention_bwd(q, k, v, out,
+                                                      dout, lse), torch),
+            plain_ms=cuda_ms(lambda: RA.attention_bwd_ref(q, k, v, out,
+                                                          dout),
+                             torch, 2),
+            library_ms=cuda_ms(lambda: torch.autograd.grad(
+                lib_out, (qt, kt, vt), dlib, retain_graph=True), torch),
+            nbytes=elt * (4 * B * S * h * d + 4 * B * S * kh * d),
+            ops=5.0 * B * h * d * S * S,
+            ops_per_s=BF16_OPS_S if dtype == torch.bfloat16
+            else FP32_OPS_S)
+        log(f"  timed {shape}: kernel {res['ms']:.3f} ms, plain "
+            f"{res['plain_ms']:.3f} ms, SDPA backward "
+            f"{res['library_ms']:.3f} ms, kernel/SDPA "
+            f"{res['ms'] / res['library_ms']:.2f}")
+        del qt, kt, vt, lib_out, dlib
+    del q, k, v, out, lse, dout, got, again, fresh, want
+    torch.cuda.empty_cache()
+    return res
+
+
 def attention_bwd_phase(args, torch, dev0, record):
     """14. The backward kernel against its plain version at the training
     packet and other shapes, bitwise-equal across calls and with the
@@ -1655,74 +2243,13 @@ def attention_bwd_phase(args, torch, dev0, record):
     backward timed beside the bound."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
-    from repro_torch.kernels.flash_attention import kernel as KA, ref as RA
 
-    F = torch.nn.functional
     cfg = get_config("llama3.2-1b")
     H, KH, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     gen_t = torch.Generator(dev0).manual_seed(4)
 
     def randn(shape, dtype):
         return torch.randn(shape, generator=gen_t, device=dev0).to(dtype)
-
-    def bwd_check(B, S, h, kh, d, dtype, timed=False):
-        q, k, v = (randn(s, dtype) for s in ((B, S, h, d), (B, S, kh, d),
-                                             (B, S, kh, d)))
-        # the forward as training runs it: the output and each row's
-        # log-sum-exp, which the backward reads
-        out, lse = KA.flash_attention_fwd(q, k, v, keep_lse=True)
-        dout = randn((B, S, h, d), dtype)
-        got = KA.flash_attention_bwd(q, k, v, out, dout, lse)
-        again = KA.flash_attention_bwd(q, k, v, out, dout, lse)
-        fresh = KA.flash_attention_bwd(q, k, v, out, dout)  # writes it again
-        want = RA.attention_bwd_ref(q, k, v, out, dout)
-        tol = ATTN_BWD_TOL[str(dtype).split(".")[-1]]
-        err = 0.0
-        shape = f"B={B} S={S} H={h} KH={kh} D={d} {dtype}"
-        for name, g, a, f, w in zip(("dq", "dk", "dv"), got, again, fresh,
-                                    want):
-            check(torch.equal(g, a), f"flash_attention_bwd {shape}: {name} "
-                                     f"differs between two calls")
-            check(torch.equal(g, f), f"flash_attention_bwd {shape}: {name} "
-                                     f"differs with the log-sum-exp "
-                                     f"written again")
-            e = float((g.float() - w.float()).abs().max())
-            top = float(w.float().abs().max())
-            check(e <= tol * top, f"flash_attention_bwd {shape}: {name} "
-                                  f"max |err| {e:.3g} above {tol} x "
-                                  f"{top:.3g}")
-            err = max(err, e)
-        log(f"  flash_attention_bwd {shape}: max abs err {err:.3g}, two "
-            f"calls and the log-sum-exp written again bitwise equal")
-        res = None
-        if timed:
-            qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
-                          for x in (q, k, v))
-            lib_out = F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True)
-            dlib = dout.transpose(1, 2).contiguous()
-            elt = q.element_size()
-            res = dict(
-                err=err, shape=shape,
-                ms=cuda_ms(lambda: KA.flash_attention_bwd(q, k, v, out,
-                                                          dout, lse), torch),
-                plain_ms=cuda_ms(lambda: RA.attention_bwd_ref(q, k, v, out,
-                                                              dout),
-                                 torch, 2),
-                library_ms=cuda_ms(lambda: torch.autograd.grad(
-                    lib_out, (qt, kt, vt), dlib, retain_graph=True), torch),
-                nbytes=elt * (4 * B * S * h * d + 4 * B * S * kh * d),
-                ops=5.0 * B * h * d * S * S,
-                ops_per_s=BF16_OPS_S if dtype == torch.bfloat16
-                else FP32_OPS_S)
-            log(f"  timed {shape}: kernel {res['ms']:.3f} ms, plain "
-                f"{res['plain_ms']:.3f} ms, SDPA backward "
-                f"{res['library_ms']:.3f} ms, kernel/SDPA "
-                f"{res['ms'] / res['library_ms']:.2f}")
-            del qt, kt, vt, lib_out, dlib
-        del q, k, v, out, lse, dout, got, again, fresh, want
-        torch.cuda.empty_cache()
-        return res
 
     bf16, f32 = torch.bfloat16, torch.float32
     counts = hgmma_counts(build.load()._name)
@@ -1736,13 +2263,17 @@ def attention_bwd_phase(args, torch, dev0, record):
                                  f"{sorted(bwd_mma)}, expected the dK/dV "
                                  f"and dQ kernels at D = 64, 80, 128")
     log("flash_attention_bwd against its plain version:")
-    packet = bwd_check(1, TRAIN["seq"], H, KH, D, bf16, timed=True)
-    bwd_check(2, 1000, H, KH, D, bf16)            # ragged S
-    bwd_check(1, 1000, H, KH, D, f32)
-    bwd_check(2, 256, 8, 4, 80, f32)              # stablelm-3b's head dim
-    bwd_check(2, 256, 8, 4, 80, bf16)
-    bwd_check(1, 384, 16, 2, 128, f32)            # qwen3-32b's head dim
-    bwd_check(1, 384, 16, 2, 128, bf16)
+
+    def bwd(*shape, timed=False):
+        return attn_bwd_check(torch, randn, *shape, timed=timed)
+
+    packet = bwd(1, TRAIN["seq"], H, KH, D, bf16, timed=True)
+    bwd(2, 1000, H, KH, D, bf16)            # ragged S
+    bwd(1, 1000, H, KH, D, f32)
+    bwd(2, 256, 8, 4, 80, f32)              # stablelm-3b's head dim
+    bwd(2, 256, 8, 4, 80, bf16)
+    bwd(1, 384, 16, 2, 128, f32)            # qwen3-32b's head dim
+    bwd(1, 384, 16, 2, 128, bf16)
     # the wgmma kernels' edges, as tests/test_torch_cuda.py covers them:
     # G = 1, 4, 6 (idle packed rows), 8; S = 2, below a 64-row step, below
     # a 128-key tile, ragged.  (At S = 1 dq and dk are exactly zero, so no
@@ -1751,7 +2282,7 @@ def attention_bwd_phase(args, torch, dev0, record):
     for B, S, h, kh, d in ((2, 2, 8, 8, 64), (2, 50, 24, 4, 80),
                            (1, 127, 16, 2, 128), (2, 129, 8, 2, 64),
                            (1, 1000, 12, 2, 128), (1, 333, 32, 4, 80)):
-        bwd_check(B, S, h, kh, d, bf16)
+        bwd(B, S, h, kh, d, bf16)
     record("flash_attention_bwd", "src/repro_torch/csrc/flash_attention_bwd.cu",
            "src/repro/kernels/flash_attention/kernel.py:69",
            packet["err"], packet["ms"], packet["plain_ms"], packet["nbytes"],
@@ -2697,6 +3228,50 @@ def main() -> int:
         attach(name, g7_shape=long_entry(g7, "G = 7 (internvl2-1b)"),
                jamba_shape=long_entry(jamba, "jamba-v0.1-52b's heads"),
                musicgen_shape=long_entry(mg, "musicgen-large's heads"))
+
+    # phases 22-25: training of the Mamba, hybrid, MoE and frontend
+    # families, through the scan's backward kernel
+    scan_bwd = scan_bwd_phase(args, torch, dev0)
+    trained = {}
+    trained["jamba-v0.1-52b"], jamba_b = jamba_train_phases(args, torch,
+                                                            dev0)
+    trained["falcon-mamba-7b"] = falcon_train_phase(args, torch, dev0)
+    front, front_b = frontend_train_phase(args, torch, dev0)
+    trained.update(front)
+    by_path = {k: {f"{m} training": t["launches"][k]
+                   for m, t in trained.items() if t["launches"][k]}
+               for k in train_kernels()}
+    record("selective_scan_bwd", "src/repro_torch/csrc/selective_scan.cu",
+           "src/repro/kernels/mamba_scan/kernel.py:55", scan_bwd["err"],
+           scan_bwd["ms"], scan_bwd["plain_ms"], scan_bwd["nbytes"],
+           scan_bwd["ops"], None, scan_bwd["shape"] + " (training packet)",
+           n_launches=sum(by_path["selective_scan_bwd"].values()),
+           launches_by_path=by_path["selective_scan_bwd"],
+           replaces_note="the gradient of that kernel's function: the JAX "
+                         "package differentiates its jnp scan "
+                         "(src/repro/models/layers.py:559 "
+                         "_ssm_scan_chunked) with jax.value_and_grad",
+           library_note="no single PyTorch call computes this recurrence "
+                        "or its gradient")
+    # the training paths' launches join the other kernels' records
+    for rec in records:
+        extra = by_path.get(rec["name"])
+        if not extra or rec["name"] == "selective_scan_bwd":
+            continue
+        by = rec.get("launches_by_path") or {
+            ("llama3.2-1b training" if rec["name"] == "flash_attention_bwd"
+             else SERVED_KERNELS[rec["name"]]): rec["launches"]}
+        by.update(extra)
+        rec.update(launches=sum(by.values()), launches_by_path=by)
+    attach("flash_attention_bwd",
+           jamba_shape=long_entry(jamba_b, "jamba-v0.1-52b's heads"),
+           g7_shape=long_entry(front_b["internvl2-1b"],
+                               "G = 7 (internvl2-1b)"),
+           musicgen_shape=long_entry(front_b["musicgen-large"],
+                                     "musicgen-large's heads"))
+    log("training table: " + json.dumps(
+        {m: {k: t[k] for k in ("step_s", "tokens_s", "busy", "peak_gb")}
+         for m, t in trained.items()}))
     leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "repro")]
     check(not leaked, f"the port imported {leaked}")
 

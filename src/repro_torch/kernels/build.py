@@ -37,6 +37,7 @@ FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCE_FLAGS = {"mandelbrot.cu": ["-fmad=false"]}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_LL = ctypes.c_longlong
 # C entry points: argument types (every pointer and the stream are
 # c_void_p, or ctypes would pass them as 32-bit ints); all return int
 PROTOTYPES = {
@@ -47,7 +48,8 @@ PROTOTYPES = {
     "flash_attention_fwd": [_P] * 5 + [_I] * 6 + [_P],
     "flash_attention_bwd": [_P] * 10 + [_I] * 6 + [_P],
     "flash_decode_fwd": [_P] * 7 + [_I] * 11 + [_P],
-    "selective_scan_fwd": [_P] * 6 + [_I] * 4 + [_P],
+    "selective_scan_fwd": [_P] * 7 + [_I] * 4 + [_P],
+    "selective_scan_bwd": [_P] * 11 + [_I] * 4 + [_LL, _P],
 }
 
 _lock = threading.Lock()

@@ -5,7 +5,9 @@ oracle (``kernels/mamba_scan/ref.py`` ``selective_scan_ref``).
     h_t = a_t * h_{t-1} + b_t ;  y_t = sum_s C_t[s] * h_t[:, s]
 
 It carries h step by step rather than through a cumulative product of
-``a``: ``a = exp(dt * A)`` with A down to -16 underflows such a product."""
+``a``: ``a = exp(dt * A)`` with A down to -16 underflows such a product.
+:func:`selective_scan_bwd_ref` is the plain version of the backward
+kernel; on the host autograd differentiates :func:`selective_scan`."""
 from __future__ import annotations
 
 import torch
@@ -18,9 +20,42 @@ def selective_scan(a, b, C, h0=None):
     h = (torch.zeros((B, di, ds), dtype=torch.float32, device=a.device)
          if h0 is None else h0.clone())
     ys = []
-    for t in range(S):
-        h = a[:, t] * h + b[:, t]
-        ys.append(torch.einsum("bds,bs->bd", h, C[:, t]))
+    # unbind, not a[:, t]: autograd then stacks the steps' gradients once,
+    # where each indexed step's backward would fill a whole zero (B,S,di,ds)
+    for at, bt, ct in zip(a.unbind(1), b.unbind(1), C.unbind(1)):
+        h = at * h + bt
+        ys.append(torch.einsum("bds,bs->bd", h, ct))
     y = (torch.stack(ys, dim=1) if ys
          else torch.zeros((B, 0, di), dtype=torch.float32, device=a.device))
     return y, h
+
+
+def selective_scan_bwd_ref(a, b, C, h0, dy, dhT=None):
+    """The scan's gradient, a reverse loop over time in float32: the plain
+    version of the backward kernel.  a, b: (B,S,di,ds); C: (B,S,ds); h0:
+    (B,di,ds) or None (zeros); dy: (B,S,di); dhT: (B,di,ds) or None
+    (zeros) -> (da, db, dC, dh0) in the shapes of a, b, C and h0.
+
+        g_t = dy_t (x) C_t + a_{t+1} g_{t+1}   (g_{S-1} also takes dhT)
+        da_t = g_t h_{t-1} ;  db_t = g_t ;  dC_t[s] = sum_d dy_t[d] h_t[d,s]
+        dh0 = a_0 g_0
+
+    The states h_t are recomputed forward first."""
+    B, S, di, ds = a.shape
+    h = (torch.zeros((B, di, ds), dtype=torch.float32, device=a.device)
+         if h0 is None else h0)
+    hs = [h]                                  # hs[t + 1] = h_t
+    for t in range(S):
+        h = a[:, t] * h + b[:, t]
+        hs.append(h)
+    da, db = torch.empty_like(a), torch.empty_like(b)
+    dC = torch.empty_like(C)
+    carry = (torch.zeros((B, di, ds), dtype=torch.float32, device=a.device)
+             if dhT is None else dhT)         # a_{t+1} g_{t+1}
+    for t in range(S - 1, -1, -1):
+        g = dy[:, t, :, None] * C[:, t, None, :] + carry
+        da[:, t] = g * hs[t]
+        db[:, t] = g
+        dC[:, t] = torch.einsum("bd,bds->bs", dy[:, t], hs[t + 1])
+        carry = a[:, t] * g
+    return da, db, dC, carry

@@ -34,8 +34,9 @@ softmax, sorted descending, renormalised gates, an exclusive cumsum over
 batched ``torch.bmm``, as the JAX package leaves them to XLA.
 
 The Mamba1 block (falcon-mamba) keeps the JAX package's parameter names
-and layouts; its prefill scan goes through the hand-written CUDA kernel
-of ``kernels/mamba_scan``, and its decode step is one recurrence step in
+and layouts; its scan (prefill, and training, where autograd records
+the kernel's backward) goes through the hand-written CUDA kernels of
+``kernels/mamba_scan``, and its decode step is one recurrence step in
 plain ops, as in the JAX package.
 """
 from __future__ import annotations

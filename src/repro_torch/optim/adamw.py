@@ -7,7 +7,9 @@ of ``moment_dtype`` on that parameter's device.  All update math is in
 float32, the bias corrections from the float32 step, and each new value
 is cast back to its parameter's dtype.  Where the JAX package builds new
 arrays, :func:`apply_updates` writes the parameters and moments in place
-under ``torch.no_grad()``: a second copy of the weights is never made.
+under ``torch.no_grad()``: a second copy of the weights is never made,
+and the float32 update runs over slices of at most ``UPDATE_SLICE``
+elements of each parameter.
 """
 from __future__ import annotations
 
@@ -30,6 +32,11 @@ class OptConfig:
     min_lr_frac: float = 0.1
     # moments dtype: f32 is the default; bf16 halves the optimizer's memory
     moment_dtype: str = "float32"
+
+
+# elements updated at a time: the update's float32 temporaries of one
+# (E, d, f) expert array at full width would otherwise take tens of GB
+UPDATE_SLICE = 1 << 26
 
 
 class TrainState(NamedTuple):
@@ -100,16 +107,25 @@ def apply_updates(state: TrainState, grads: Mapping[str, torch.Tensor],
                                      device=sf.device), sf)
     for name, p in state.params.named_parameters():
         dev = p.device
-        g = grads[name].float() * scale.to(dev)
-        mu32 = state.mu[name].float() * b1 + (1 - b1) * g
-        nu32 = state.nu[name].float() * b2 + (1 - b2) * g * g
-        mu_hat = mu32 / bc1.to(dev)
-        nu_hat = nu32 / bc2.to(dev)
-        delta = mu_hat / (torch.sqrt(nu_hat) + opt.eps)
-        if _reference_ndim(name, p) >= 2:  # decoupled weight decay on
-            delta = delta + opt.weight_decay * p.float()   # matrices only
-        p.copy_((p.float() - lr.to(dev) * delta).to(p.dtype))
-        state.mu[name].copy_(mu32.to(mdt))
-        state.nu[name].copy_(nu32.to(mdt))
+        decay = _reference_ndim(name, p) >= 2  # decoupled, matrices only
+        sc, lr_d, bc1_d, bc2_d = (x.to(dev) for x in (scale, lr, bc1, bc2))
+        flat = [t.view(-1) for t in (p.data, state.mu[name],
+                                     state.nu[name])]
+        g_flat = grads[name].reshape(-1)
+        # elementwise, so slices give the whole tensor's values: the
+        # float32 temporaries stay at UPDATE_SLICE elements each
+        for i in range(0, p.numel(), UPDATE_SLICE):
+            pf, mu, nu = (t[i:i + UPDATE_SLICE] for t in flat)
+            g = g_flat[i:i + UPDATE_SLICE].float() * sc
+            mu32 = mu.float() * b1 + (1 - b1) * g
+            nu32 = nu.float() * b2 + (1 - b2) * g * g
+            mu_hat = mu32 / bc1_d
+            nu_hat = nu32 / bc2_d
+            delta = mu_hat / (torch.sqrt(nu_hat) + opt.eps)
+            if decay:
+                delta = delta + opt.weight_decay * pf.float()
+            pf.copy_((pf.float() - lr_d * delta).to(p.dtype))
+            mu.copy_(mu32.to(mdt))
+            nu.copy_(nu32.to(mdt))
     metrics = {"grad_norm": gnorm, "lr": lr}
     return TrainState(step, state.params, state.mu, state.nu), metrics

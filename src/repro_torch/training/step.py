@@ -27,28 +27,31 @@ AUX_WEIGHT = 0.01
 
 def make_loss_fn(cfg: ModelConfig):
     """loss_fn(params, batch) -> (loss + AUX_WEIGHT * aux, {"loss",
-    "aux"}): the mean next-token NLL of ``batch["tokens"]`` (B,S)."""
-    if cfg.frontend:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend} loss is not ported to PyTorch "
-            f"yet (ROADMAP.md Queue A item 5)")
-    if cfg.moe.n_routed or cfg.attn_kind == "mla":
-        raise NotImplementedError(
-            f"{cfg.name}: training MoE and MLA models is not ported to "
-            f"PyTorch yet: the port serves them (ROADMAP.md Queue A item "
-            f"10: the aux loss in the step, flash_attention_bwd at head "
-            f"dim 192)")
+    "aux"}), the JAX package's loss: the mean next-token NLL of
+    ``batch["tokens"]`` (B,S), with the MoE layers' load-balancing aux.
+    ``encodec_stub``: tokens (B,S,CB), each codebook of the next frame
+    predicted, the NLL averaged over the codebooks; ``vit_stub``:
+    ``batch["patches"]`` (B,n,d) take the first positions, which the mean
+    leaves out (positions < ``cfg.n_patches``)."""
 
     def loss_fn(params, batch):
         tokens = batch["tokens"]
-        logits, aux = T.forward(cfg, params, tokens)
+        logits, aux = T.forward(cfg, params, tokens,
+                                patches=batch.get("patches"))
         logits = logits.float()
-        tgt = tokens[:, 1:].long()
-        lg = logits[:, :-1]
+        tgt = tokens[:, 1:].long()          # (B,S-1), or (B,S-1,CB)
+        lg = logits[:, :-1]                 # (B,S-1,V), or (B,S-1,CB,V)
         logz = torch.logsumexp(lg, dim=-1)
         ll = torch.gather(lg, -1, tgt[..., None])[..., 0]
-        nll = logz - ll                              # (B,S-1)
-        mask = torch.ones_like(nll)
+        nll = logz - ll
+        mask = torch.ones(nll.shape[:2], dtype=torch.float32,
+                          device=nll.device)
+        if cfg.frontend == "vit_stub":
+            # image-patch positions don't contribute to the LM loss
+            pos = torch.arange(nll.shape[1], device=nll.device)
+            mask = mask * (pos >= cfg.n_patches)[None, :]
+        if nll.ndim == 3:
+            nll = nll.mean(-1)
         loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
         return loss + AUX_WEIGHT * aux, {"loss": loss, "aux": aux}
     return loss_fn

@@ -611,21 +611,75 @@ def test_selective_scan_kernel_rejects_what_it_does_not_take(card):
     assert KS.launches == before
 
 
-def test_selective_scan_refuses_grad_on_the_card(card):
-    """The scan kernel has no backward: CUDA inputs that require grad
-    raise instead of returning outputs that autograd cannot
-    differentiate; without grad it launches as before."""
-    from repro_torch.kernels.mamba_scan import kernel as KS
-    a = torch.full((1, 8, 4, 2), 0.9, device=card)
-    b = torch.randn((1, 8, 4, 2), device=card, requires_grad=True)
-    C = torch.randn((1, 8, 2), device=card)
-    before = KS.launches
-    with pytest.raises(NotImplementedError, match="Queue B item 3"):
-        KS.selective_scan(a, b, C)
-    assert KS.launches == before
+def _scan_bwd_inputs(card, B, S, di, ds, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(x.astype(np.float32)).to(card) for x in (
+        rng.uniform(0.5, 0.99, (B, S, di, ds)),
+        rng.standard_normal((B, S, di, ds)) * 0.1,
+        rng.standard_normal((B, S, ds)),
+        rng.standard_normal((B, di, ds)),
+        rng.standard_normal((B, S, di)),
+        rng.standard_normal((B, di, ds)))]
+
+
+@pytest.mark.parametrize("B,S,di,ds,nonzero", [
+    (1, 64, 32, 8, False),          # whole chunks of 16 steps
+    (2, 100, 48, 16, True),         # S not a multiple of 16
+    (1, 1, 16, 16, True),           # one step
+    (2, 37, 100, 5, True),          # ds not a power of two, ragged di
+    (1, 19, 64, 32, False),         # a whole warp per channel
+    (3, 8, 33, 1, True),            # 32 channels a warp
+    (1, 1000, 1000, 8, True),       # many CTAs: dC summed across 32
+    (1, 4096, 64, 16, False),       # the training packet's S
+])
+def test_selective_scan_bwd_kernel_matches_plain(card, B, S, di, ds,
+                                                 nonzero):
+    """The backward kernel, fed the states the forward keeps, against the
+    plain backward; two calls bitwise equal and equal to a call that has
+    the forward write the states again."""
+    from repro_torch.kernels.mamba_scan import kernel as KS, ref as RS
+    a, b, C, h0, dy, dhT = _scan_bwd_inputs(card, B, S, di, ds, S + di)
+    if not nonzero:
+        h0 = dhT = None
+    y, h, states = KS.selective_scan_fwd(a, b, C, h0, keep_states=True)
+    yr, hr = RS.selective_scan(a, b, C, h0)
+    torch.testing.assert_close(y, yr, **SCAN_TOL)
+    before = KS.bwd_launches
+    got = KS.selective_scan_bwd(a, b, C, h0, dy, dhT, states)
+    again = KS.selective_scan_bwd(a, b, C, h0, dy, dhT, states)
+    fresh = KS.selective_scan_bwd(a, b, C, h0, dy, dhT)
+    torch.cuda.synchronize()
+    assert KS.bwd_launches == before + 3
+    want = RS.selective_scan_bwd_ref(a, b, C, h0, dy, dhT)
+    for name, g, r, f, w in zip(("da", "db", "dC", "dh0"), got, again,
+                                fresh, want):
+        assert torch.equal(g, r) and torch.equal(g, f), name
+        top = float(w.abs().max())
+        err = float((g - w).abs().max())
+        assert err <= 1e-4 * top + 1e-5, (name, err, top)
+
+
+def test_selective_scan_records_its_backward_on_the_card(card):
+    """Under grad, CUDA inputs that require grad run the forward keeping
+    its states and record the backward kernel: autograd's gradients are
+    the backward kernel's, and the plain scan's to rounding; h_T unused
+    (dhT None)."""
+    from repro_torch.kernels.mamba_scan import kernel as KS, ref as RS
+    a, b, C, h0, dy, _ = _scan_bwd_inputs(card, 2, 50, 40, 16, 9)
+    leaves = [t.clone().requires_grad_() for t in (a, b, C, h0)]
+    fwd, bwd = KS.launches, KS.bwd_launches
+    y, h = KS.selective_scan(*leaves)
+    assert y.grad_fn is not None and KS.launches == fwd + 1
+    grads = torch.autograd.grad((y * dy).sum(), leaves)
+    torch.cuda.synchronize()
+    assert KS.bwd_launches == bwd + 1
+    want = RS.selective_scan_bwd_ref(a, b, C, h0, dy)
+    for name, g, w in zip(("da", "db", "dC", "dh0"), grads, want):
+        top = float(w.abs().max())
+        assert float((g - w).abs().max()) <= 1e-4 * top + 1e-5, name
     with torch.no_grad():
-        y, h = KS.selective_scan(a, b, C)
-    assert KS.launches == before + 1 and y.grad_fn is None
+        y, h = KS.selective_scan(*leaves)
+    assert y.grad_fn is None and KS.launches == fwd + 2
 
 
 def test_mamba_model_on_card_matches_host(card):
@@ -701,6 +755,56 @@ def test_train_step_on_card_matches_host(card):
                          host.params.parameters()):
         torch.testing.assert_close(p.detach().cpu(), q.detach(), rtol=1e-4,
                                    atol=1e-5, msg=n)
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "jamba-v0.1-52b",
+                                  "internvl2-1b", "musicgen-large"])
+def test_family_train_step_on_card_matches_host(card, arch):
+    """One ``make_train_step`` step of a smoke family in float32 (TF32
+    off) on the card and on the host from the same weights: on the card
+    two scan launches (forward and rematerialised recompute) and one
+    backward call a Mamba layer; loss, aux and gradient norm agree, and
+    the updated parameters within 1e-3 of each one's largest |value|
+    plus 2 lr (AdamW's first step may flip the sign of a move where a
+    gradient lies within both sides' rounding of zero)."""
+    import copy
+    from repro_torch.configs import get_smoke
+    from repro_torch.data.pipeline import SyntheticPipeline
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels.mamba_scan import kernel as KS
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw as A
+    from repro_torch.training.step import make_train_step
+    cfg = get_smoke(arch)
+    opt = A.OptConfig(lr=1e-3, warmup_steps=1)
+    host = A.init_state(T.init_params(cfg, torch.Generator().manual_seed(0)),
+                        opt)
+    dev = A.init_state(copy.deepcopy(host.params).to(card), opt)
+    batch = SyntheticPipeline(cfg, ShapeConfig("t", 40, 4, "train")
+                              ).batch_at(0)
+    step = make_train_step(cfg, opt)
+    n_mamba = sum(cfg.mixer_kind(i) == "mamba" for i in range(cfg.n_layers))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        host, mh = step(host, {k: torch.from_numpy(v)
+                               for k, v in batch.items()})
+        fwd, bwd = KS.launches, KS.bwd_launches
+        dev, md = step(dev, {k: torch.from_numpy(v).to(card)
+                             for k, v in batch.items()})
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert (KS.launches - fwd, KS.bwd_launches - bwd) == (2 * n_mamba,
+                                                          n_mamba)
+    for k in ("loss", "aux", "grad_norm"):
+        np.testing.assert_allclose(float(md[k]), float(mh[k]), rtol=1e-4,
+                                   atol=1e-7)
+    for (n, p), q in zip(dev.params.named_parameters(),
+                         host.params.parameters()):
+        tol = 1e-3 * float(q.detach().abs().max())
+        assert float((p.detach().cpu() - q.detach()).abs().max()) <= (
+            tol + 2 * opt.lr), n
 
 
 # ------------------------------------ device groups sharing one card

@@ -5,8 +5,8 @@ experts, at the smoke capacity factor (no drops) and at the published
 1.25 (drops), the auxiliary loss included; the deepseek-v2-lite-16b
 (MLA + MoE) and dbrx-132b (GQA + MoE) smoke models' forward, prefill,
 teacher-forced decode, greedy tokens through a replica and parameter
-counts; and the refusals that keep MoE/MLA training and the CUDA scan's
-missing backward from running.  Tolerance: rtol/atol 2e-4, that of
+counts; what ``check_supported`` refuses, and the plain scan's gradient.
+(MoE and MLA training: ``tests/test_torch_train_families.py``.)  Tolerance: rtol/atol 2e-4, that of
 ``tests/test_torch_model.py``."""
 from dataclasses import replace
 
@@ -28,7 +28,6 @@ from repro_torch.kernels.mamba_scan import kernel as KS
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.convert import params_from_jax
-from repro_torch.training.step import make_loss_fn
 
 TOL = dict(rtol=2e-4, atol=2e-4)
 ARCHS = ["deepseek-v2-lite-16b", "dbrx-132b"]
@@ -230,12 +229,6 @@ def test_launch_serve_deepseek_smoke_on_cpu(capsys):
 
 
 # ------------------------------------------------- refusals and guards
-@pytest.mark.parametrize("arch", ARCHS)
-def test_training_refuses_moe_and_mla(arch):
-    with pytest.raises(NotImplementedError, match="Queue A item 10"):
-        make_loss_fn(get_smoke(arch))
-
-
 # The case ids keep the names of the families these cases once found
 # refused; ``refused`` is what ``check_supported`` names now (None: it
 # accepts the config).
@@ -269,9 +262,9 @@ def test_check_supported_names_what_is_missing(arch, cut, refused):
 
 
 def test_plain_scan_keeps_its_gradient():
-    """The CUDA scan refuses inputs that require grad (it has no
-    backward); the plain version, which CPU tensors take, still carries
-    the gradient to every input."""
+    """The plain version, which CPU tensors take, carries the gradient
+    to every input (on a card the backward kernel does:
+    ``tests/test_torch_cuda.py``)."""
     g = torch.Generator().manual_seed(0)
     a = (0.5 + 0.4 * torch.rand(1, 6, 4, 3, generator=g)).requires_grad_()
     b = torch.randn(1, 6, 4, 3, generator=g, requires_grad=True)
