@@ -1,8 +1,13 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py            # the paper's sizes, one card
-    python3 chip_smoke.py --small    # small sizes: a quick build-and-run
+    python3 chip_smoke.py                # the paper's sizes, one card
+    python3 chip_smoke.py --small        # small sizes: a quick build-and-run
+    python3 chip_smoke.py --phase fleet  # the build and phase 8a alone
+
+The whole script took 440-561 s of command time on one H100 before phase
+8a, which adds about 40 s; ``--phase fleet`` builds the kernels and runs
+phase 8a alone, prints no kernels line, and takes about a minute.
 
 Phases, each fatal on failure:
 
@@ -94,6 +99,32 @@ Phases, each fatal on failure:
    kernel on the device for one ``flash_decode`` call at the serving
    shape (a trace that lacks the spin kernels around its window has
    lost events and is taken again, up to 3 times);
+8a. the fleet tier: llama3.2-1b at full width (``--small``: 2 of its 16
+    layers) in bfloat16, random weights from seed 0, served through
+    ``repro_torch.fleet.FleetServer`` by three ``ReplicaWorker``s whose
+    replicas share one copy of the weights on ``cuda:0``: ``w0``
+    (throttle 1, declared 4 requests/s), ``w1`` (throttle 2, 2/s) and
+    ``spare`` (throttle 1, 4/s), the autoscaler's standby; each worker a
+    ``CoexecServer`` (``hguided_deadline``, lws 4, 32 tokens, no
+    shedding at the worker), the router ``deadline`` placement with
+    ``shed`` admission, ``ElasticAutoscaler`` with ``FLEET_SCALE``'s
+    times (sized by the card's rounds) and at most 3 workers.  48
+    requests (``--small``: 16), prompt 256, SLO 600 s: 32 (12) at t=0,
+    16 (4) by a Poisson process at 2/s (seed 0) after them.  Each replica
+    is warmed up and the counters set to 0 before ``FleetServer.run``.
+    All must be served and none shed; dispatch namespaced by worker and
+    summing to the requests; at least one scale-up of ``spare``, which
+    must serve; every session group on ``cuda:0`` at the start, before
+    and after each scale event and after the run; exactly one
+    ``flash_attention`` launch per layer and prefill and one
+    ``flash_decode`` launch per layer and decode step, and no other; the
+    first 4 requests of each worker equal on a fresh replica.  Logs the
+    served time, tokens/s, p50/p99, SLO attainment, requests per worker,
+    each group's times, a batch's time in the fleet against alone (the
+    GIL and the card shared by three workers' threads), the scale
+    events, the router's predicted finish against the measured, peak
+    memory, and ``simulate_fleet`` on the same requests at the measured
+    per-worker powers beside the measured attainment and p99;
 9. serve falcon-mamba-7b at full width (``--small``: 2 of its 64 layers)
    in bfloat16 with the set-up of phase 6.  All must be served; the launch
    counters, set to 0 after a warm-up, must show one ``selective_scan``
@@ -240,9 +271,9 @@ Phases, each fatal on failure:
     1b with 256 patch positions, which the loss leaves out; musicgen's
     loss averaged over its codebooks).
 
-Phases 18–25 add their launches to the records of ``flash_attention``,
-``flash_attention_bwd``, ``flash_decode`` and ``selective_scan``
-(``launches_by_path``); phase 22's record is ``selective_scan_bwd``,
+Phases 8a and 18–25 add their launches to the records of
+``flash_attention``, ``flash_attention_bwd``, ``flash_decode`` and
+``selective_scan`` (``launches_by_path``); phase 22's record is ``selective_scan_bwd``,
 whose launches are phases 23–25's.  The line
 before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  It exits non-zero, printing no result,
@@ -869,6 +900,250 @@ def serving_phases(args, torch, dev0, launches, record):
                res["nbytes"], res["ops"], res["library_ms"],
                res["shape"] + " (serving shape)", res["ops_per_s"],
                long_shape=long_entry(lng), **more)
+
+
+# the fleet phase (8a): workers (name, throttle, declared requests/s); the
+# last is the autoscaler's standby
+FLEET_WORKERS = (("w0", 1.0, 4.0), ("w1", 2.0, 2.0), ("spare", 1.0, 4.0))
+FLEET = dict(burst=32, tail=16, rate=2.0, slo=600.0)
+SMALL_FLEET = dict(burst=12, tail=4, rate=2.0, slo=600.0)
+# the autoscaler's times, sized by the card's rounds (a packet of 4
+# requests, prefill and 32 tokens, takes ~0.3-1 s on the shared card), not
+# by the simulator's defaults
+FLEET_SCALE = dict(target_delay_s=1.0, breach_s=0.5, warmup_s=0.5,
+                   cooldown_s=1.0, idle_s=2.0, max_replicas=3)
+FLEET_TIMEOUT_S = 300.0
+# requests of each worker held against a fresh replica
+FLEET_INVARIANT = 4
+
+
+def fleet_phase(args, torch, dev0, launches):
+    """Serve llama3.2-1b through ``repro_torch.fleet.FleetServer``: three
+    workers on the card sharing one copy of the weights, the third a
+    standby that the autoscaler brings in during the burst.  Records the
+    phase's launch counts in ``launches`` under "llama3.2-1b fleet"."""
+    import threading
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.simulate import SimConfig, SimDevice
+    from repro_torch.fleet import (AutoscaleConfig, ElasticAutoscaler,
+                                   FleetServer, ReplicaWorker, RouterConfig,
+                                   SimReplica, simulate_fleet)
+    from repro_torch.serve import (Replica, RequestQueue, ServerConfig,
+                                   make_requests, percentile,
+                                   poisson_arrivals)
+
+    cfg = get_config("llama3.2-1b")
+    if args.small:
+        cfg = replace(cfg, n_layers=2)
+    traffic = SMALL_FLEET if args.small else FLEET
+    P, gen, lws = (SERVE[k] for k in ("prompt", "gen", "lws"))
+    n_burst, n_tail = traffic["burst"], traffic["tail"]
+    n_req = n_burst + n_tail
+    counters = counted_kernels()
+    params = make_params(torch, dev0, cfg)
+
+    class CountingReplica(Replica):
+        """Counts prefill calls and decode steps of ``serve`` and sums its
+        host-clock seconds (the throttle's sleep is the server's, outside
+        it)."""
+        calls = steps = 0
+        serve_s = 0.0
+
+        def serve(self, prompts, gen, cache_len=None):
+            t0 = time.perf_counter()
+            toks = super().serve(prompts, gen, cache_len)
+            self.serve_s += time.perf_counter() - t0
+            self.calls += 1
+            self.steps += gen
+            return toks
+
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (n_req, P)).astype(np.int32)
+    arrivals = ([0.0] * n_burst
+                + poisson_arrivals(n_tail, traffic["rate"],
+                                   np.random.default_rng(0)))
+    scfg = ServerConfig(scheduler="hguided_deadline", lws=lws, gen=gen,
+                        warmup=False)
+    reps, workers = {}, []
+    for name, throttle, power in FLEET_WORKERS:
+        rep = CountingReplica(f"{name}.r", cfg, params, throttle=throttle,
+                              device=dev0)
+        # warm-up (first launches, library plans) outside the counted run
+        rep.serve(np.stack([prompts[0]] * lws), gen, P + gen)
+        rep.calls = rep.steps = 0
+        rep.serve_s = 0.0
+        reps[name] = rep
+        workers.append(ReplicaWorker(name, [rep], scfg,
+                                     declared_power=power))
+    torch.cuda.synchronize()
+    asc = ElasticAutoscaler(AutoscaleConfig(**FLEET_SCALE))
+    standby = [FLEET_WORKERS[-1][0]]
+    fleet = FleetServer(workers, RouterConfig(placement="deadline",
+                                              admit="shed"),
+                        autoscaler=asc, standby=standby)
+
+    groups = {}                  # every group a session held, by identity
+    off_card = []                # (when, group) of any group not on dev0
+
+    def look(when):
+        for w in workers:
+            for g in w.server.session.devices:
+                groups[id(g)] = (w.name, g)
+                if not (g.is_cuda and g.device == dev0):
+                    off_card.append((when, w.name, g.name, str(g.device)))
+
+    apply_scale = fleet.router.on_scale
+
+    def apply_and_look(ev):
+        look(f"before {ev.action} {ev.replica}")
+        apply_scale(ev)
+        look(f"after {ev.action} {ev.replica}")
+
+    fleet.router.on_scale = apply_and_look
+    look("at start")
+    reqs = make_requests(arrivals, slo=traffic["slo"],
+                         prompt_fn=lambda i: prompts[i])
+    held_gb = torch.cuda.memory_allocated(dev0) / 1e9
+    torch.cuda.reset_peak_memory_stats(dev0)
+    box = {}
+
+    def run():
+        try:
+            box["out"] = fleet.run(RequestQueue(reqs))
+        except BaseException as e:      # re-raised below, on this thread
+            box["error"] = e
+
+    for k in counters.values():
+        k.launches = 0
+    t_run = time.perf_counter()
+    runner = threading.Thread(target=run, name="fleet-run", daemon=True)
+    runner.start()
+    runner.join(FLEET_TIMEOUT_S)
+    check(not runner.is_alive(),
+          f"fleet: run still going after {FLEET_TIMEOUT_S:.0f} s")
+    if "error" in box:
+        raise box["error"]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_run
+    counts = {name: k.launches for name, k in counters.items()}
+    look("after the run")
+    peak_gb = torch.cuda.max_memory_allocated(dev0) / 1e9
+    out = box["out"]
+    st = out.stats
+    calls = sum(r.calls for r in reps.values())
+    steps = sum(r.steps for r in reps.values())
+    launches["llama3.2-1b fleet"] = counts
+
+    # ------------------------------------------------------------ checks
+    check(st.served == n_req and st.shed == 0,
+          f"fleet: {st.served} of {n_req} served, {st.shed} shed")
+    check(all(k.split(":")[0] in reps for k in st.dispatch)
+          and sum(st.dispatch.values()) == n_req,
+          f"fleet: dispatch {st.dispatch}")
+    ups = [e for e in fleet.router.scale_events if e.action == "up"]
+    spare = standby[0]
+    check(any(e.replica == spare for e in ups),
+          f"fleet: no scale-up of {spare} "
+          f"({[(e.t, e.action, e.replica) for e in asc.events]})")
+    served_by = {}
+    for r in out.requests:
+        served_by.setdefault(r.replica.split(".")[0], []).append(r)
+    check(len(served_by.get(spare, [])) > 0, f"fleet: {spare} served none")
+    check(not off_card, f"fleet: groups off {dev0}: {off_card}")
+    want = {"flash_attention": cfg.n_layers * calls,
+            "flash_decode": cfg.n_layers * steps}
+    for name, n in counts.items():
+        check(n == want.get(name, 0),
+              f"fleet: {n} {name} launches for {calls} prefills and "
+              f"{steps} decode steps of {cfg.n_layers} layers (expected "
+              f"{want.get(name, 0)})")
+    toks = np.stack([out.results[r.rid] for r in reqs])
+    check(toks.shape == (n_req, gen) and int(toks.min()) >= 0
+          and int(toks.max()) < cfg.vocab_size,
+          f"fleet: tokens of shape {toks.shape} out of range")
+
+    # replica invariance: each worker's first requests on a fresh replica,
+    # padded to the server's packet as the server pads them
+    fresh = Replica("ref", cfg, params, device=dev0)
+    alone_s = []
+    for name, served in sorted(served_by.items()):
+        first = sorted(served, key=lambda r: (r.finish, r.rid))
+        first = first[:FLEET_INVARIANT]
+        rows = [r.prompt for r in first]
+        rows += [rows[-1]] * (lws - len(rows))
+        t0 = time.perf_counter()
+        got = fresh.serve(np.stack(rows), gen, P + gen)[:len(first)]
+        alone_s.append(time.perf_counter() - t0)
+        check(np.array_equal(got, np.stack([out.results[r.rid]
+                                            for r in first])),
+              f"fleet: {name}'s tokens not replica-invariant")
+    alone = min(alone_s)
+
+    # --------------------------------------------------------------- logs
+    lat = [r.latency for r in out.requests]
+    log(f"fleet: {n_req} requests ({n_burst} at t=0, {n_tail} at "
+        f"{traffic['rate']:g}/s after), served {st.served}, shed {st.shed} "
+        f"in {st.duration:.3f} s ({wall:.3f} s wall), "
+        f"{st.served * gen / st.duration:.1f} tokens/s, p50 "
+        f"{percentile(lat, 50):.3f} s, p99 {percentile(lat, 99):.3f} s, "
+        f"SLO attainment {st.slo_attainment:.3f}; {calls} prefills, {steps} "
+        f"decode steps, launches "
+        + " ".join(f"{name} {n}" for name, n in counts.items())
+        + f"; peak memory {peak_gb:.2f} GB ({held_gb:.2f} GB allocated "
+        f"before the run)")
+    log("fleet: requests per worker " + json.dumps(
+        {n: len(v) for n, v in sorted(served_by.items())})
+        + f", dispatch {st.dispatch}")
+    # a binary submit resets busy_time and packets_done: they are the last
+    # round's; kernel_time sums every packet since the group was attached
+    log("fleet: groups (last round's host-clock busy s and packets; "
+        "between their stream's events s over the run): " + "; ".join(
+            f"{w}/{g.name} {g.busy_time:.3f} / {g.packets_done} / "
+            f"{g.kernel_time:.3f}" for w, g in groups.values()))
+    log(f"fleet: a batch of {lws} (prefill and {gen} tokens) alone on a "
+        f"fresh replica {alone:.3f} s; in the fleet, with {len(workers)} "
+        f"workers' threads sharing the GIL and the card (batches, serve s, "
+        f"s a batch, against alone): " + "; ".join(
+            f"{n} {r.calls} / {r.serve_s:.3f} / "
+            f"{r.serve_s / max(r.calls, 1):.3f} / "
+            f"{r.serve_s / max(r.calls, 1) / alone:.2f}x"
+            for n, r in reps.items()))
+    log("fleet: scale events (t s, action, worker, queue delay s): "
+        + "; ".join(f"{e.t:.3f} {e.action} {e.replica} "
+                    f"{e.queue_delay_s:.3f}" for e in asc.events)
+        + f"; {json.dumps(asc.summary())}")
+    err = [r.finish - fleet.router.predicted[r.rid] for r in out.requests]
+    log(f"fleet: router's predicted finish against the measured: mean "
+        f"error {np.mean(err):+.3f} s, mean |error| "
+        f"{np.mean(np.abs(err)):.3f} s, max |error| "
+        f"{np.max(np.abs(err)):.3f} s")
+
+    # the fleet simulator on the same requests, its replicas at the
+    # measured per-worker powers (logged beside the run, not a gate)
+    powers = {w.name: w.measured_power() or w.declared_power
+              for w in workers}
+    sim_reps = [SimReplica(w.name, [SimDevice(f"{w.name}.d", powers[w.name])],
+                           lws=lws) for w in workers]
+    sim = simulate_fleet(
+        make_requests(arrivals, slo=traffic["slo"]), sim_reps,
+        SimConfig(scheduler="hguided_deadline", seed=0),
+        RouterConfig(placement="deadline", admit="shed"),
+        autoscaler=ElasticAutoscaler(AutoscaleConfig(**FLEET_SCALE)),
+        standby=standby)
+    ss = sim.stats
+    log(f"fleet: simulate_fleet at the measured powers "
+        f"{json.dumps({k: round(v, 3) for k, v in powers.items()})} "
+        f"requests/s: served {ss.served}, attainment "
+        f"{ss.slo_attainment:.3f} (measured {st.slo_attainment:.3f}), p50 "
+        f"{ss.p50_latency:.3f} s (measured {st.p50_latency:.3f}), p99 "
+        f"{ss.p99_latency:.3f} s (measured {st.p99_latency:.3f}), duration "
+        f"{ss.duration:.3f} s (measured {st.duration:.3f}), scale events "
+        + "; ".join(f"{e.t:.3f} {e.action} {e.replica}"
+                    for e in sim.scale_events))
+    del fleet, workers, reps, fresh, params, out
+    torch.cuda.empty_cache()
 
 
 def mamba_phases(args, torch, dev0, launches, record):
@@ -2856,10 +3131,19 @@ def host_phase(args, torch, dev0, attach, host_runs, build_s):
                 build_s=build_s[0], gxx_s=build_s[1], ray=entries["ray"])
 
 
+def device_line(torch) -> str:
+    return json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--small", action="store_true",
                     help="small sizes instead of the paper's")
+    ap.add_argument("--phase", choices=["fleet"],
+                    help="build, then run this phase alone (a quicker "
+                         "check; prints no kernels line)")
     args = ap.parse_args()
 
     import torch
@@ -2907,6 +3191,14 @@ def main() -> int:
     host_build_s = (time.perf_counter() - t0, host_build.build_seconds)
     log(f"host build: {host_build_s[0]:.2f} s wall (g++ "
         f"{host_build_s[1]:.2f} s)")
+
+    if args.phase == "fleet":
+        paths = {}
+        fleet_phase(args, torch, dev0, paths)
+        log(f"fleet launches: {json.dumps(paths)}")
+        print(smi)
+        print(device_line(torch))
+        return 0
 
     sizes = SMALL_SIZES if args.small else PAPER_SIZES
     kernels = {"gaussian": KG, "binomial": KB, "mandelbrot": KM,
@@ -3206,16 +3498,18 @@ def main() -> int:
     host_info = host_phase(args, torch, dev0, attach, host_runs,
                            host_build_s)
     serving_phases(args, torch, dev0, launches, record)
+    paths = {}
+    fleet_phase(args, torch, dev0, paths)
     mamba_phases(args, torch, dev0, launches, record)
     training_phases(args, torch, dev0, launches, attach)
     attention_bwd_phase(args, torch, dev0, record)
     mla_phases(args, torch, dev0, record)
-    paths = {}
     paths["jamba-v0.1-52b"], jamba_a, jamba_d = jamba_phases(args, torch,
                                                              dev0)
     paths["internvl2-1b"], g7_a, g7_d = vlm_phase(args, torch, dev0)
     paths["musicgen-large"], mg_a, mg_d = audio_phase(args, torch, dev0)
-    # phases 18-21 add their paths' launches to the three kernels' records
+    # phases 8a and 18-21 add their paths' launches to the three kernels'
+    # records
     for rec in records:
         if rec["name"] not in SERVED_KERNELS:
             continue
@@ -3277,9 +3571,7 @@ def main() -> int:
 
     print(json.dumps({"kernels": records, "host": host_info}))
     print(smi)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+    print(device_line(torch))
     return 0
 
 

@@ -3,9 +3,9 @@
 Open-loop request workloads (workload.py) dispatched across heterogeneous
 model replicas by the paper's scheduler stack (server.py), with a shared
 accounting path (stats.py).  Replicas (replica.py) run the port's model
-on a card, or on the host when the caller asks for ``device="cpu"``.  The
-JAX package's discrete-event twin (core/simulate.py::simulate_serving) is
-a later slice of the port.
+on a card, or on the host when the caller asks for ``device="cpu"``.  Its
+discrete-event twin is core/simulate.py::simulate_serving; the fleet tier
+(``repro_torch.fleet``) routes requests across several servers.
 """
 from repro_torch.serve.admission import AdmissionConfig, EdfAdmission
 from repro_torch.serve.replica import Replica

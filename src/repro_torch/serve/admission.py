@@ -6,8 +6,7 @@ procedure runs at every level of the stack:
 * the replica server (``CoexecServer``) admits its local dispatch round
   with it (``unit_work=True`` — the threaded server prices every request
   at one work-group, matching the requests/s scale of its EWMA powers);
-* the fleet router (the JAX package's ``fleet.FleetRouter``; its port is
-  a later slice) admits against the
+* the fleet router (``repro_torch.fleet.FleetRouter``) admits against the
   *aggregate* fleet capacity and residual before placement — shedding is
   decided at the router, not the replica;
 * the discrete-event serving simulator accepts one as an injection hook
