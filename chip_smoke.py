@@ -4,10 +4,12 @@
     python3 chip_smoke.py                # the paper's sizes, one card
     python3 chip_smoke.py --small        # small sizes: a quick build-and-run
     python3 chip_smoke.py --phase fleet  # the build and phase 8a alone
+    python3 chip_smoke.py --phase plan   # the build and phases 26-30 alone
 
-The whole script took 440-561 s of command time on one H100 before phase
-8a, which adds about 40 s; ``--phase fleet`` builds the kernels and runs
-phase 8a alone, prints no kernels line, and takes about a minute.
+The whole script took 637 s of command time on one H100 with phases 26-30
+(planning every cell takes about 80 s of it); ``--phase fleet`` builds the
+kernels and runs phase 8a alone and ``--phase plan`` phases 26-30 (about
+2.5 minutes), printing no kernels line.
 
 Phases, each fatal on failure:
 
@@ -269,12 +271,39 @@ Phases, each fatal on failure:
     ``HeteroDPTrainer`` with the launch counts of phase 23 and finite
     losses; card against host in float32 on 2 layers of each (internvl2-
     1b with 256 patch positions, which the loss leaves out; musicgen's
-    loss averaged over its codebooks).
+    loss averaged over its codebooks);
+26. plan every arch x shape cell of ``launch.dryrun`` on one card (1, 1)
+    and four (1, 4) in ``PLAN_WORKERS`` processes on the host (each
+    cell's step on the ``meta`` device): per-device argument bytes,
+    predicted peak and flops logged;
+27. hold llama3.2-1b's training cell (phase 12's 8 x 4,096 tokens, one
+    row a microbatch) against its plan: the bytes the state and tokens
+    ask of the caching allocator (``requested_bytes``) equal the planned
+    argument bytes and ``memory_allocated`` their 512-byte rounding plus
+    the allocator's unsplit remainders (at most 1 MiB a tensor); the
+    peak of one ``make_train_step`` (``max_memory_allocated``) within
+    ``PLAN_PEAK_TOL`` of the planned one; the plan's flops over each
+    step's time over the card's 989e12 (the model-FLOP share);
+28. hold ``flash_attention_bwd`` at MLA's head dim 192 against its plain
+    version (bfloat16 at 2e-2, float32 at 1e-4 of each output's largest
+    |value|; ragged S, G = 2), timed at B=1 S=4096 H=KH=16 beside SDPA's
+    backward;
+29. deepseek-v2-lite-16b at full width on its first 3 layers (the dense
+    one and two MoE; 1.670 B parameters), its rows chosen by the plan
+    (4 x 4,096 tokens unless two groups' packets would not fit): the
+    plan held against one ``make_train_step`` as in 27, then trained in
+    bfloat16 through ``HeteroDPTrainer`` as phase 23 (3 ``flash_attention``
+    x 2 and 3 ``flash_attention_bwd`` launches a packet), each step's
+    model-FLOP share logged;
+30. card against host in float32 on its first 2 layers, batch 1 x 256,
+    as phase 24, every token routed alike.
 
 Phases 8a and 18–25 add their launches to the records of
 ``flash_attention``, ``flash_attention_bwd``, ``flash_decode`` and
 ``selective_scan`` (``launches_by_path``); phase 22's record is ``selective_scan_bwd``,
-whose launches are phases 23–25's.  The line
+whose launches are phases 23–25's; phase 28's is ``flash_attention_bwd_d192``,
+whose launches are phase 29's, which also adds its forward launches to
+``flash_attention_d192`` and both to the records of all head dims.  The line
 before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  It exits non-zero, printing no result,
 without a card or outside a checkout of the repository.
@@ -1843,7 +1872,8 @@ def hetero_train(torch, dev0, cfg, seq, batch, steps, label,
     steady = reports[1:] or reports
     step_s = sum(r.step_time_s for r in steady) / len(steady)
     summary = dict(step_s=step_s, tokens_s=batch * seq / step_s, busy=busy,
-                   peak_gb=peak / 1e9, launches=run, losses=losses)
+                   peak_gb=peak / 1e9, launches=run, losses=losses,
+                   step_times=[r.step_time_s for r in reports])
     log(f"train {label}: losses {[round(x, 4) for x in losses]}; steps "
         f"2-{len(reports)} {step_s:.3f} s a step, "
         f"{batch * seq / step_s:.0f} tokens/s; rows {rows}; peak memory "
@@ -2187,6 +2217,256 @@ def frontend_train_phase(args, torch, dev0):
                                    if "patches" in batch else "") + ")")
         del head, p32
     return summaries, attn
+
+
+# ------------------------------- the planner and MLA training (26-30)
+# the caching allocator's largest unsplit remainder of a block (bytes)
+ALLOC_UNSPLIT = 1 << 20
+# the planner's meshes: one card, and four cards of one host
+PLAN_MESHES = ("h100", "h100x4")
+# processes that plan the cells on the host (the machine's 8 cores)
+PLAN_WORKERS = 8
+# the planned peak of a training step against the card's
+# max_memory_allocated: |measured / planned - 1| at most this (found on
+# the card: llama3.2-1b's cell 1.0025, deepseek's 1.0002; PERF.md)
+PLAN_PEAK_TOL = 0.02
+# deepseek-v2-lite-16b trained at full width on its first 3 layers (the
+# dense one, two MoE), TRAIN_4K's 256 rows cut to 4 as llama's are to 8,
+# fewer if the plan says two groups' packets do not fit the card
+DEEPSEEK_TRAIN = dict(layers=3, batch=4, seq=4096, steps=4)
+# the share of the card's memory the state and two packets may fill
+PLAN_FILL = 0.85
+# card against host in float32 on the first 2 layers, 1 x 256 tokens
+DEEPSEEK_PARITY_LAYERS = 2
+
+
+def _plan_cell(cell):
+    """One cell's records on ``PLAN_MESHES`` (a worker of phase 26)."""
+    from repro_torch.launch import dryrun as D
+    return D.plan_meshes(*cell, mesh_names=PLAN_MESHES)
+
+
+def plan_phase(args):
+    """26. Plan every cell on one card and four; returns the records."""
+    import multiprocessing as mp
+
+    from repro_torch.launch import dryrun as D
+
+    # the training cells (the longest steps on meta) first
+    cells = sorted(D.cell_list(), key=lambda c: not c[1].startswith("train"))
+    t0 = time.perf_counter()
+    with mp.get_context("spawn").Pool(PLAN_WORKERS) as pool:
+        recs = [r for pair in pool.map(_plan_cell, cells, chunksize=1)
+                for r in pair]
+    wall = time.perf_counter() - t0
+    for r in recs:
+        check(r["flops"] > 0 and r["argument_bytes_per_device"] > 0,
+              f"plan {r['arch']} x {r['shape']} x {r['mesh']}: empty")
+        calls = {k: int(v["calls"]) for k, v in r["kernels"].items()}
+        log(f"plan {r['arch']} x {r['shape']} x {r['mesh']}: arguments "
+            f"{r['argument_bytes_per_device'] / 1e9:.3f} GB a device "
+            f"({', '.join(f'{k} {v / 1e9:.3f}' for k, v in r['per_device_bytes'].items())}), "
+            f"predicted peak {r['predicted_peak_bytes_per_device'] / 1e9:.3f}"
+            f" GB a device, flops {r['flops']:.4e} ({r['flops_per_device']:.4e}"
+            f" a device, dots {r['dot_flops']:.4e}), traffic "
+            f"{r['traffic_bytes']:.4e} B, kernels {calls}; the step on meta "
+            f"in {r['meta_run_s']:.1f} s")
+    log(f"plan: {len(cells)} cells x {len(PLAN_MESHES)} meshes in "
+        f"{wall:.1f} s wall ({PLAN_WORKERS} processes, meta device)")
+    return recs
+
+
+def plan_against_card(torch, dev0, cfg, shape, rec, label, steps=2):
+    """Build the training cell's state and tokens on the card and hold
+    them against the plan ``rec`` (one card): the bytes asked of the
+    caching allocator equal the planned argument bytes, and
+    ``memory_allocated`` their 512-byte rounding plus at most the
+    allocator's unsplit remainder (``ALLOC_UNSPLIT``) a tensor; then
+    ``steps`` of
+    ``make_train_step`` with the plan's microbatches, the first's peak
+    (``max_memory_allocated``) within ``PLAN_PEAK_TOL`` of the planned
+    peak; each step's model-FLOP share (the plan's flops over the step's
+    time over the card's bfloat16 peak).  Returns a summary."""
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.training.step import make_train_step
+
+    free_card(torch, dev0, f"plan against the card, {label}")
+    torch.cuda.synchronize(dev0)
+
+    def stats():
+        st = torch.cuda.memory_stats(dev0)
+        return st["allocated_bytes.all.current"], st.get(
+            "requested_bytes.all.current")
+
+    alloc0, req0 = stats()
+    opt = OptConfig(**TRAIN_OPT)
+    state = adamw.init_state(
+        T.init_params(cfg, torch.Generator(dev0).manual_seed(0)), opt)
+    gen = torch.Generator(dev0).manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size,
+                           (shape.global_batch, shape.seq_len),
+                           generator=gen, device=dev0, dtype=torch.int32)
+    torch.cuda.synchronize(dev0)
+    alloc1, req1 = stats()
+    args_alloc = alloc1 - alloc0
+    want, want_alloc = (rec["argument_bytes_per_device"],
+                        rec["argument_bytes_allocated"])
+    if req0 is not None:
+        check(req1 - req0 == want,
+              f"plan {label}: the state and tokens asked for "
+              f"{req1 - req0} bytes, planned {want}")
+    # the allocator hands a request of more than 1 MiB a whole block when
+    # what would be left of it is 1 MiB or less: up to 1 MiB a tensor
+    n_large = sum(t.numel() * t.element_size() > ALLOC_UNSPLIT
+                  for part in (list(state.params.parameters()),
+                               list(state.mu.values()),
+                               list(state.nu.values()), [tokens])
+                  for t in part)
+    log(f"plan {label}: arguments {want} bytes planned, {want_alloc} "
+        f"rounded to 512; on the card {None if req0 is None else req1 - req0}"
+        f" requested, {args_alloc} allocated (allocated - rounded "
+        f"{args_alloc - want_alloc} bytes, {n_large} tensors above 1 MiB)")
+    check(0 <= args_alloc - want_alloc <= n_large * ALLOC_UNSPLIT,
+          f"plan {label}: {args_alloc} bytes allocated, planned "
+          f"{want_alloc} rounded")
+    step = make_train_step(cfg, opt, accum_steps=rec["accum_steps"])
+    torch.cuda.reset_peak_memory_stats(dev0)
+    times, shares = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        state, m = step(state, {"tokens": tokens})
+        torch.cuda.synchronize(dev0)
+        times.append(time.perf_counter() - t0)
+        shares.append(rec["flops"] / times[-1] / BF16_OPS_S)
+        if i == 0:
+            peak = torch.cuda.max_memory_allocated(dev0) - alloc0
+        check(math.isfinite(float(m["loss"])),
+              f"plan {label}: loss {float(m['loss'])}")
+        log(f"plan {label} step {i}: loss {float(m['loss']):.4f}, "
+            f"{times[-1]:.3f} s, model-FLOP share {shares[-1]:.4f} "
+            f"({rec['flops']:.4e} planned flops / step time / 989e12)")
+    want_peak = rec["predicted_peak_bytes_per_device"]
+    ratio = peak / want_peak
+    log(f"plan {label}: peak of one step {peak / 1e9:.3f} GB "
+        f"(max_memory_allocated over the state's start), planned "
+        f"{want_peak / 1e9:.3f} GB (arguments {want_alloc / 1e9:.3f} + "
+        f"step {rec['step_peak_bytes'] / 1e9:.3f}), measured/planned "
+        f"{ratio:.4f} (limit 1 +- {PLAN_PEAK_TOL})")
+    check(abs(ratio - 1) <= PLAN_PEAK_TOL,
+          f"plan {label}: peak {peak} against {want_peak} planned")
+    del state, tokens, step
+    return dict(args_bytes=want, args_allocated=args_alloc, peak=peak,
+                planned_peak=want_peak, peak_ratio=ratio, step_s=times,
+                flop_share=shares)
+
+
+def llama_plan_phase(args, torch, dev0):
+    """27. llama3.2-1b's training cell (phase 12's) against its plan."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_test_mesh
+
+    cfg = get_config("llama3.2-1b")
+    if args.small:
+        cfg = replace(cfg, n_layers=2)
+    shape = ShapeConfig("train_4096_batch8", TRAIN["seq"], TRAIN["batch"],
+                        "train", accum_steps=TRAIN["batch"])
+    rec = D.plan(cfg, shape, make_test_mesh(1))
+    return plan_against_card(torch, dev0, cfg, shape, rec, cfg.name)
+
+
+def mla_bwd_phase(args, torch, dev0):
+    """28. ``flash_attention_bwd`` at MLA's head dim against its plain
+    version; the timed shape's measurements."""
+    from repro_torch.configs import get_config
+    cfg = get_config("deepseek-v2-lite-16b")
+    m = cfg.mla
+    H, D = cfg.n_heads, m.nope_head_dim + m.rope_head_dim
+    gen_t = torch.Generator(dev0).manual_seed(12)
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen_t, device=dev0).to(dtype)
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    log(f"flash_attention_bwd at MLA's head dim {D} against its plain "
+        f"version:")
+    S = 1024 if args.small else TRAIN["seq"]
+    res = attn_bwd_check(torch, randn, 1, S, H, H, D, bf16, timed=True)
+    attn_bwd_check(torch, randn, 2, 1000, H, H, D, bf16)       # ragged S
+    attn_bwd_check(torch, randn, 1, 1000, H, H, D, f32)
+    attn_bwd_check(torch, randn, 2, 77, 4, 2, D, bf16)         # G = 2
+    attn_bwd_check(torch, randn, 2, 77, 4, 2, D, f32)
+    return res
+
+
+def deepseek_train_phases(args, torch, dev0):
+    """29-30. deepseek-v2-lite-16b trained at full width on a cut depth,
+    its rows chosen by the plan; card against host.  Returns (the
+    training run's summary, the plan check's)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticPipeline
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import transformer as T
+
+    free_card(torch, dev0, "deepseek training phases")
+    full = get_config("deepseek-v2-lite-16b")
+    cfg = replace(full, n_layers=DEEPSEEK_TRAIN["layers"])
+    check([cfg.mlp_kind(i) for i in range(cfg.n_layers)]
+          == ["dense", "moe", "moe"], "deepseek training: the cut's layers")
+    S = 1024 if args.small else DEEPSEEK_TRAIN["seq"]
+    total = torch.cuda.get_device_properties(dev0).total_memory
+    for rows in range(DEEPSEEK_TRAIN["batch"], 0, -1):
+        shape = ShapeConfig(f"train_{S}_batch{rows}", S, rows, "train",
+                            accum_steps=rows)
+        rec = D.plan(cfg, shape, make_test_mesh(1))
+        # the state, and two groups each with a packet of one row in
+        # flight and its gradients' sums
+        need = rec["argument_bytes_allocated"] + 2 * rec["step_peak_bytes"]
+        log(f"plan {cfg.name} ({cfg.n_layers} of {full.n_layers} layers) "
+            f"x {rows} x {S}: arguments "
+            f"{rec['argument_bytes_allocated'] / 1e9:.3f} GB, a packet "
+            f"{rec['step_peak_bytes'] / 1e9:.3f} GB, two groups "
+            f"{need / 1e9:.3f} GB of the card's {total / 1e9:.1f} GB "
+            f"(fill limit {PLAN_FILL})")
+        if need <= PLAN_FILL * total:
+            break
+    check(need <= PLAN_FILL * total, "deepseek training: no rows fit")
+    card = plan_against_card(torch, dev0, cfg, shape, rec,
+                             f"{cfg.name} ({cfg.n_layers} layers)")
+
+    # ---------------- 29: train at full width, 3 layers, bf16, 2 groups
+    params, summary = hetero_train(
+        torch, dev0, cfg, S, rows, DEEPSEEK_TRAIN["steps"],
+        f"{cfg.name} ({cfg.n_layers} of {full.n_layers} layers)",
+        held_out=True)
+    summary["flop_share"] = [rec["flops"] / t / BF16_OPS_S
+                             for t in summary["step_times"]]
+    log(f"train {cfg.name}: model-FLOP share a step "
+        f"{[round(x, 4) for x in summary['flop_share']]} ({rec['flops']:.4e}"
+        f" planned flops a step / step time / 989e12)")
+
+    # --------------------- 30: card against host, f32, the first layers
+    free_card(torch, dev0, "deepseek training parity")
+    n = DEEPSEEK_PARITY_LAYERS
+    p32 = T.LM(params.embed, list(params.layers[:n]), params.final_norm,
+               params.lm_head).to(torch.float32)
+    del params
+    cfg32 = replace(cfg, n_layers=n, dtype="float32")
+    batch = SyntheticPipeline(cfg32, ShapeConfig(
+        "parity", TRAIN_PARITY_SEQ, 1, "train")).batch_at(0)
+    train_card_against_host(torch, dev0, cfg32, p32, batch,
+                            f"{cfg.name} ({n} layers)")
+    del p32
+    return summary, card
 
 
 # ------------------------------------------------------------ training path
@@ -3141,9 +3421,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--small", action="store_true",
                     help="small sizes instead of the paper's")
-    ap.add_argument("--phase", choices=["fleet"],
-                    help="build, then run this phase alone (a quicker "
-                         "check; prints no kernels line)")
+    ap.add_argument("--phase", choices=["fleet", "plan"],
+                    help="build, then run this phase alone (fleet: 8a; "
+                         "plan: 26-30) as a quicker check; prints no "
+                         "kernels line")
     args = ap.parse_args()
 
     import torch
@@ -3196,6 +3477,17 @@ def main() -> int:
         paths = {}
         fleet_phase(args, torch, dev0, paths)
         log(f"fleet launches: {json.dumps(paths)}")
+        print(smi)
+        print(device_line(torch))
+        return 0
+
+    if args.phase == "plan":
+        plan_phase(args)
+        checks = {"llama3.2-1b": llama_plan_phase(args, torch, dev0)}
+        mla_bwd_phase(args, torch, dev0)
+        run, checks["deepseek-v2-lite-16b"] = deepseek_train_phases(
+            args, torch, dev0)
+        log(f"deepseek training launches: {json.dumps(run['launches'])}")
         print(smi)
         print(device_line(torch))
         return 0
@@ -3532,6 +3824,14 @@ def main() -> int:
     trained["falcon-mamba-7b"] = falcon_train_phase(args, torch, dev0)
     front, front_b = frontend_train_phase(args, torch, dev0)
     trained.update(front)
+
+    # phases 26-30: the planner, then MLA's backward and deepseek trained
+    plan_phase(args)
+    plan_checks = {"llama3.2-1b": llama_plan_phase(args, torch, dev0)}
+    mla_b = mla_bwd_phase(args, torch, dev0)
+    ds_run, plan_checks["deepseek-v2-lite-16b"] = deepseek_train_phases(
+        args, torch, dev0)
+    trained["deepseek-v2-lite-16b"] = ds_run
     by_path = {k: {f"{m} training": t["launches"][k]
                    for m, t in trained.items() if t["launches"][k]}
                for k in train_kernels()}
@@ -3557,6 +3857,28 @@ def main() -> int:
              else SERVED_KERNELS[rec["name"]]): rec["launches"]}
         by.update(extra)
         rec.update(launches=sum(by.values()), launches_by_path=by)
+    ds_path = "deepseek-v2-lite-16b training"
+    ds_l = ds_run["launches"]
+    record("flash_attention_bwd_d192",
+           "src/repro_torch/csrc/flash_attention_bwd.cu",
+           "src/repro/kernels/flash_attention/kernel.py:69", mla_b["err"],
+           mla_b["ms"], mla_b["plain_ms"], mla_b["nbytes"], mla_b["ops"],
+           mla_b["library_ms"], mla_b["shape"] + " (MLA's training packet "
+           "of one row)", mla_b["ops_per_s"],
+           n_launches=ds_l["flash_attention_bwd"],
+           launches_by_path={ds_path: ds_l["flash_attention_bwd"]},
+           replaces_note="the gradient of that kernel's function at MLA's "
+                         "head dim: the JAX package differentiates its jnp "
+                         "attention (src/repro/models/layers.py:315-335) "
+                         "with jax.value_and_grad",
+           library_note="torch.autograd.grad through one "
+                        "F.scaled_dot_product_attention(is_causal=True), "
+                        "the backward alone")
+    d192 = next(r for r in records if r["name"] == "flash_attention_d192")
+    by = d192.get("launches_by_path") or {
+        "deepseek-v2-lite-16b serving": d192["launches"]}
+    by[ds_path] = ds_l["flash_attention"]
+    d192.update(launches=sum(by.values()), launches_by_path=by)
     attach("flash_attention_bwd",
            jamba_shape=long_entry(jamba_b, "jamba-v0.1-52b's heads"),
            g7_shape=long_entry(front_b["internvl2-1b"],
@@ -3566,6 +3888,10 @@ def main() -> int:
     log("training table: " + json.dumps(
         {m: {k: t[k] for k in ("step_s", "tokens_s", "busy", "peak_gb")}
          for m, t in trained.items()}))
+    log("plan against the card: " + json.dumps(
+        {m: {k: c[k] for k in ("args_bytes", "args_allocated", "peak",
+                               "planned_peak", "peak_ratio", "flop_share")}
+         for m, c in plan_checks.items()}))
     leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "repro")]
     check(not leaked, f"the port imported {leaked}")
 

@@ -27,11 +27,11 @@
 //       reading o and do once.
 //   (b) dK and dV, a CTA per (batch, kv head, key tile), heaviest tiles
 //       (key tile 0, the most query rows) launched first;
-//   (c) dQ, a CTA per query tile (of all G heads of a kv head in
-//       bfloat16, of one head in float32), longest key range first.
+//   (c) dQ, a CTA per query tile (of all G heads of a kv head on wgmma,
+//       of one head on FMAs), longest key range first.
 //
-// bfloat16 (D of 64, 80 or 128), the training path: (b) and (c) on
-// wgmma, each CTA three warpgroups: two consumers of 64 rows and a
+// bfloat16 (D of 64, 80 or 128), the dense models' training path: (b)
+// and (c) on wgmma, each CTA three warpgroups: two consumers of 64 rows and a
 // producer whose one thread issues TMA loads into a three-slot ring
 // guarded by full and empty mbarriers (setmaxnreg gives the consumers 240
 // registers and leaves the producer 24).  The two consumers take turns
@@ -65,14 +65,20 @@
 //   Across (b) and (c) that is 7 products of the causal half against the
 //   bound's 5: dQ's own S and dP are the price of having no atomics.
 //
-// float32 (0 < D <= 128), for the card-against-host parity checks at
-// 1e-4 (tensor cores in float32 would be TF32): (b) bwd_dkdv_kernel and
-// (c) bwd_dq_kernel on float32 FMAs, 256 threads on 64 x 64 tiles staged
-// in shared memory; in the S-shaped products thread (tr, tc) = (tid/16,
-// tid%16) owns rows tr + 16*ii and columns tc + 16*jj, so a warp's float4
-// reads of K (row stride DP + 4 floats) hit distinct banks and its reads
-// of Q are broadcasts.  dK/dV by (batch, kv head, 64-key tile) over the
-// G heads; dQ by (batch, head, 64-row tile).
+// float32 (0 < D <= 192), for the card-against-host parity checks at
+// 1e-4 (tensor cores in float32 would be TF32), and bfloat16 at D = 192
+// (MLA's 128 nope + 64 rope columns, v zero-padded to them): (b)
+// bwd_dkdv_kernel and (c) bwd_dq_kernel on float32 FMAs, 256 threads on
+// 64 x 64 tiles staged in shared memory as float32 (bfloat16 converted as
+// it is read, the gradients rounded to it as they are written); in the
+// S-shaped products thread (tr, tc) = (tid/16, tid%16) owns rows tr +
+// 16*ii and columns tc + 16*jj, so a warp's float4 reads of K (row stride
+// DP + 4 floats) hit distinct banks and its reads of Q are broadcasts.
+// dK/dV by (batch, kv head, 64-key tile) over the G heads; dQ by (batch,
+// head, 64-row tile).  At DP = 192 the four tiles take 196 KB, so dK/dV's
+// P and dS share one buffer in turn (218 KB in all).  On wgmma at D = 192
+// the dK and dV accumulators of a 64-key consumer alone would take 192
+// registers a thread: that design is queued (ROADMAP.md Queue B).
 //
 // Positions past S (a ragged last tile, any S) and head columns past D
 // (D = 80 runs padded: to two 64-column atoms on wgmma, to 96 on FMAs)
@@ -163,21 +169,61 @@ constexpr int kThreads = 256;
 constexpr int kT = 64;          // rows of a query tile = keys of a key tile
 constexpr int kPS = kT + 4;     // row stride (floats) of the P / dS tiles
 
-// Tile of kT positions x DP columns of a (B, S, NH, D) tensor at
-// (b, p0, head) into shared memory (row stride DP + 4), zero-filled past S
-// and past D.
-template <int DP>
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// Tile of kT positions x DP columns of a (B, S, NH, D) tensor of T at
+// (b, p0, head) into shared memory as float32 (row stride DP + 4),
+// zero-filled past S and past D: 16-byte loads where D is a whole number
+// of them (every row then starts 16-byte aligned), else one element at a
+// time.
+template <int DP, typename T>
 __device__ __forceinline__ void load_tile(float* dst,
-                                          const float* __restrict__ src,
+                                          const T* __restrict__ src,
                                           int b, int p0, int head, int S,
                                           int NH, int D) {
   constexpr int LS = DP + 4;
+  constexpr int V = 16 / sizeof(T);  // elements of a 16-byte load
+  static_assert(DP % V == 0, "a row is whole 16-byte loads");
+  if (D % V == 0) {
+    for (int idx = threadIdx.x; idx < kT * DP / V; idx += kThreads) {
+      const int r = idx / (DP / V), d = (idx - r * (DP / V)) * V;
+      const int p = p0 + r;
+      float x[V];
+      if (p < S && d < D) {
+        const uint4 u = *reinterpret_cast<const uint4*>(
+            src + ((static_cast<size_t>(b) * S + p) * NH + head) * D + d);
+        const T* e = reinterpret_cast<const T*>(&u);
+#pragma unroll
+        for (int i = 0; i < V; ++i) x[i] = to_float(e[i]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < V; ++i) x[i] = 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < V; i += 4)
+        *reinterpret_cast<float4*>(dst + r * LS + d + i) =
+            make_float4(x[i], x[i + 1], x[i + 2], x[i + 3]);
+    }
+    return;
+  }
   for (int idx = threadIdx.x; idx < kT * DP; idx += kThreads) {
     const int r = idx / DP, d = idx - r * DP;
     const int p = p0 + r;
     float x = 0.f;
     if (p < S && d < D)
-      x = src[((static_cast<size_t>(b) * S + p) * NH + head) * D + d];
+      x = to_float(src[((static_cast<size_t>(b) * S + p) * NH + head) * D +
+                       d]);
     dst[r * LS + d] = x;
   }
 }
@@ -242,10 +288,10 @@ __device__ __forceinline__ void cols_accum(float (&acc)[4][DP / 16],
 }
 
 // rows 4 rr + r, columns 2 dc + 32 (c/2) + c%2 of acc * mul into a
-// (B, S, NH, D) tensor at (b, p0, head), rows past S and columns past D
-// dropped
-template <int DP>
-__device__ __forceinline__ void store_rows(float* __restrict__ dst,
+// (B, S, NH, D) tensor of T at (b, p0, head), rows past S and columns past
+// D dropped
+template <int DP, typename T>
+__device__ __forceinline__ void store_rows(T* __restrict__ dst,
                                            const float (&acc)[4][DP / 16],
                                            float mul, int b, int p0, int head,
                                            int S, int NH, int D, int rr,
@@ -254,11 +300,11 @@ __device__ __forceinline__ void store_rows(float* __restrict__ dst,
   for (int r = 0; r < 4; ++r) {
     const int p = p0 + 4 * rr + r;
     if (p >= S) continue;
-    float* row = dst + ((static_cast<size_t>(b) * S + p) * NH + head) * D;
+    T* row = dst + ((static_cast<size_t>(b) * S + p) * NH + head) * D;
 #pragma unroll
     for (int c = 0; c < DP / 16; ++c) {
       const int d = 2 * dc + 32 * (c / 2) + (c % 2);
-      if (d < D) row[d] = acc[r][c] * mul;
+      if (d < D) row[d] = from_float<T>(acc[r][c] * mul);
     }
   }
 }
@@ -268,17 +314,16 @@ __host__ __device__ constexpr size_t tile_floats() {
   return static_cast<size_t>(kT) * (DP + 4);
 }
 
-// S and dP of one (query tile, key tile) pair into P and dS:
-// P = exp2(S*scale_log2 - lse2), dS = P (dP - D_i), zero where masked.
-// Writes them at W[i][j] (transposed false) or W[j][i] (true).
+// S and dP of one (query tile, key tile) pair into P and dS, in
+// registers: P = exp2(S*scale_log2 - lse2), dS = P (dP - D_i), zero where
+// masked; element (ii, jj) is query row tr + 16 ii, key tc + 16 jj.
 template <int DP>
 __device__ __forceinline__ void probs_and_dscores(
-    float* sP, float* sDS, const float* sQ, const float* sDO, const float* sK,
-    const float* sV, const float* sLse, const float* sDsum, int q0, int k0,
-    int S, float scale_log2, int tr, int tc, bool transposed) {
-  float s[4][4], dp[4][4];
-  rows_dot<DP>(s, sQ, sK, tr, tc);
-  rows_dot<DP>(dp, sDO, sV, tr, tc);
+    float (&p)[4][4], float (&ds)[4][4], const float* sQ, const float* sDO,
+    const float* sK, const float* sV, const float* sLse, const float* sDsum,
+    int q0, int k0, int S, float scale_log2, int tr, int tc) {
+  rows_dot<DP>(p, sQ, sK, tr, tc);
+  rows_dot<DP>(ds, sDO, sV, tr, tc);
 #pragma unroll
   for (int ii = 0; ii < 4; ++ii) {
     const int i = tr + 16 * ii;
@@ -286,20 +331,27 @@ __device__ __forceinline__ void probs_and_dscores(
     const float lse = sLse[i], di = sDsum[i];
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj) {
-      const int j = tc + 16 * jj;
-      const int kp = k0 + j;
-      float p = 0.f;
-      if (kp <= qp && kp < S && qp < S) p = exp2f(s[ii][jj] * scale_log2 - lse);
-      const float ds = p * (dp[ii][jj] - di);
-      if (transposed) {
-        if (sP) sP[j * kPS + i] = p;
-        sDS[j * kPS + i] = ds;
-      } else {
-        sP[i * kPS + j] = p;
-        sDS[i * kPS + j] = ds;
-      }
+      const int kp = k0 + tc + 16 * jj;
+      float pv = 0.f;
+      if (kp <= qp && kp < S && qp < S)
+        pv = exp2f(p[ii][jj] * scale_log2 - lse);
+      ds[ii][jj] = pv * (ds[ii][jj] - di);
+      p[ii][jj] = pv;
     }
   }
+}
+
+// x (as probs_and_dscores lays it out) at W[i][j], or W[j][i] when
+// transposed, row stride kPS
+__device__ __forceinline__ void put_tile(float* W, const float (&x)[4][4],
+                                         int tr, int tc, bool transposed) {
+#pragma unroll
+  for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int i = tr + 16 * ii, j = tc + 16 * jj;
+      W[transposed ? j * kPS + i : i * kPS + j] = x[ii][jj];
+    }
 }
 
 // the tile's rows' lse2 and D_i into shared memory
@@ -316,28 +368,38 @@ __device__ __forceinline__ void load_row_stats(float* sLse, float* sDsum,
   }
 }
 
+// Past D = 128 the four 64-row tiles take 196 KB at DP = 192, so P and
+// dS share one buffer in turn: dV's product reads P, then dS is written
+// over it for dK's.
+template <int DP>
+__host__ __device__ constexpr bool one_pds_buffer() {
+  return DP > 128;
+}
+
 template <int DP>
 constexpr size_t dkdv_smem_bytes() {
-  return (4 * tile_floats<DP>() + 2 * static_cast<size_t>(kT) * kPS +
+  return (4 * tile_floats<DP>() +
+          (one_pds_buffer<DP>() ? 1 : 2) * static_cast<size_t>(kT) * kPS +
           2 * kT) * sizeof(float);
 }
 
 // dK, dV of one 64-key tile of one kv head, over the G heads
-template <int DP>
+template <int DP, typename T>
 __global__ void __launch_bounds__(kThreads)
-bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                const float* __restrict__ v, const float* __restrict__ dout,
+bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                const T* __restrict__ v, const T* __restrict__ dout,
                 const float* __restrict__ lse2,
-                const float* __restrict__ dsum, float* __restrict__ dk,
-                float* __restrict__ dv, int S, int H, int KH, int D,
+                const float* __restrict__ dsum, T* __restrict__ dk,
+                T* __restrict__ dv, int S, int H, int KH, int D,
                 float scale_log2, float scale) {
+  constexpr bool kOne = one_pds_buffer<DP>();
   extern __shared__ float4 smem4[];
   float* sK = reinterpret_cast<float*>(smem4);
   float* sV = sK + tile_floats<DP>();
   float* sQ = sV + tile_floats<DP>();
   float* sDO = sQ + tile_floats<DP>();
   float* sP = sDO + tile_floats<DP>();
-  float* sDS = sP + kT * kPS;
+  float* sDS = kOne ? sP : sP + kT * kPS;
   float* sLse = sDS + kT * kPS;
   float* sDsum = sLse + kT;
   const int bkh = blockIdx.x;
@@ -365,10 +427,18 @@ bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       load_tile<DP>(sDO, dout, b, q0, h, S, H, D);
       load_row_stats(sLse, sDsum, lse2, dsum, b, h, q0, S, H);
       __syncthreads();
-      probs_and_dscores<DP>(sP, sDS, sQ, sDO, sK, sV, sLse, sDsum, q0, k0, S,
-                            scale_log2, tr, tc, false);
+      float p[4][4], ds[4][4];
+      probs_and_dscores<DP>(p, ds, sQ, sDO, sK, sV, sLse, sDsum, q0, k0, S,
+                            scale_log2, tr, tc);
+      put_tile(sP, p, tr, tc, false);
+      if (!kOne) put_tile(sDS, ds, tr, tc, false);
       __syncthreads();
       cols_accum<DP>(adv, sP, sDO, tr, tc);
+      if (kOne) {
+        __syncthreads();  // P is read: dS takes its place
+        put_tile(sDS, ds, tr, tc, false);
+        __syncthreads();
+      }
       cols_accum<DP>(adk, sDS, sQ, tr, tc);
     }
   }
@@ -383,12 +453,12 @@ constexpr size_t dq_smem_bytes() {
 }
 
 // dQ of one 64-row query tile of one head
-template <int DP>
+template <int DP, typename T>
 __global__ void __launch_bounds__(kThreads)
-bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, const float* __restrict__ dout,
+bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, const T* __restrict__ dout,
               const float* __restrict__ lse2, const float* __restrict__ dsum,
-              float* __restrict__ dq, int S, int H, int KH, int D,
+              T* __restrict__ dq, int S, int H, int KH, int D,
               float scale_log2, float scale) {
   extern __shared__ float4 smem4[];
   float* sQ = reinterpret_cast<float*>(smem4);
@@ -421,37 +491,46 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     load_tile<DP>(sK, k, b, k0, kh, S, KH, D);
     load_tile<DP>(sV, v, b, k0, kh, S, KH, D);
     __syncthreads();
-    probs_and_dscores<DP>(nullptr, sDST, sQ, sDO, sK, sV, sLse, sDsum, q0, k0,
-                          S, scale_log2, tr, tc, true);
+    float p[4][4], ds[4][4];
+    probs_and_dscores<DP>(p, ds, sQ, sDO, sK, sV, sLse, sDsum, q0, k0, S,
+                          scale_log2, tr, tc);
+    put_tile(sDST, ds, tr, tc, true);
     __syncthreads();
     cols_accum<DP>(adq, sDST, sK, tr, tc);
   }
   store_rows<DP>(dq, adq, scale, b, q0, h, S, H, D, tr, tc);
 }
 
-template <int DP>
-cudaError_t launch_f32(const float* q, const float* k, const float* v,
-                       const float* dout, const float* lse2,
-                       const float* dsum, float* dq, float* dk, float* dv,
+// (b) and (c) on FMAs over tiles of T (float32, or bfloat16 at D = 192)
+template <int DP, typename T>
+cudaError_t launch_fma(const void* q, const void* k, const void* v,
+                       const void* dout, const float* lse2,
+                       const float* dsum, void* dq, void* dk, void* dv,
                        int B, int S, int H, int KH, int D, float scale_log2,
                        float scale, cudaStream_t stream) {
   const int n_t = (S + kT - 1) / kT;
   const int dkdv_smem = static_cast<int>(dkdv_smem_bytes<DP>());
   const int dq_smem = static_cast<int>(dq_smem_bytes<DP>());
   cudaError_t err = cudaFuncSetAttribute(
-      bwd_dkdv_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bwd_dkdv_kernel<DP, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       dkdv_smem);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(bwd_dq_kernel<DP>,
+  err = cudaFuncSetAttribute(bwd_dq_kernel<DP, T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              dq_smem);
   if (err != cudaSuccess) return err;
-  bwd_dkdv_kernel<DP><<<dim3(B * KH, n_t), kThreads, dkdv_smem, stream>>>(
-      q, k, v, dout, lse2, dsum, dk, dv, S, H, KH, D, scale_log2, scale);
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const T* dot = static_cast<const T*>(dout);
+  bwd_dkdv_kernel<DP, T><<<dim3(B * KH, n_t), kThreads, dkdv_smem, stream>>>(
+      qt, kt, vt, dot, lse2, dsum, static_cast<T*>(dk), static_cast<T*>(dv),
+      S, H, KH, D, scale_log2, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  bwd_dq_kernel<DP><<<dim3(B * H, n_t), kThreads, dq_smem, stream>>>(
-      q, k, v, dout, lse2, dsum, dq, S, H, KH, D, scale_log2, scale);
+  bwd_dq_kernel<DP, T><<<dim3(B * H, n_t), kThreads, dq_smem, stream>>>(
+      qt, kt, vt, dot, lse2, dsum, static_cast<T*>(dq), S, H, KH, D,
+      scale_log2, scale);
   return cudaGetLastError();
 }
 
@@ -1054,7 +1133,8 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
 }  // namespace
 
 // q, o, dout, dq: (B, S, H, D); k, v, dk, dv: (B, S, KH, D); float32 or
-// bfloat16 (is_bf16: D of 64, 80 or 128), contiguous and 16-byte aligned.
+// bfloat16 (is_bf16: D of 64, 80, 128 or 192), contiguous and 16-byte
+// aligned.
 // lse2: float32 (B, H, S), each row's log-sum-exp of its scaled scores in
 // base 2, as the forward writes it.  scratch: B*H*S float32 (the rows'
 // D_i), written and read by the call.
@@ -1066,11 +1146,11 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    int KH, int D, int is_bf16,
                                    void* stream) {
   if (B < 1 || S < 1 || KH < 1 || H < KH || H % KH != 0 || H / KH > 64 ||
-      D < 1 || D > 128 || static_cast<long long>(B) * H > (1ll << 31) - 1 ||
+      D < 1 || D > 192 || static_cast<long long>(B) * H > (1ll << 31) - 1 ||
       (S + kT - 1) / kT > 65535 ||
-      (is_bf16 && (D != 64 && D != 80 && D != 128)) ||
-      (is_bf16 && (S + kPacked / (H / KH) - 1) / (kPacked / (H / KH)) >
-                      65535)) {
+      (is_bf16 && (D != 64 && D != 80 && D != 128 && D != 192)) ||
+      (is_bf16 && D != 192 &&
+       (S + kPacked / (H / KH) - 1) / (kPacked / (H / KH)) > 65535)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1096,6 +1176,10 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (is_bf16 && D == 192)
+    return static_cast<int>(launch_fma<192, __nv_bfloat16>(
+        q, k, v, dout, l2, dsum, dq, dk, dv, B, S, H, KH, D, scale_log2,
+        scale, st));
   if (is_bf16) {
     if (D == 64)
       err = launch_wgmma<64>(q, k, v, dout, l2, dsum, dq, dk, dv, B, S, H, KH,
@@ -1108,21 +1192,17 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
                               KH, scale_log2, scale, st);
     return static_cast<int>(err);
   }
-  const float* qf = static_cast<const float*>(q);
-  const float* kf = static_cast<const float*>(k);
-  const float* vf = static_cast<const float*>(v);
-  const float* df = static_cast<const float*>(dout);
-  float* dqf = static_cast<float*>(dq);
-  float* dkf = static_cast<float*>(dk);
-  float* dvf = static_cast<float*>(dv);
   if (D <= 64)
-    err = launch_f32<64>(qf, kf, vf, df, l2, dsum, dqf, dkf, dvf, B, S, H, KH,
-                         D, scale_log2, scale, st);
+    err = launch_fma<64, float>(q, k, v, dout, l2, dsum, dq, dk, dv, B, S, H,
+                                KH, D, scale_log2, scale, st);
   else if (D <= 96)
-    err = launch_f32<96>(qf, kf, vf, df, l2, dsum, dqf, dkf, dvf, B, S, H, KH,
-                         D, scale_log2, scale, st);
+    err = launch_fma<96, float>(q, k, v, dout, l2, dsum, dq, dk, dv, B, S, H,
+                                KH, D, scale_log2, scale, st);
+  else if (D <= 128)
+    err = launch_fma<128, float>(q, k, v, dout, l2, dsum, dq, dk, dv, B, S, H,
+                                 KH, D, scale_log2, scale, st);
   else
-    err = launch_f32<128>(qf, kf, vf, df, l2, dsum, dqf, dkf, dvf, B, S, H,
-                          KH, D, scale_log2, scale, st);
+    err = launch_fma<192, float>(q, k, v, dout, l2, dsum, dq, dk, dv, B, S, H,
+                                 KH, D, scale_log2, scale, st);
   return static_cast<int>(err);
 }

@@ -167,10 +167,29 @@ def launch(name: str, on, *args) -> None:
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
 
 
-def check_cuda(name: str, t, dtype, ndim: int) -> None:
+def tally(table: dict, name: str, flops: float, nbytes: float, *,
+          dot_flops: float = 0.0, transcendentals: float = 0.0) -> None:
+    """Add one call's work to ``table[name]`` (a wrapper's ``meta_cost``,
+    kept as its ``launches`` is): what a wrapper given ``meta`` tensors
+    records where a CUDA call would launch, by the formulas of the
+    kernel's bound (its least operations and bytes)."""
+    t = table.setdefault(name, dict(calls=0, flops=0.0, dot_flops=0.0,
+                                    transcendentals=0.0, bytes=0.0))
+    t["calls"] += 1
+    t["flops"] += flops
+    t["dot_flops"] += dot_flops
+    t["transcendentals"] += transcendentals
+    t["bytes"] += nbytes
+
+
+def check_cuda(name: str, t, dtype, ndim: int, meta_ok: bool = False
+               ) -> None:
     """A wrapper's argument check: raise on what the kernel does not
-    take (a tensor off the card, another dtype or rank, a strided view)."""
-    if t.device.type != "cuda":
+    take (a tensor off the card, another dtype or rank, a strided view).
+    With ``meta_ok`` a ``meta`` tensor passes too: it stands for a card's
+    tensor in a plan, which the wrapper answers without a launch
+    (:func:`tally`)."""
+    if t.device.type != "cuda" and not (meta_ok and t.device.type == "meta"):
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")

@@ -18,10 +18,15 @@ is :func:`flash_attention_bwd`.  Without grad (serving, prefill) the
 forward stores no log-sum-exp.  CPU tensors take the plain version
 ``attention_ref``, which autograd differentiates.
 
-Head dim 192 (MLA's prefill: 128 nope + 64 rope columns, v zero-padded)
-runs forward only: the backward kernel stops at 128, so a CUDA call at D
-> 128 that would record a gradient raises ``NotImplementedError`` before
-it launches anything (MLA training: ROADMAP.md Queue A item 10).
+Head dim 192 (MLA: 128 nope + 64 rope columns, v zero-padded) runs its
+forward on ``wgmma`` and its backward on float32 FMAs over tiles read
+from bfloat16, as the float32 backward runs at every D.
+
+``meta`` tensors stand for the card's in a plan (``launch/dryrun.py``):
+the forward and the backward then make only what the kernels make (the
+outputs, the kept log-sum-exp, the backward's D_i scratch; never the
+plain version's S x S scores) and add the kernels' least operations and
+bytes, the formulas of their bounds, to ``meta_cost``.
 
 ``launches`` counts the forward kernel's launches and ``bwd_launches``
 the backward's calls (three kernels each), and nothing else."""
@@ -34,11 +39,12 @@ from repro_torch.kernels.flash_attention import ref as R
 
 launches = 0
 bwd_launches = 0
+meta_cost: dict = {}    # build.tally of the calls on meta tensors
 
 MAX_HEAD_DIM = 192
 # the wgmma kernel's: every dense config's, and MLA's 128 + 64
 BF16_HEAD_DIMS = (64, 80, 128, 192)
-BWD_MAX_HEAD_DIM = 128  # the backward kernel's
+BWD_MAX_HEAD_DIM = 192  # the backward kernel's
 MAX_GROUP = 64          # query heads per kv head: one CTA holds >= 1 position
 
 
@@ -49,7 +55,7 @@ def _check(name, q, k, v, *more):
                         f"got {q.dtype}")
     ts = (("q", q), ("k", k), ("v", v)) + more
     for tn, t in ts:
-        build.check_cuda(f"{name} {tn}", t, q.dtype, 4)
+        build.check_cuda(f"{name} {tn}", t, q.dtype, 4, meta_ok=True)
         if t.device != q.device:
             raise ValueError(f"{name}: {tn} on another device")
     B, S, H, D = q.shape
@@ -67,7 +73,7 @@ def _check(name, q, k, v, *more):
                          f"{q.dtype} not supported (H % KH == 0, H/KH <= "
                          f"{MAX_GROUP}, D <= {MAX_HEAD_DIM}; bfloat16: D in "
                          f"{BF16_HEAD_DIMS})")
-    if any(t.data_ptr() % 16 for _, t in ts):
+    if q.device.type != "meta" and any(t.data_ptr() % 16 for _, t in ts):
         raise ValueError(f"{name}: {', '.join(n for n, _ in ts)} must be "
                          f"16-byte aligned")
     return B, S, H, KH, D
@@ -82,7 +88,13 @@ def flash_attention_fwd(q, k, v, keep_lse=False):
     out = torch.empty_like(q)
     lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
            if keep_lse else None)
-    if B and S:
+    if q.device.type == "meta":
+        ops = 4.0 * B * H * D * S * (S + 1) / 2
+        nbytes = q.element_size() * 2 * B * S * D * (H + KH)
+        build.tally(meta_cost, "flash_attention", ops,
+                    nbytes + (4 * B * H * S if keep_lse else 0),
+                    dot_flops=ops, transcendentals=B * H * S * (S + 1) / 2)
+    elif B and S:
         build.launch("flash_attention_fwd", q, q.data_ptr(), k.data_ptr(),
                      v.data_ptr(), out.data_ptr(),
                      None if lse is None else lse.data_ptr(), B, S, H, KH,
@@ -104,24 +116,16 @@ class _FlashAttention(torch.autograd.Function):
         return flash_attention_bwd(q, k, v, out, dout.contiguous(), lse)
 
 
-def _no_backward(name, D):
-    if D > BWD_MAX_HEAD_DIM:
-        raise NotImplementedError(
-            f"{name}: no backward kernel at head dim {D} (it stops at "
-            f"{BWD_MAX_HEAD_DIM}; MLA training is ROADMAP.md Queue A "
-            f"item 10)")
-
-
 def flash_attention(q, k, v):
     """Causal GQA attention.  q: (B,S,H,D); k,v: (B,S,KH,D), float32
     (D <= 192) or bfloat16 (D of 64, 80, 128 or 192), any S -> (B,S,H,D)
     in q's dtype.  CPU tensors take the plain version; CUDA tensors launch
-    the kernel, and with grad enabled record its backward (D <= 128)."""
+    the kernel, and with grad enabled record its backward; ``meta``
+    tensors are planned (the module's docstring)."""
     if q.device.type == "cpu":
         return R.attention_ref(q, k, v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        _no_backward("flash_attention", q.shape[-1])
         return _FlashAttention.apply(q, k, v)
     return flash_attention_fwd(q, k, v)
 
@@ -133,16 +137,16 @@ def flash_attention_bwd(q, k, v, out, dout, lse=None):
     log-sum-exp as the forward keeps it (float32 (B, H, S), base 2); when
     it is None the forward kernel first runs again to write it.  CPU
     tensors take the plain version ``attention_bwd_ref``; CUDA tensors
-    launch the kernels (D <= 128)."""
+    launch the kernels."""
     global bwd_launches
     if q.device.type == "cpu":
         return R.attention_bwd_ref(q, k, v, out, dout, lse)
-    _no_backward("flash_attention_bwd", q.shape[-1])
     B, S, H, KH, D = _check("flash_attention_bwd", q, k, v, ("out", out),
                             ("dout", dout))
     if lse is None:
         lse = flash_attention_fwd(q, k, v, keep_lse=True)[1]
-    build.check_cuda("flash_attention_bwd lse", lse, torch.float32, 3)
+    build.check_cuda("flash_attention_bwd lse", lse, torch.float32, 3,
+                     meta_ok=True)
     if lse.shape != (B, H, S) or lse.device != q.device:
         raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)} on "
                          f"{lse.device}, expected {(B, H, S)} on "
@@ -150,6 +154,13 @@ def flash_attention_bwd(q, k, v, out, dout, lse=None):
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if B and S:
         dsum = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+        if q.device.type == "meta":
+            ops = 5.0 * B * H * D * S * S
+            build.tally(meta_cost, "flash_attention_bwd", ops,
+                        q.element_size() * 4 * B * S * D * (H + KH),
+                        dot_flops=ops,
+                        transcendentals=B * H * S * (S + 1) / 2)
+            return dq, dk, dv
         build.launch("flash_attention_bwd", q, q.data_ptr(), k.data_ptr(),
                      v.data_ptr(), out.data_ptr(), dout.data_ptr(),
                      lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),

@@ -7,6 +7,10 @@ in the same launch), which replaces the
 JAX package's Pallas kernel ``kernels/flash_decode/kernel.py``
 ``flash_decode``.
 
+``meta`` tensors stand for the card's in a plan (``launch/dryrun.py``):
+the wrapper then makes the output and adds the kernel's least operations
+and bytes to ``meta_cost``.
+
 ``launches`` counts the wrapper's launches (one kernel each) and nothing
 else."""
 from __future__ import annotations
@@ -20,6 +24,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_decode import ref as R
 
 launches = 0
+meta_cost: dict = {}    # build.tally of the calls on meta tensors
 
 SPLIT_KEYS = 64         # a split is a whole number of 64-key blocks
 MAX_GROUP = 8           # query heads per kv head
@@ -87,9 +92,9 @@ def flash_decode(q, k_cache, v_cache, pos):
             torch.float32, torch.bfloat16):
         raise TypeError(f"flash_decode: q {q.dtype}, cache {cdt} (float32 "
                         f"or bfloat16)")
-    build.check_cuda("flash_decode k_cache", k_cache, cdt, 4)
-    build.check_cuda("flash_decode v_cache", v_cache, cdt, 4)
-    build.check_cuda("flash_decode q", q, q.dtype, 3)
+    build.check_cuda("flash_decode k_cache", k_cache, cdt, 4, meta_ok=True)
+    build.check_cuda("flash_decode v_cache", v_cache, cdt, 4, meta_ok=True)
+    build.check_cuda("flash_decode q", q, q.dtype, 3, meta_ok=True)
     B, H, D = q.shape
     Smax, KH = k_cache.shape[1], k_cache.shape[2]
     if (k_cache.shape != (B, Smax, KH, D) or v_cache.shape != k_cache.shape
@@ -102,6 +107,13 @@ def flash_decode(q, k_cache, v_cache, pos):
             or not 0 <= pos < Smax):
         raise ValueError(f"flash_decode: H={H}, KH={KH}, D={D}, pos={pos}, "
                          f"Smax={Smax} not supported")
+    if q.device.type == "meta":
+        build.tally(meta_cost, "flash_decode", 4.0 * B * H * D * (pos + 1),
+                    k_cache.element_size() * 2 * B * (pos + 1) * KH * D
+                    + q.element_size() * 2 * B * H * D,
+                    dot_flops=4.0 * B * H * D * (pos + 1),
+                    transcendentals=B * H * (pos + 1))
+        return torch.empty((B, H, D), dtype=q.dtype, device=q.device)
     if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
         raise ValueError("flash_decode: caches must be 16-byte aligned")
     # cached_decode_attention casts q to the cache's type

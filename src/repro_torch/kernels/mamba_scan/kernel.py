@@ -17,6 +17,11 @@ di, ds)) and saves it with a, b, C and h0, and whose backward is
 keeps no states.  CPU tensors take the plain version, which autograd
 differentiates.
 
+``meta`` tensors stand for the card's in a plan (``launch/dryrun.py``):
+the forward and the backward then make only what the kernels make (the
+outputs, the kept states, the backward's dC partials) and add the
+kernels' least operations and bytes to ``meta_cost``.
+
 ``launches`` counts the forward kernel's launches and ``bwd_launches``
 the backward's calls (two kernels each), and nothing else."""
 from __future__ import annotations
@@ -28,6 +33,7 @@ from repro_torch.kernels.mamba_scan import ref as R
 
 launches = 0
 bwd_launches = 0
+meta_cost: dict = {}    # build.tally of the calls on meta tensors
 
 MAX_STATE = 32          # one lane per state: a channel within one warp
 MAX_BATCH = 65535       # the grid's y dimension
@@ -38,11 +44,11 @@ THREADS = 256           # a CTA's threads: 256 / L channels, L >= ds
 def _check(name, a, b, C, h0, *more):
     """Raise on what the kernels do not take; returns (B, S, di, ds)."""
     f32 = torch.float32
-    build.check_cuda(f"{name} a", a, f32, 4)
-    build.check_cuda(f"{name} b", b, f32, 4)
-    build.check_cuda(f"{name} C", C, f32, 3)
+    build.check_cuda(f"{name} a", a, f32, 4, meta_ok=True)
+    build.check_cuda(f"{name} b", b, f32, 4, meta_ok=True)
+    build.check_cuda(f"{name} C", C, f32, 3, meta_ok=True)
     if h0 is not None:
-        build.check_cuda(f"{name} h0", h0, f32, 3)
+        build.check_cuda(f"{name} h0", h0, f32, 3, meta_ok=True)
     B, S, di, ds = a.shape
     if (b.shape != a.shape or C.shape != (B, S, ds)
             or (h0 is not None and h0.shape != (B, di, ds))):
@@ -53,7 +59,7 @@ def _check(name, a, b, C, h0, *more):
     for tn, t, shape in more:
         if t is None:
             continue
-        build.check_cuda(f"{name} {tn}", t, f32, len(shape))
+        build.check_cuda(f"{name} {tn}", t, f32, len(shape), meta_ok=True)
         if t.shape != shape:
             raise ValueError(f"{name}: {tn} {tuple(t.shape)}, expected "
                              f"{shape}")
@@ -77,7 +83,12 @@ def selective_scan_fwd(a, b, C, h0=None, keep_states=False):
     h = torch.empty((B, di, ds), dtype=torch.float32, device=a.device)
     states = (torch.empty((B, -(-S // CHUNK), di, ds), dtype=torch.float32,
                           device=a.device) if keep_states else None)
-    if B and di:
+    if a.device.type == "meta":
+        build.tally(meta_cost, "selective_scan", B * S * di * (4.0 * ds - 1),
+                    4.0 * (2 * B * S * di * ds + B * S * ds + B * S * di
+                           + B * di * ds * (1 if h0 is None else 2)
+                           + (states.numel() if keep_states else 0)))
+    elif B and di:
         build.launch("selective_scan_fwd", a, a.data_ptr(), b.data_ptr(),
                      C.data_ptr(), None if h0 is None else h0.data_ptr(),
                      y.data_ptr(), h.data_ptr(),
@@ -140,6 +151,15 @@ def selective_scan_bwd(a, b, C, h0, dy, dhT=None, states=None):
         states = selective_scan_fwd(a, b, C, h0, keep_states=True)[2]
     da, db, dC = torch.empty_like(a), torch.empty_like(b), torch.empty_like(C)
     dh0 = torch.empty((B, di, ds), dtype=torch.float32, device=a.device)
+    lanes = 1 << (ds - 1).bit_length()          # L, the kernel's group
+    n_part = B * -(-di // (THREADS // lanes)) * S * ds
+    if a.device.type == "meta":
+        torch.empty(n_part, dtype=torch.float32, device=a.device)
+        build.tally(meta_cost, "selective_scan_bwd", 8.0 * B * S * di * ds,
+                    4.0 * (4 * B * S * di * ds + 2 * B * S * ds + B * S * di
+                           + states.numel() + B * di * ds
+                           * (1 + (h0 is not None) + (dhT is not None))))
+        return da, db, dC, dh0
     if not (B and S and di):      # nothing to launch: dh0 is dhT, dC zeros
         dC.zero_()
         if dhT is None:
@@ -147,8 +167,6 @@ def selective_scan_bwd(a, b, C, h0, dy, dhT=None, states=None):
         else:
             dh0.copy_(dhT)
         return da, db, dC, dh0
-    lanes = 1 << (ds - 1).bit_length()          # L, the kernel's group
-    n_part = B * -(-di // (THREADS // lanes)) * S * ds
     part = torch.empty(n_part, dtype=torch.float32, device=a.device)
     build.launch("selective_scan_bwd", a, a.data_ptr(), b.data_ptr(),
                  C.data_ptr(), states.data_ptr(), dy.data_ptr(),

@@ -140,7 +140,15 @@ def cached_decode_attention(q, k_cache, v_cache, pos: int):
 # ---------------------------------------------------------------------------
 
 class GQA(nn.Module):
-    """Grouped-query attention weights (matmul layout)."""
+    """Grouped-query attention weights (matmul layout).  ``AXES``: each
+    weight's logical axes in the JAX package's layout ((d, H, hd) for
+    ``wq``), which ``transformer.param_axes`` hands to the resolver."""
+
+    AXES = {"wq": ("d_model", "heads", None),
+            "wk": ("d_model", "kv_heads", None),
+            "wv": ("d_model", "kv_heads", None),
+            "wo": ("heads", None, "d_model"),
+            "q_norm": (None,), "k_norm": (None,)}
 
     def __init__(self, wq, wk, wv, wo, q_norm=None, k_norm=None):
         super().__init__()
@@ -191,6 +199,10 @@ def gqa_apply(cfg: ModelConfig, p: GQA, x, positions, *,
     return y, cache
 
 
+GQA_CACHE_AXES = {"k": ("batch", "kv_seq", "kv_heads", None),
+                  "v": ("batch", "kv_seq", "kv_heads", None)}
+
+
 def gqa_cache_init(cfg: ModelConfig, batch, max_seq, dtype, device):
     shape = (batch, max_seq, cfg.n_kv_heads, cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
@@ -202,7 +214,14 @@ def gqa_cache_init(cfg: ModelConfig, batch, max_seq, dtype, device):
 # ---------------------------------------------------------------------------
 
 class MLA(nn.Module):
-    """Multi-head latent attention weights (matmul layout)."""
+    """Multi-head latent attention weights (matmul layout); ``AXES`` as
+    :class:`GQA`'s."""
+
+    AXES = {"wq": ("d_model", "heads", None),
+            "wkv_a": ("d_model", "kv_lora"),
+            "kv_norm": (None,),
+            "wkv_b": ("kv_lora", "heads", None),
+            "wo": ("heads", None, "d_model")}
 
     def __init__(self, wq, wkv_a, kv_norm, wkv_b, wo):
         super().__init__()
@@ -287,6 +306,10 @@ def mla_apply(cfg: ModelConfig, p: MLA, x, positions, *,
     return y, cache
 
 
+MLA_CACHE_AXES = {"ckv": ("batch", "kv_seq", "kv_lora"),
+                  "krope": ("batch", "kv_seq", None)}
+
+
 def mla_cache_init(cfg: ModelConfig, batch, max_seq, dtype, device):
     """{"ckv": (batch, max_seq, R), "krope": (batch, max_seq, rope)} of
     zeros in ``dtype``."""
@@ -302,6 +325,9 @@ def mla_cache_init(cfg: ModelConfig, batch, max_seq, dtype, device):
 # ---------------------------------------------------------------------------
 
 class MLP(nn.Module):
+    AXES = {"w_gate": ("d_model", "d_ff"), "w_up": ("d_model", "d_ff"),
+            "w_down": ("d_ff", "d_model")}
+
     def __init__(self, w_gate, w_up, w_down):
         super().__init__()
         self.w_gate, self.w_up, self.w_down = w_gate, w_up, w_down
@@ -330,6 +356,12 @@ class MoE(nn.Module):
     ``shared`` (an :class:`MLP` of n_shared * f) or None."""
 
     NAMES = ("router", "w_gate", "w_up", "w_down")
+    # the router stays replicated on the model axis, as the JAX package
+    # keeps it
+    AXES = {"router": ("d_model", None),
+            "w_gate": ("experts", "d_model", "d_ff"),
+            "w_up": ("experts", "d_model", "d_ff"),
+            "w_down": ("experts", "d_ff", "d_model")}
 
     def __init__(self, router, w_gate, w_up, w_down, shared=None):
         super().__init__()
@@ -447,6 +479,11 @@ class Mamba(nn.Module):
 
     NAMES = ("in_proj", "conv_w", "conv_b", "x_proj", "dt_proj", "dt_bias",
              "A_log", "D", "out_proj")
+    AXES = {"in_proj": ("d_model", "d_inner"), "conv_w": ("conv", "d_inner"),
+            "conv_b": ("d_inner",), "x_proj": ("d_inner", None),
+            "dt_proj": ("dt_rank", "d_inner"), "dt_bias": ("d_inner",),
+            "A_log": ("d_inner", None), "D": ("d_inner",),
+            "out_proj": ("d_inner", "d_model")}
 
     def __init__(self, in_proj, conv_w, conv_b, x_proj, dt_proj, dt_bias,
                  A_log, D, out_proj):
@@ -543,6 +580,10 @@ def mamba_apply(cfg: ModelConfig, p: Mamba, x, cache: Optional[Dict] = None,
         elif "conv" in cache:
             new_cache["conv"] = cache["conv"]
     return out, new_cache
+
+
+MAMBA_CACHE_AXES = {"h": ("batch", "d_inner", None),
+                    "conv": ("batch", None, "d_inner")}
 
 
 def mamba_cache_init(cfg: ModelConfig, batch, dtype, device):

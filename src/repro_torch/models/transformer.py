@@ -37,7 +37,7 @@ predicts every codebook at each position (``lm_head`` (d, V*CB), logits
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -46,6 +46,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 
 Cache = List[Dict[str, torch.Tensor]]
+Logical = Tuple[Optional[str], ...]
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -71,6 +72,8 @@ class Layer(nn.Module):
     or MoE) and second norm, or the mixer alone (``ln2`` and ``mlp``
     None)."""
 
+    AXES = {"ln1": ("d_model",), "ln2": ("d_model",)}
+
     def __init__(self, ln1, ln2, mixer, mlp):
         super().__init__()
         self.ln1, self.ln2 = ln1, ln2
@@ -82,6 +85,9 @@ class LM(nn.Module):
     with the ``encodec_stub`` frontend, ``layers``, ``final_norm`` and,
     unless the config ties it to ``embed``, ``lm_head`` (d, vocab), or
     (d, vocab*CB)."""
+
+    AXES = {"embed": ("vocab", "d_model"), "final_norm": ("d_model",),
+            "lm_head": ("d_model", "vocab")}
 
     def __init__(self, embed, layers, final_norm, lm_head=None):
         super().__init__()
@@ -157,6 +163,55 @@ def param_count(cfg: ModelConfig) -> Tuple[int, int]:
     if cfg.moe.n_routed:
         active = total - routed + routed * cfg.moe.top_k / cfg.moe.n_routed
     return total, int(active - params.embed.numel())
+
+
+def param_axes(cfg: ModelConfig, params: LM) -> Dict[str, Logical]:
+    """Logical sharding axes of every parameter, keyed by its
+    ``named_parameters()`` name: the axes the JAX package's ``init_params``
+    returns for the same array, in its layout (``wq`` (d, H, hd) is
+    ("d_model", "heads", None) though the port holds it as (d, H*hd):
+    :func:`logical_shape` gives the shape they belong to).  Each module's
+    ``AXES`` names its own parameters; the JAX package's leading ``None``
+    of a stacked block does not arise, the port keeping one module a
+    layer."""
+    out = {}
+    for name, p in params.named_parameters():
+        owner, _, leaf = name.rpartition(".")
+        axes = type(params.get_submodule(owner)).AXES[leaf]
+        if name == "embed" and _codebooks(cfg):  # (CB, V, d)
+            axes = (None,) + axes
+        out[name] = axes
+    return out
+
+
+def logical_shape(cfg: ModelConfig, axes: Logical, shape) -> Tuple[int, ...]:
+    """The shape that ``axes`` describe, from the port's ``shape`` of the
+    same tensor: a (heads, hd) pair that the port keeps flattened into
+    one dim (``wq``'s H*hd, ``wo``'s leading H*v) is split again.  Only
+    the heads are ever sharded in such a pair, and they are its outer
+    factor, so a shard of the pair is a contiguous block of the flat dim."""
+    shape = tuple(shape)
+    if len(axes) == len(shape):
+        return shape
+    for i, a in enumerate(axes[:-1]):
+        if a in ("heads", "kv_heads") and axes[i + 1] is None:
+            n = cfg.n_heads if a == "heads" else cfg.n_kv_heads
+            if len(axes) == len(shape) + 1 and shape[i] % n == 0:
+                return shape[:i] + (n, shape[i] // n) + shape[i + 1:]
+    raise ValueError(f"axes {axes} do not fit shape {shape}")
+
+
+def cache_axes(cfg: ModelConfig, cache: Cache) -> List[Dict[str, Logical]]:
+    """Logical axes of every cache entry, the list of dicts of
+    :func:`init_cache` (the JAX package's ``init_cache`` axes, a layer's
+    without the stacked blocks' leading ``None``)."""
+    out = []
+    for i, c in enumerate(cache):
+        table = (L.MAMBA_CACHE_AXES if cfg.mixer_kind(i) == "mamba"
+                 else L.MLA_CACHE_AXES if cfg.attn_kind == "mla"
+                 else L.GQA_CACHE_AXES)
+        out.append({k: table[k] for k in c})
+    return out
 
 
 def param_bytes(params: LM) -> int:

@@ -1,0 +1,8 @@
+from repro_torch.parallel.sharding import (  # noqa: F401
+    DEFAULT_RULES,
+    Mesh,
+    ShardingResolver,
+    constrain,
+    shapes_of,
+    shard_shape,
+)

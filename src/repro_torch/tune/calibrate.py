@@ -18,7 +18,8 @@ into exactly those terms:
 
 ``bytes_per_wg`` bridges the static side: a Program's input and output
 byte counts seed ``SimDevice.xfer_bytes_per_wg`` without running
-anything.
+anything; ``bytes_per_wg_from_ops`` counts a plain version's traffic
+instead.
 """
 from __future__ import annotations
 
@@ -149,3 +150,16 @@ def bytes_per_wg(program: Program) -> float:
     out = (program.out_rows_per_wg * cols
            * np.dtype(program.out_dtype).itemsize)
     return program.in_bytes / float(program.total_work) + out
+
+
+def bytes_per_wg_from_ops(total_work: int, fn, *args, **kwargs) -> float:
+    """Per-work-group byte traffic of ``fn(*args, **kwargs)`` (a
+    program's plain version over ``total_work`` work-groups), every eager
+    op's inputs and outputs as ``launch.op_cost`` counts them: the JAX
+    package's ``bytes_per_wg_from_hlo``, which reads the same figure from
+    a compiled module's HLO.  Seeds ``SimDevice.xfer_bytes_per_wg`` for
+    transfer-aware searches."""
+    from repro_torch.launch.op_cost import analyze
+    if total_work <= 0:
+        raise ValueError(f"total_work must be > 0, got {total_work}")
+    return analyze(fn, *args, **kwargs)["traffic_bytes"] / float(total_work)

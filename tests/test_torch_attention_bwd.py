@@ -144,3 +144,23 @@ def test_cpu_backward_wrapper_takes_lse():
         torch.testing.assert_close(g, fed, rtol=0, atol=0)
         torch.testing.assert_close(g, w, **TOL)
     assert (KA.launches, KA.bwd_launches) == counts
+
+
+@pytest.mark.parametrize("B,S,H", [(1, 24, 4), (2, 13, 2)])
+def test_attention_bwd_ref_at_mla_head_dim_matches_jax_vjp(B, S, H):
+    """MLA's training shapes: the core at head dim 192 (128 nope + 64
+    rope), v of 128 columns zero-padded to 192 and the output sliced back,
+    so the padded columns of dO are zero and their dV is dropped.  The
+    plain backward against ``jax.vjp`` of the oracle, every column."""
+    D, VD = 192, 128
+    q, k, v, dout = _inputs(B, S, H, H, D, 5 * S + H)
+    v[..., VD:] = 0.0
+    dout[..., VD:] = 0.0
+    out, vjp = jax.vjp(JRA.attention_ref, *map(jnp.asarray, (q, k, v)))
+    want = vjp(jnp.asarray(dout))
+    np.testing.assert_array_equal(np.asarray(out)[..., VD:], 0.0)
+    got = RA.attention_bwd_ref(*map(torch.from_numpy, (q, k, v)),
+                               torch.from_numpy(np.array(out)),
+                               torch.from_numpy(dout))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)

@@ -311,21 +311,41 @@ def test_flash_attention_bf16_head_dim_192_tiles_and_edges(card, S, G):
                                rtol=2e-2, atol=2e-2)
 
 
-def test_flash_attention_refuses_grad_at_head_dim_192(card):
-    """The backward kernel stops at D = 128: a D = 192 call that would
-    record a gradient raises before it launches anything."""
-    from repro_torch.kernels.flash_attention import kernel as KA
-    q, k, v = _attn_inputs(card, 1, 64, 4, 4, 192, torch.bfloat16, 1)
-    q.requires_grad_()
-    before = KA.launches
-    with pytest.raises(NotImplementedError, match="Queue A item 10"):
-        KA.flash_attention(q, k, v)
-    with pytest.raises(NotImplementedError, match="head dim 192"):
-        KA.flash_attention_bwd(q.detach(), k, v, q.detach(), q.detach())
-    assert KA.launches == before
-    with torch.no_grad():                     # serving: no gradient
-        assert KA.flash_attention(q, k, v).shape == q.shape
-    assert KA.launches == before + 1
+@pytest.mark.parametrize("B,S,H,KH,dtype", [
+    (1, 64, 4, 4, torch.bfloat16),            # one tile
+    (2, 200, 16, 16, torch.bfloat16),         # MLA's heads, ragged S
+    (1, 129, 4, 2, torch.bfloat16),           # G = 2 across a tile
+    (1, 1, 4, 4, torch.bfloat16),             # one position
+    (2, 200, 16, 16, torch.float32),
+    (1, 77, 4, 2, torch.float32),
+])
+def test_flash_attention_bwd_head_dim_192_matches_plain(card, B, S, H, KH,
+                                                        dtype):
+    """The backward at MLA's head dim (FMAs over 64 x 192 tiles, P and dS
+    in one buffer): against the plain version at 2e-2 (bfloat16) and 1e-4
+    (float32) of each output's largest |value|, two calls bitwise equal;
+    under autograd ``flash_attention`` records it."""
+    from repro_torch.kernels.flash_attention import kernel as KA, ref as RA
+    q, k, v = _attn_inputs(card, B, S, H, KH, 192, dtype, S + 17)
+    dout = _attn_inputs(card, B, S, H, H, 192, dtype, S + 19)[0]
+    out, lse = KA.flash_attention_fwd(q, k, v, keep_lse=True)
+    before = KA.bwd_launches
+    got = KA.flash_attention_bwd(q, k, v, out, dout, lse)
+    again = KA.flash_attention_bwd(q, k, v, out, dout, lse)
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    auto = torch.autograd.grad(KA.flash_attention(qg, kg, vg), (qg, kg, vg),
+                               dout)
+    torch.cuda.synchronize()
+    assert KA.bwd_launches == before + 3
+    want = RA.attention_bwd_ref(q, k, v, out, dout)
+    for name, g, a, au, w in zip(("dq", "dk", "dv"), got, again, auto, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert torch.equal(g, a), f"{name}: two calls differ"
+        assert torch.equal(g, au), f"{name}: autograd's call differs"
+        err = float((g.float() - w.float()).abs().max())
+        top = float(w.float().abs().max())
+        # plus 1e-5 absolute where the exact gradient is zero (S = 1)
+        assert err <= ATTN_BWD_TOL[dtype] * top + 1e-5, (name, err, top)
 
 
 def test_flash_attention_kernel_rejects_bf16_head_dim_without_tile(card):
