@@ -16,7 +16,9 @@ its own, in the order given, and builds its own kernels into its own
   D=128), bfloat16; with ``_lse``, the same kernel keeping each row's
   log-sum-exp, where the checkout's wrapper can;
 - ``bwd64`` (the training packet, B=1 S=4096 H=32 KH=8 D=64), ``bwd80``,
-  ``bwd128`` (B=1 S=4096 H=64 KH=8) and ``bwd64_b2s1k`` (B=2 S=1024):
+  ``bwd128`` (B=1 S=4096 H=64 KH=8), ``bwd64_b2s1k`` (B=2 S=1024) and
+  ``bwd192`` (deepseek-v2-lite-16b's training packet of one row, MLA's
+  head dim: B=1 S=4096 H=KH=16 D=192):
   ``flash_attention_bwd`` fed the forward's log-sum-exp (a checkout
   without it: the old call), with ``_relerr`` its largest error over the
   three gradients against ``attention_bwd_ref``, each over that
@@ -37,7 +39,8 @@ from pathlib import Path
 FWD = {"fwd5": (4, 256, 32, 8, 64), "fwd5L": (2, 4096, 32, 8, 64),
        "fwd5D": (1, 4096, 64, 8, 128)}
 BWD = {"bwd64": (1, 4096, 32, 8, 64), "bwd80": (1, 4096, 32, 8, 80),
-       "bwd128": (1, 4096, 64, 8, 128), "bwd64_b2s1k": (2, 1024, 32, 8, 64)}
+       "bwd128": (1, 4096, 64, 8, 128), "bwd64_b2s1k": (2, 1024, 32, 8, 64),
+       "bwd192": (1, 4096, 16, 16, 192)}
 
 
 def time_tree(tree: str) -> dict:

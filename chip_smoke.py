@@ -163,7 +163,8 @@ Phases, each fatal on failure:
     restored into a fresh state, whose next step's loss must equal the
     original's;
 14. check that the bfloat16 backward's dK/dV and dQ kernels run on
-    ``wgmma`` (HGMMA in their SASS, ``cuobjdump``); hold
+    ``wgmma`` at D = 64, 80, 128 and 192 (HGMMA in their SASS,
+    ``cuobjdump``); hold
     ``flash_attention_bwd``, fed the log-sum-exp that the forward keeps,
     against ``attention_bwd_ref`` at the training packet (B=1, S=4096,
     32/8 heads, D=64, bfloat16), a ragged S, head dims 80 and 128 in both
@@ -287,7 +288,10 @@ Phases, each fatal on failure:
 28. hold ``flash_attention_bwd`` at MLA's head dim 192 against its plain
     version (bfloat16 at 2e-2, float32 at 1e-4 of each output's largest
     |value|; ragged S, G = 2), timed at B=1 S=4096 H=KH=16 beside SDPA's
-    backward;
+    backward; the timed bfloat16 call's three kernels (D_i,
+    ``bwd_dkdv_split_kernel<192>``, ``bwd_dq_wgmma_kernel<192>``: on
+    ``wgmma``, no FMA kernel) each logged with its device time
+    (``kernels_ms`` in the record);
 29. deepseek-v2-lite-16b at full width on its first 3 layers (the dense
     one and two MoE; 1.670 B parameters), its rows chosen by the plan
     (4 x 4,096 tokens unless two groups' packets would not fit): the
@@ -493,12 +497,12 @@ def profile_window(torch, fn, n: int):
     return sum(ms for ms, _ in rows), rows[:8]
 
 
-def device_ops_per_call(torch, fn, n: int, tries: int = 3):
-    """(device operations per call, their names) of ``n`` calls of
-    ``fn``, from ``torch.profiler``: every kernel, copy and memset the
-    calls put on the device.  A trace that lacks one of the two spin
-    kernels around the window has lost events (it may come back empty):
-    it is taken again, up to ``tries`` times, and the last one counts."""
+def traced_window(torch, fn, n: int, tries: int = 3):
+    """``torch.profiler``'s device rows (``key_averages``) of ``n`` calls
+    of ``fn``: every kernel, copy and memset the calls put on the device.
+    A trace that lacks one of the two spin kernels around the window has
+    lost events (it may come back empty): it is taken again, up to
+    ``tries`` times, and the last one counts."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -512,15 +516,21 @@ def device_ops_per_call(torch, fn, n: int, tries: int = 3):
                 fn()
             torch.cuda._sleep(100_000)
             torch.cuda.synchronize()
-        events = [(e.key, e.count) for e in prof.key_averages()
+        events = [e for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        spins = sum(c for k, c in events if "spin_kernel" in k)
-        ops = [(k, c) for k, c in events if "spin_kernel" not in k]
+        spins = sum(e.count for e in events if "spin_kernel" in e.key)
         if spins == 2:
             break
         log(f"  profiler trace {attempt + 1} of {tries} holds {spins} of "
             f"the 2 spin kernels: it lost events")
-    return sum(c for _, c in ops) / n, sorted(k for k, _ in ops)
+    return [e for e in events if "spin_kernel" not in e.key]
+
+
+def device_ops_per_call(torch, fn, n: int, tries: int = 3):
+    """(device operations per call, their names) of ``n`` calls of
+    ``fn`` (``traced_window``)."""
+    ops = traced_window(torch, fn, n, tries)
+    return sum(e.count for e in ops) / n, sorted(e.key for e in ops)
 
 
 def free_card(torch, dev0, what):
@@ -2396,7 +2406,14 @@ def mla_bwd_phase(args, torch, dev0):
     log(f"flash_attention_bwd at MLA's head dim {D} against its plain "
         f"version:")
     S = 1024 if args.small else TRAIN["seq"]
-    res = attn_bwd_check(torch, randn, 1, S, H, H, D, bf16, timed=True)
+    res = attn_bwd_check(torch, randn, 1, S, H, H, D, bf16, timed=True,
+                         by_kernel=True)
+    # bfloat16 at 192 runs the wgmma kernels, never the float32 FMAs
+    want = {"bwd_dsum_bf16_kernel", f"bwd_dkdv_split_kernel<{D}>",
+            f"bwd_dq_wgmma_kernel<{D}>"}
+    check(set(res["kernels_ms"]) == want,
+          f"flash_attention_bwd at D = {D}: kernels "
+          f"{sorted(res['kernels_ms'])}, expected {sorted(want)}")
     attn_bwd_check(torch, randn, 2, 1000, H, H, D, bf16)       # ragged S
     attn_bwd_check(torch, randn, 1, 1000, H, H, D, f32)
     attn_bwd_check(torch, randn, 2, 77, 4, 2, D, bf16)         # G = 2
@@ -2722,13 +2739,16 @@ def hgmma_counts(lib_path):
     return counts
 
 
-def attn_bwd_check(torch, randn, B, S, h, kh, d, dtype, timed=False):
+def attn_bwd_check(torch, randn, B, S, h, kh, d, dtype, timed=False,
+                   by_kernel=False):
     """Hold ``flash_attention_bwd``, fed the log-sum-exp the forward
     keeps, against ``attention_bwd_ref`` on inputs from ``randn`` at
     ``ATTN_BWD_TOL``, two calls bitwise equal and equal to a call that
     has the forward write the log-sum-exp again; with ``timed``, time
     kernel, plain version and SDPA's backward and return the
-    measurements for a kernel record."""
+    measurements for a kernel record; with ``by_kernel`` also each of
+    the call's kernels' device time (``traced_window``, 5 calls), by
+    kernel name, as ``kernels_ms``."""
     from repro_torch.kernels.flash_attention import kernel as KA, ref as RA
     F = torch.nn.functional
     q, k, v = (randn(s, dtype) for s in ((B, S, h, d), (B, S, kh, d),
@@ -2784,6 +2804,17 @@ def attn_bwd_check(torch, randn, B, S, h, kh, d, dtype, timed=False):
             f"{res['plain_ms']:.3f} ms, SDPA backward "
             f"{res['library_ms']:.3f} ms, kernel/SDPA "
             f"{res['ms'] / res['library_ms']:.2f}")
+        if by_kernel:
+            rows = traced_window(torch, lambda: KA.flash_attention_bwd(
+                q, k, v, out, dout, lse), 5)
+            res["kernels_ms"] = {
+                e.key.split("::")[-1].split("(")[0]: getattr(
+                    e, "self_device_time_total",
+                    getattr(e, "self_cuda_time_total", 0.0)) / 5e3
+                for e in rows if "bwd_" in e.key}
+            log(f"  timed {shape}, device ms a call by kernel: "
+                + ", ".join(f"{n} {t:.4f}"
+                            for n, t in sorted(res["kernels_ms"].items())))
         del qt, kt, vt, lib_out, dlib
     del q, k, v, out, lse, dout, got, again, fresh, want
     torch.cuda.empty_cache()
@@ -2814,9 +2845,9 @@ def attention_bwd_phase(args, torch, dev0, record):
         bwd_mma = {k: n for k, n in counts.items() if "bwd_" in k}
         log("flash_attention_bwd SASS: HGMMA instructions " + ", ".join(
             f"{n} in {k[:60]}" for k, n in sorted(bwd_mma.items())))
-        check(len(bwd_mma) == 6, f"flash_attention_bwd: HGMMA in "
+        check(len(bwd_mma) == 8, f"flash_attention_bwd: HGMMA in "
                                  f"{sorted(bwd_mma)}, expected the dK/dV "
-                                 f"and dQ kernels at D = 64, 80, 128")
+                                 f"and dQ kernels at D = 64, 80, 128, 192")
     log("flash_attention_bwd against its plain version:")
 
     def bwd(*shape, timed=False):
@@ -3867,6 +3898,7 @@ def main() -> int:
            "of one row)", mla_b["ops_per_s"],
            n_launches=ds_l["flash_attention_bwd"],
            launches_by_path={ds_path: ds_l["flash_attention_bwd"]},
+           kernels_ms=mla_b["kernels_ms"],
            replaces_note="the gradient of that kernel's function at MLA's "
                          "head dim: the JAX package differentiates its jnp "
                          "attention (src/repro/models/layers.py:315-335) "

@@ -30,13 +30,15 @@
 //   (c) dQ, a CTA per query tile (of all G heads of a kv head on wgmma,
 //       of one head on FMAs), longest key range first.
 //
-// bfloat16 (D of 64, 80 or 128), the dense models' training path: (b)
-// and (c) on wgmma, each CTA three warpgroups: two consumers of 64 rows and a
-// producer whose one thread issues TMA loads into a three-slot ring
+// bfloat16, (b) and (c) on wgmma, each CTA three warpgroups: two
+// consumers and a producer whose one thread issues TMA loads into a ring
 // guarded by full and empty mbarriers (setmaxnreg gives the consumers 240
-// registers and leaves the producer 24).  The two consumers take turns
-// issuing their products (named barriers 1 and 2), so one's exponentials
-// run while the other's products are on the tensor cores.
+// registers and leaves the producer 24).
+//
+// D of 64, 80 or 128, the dense models' training path.  The two consumers
+// hold 64 rows each and take turns issuing their products (named barriers
+// 1 and 2), so one's exponentials run while the other's products are on
+// the tensor cores.  Both kernels keep a three-slot ring.
 //   (b) bwd_dkdv_wgmma_kernel: 128 keys, 64 a consumer.  K and V of the
 //       tile land once and stay in shared memory; the producer streams
 //       (Q, dO) tiles of 64 positions of one head (every head of the
@@ -62,23 +64,45 @@
 //       and dP_j = dO V^T (SS) issued with tile j-1's dQ += dS K (RS, K
 //       as the transposed B operand), then dS_j in registers while that
 //       runs.
-//   Across (b) and (c) that is 7 products of the causal half against the
-//   bound's 5: dQ's own S and dP are the price of having no atomics.
+//
+// D = 192, MLA's 128 nope + 64 rope columns (three 128-byte-swizzled
+// 64-column atoms a row, as the forward lays them out).  A 64 x 192
+// float32 accumulator takes 96 registers a thread, so no consumer can
+// hold both dK and dV, and the 128-key CTA's resident tiles (96 KB) and
+// ring (144 KB) would pass the 227 KB a block may have.
+//   (b) bwd_dkdv_split_kernel: a CTA per (batch, kv head, 64-key tile),
+//       K and V of the 64 keys resident (48 KB), the (Q, dO) ring of
+//       three 48 KB slots as in (b) above.  The consumers split by
+//       output: warpgroup 0 forms S^T, P^T and dV += P^T dO; warpgroup 1
+//       forms dP^T, dS^T = P^T (dP^T - D_i) with the P^T that warpgroup 0
+//       hands it through a double buffer in shared memory (2 x 16 KB,
+//       float32, guarded by full and empty mbarriers of 128 arrivals),
+//       and dK += dS^T Q.  Each issues step n's score product with step
+//       n-1's accumulation.  Registers: 96 + 32 + 16 (warpgroup 0), 96 +
+//       32 + 32 + 16 (warpgroup 1), no spill; shared memory 232,024
+//       bytes of 232,448.
+//   (c) bwd_dq_wgmma_kernel<192>: as (c) above with a two-slot ring of
+//       (K, V) (BwdShape::DQ_RING; the resident Q and dO take 96 KB;
+//       197,672 bytes), and a tile's products in turn: S, dP, then dS,
+//       then dQ += dS K, the two consumers taking turns.  Issued with the
+//       next tile's S and dP, dQ's 96 registers beside S, dP and the dS
+//       fragments spilled (ptxas: 8 bytes); in turn, none spills.
+// The kernels read every column of v and dO: MLA's zero-padded v
+// columns are computed as any others.
+//
+// Across (b) and (c) that is 7 products of the causal half against the
+// bound's 5: dQ's own S and dP are the price of having no atomics.
 //
 // float32 (0 < D <= 192), for the card-against-host parity checks at
-// 1e-4 (tensor cores in float32 would be TF32), and bfloat16 at D = 192
-// (MLA's 128 nope + 64 rope columns, v zero-padded to them): (b)
-// bwd_dkdv_kernel and (c) bwd_dq_kernel on float32 FMAs, 256 threads on
-// 64 x 64 tiles staged in shared memory as float32 (bfloat16 converted as
-// it is read, the gradients rounded to it as they are written); in the
-// S-shaped products thread (tr, tc) = (tid/16, tid%16) owns rows tr +
-// 16*ii and columns tc + 16*jj, so a warp's float4 reads of K (row stride
-// DP + 4 floats) hit distinct banks and its reads of Q are broadcasts.
-// dK/dV by (batch, kv head, 64-key tile) over the G heads; dQ by (batch,
-// head, 64-row tile).  At DP = 192 the four tiles take 196 KB, so dK/dV's
-// P and dS share one buffer in turn (218 KB in all).  On wgmma at D = 192
-// the dK and dV accumulators of a 64-key consumer alone would take 192
-// registers a thread: that design is queued (ROADMAP.md Queue B).
+// 1e-4 (tensor cores in float32 would be TF32): (b) bwd_dkdv_kernel and
+// (c) bwd_dq_kernel on FMAs, 256 threads on 64 x 64 tiles staged in
+// shared memory; in the S-shaped products thread (tr, tc) = (tid/16,
+// tid%16) owns rows tr + 16*ii and columns tc + 16*jj, so a warp's float4
+// reads of K (row stride DP + 4 floats) hit distinct banks and its reads
+// of Q are broadcasts.  dK/dV by (batch, kv head, 64-key tile) over the G
+// heads; dQ by (batch, head, 64-row tile).  At DP = 192 the four tiles
+// take 196 KB, so dK/dV's P and dS share one buffer in turn (218 KB in
+// all).
 //
 // Positions past S (a ragged last tile, any S) and head columns past D
 // (D = 80 runs padded: to two 64-column atoms on wgmma, to 96 on FMAs)
@@ -169,51 +193,26 @@ constexpr int kThreads = 256;
 constexpr int kT = 64;          // rows of a query tile = keys of a key tile
 constexpr int kPS = kT + 4;     // row stride (floats) of the P / dS tiles
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// Tile of kT positions x DP columns of a (B, S, NH, D) tensor of T at
-// (b, p0, head) into shared memory as float32 (row stride DP + 4),
-// zero-filled past S and past D: 16-byte loads where D is a whole number
-// of them (every row then starts 16-byte aligned), else one element at a
-// time.
-template <int DP, typename T>
+// Tile of kT positions x DP columns of a (B, S, NH, D) tensor at
+// (b, p0, head) into shared memory (row stride DP + 4), zero-filled past S
+// and past D: 16-byte loads where D is a multiple of 4 (every row then
+// starts 16-byte aligned), else one element at a time.
+template <int DP>
 __device__ __forceinline__ void load_tile(float* dst,
-                                          const T* __restrict__ src,
+                                          const float* __restrict__ src,
                                           int b, int p0, int head, int S,
                                           int NH, int D) {
   constexpr int LS = DP + 4;
-  constexpr int V = 16 / sizeof(T);  // elements of a 16-byte load
-  static_assert(DP % V == 0, "a row is whole 16-byte loads");
-  if (D % V == 0) {
-    for (int idx = threadIdx.x; idx < kT * DP / V; idx += kThreads) {
-      const int r = idx / (DP / V), d = (idx - r * (DP / V)) * V;
+  static_assert(DP % 4 == 0, "a row is whole 16-byte loads");
+  if (D % 4 == 0) {
+    for (int idx = threadIdx.x; idx < kT * DP / 4; idx += kThreads) {
+      const int r = idx / (DP / 4), d = (idx - r * (DP / 4)) * 4;
       const int p = p0 + r;
-      float x[V];
-      if (p < S && d < D) {
-        const uint4 u = *reinterpret_cast<const uint4*>(
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (p < S && d < D)
+        x = *reinterpret_cast<const float4*>(
             src + ((static_cast<size_t>(b) * S + p) * NH + head) * D + d);
-        const T* e = reinterpret_cast<const T*>(&u);
-#pragma unroll
-        for (int i = 0; i < V; ++i) x[i] = to_float(e[i]);
-      } else {
-#pragma unroll
-        for (int i = 0; i < V; ++i) x[i] = 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < V; i += 4)
-        *reinterpret_cast<float4*>(dst + r * LS + d + i) =
-            make_float4(x[i], x[i + 1], x[i + 2], x[i + 3]);
+      *reinterpret_cast<float4*>(dst + r * LS + d) = x;
     }
     return;
   }
@@ -222,8 +221,7 @@ __device__ __forceinline__ void load_tile(float* dst,
     const int p = p0 + r;
     float x = 0.f;
     if (p < S && d < D)
-      x = to_float(src[((static_cast<size_t>(b) * S + p) * NH + head) * D +
-                       d]);
+      x = src[((static_cast<size_t>(b) * S + p) * NH + head) * D + d];
     dst[r * LS + d] = x;
   }
 }
@@ -288,10 +286,10 @@ __device__ __forceinline__ void cols_accum(float (&acc)[4][DP / 16],
 }
 
 // rows 4 rr + r, columns 2 dc + 32 (c/2) + c%2 of acc * mul into a
-// (B, S, NH, D) tensor of T at (b, p0, head), rows past S and columns past
-// D dropped
-template <int DP, typename T>
-__device__ __forceinline__ void store_rows(T* __restrict__ dst,
+// (B, S, NH, D) tensor at (b, p0, head), rows past S and columns past D
+// dropped
+template <int DP>
+__device__ __forceinline__ void store_rows(float* __restrict__ dst,
                                            const float (&acc)[4][DP / 16],
                                            float mul, int b, int p0, int head,
                                            int S, int NH, int D, int rr,
@@ -300,11 +298,11 @@ __device__ __forceinline__ void store_rows(T* __restrict__ dst,
   for (int r = 0; r < 4; ++r) {
     const int p = p0 + 4 * rr + r;
     if (p >= S) continue;
-    T* row = dst + ((static_cast<size_t>(b) * S + p) * NH + head) * D;
+    float* row = dst + ((static_cast<size_t>(b) * S + p) * NH + head) * D;
 #pragma unroll
     for (int c = 0; c < DP / 16; ++c) {
       const int d = 2 * dc + 32 * (c / 2) + (c % 2);
-      if (d < D) row[d] = from_float<T>(acc[r][c] * mul);
+      if (d < D) row[d] = acc[r][c] * mul;
     }
   }
 }
@@ -384,13 +382,13 @@ constexpr size_t dkdv_smem_bytes() {
 }
 
 // dK, dV of one 64-key tile of one kv head, over the G heads
-template <int DP, typename T>
+template <int DP>
 __global__ void __launch_bounds__(kThreads)
-bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const T* __restrict__ dout,
+bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ dout,
                 const float* __restrict__ lse2,
-                const float* __restrict__ dsum, T* __restrict__ dk,
-                T* __restrict__ dv, int S, int H, int KH, int D,
+                const float* __restrict__ dsum, float* __restrict__ dk,
+                float* __restrict__ dv, int S, int H, int KH, int D,
                 float scale_log2, float scale) {
   constexpr bool kOne = one_pds_buffer<DP>();
   extern __shared__ float4 smem4[];
@@ -453,12 +451,12 @@ constexpr size_t dq_smem_bytes() {
 }
 
 // dQ of one 64-row query tile of one head
-template <int DP, typename T>
+template <int DP>
 __global__ void __launch_bounds__(kThreads)
-bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, const T* __restrict__ dout,
+bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, const float* __restrict__ dout,
               const float* __restrict__ lse2, const float* __restrict__ dsum,
-              T* __restrict__ dq, int S, int H, int KH, int D,
+              float* __restrict__ dq, int S, int H, int KH, int D,
               float scale_log2, float scale) {
   extern __shared__ float4 smem4[];
   float* sQ = reinterpret_cast<float*>(smem4);
@@ -501,36 +499,30 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_rows<DP>(dq, adq, scale, b, q0, h, S, H, D, tr, tc);
 }
 
-// (b) and (c) on FMAs over tiles of T (float32, or bfloat16 at D = 192)
-template <int DP, typename T>
-cudaError_t launch_fma(const void* q, const void* k, const void* v,
-                       const void* dout, const float* lse2,
-                       const float* dsum, void* dq, void* dk, void* dv,
+// (b) and (c) on float32 FMAs
+template <int DP>
+cudaError_t launch_fma(const float* q, const float* k, const float* v,
+                       const float* dout, const float* lse2,
+                       const float* dsum, float* dq, float* dk, float* dv,
                        int B, int S, int H, int KH, int D, float scale_log2,
                        float scale, cudaStream_t stream) {
   const int n_t = (S + kT - 1) / kT;
   const int dkdv_smem = static_cast<int>(dkdv_smem_bytes<DP>());
   const int dq_smem = static_cast<int>(dq_smem_bytes<DP>());
   cudaError_t err = cudaFuncSetAttribute(
-      bwd_dkdv_kernel<DP, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bwd_dkdv_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       dkdv_smem);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(bwd_dq_kernel<DP, T>,
+  err = cudaFuncSetAttribute(bwd_dq_kernel<DP>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              dq_smem);
   if (err != cudaSuccess) return err;
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  const T* dot = static_cast<const T*>(dout);
-  bwd_dkdv_kernel<DP, T><<<dim3(B * KH, n_t), kThreads, dkdv_smem, stream>>>(
-      qt, kt, vt, dot, lse2, dsum, static_cast<T*>(dk), static_cast<T*>(dv),
-      S, H, KH, D, scale_log2, scale);
+  bwd_dkdv_kernel<DP><<<dim3(B * KH, n_t), kThreads, dkdv_smem, stream>>>(
+      q, k, v, dout, lse2, dsum, dk, dv, S, H, KH, D, scale_log2, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  bwd_dq_kernel<DP, T><<<dim3(B * H, n_t), kThreads, dq_smem, stream>>>(
-      qt, kt, vt, dot, lse2, dsum, static_cast<T*>(dq), S, H, KH, D,
-      scale_log2, scale);
+  bwd_dq_kernel<DP><<<dim3(B * H, n_t), kThreads, dq_smem, stream>>>(
+      q, k, v, dout, lse2, dsum, dq, S, H, KH, D, scale_log2, scale);
   return cudaGetLastError();
 }
 
@@ -542,7 +534,8 @@ constexpr int kBwdThreads = 384;  // consumer warpgroups 0, 1; producer 2
 constexpr int kKeys = 128;        // keys of a dK/dV CTA, 64 a consumer
 constexpr int kPacked = 128;      // packed query rows of a dQ CTA
 constexpr int kStep = 64;         // query positions (dK/dV), keys (dQ) a step
-constexpr int kRing = 3;          // slots of the streamed tiles' ring
+constexpr int kRing = 3;          // slots of the dK/dV kernels' ring
+constexpr int kSmemMax = 232448;  // dynamic shared memory a block may have
 
 template <int D>
 struct BwdShape {
@@ -552,11 +545,62 @@ struct BwdShape {
   static constexpr int ATOM_STEP = kStep * 128;  // one atom of a step's rows
   static constexpr int BIG = NA * ATOM_BIG;    // a resident 128-row tile
   static constexpr int STEP = NA * ATOM_STEP;  // a streamed tile
-  // resident pair, the ring's pairs, (dK/dV) the ring's lse2 and D_i,
-  // barriers: one for the resident pair, a full and an empty a slot
-  static constexpr int SMEM = 1024 + 2 * BIG + kRing * 2 * STEP +
-                              kRing * 2 * kStep * 4 + (1 + 2 * kRing) * 8;
+  // past D = 128 a dK/dV CTA holds 64 keys and its two consumers split by
+  // output (bwd_dkdv_split_kernel), handing P^T over in a double buffer
+  static constexpr bool SPLIT = D > 128;
+  // dK/dV: resident (K, V), the ring's (Q, dO) pairs and their lse2 and
+  // D_i, (split) the P^T buffers, barriers: one for the resident pair, a
+  // full and an empty a slot, (split) a full and an empty a P^T buffer
+  static constexpr int DKDV_SMEM =
+      1024 + 2 * (SPLIT ? STEP : BIG) + kRing * 2 * STEP +
+      kRing * 2 * kStep * 4 + (SPLIT ? 2 * kStep * kStep * 4 : 0) +
+      (1 + 2 * kRing + (SPLIT ? 4 : 0)) * 8;
+  // dQ: resident (Q, dO), the ring's (K, V) pairs (at D = 192 the
+  // resident pair's 96 KB leave room for two slots of 48 KB), barriers
+  static constexpr int DQ_RING = D > 128 ? 2 : 3;
+  static constexpr int DQ_SMEM =
+      1024 + 2 * BIG + DQ_RING * 2 * STEP + (1 + 2 * DQ_RING) * 8;
+  static_assert(DKDV_SMEM <= kSmemMax && DQ_SMEM <= kSmemMax,
+                "shared memory of a block");
 };
+
+// The producer warp of a dK/dV CTA: (Q, dO) tiles of kStep positions of
+// each head of the group, query tile after query tile from qt0, into the
+// ring (lane 0 issues the TMA loads) with each tile's lse2 and D_i, which
+// the warp's 32 lanes stage beside them; rows past S get lse2 = +inf, so
+// their P is 0.
+template <int D>
+__device__ __forceinline__ void stream_q_do(
+    const CUtensorMap* tm_q, const CUtensorMap* tm_do,
+    const float* __restrict__ lse2, const float* __restrict__ dsum,
+    uint8_t* Qs, uint8_t* DOs, float* lse_s, float* dsum_s, uint64_t* full,
+    uint64_t* empty, int b, int kvh, int qt0, int n_steps, int S, int H,
+    int G, int lane) {
+  using W = BwdShape<D>;
+  for (int n = 0; n < n_steps; ++n) {
+    const int st = n % kRing, ph = (n / kRing) & 1;
+    const int q0 = (qt0 + n / G) * kStep;
+    const int h = kvh * G + n % G;
+    mbar_wait(&empty[st], ph ^ 1);
+    if (lane == 0) {
+      mbar_expect_tx(&full[st], 2 * W::STEP);
+#pragma unroll
+      for (int a = 0; a < W::NA; ++a) {
+        tma_load_4d(Qs + st * W::STEP + a * W::ATOM_STEP, tm_q, &full[st],
+                    a * 64, h, q0, b);
+        tma_load_4d(DOs + st * W::STEP + a * W::ATOM_STEP, tm_do, &full[st],
+                    a * 64, h, q0, b);
+      }
+    }
+    const size_t row0 = (static_cast<size_t>(b) * H + h) * S;
+    for (int j = lane; j < kStep; j += 32) {
+      const int p = q0 + j;
+      lse_s[st * kStep + j] = p < S ? lse2[row0 + p] : INFINITY;
+      dsum_s[st * kStep + j] = p < S ? dsum[row0 + p] : 0.f;
+    }
+    mbar_arrive(&full[st]);
+  }
+}
 
 // s (64 x 64) = A (64 rows x D) . B (64 rows x D)^T: wgmma m64n64k16 over
 // the head dim, both operands K-major in shared memory; a_atom and b_atom
@@ -617,32 +661,54 @@ __device__ __forceinline__ void fence_acc(float (&acc)[NA][32]) {
   for (int a = 0; a < NA; ++a) fence_regs(acc[a]);
 }
 
-// P^T = ex2(S^T * scale log2 e - lse2) and dS^T = P^T (dP^T - D_i) of a
-// dK/dV step, in place of S^T (s) and dP^T (dp): the lane's keys key[0],
-// key[1] (rows), query positions q0 + 8i + 2(lane%4) + e (columns), whose
-// lse2 and D_i are ls[.], dsm[.]; zero where a key is past a position
-__device__ __forceinline__ void dkdv_probs(float (&s)[32], float (&dp)[32],
-                                           const float* ls, const float* dsm,
-                                           int q0, const int (&key)[2],
-                                           int kbase, int lane,
-                                           float scale_log2) {
+// P^T = ex2(S^T * scale log2 e - lse2) of a dK/dV step, in place of S^T
+// (s): the lane's keys key[0], key[1] (rows), query positions q0 + 8i +
+// 2(lane%4) + e (columns), whose lse2 are ls[.]; zero where a key is past
+// a position
+__device__ __forceinline__ void dkdv_p(float (&s)[32], const float* ls,
+                                       int q0, const int (&key)[2],
+                                       int kbase, int lane,
+                                       float scale_log2) {
   const bool masked = kbase + 63 > q0;  // some key past some row
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int c = 8 * i + 2 * (lane & 3);
     const float2 l2 = *reinterpret_cast<const float2*>(ls + c);
-    const float2 d2 = *reinterpret_cast<const float2*>(dsm + c);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int x = 4 * i + e;
-      const float lv = (e & 1) ? l2.y : l2.x;
-      const float di = (e & 1) ? d2.y : d2.x;
-      float p = ex2(fmaf(s[x], scale_log2, -lv));
+      float p = ex2(fmaf(s[x], scale_log2, -((e & 1) ? l2.y : l2.x)));
       if (masked && key[e >> 1] > q0 + c + (e & 1)) p = 0.f;
       s[x] = p;
-      dp[x] = p * (dp[x] - di);
     }
   }
+}
+
+// dS^T = P^T (dP^T - D_i) of a dK/dV step, in place of dP^T (dp), the
+// columns' D_i at dsm[.]
+__device__ __forceinline__ void dkdv_ds(float (&dp)[32],
+                                        const float (&p)[32],
+                                        const float* dsm, int lane) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float2 d2 =
+        *reinterpret_cast<const float2*>(dsm + 8 * i + 2 * (lane & 3));
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int x = 4 * i + e;
+      dp[x] = p[x] * (dp[x] - ((e & 1) ? d2.y : d2.x));
+    }
+  }
+}
+
+// both, in place of S^T (s) and dP^T (dp)
+__device__ __forceinline__ void dkdv_probs(float (&s)[32], float (&dp)[32],
+                                           const float* ls, const float* dsm,
+                                           int q0, const int (&key)[2],
+                                           int kbase, int lane,
+                                           float scale_log2) {
+  dkdv_p(s, ls, q0, key, kbase, lane, scale_log2);
+  dkdv_ds(dp, s, dsm, lane);
 }
 
 template <int D>
@@ -665,6 +731,7 @@ bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   uint8_t* Qs = Vs + W::BIG;           // kRing slots
   uint8_t* DOs = Qs + kRing * W::STEP;  // kRing slots
   float* lse_s = reinterpret_cast<float*>(DOs + kRing * W::STEP);
+  static_assert(!W::SPLIT, "past D = 128: bwd_dkdv_split_kernel");
   float* dsum_s = lse_s + kRing * kStep;
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(dsum_s + kRing * kStep);
   uint64_t* full = kv_full + 1;
@@ -704,30 +771,8 @@ bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                       b);
         }
       }
-      for (int n = 0; n < n_steps; ++n) {
-        const int st = n % kRing, ph = (n / kRing) & 1;
-        const int q0 = (qt0 + n / G) * kStep;
-        const int h = kvh * G + n % G;
-        mbar_wait(&empty[st], ph ^ 1);
-        if (lane == 0) {
-          mbar_expect_tx(&full[st], 2 * W::STEP);
-#pragma unroll
-          for (int a = 0; a < W::NA; ++a) {
-            tma_load_4d(Qs + st * W::STEP + a * W::ATOM_STEP, &tm_q,
-                        &full[st], a * 64, h, q0, b);
-            tma_load_4d(DOs + st * W::STEP + a * W::ATOM_STEP, &tm_do,
-                        &full[st], a * 64, h, q0, b);
-          }
-        }
-        // rows past S: lse2 = +inf, so their P is 0
-        const size_t row0 = (static_cast<size_t>(b) * H + h) * S;
-        for (int j = lane; j < kStep; j += 32) {
-          const int p = q0 + j;
-          lse_s[st * kStep + j] = p < S ? lse2[row0 + p] : INFINITY;
-          dsum_s[st * kStep + j] = p < S ? dsum[row0 + p] : 0.f;
-        }
-        mbar_arrive(&full[st]);
-      }
+      stream_q_do<D>(&tm_q, &tm_do, lse2, dsum, Qs, DOs, lse_s, dsum_s, full,
+                     empty, b, kvh, qt0, n_steps, S, H, G, lane);
     }
   } else {
     // ------------------------------------------------------- consumers
@@ -889,6 +934,214 @@ bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+// One consumer warpgroup of bwd_dkdv_split_kernel over its n_steps
+// steps.  kDV (warpgroup 0): scores S^T = res (K) . score tiles (Q)^T,
+// then P^T, handed over, and acc (dV) += P^T . accum tiles (dO); else
+// (warpgroup 1): dP^T = res (V) . score tiles (dO)^T, then dS^T with
+// the P^T taken over, and acc (dK) += dS^T . accum tiles (Q).  stat_s is
+// the ring's lse2 (kDV) or D_i.  Step n's score product is issued with
+// step n-1's accumulation; step 0 and the last accumulation are peeled,
+// so that no wgmma sits in conditional code.
+template <int D, bool kDV>
+__device__ __forceinline__ void split_consumer(
+    float (&acc)[BwdShape<D>::NA][32], const uint8_t* res,
+    const uint8_t* score_tiles, const uint8_t* accum_tiles,
+    const float* stat_s, float* pbuf, uint64_t* full, uint64_t* empty,
+    uint64_t* p_full, uint64_t* p_empty, int n_steps, int qt0, int G,
+    const int (&key)[2], int k0, int t, int lane, float scale_log2) {
+  using W = BwdShape<D>;
+  constexpr int kPBuf = kStep * kStep;  // floats of a P^T buffer
+  float s[32], p[32];
+  uint32_t f[4][4];
+  zero_acc(acc);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
+  // warpgroup 1, while its product runs: take step n's P^T
+  auto take = [&](int n) {
+    if constexpr (!kDV) {
+      const int buf = n & 1;
+      mbar_wait(&p_full[buf], (n >> 1) & 1);
+      const float* src = pbuf + buf * kPBuf + t;
+#pragma unroll
+      for (int x = 0; x < 32; ++x) p[x] = src[x * 128];
+      mbar_arrive(&p_empty[buf]);
+    }
+  };
+  // after step n's scores: P^T, handed over (thread t's value x at
+  // [x][t]: a warp's 32 stores are 32 consecutive words), or dS^T
+  auto finish = [&](int n, int st) {
+    if constexpr (kDV) {
+      dkdv_p(s, stat_s + st * kStep, (qt0 + n / G) * kStep, key, k0, lane,
+             scale_log2);
+      const int buf = n & 1;
+      mbar_wait(&p_empty[buf], ((n >> 1) & 1) ^ 1);
+      float* dst = pbuf + buf * kPBuf + t;
+#pragma unroll
+      for (int x = 0; x < 32; ++x) dst[x * 128] = s[x];
+      mbar_arrive(&p_full[buf]);
+    } else {
+      dkdv_ds(s, p, stat_s + st * kStep, lane);
+    }
+  };
+
+  // step 0: the score product alone
+  mbar_wait(&full[0], 0);
+  fence_regs(s);
+  wgmma_fence();
+  issue_scores<D>(s, res, W::ATOM_STEP, score_tiles, W::ATOM_STEP);
+  wgmma_commit();
+  take(0);
+  wgmma_wait<0>();
+  fence_regs(s);
+  finish(0, 0);
+  to_afrag<64>(f, s);
+  for (int n = 1; n < n_steps; ++n) {
+    const int st = n % kRing, ph = (n / kRing) & 1;
+    const int pst = (n - 1) % kRing;  // step n-1's slot
+    mbar_wait(&full[st], ph);
+    fence_regs(s);
+    fence_acc(acc);
+    fence_regs(f);
+    wgmma_fence();
+    issue_scores<D>(s, res, W::ATOM_STEP, score_tiles + st * W::STEP,
+                    W::ATOM_STEP);
+    wgmma_commit();
+    issue_accum<W::NA>(acc, f, accum_tiles + pst * W::STEP, W::ATOM_STEP);
+    wgmma_commit();
+    take(n);
+    wgmma_wait<1>();  // step n's scores done
+    fence_regs(s);
+    finish(n, st);
+    wgmma_wait<0>();  // step n-1's accumulation done: free its slot
+    fence_acc(acc);
+    fence_regs(f);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[pst]);
+    to_afrag<64>(f, s);
+  }
+  // the last step's accumulation
+  const int pst = (n_steps - 1) % kRing;
+  fence_acc(acc);
+  fence_regs(f);
+  wgmma_fence();
+  issue_accum<W::NA>(acc, f, accum_tiles + pst * W::STEP, W::ATOM_STEP);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(acc);
+  fence_regs(f);
+}
+
+// dK/dV past D = 128 (MLA's 192): a CTA per (batch, kv head, 64-key tile),
+// key tile 0 (the most query rows) first.  K and V of the 64 keys stay
+// resident; the producer streams (Q, dO) tiles as bwd_dkdv_wgmma_kernel's
+// does.  The consumers split by output, each holding one 64 x D
+// accumulator (96 registers at D = 192):
+//   warpgroup 0: S^T = K Q^T, P^T = ex2(S^T scale log2 e - lse2), hands P^T
+//     to warpgroup 1 through a double buffer in shared memory (float32,
+//     thread t's value x at [x][t], conflict-free), dV += P^T dO;
+//   warpgroup 1: dP^T = V dO^T, dS^T = P^T (dP^T - D_i), dK += dS^T Q.
+// Each issues step n's score product with step n-1's accumulation, as
+// bwd_dkdv_wgmma_kernel does at D = 64.  A ring slot is freed when both
+// warpgroups have read it (8 arrivals); a P^T buffer is full when
+// warpgroup 0's 128 threads have written it and empty when warpgroup 1's
+// 128 have read it.
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+bwd_dkdv_split_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_do,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      const float* __restrict__ lse2,
+                      const float* __restrict__ dsum,
+                      __nv_bfloat16* __restrict__ dk,
+                      __nv_bfloat16* __restrict__ dv, int S, int H, int KH,
+                      int G, float scale_log2, float scale) {
+  using W = BwdShape<D>;
+  static_assert(W::SPLIT, "up to D = 128: bwd_dkdv_wgmma_kernel");
+  constexpr int kPBuf = kStep * kStep;  // floats of a P^T buffer
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* Ks = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t{1023});
+  uint8_t* Vs = Ks + W::STEP;
+  uint8_t* Qs = Vs + W::STEP;           // kRing slots
+  uint8_t* DOs = Qs + kRing * W::STEP;  // kRing slots
+  float* pbuf = reinterpret_cast<float*>(DOs + kRing * W::STEP);  // two
+  float* lse_s = pbuf + 2 * kPBuf;
+  float* dsum_s = lse_s + kRing * kStep;
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(dsum_s + kRing * kStep);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + kRing;
+  uint64_t* p_full = empty + kRing;
+  uint64_t* p_empty = p_full + 2;
+
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int b = blockIdx.x / KH, kvh = blockIdx.x - b * KH;
+  const int qt0 = blockIdx.y;  // key tile 0, the most rows, first
+  const int k0 = qt0 * kStep;
+  const int n_steps = ((S + kStep - 1) / kStep - qt0) * G;
+  if (tid == 0) {
+    mbar_init(kv_full, 1);
+    for (int st = 0; st < kRing; ++st) {
+      mbar_init(&full[st], 33);  // the TMA thread and the 32 stagers
+      mbar_init(&empty[st], 8);  // lane 0 of each consumer warp
+    }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&p_full[i], 128);
+      mbar_init(&p_empty[i], 128);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // -------------------------------------------------------- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (tid < 256 + 32) {
+      const int lane = tid & 31;
+      if (lane == 0) {
+        tma_prefetch(&tm_q);
+        tma_prefetch(&tm_do);
+        mbar_expect_tx(kv_full, 2 * W::STEP);
+#pragma unroll
+        for (int a = 0; a < W::NA; ++a) {
+          tma_load_4d(Ks + a * W::ATOM_STEP, &tm_k, kv_full, a * 64, kvh, k0,
+                      b);
+          tma_load_4d(Vs + a * W::ATOM_STEP, &tm_v, kv_full, a * 64, kvh, k0,
+                      b);
+        }
+      }
+      stream_q_do<D>(&tm_q, &tm_do, lse2, dsum, Qs, DOs, lse_s, dsum_s, full,
+                     empty, b, kvh, qt0, n_steps, S, H, G, lane);
+    }
+    return;
+  }
+  // --------------------------------------------------------- consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  const int t = tid & 127, warp = t >> 5, lane = t & 31;
+  // this lane's keys: rows h = 0, 1 of the wgmma layout
+  int key[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) key[h] = k0 + warp * 16 + (lane >> 2) + 8 * h;
+  float acc[W::NA][32];  // dV (warpgroup 0) or dK (warpgroup 1)
+  mbar_wait(kv_full, 0);
+  if (wg == 0)
+    split_consumer<D, true>(acc, Ks, Qs, DOs, lse_s, pbuf, full, empty,
+                            p_full, p_empty, n_steps, qt0, G, key, k0, t,
+                            lane, scale_log2);
+  else
+    split_consumer<D, false>(acc, Vs, DOs, Qs, dsum_s, pbuf, full, empty,
+                             p_full, p_empty, n_steps, qt0, G, key, k0, t,
+                             lane, scale_log2);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (key[h] >= S) continue;
+    const size_t at = ((static_cast<size_t>(b) * S + key[h]) * KH + kvh) * D;
+    store_acc_row(wg == 0 ? dv + at : dk + at, acc, h, lane, D,
+                  wg == 0 ? 1.f : scale);
+  }
+}
+
 // dS = P (dP - D_i), P = ex2(S * scale log2 e - lse2), of a dQ step, in
 // place of dP (dp): the lane's rows at positions row_pos[0], row_pos[1]
 // (-1: an idle row), keys k0 + 8i + 2(lane%4) + e (columns); zero where a
@@ -923,15 +1176,16 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                     __nv_bfloat16* __restrict__ dq, int S, int H, int KH,
                     int G, int BQ, float scale_log2, float scale) {
   using W = BwdShape<D>;
+  constexpr int kR = W::DQ_RING;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* Qs = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t{1023});
   uint8_t* DOs = Qs + W::BIG;
-  uint8_t* Ks = DOs + W::BIG;          // kRing slots
-  uint8_t* Vs = Ks + kRing * W::STEP;  // kRing slots
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + kRing * W::STEP);
+  uint8_t* Ks = DOs + W::BIG;       // kR slots
+  uint8_t* Vs = Ks + kR * W::STEP;  // kR slots
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + kR * W::STEP);
   uint64_t* full = q_full + 1;
-  uint64_t* empty = full + kRing;
+  uint64_t* empty = full + kR;
 
   const int tid = threadIdx.x;
   const int wg = tid >> 7;
@@ -943,7 +1197,7 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int n_kt = (min(q0 + BQ, S) - 1) / kStep + 1;  // up to the diagonal
   if (tid == 0) {
     mbar_init(q_full, 1);
-    for (int st = 0; st < kRing; ++st) {
+    for (int st = 0; st < kR; ++st) {
       mbar_init(&full[st], 1);
       mbar_init(&empty[st], 8);
     }
@@ -967,7 +1221,7 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                     q0, b);
       }
       for (int j = 0; j < n_kt; ++j) {
-        const int st = j % kRing, ph = (j / kRing) & 1;
+        const int st = j % kR, ph = (j / kR) & 1;
         mbar_wait(&empty[st], ph ^ 1);
         mbar_expect_tx(&full[st], 2 * W::STEP);
 #pragma unroll
@@ -1012,67 +1266,108 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     mbar_wait(q_full, 0);
     if (wg == 1) named_arrive(1);  // warpgroup 0 issues first
 
-    // key tile 0: S and dP alone
-    {
-      mbar_wait(&full[0], 0);
-      named_sync(bar_me);
-      fence_regs(s);
-      fence_regs(dp);
-      wgmma_fence();
-      issue_scores<D>(s, qrows, W::ATOM_BIG, Ks, W::ATOM_STEP);
-      issue_scores<D>(dp, dorows, W::ATOM_BIG, Vs, W::ATOM_STEP);
-      wgmma_commit();
-      named_arrive(bar_other);
-      wgmma_wait<0>();
-      fence_regs(s);
-      fence_regs(dp);
-      dq_dscores(s, dp, 0, q0, row_pos, lse_r, di_r, lane, scale_log2);
-      to_afrag<64>(dsf, dp);
-    }
-    // key tile j: S_j, dP_j and tile j-1's dQ product on the tensor
-    // cores, then dS_j while the dQ product may still run
-    for (int j = 1; j < n_kt; ++j) {
-      const int st = j % kRing, ph = (j / kRing) & 1;
-      const int pst = (j - 1) % kRing;  // tile j-1's slot
-      mbar_wait(&full[st], ph);
-      named_sync(bar_me);
-      fence_regs(s);
-      fence_regs(dp);
-      fence_acc(adq);
-      fence_regs(dsf);
-      wgmma_fence();
-      issue_scores<D>(s, qrows, W::ATOM_BIG, Ks + st * W::STEP, W::ATOM_STEP);
-      issue_scores<D>(dp, dorows, W::ATOM_BIG, Vs + st * W::STEP,
-                      W::ATOM_STEP);
-      wgmma_commit();
-      issue_accum<W::NA>(adq, dsf, Ks + pst * W::STEP, W::ATOM_STEP);
-      wgmma_commit();
-      named_arrive(bar_other);
-      wgmma_wait<1>();  // S_j and dP_j done
-      fence_regs(s);
-      fence_regs(dp);
-      dq_dscores(s, dp, j * kStep, q0, row_pos, lse_r, di_r, lane,
-                 scale_log2);
-      wgmma_wait<0>();  // tile j-1's dQ product done: free its slot
-      fence_acc(adq);
-      fence_regs(dsf);
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&empty[pst]);
-      to_afrag<64>(dsf, dp);
-    }
-    // the last tile's dQ product
-    {
-      const int pst = (n_kt - 1) % kRing;
-      named_sync(bar_me);
-      fence_acc(adq);
-      fence_regs(dsf);
-      wgmma_fence();
-      issue_accum<W::NA>(adq, dsf, Ks + pst * W::STEP, W::ATOM_STEP);
-      wgmma_commit();
-      if (wg == 0) named_arrive(bar_other);  // see bwd_dkdv_wgmma_kernel
-      wgmma_wait<0>();
-      fence_acc(adq);
-      fence_regs(dsf);
+    if constexpr (W::NA < 3) {
+      // key tile 0: S and dP alone
+      {
+        mbar_wait(&full[0], 0);
+        named_sync(bar_me);
+        fence_regs(s);
+        fence_regs(dp);
+        wgmma_fence();
+        issue_scores<D>(s, qrows, W::ATOM_BIG, Ks, W::ATOM_STEP);
+        issue_scores<D>(dp, dorows, W::ATOM_BIG, Vs, W::ATOM_STEP);
+        wgmma_commit();
+        named_arrive(bar_other);
+        wgmma_wait<0>();
+        fence_regs(s);
+        fence_regs(dp);
+        dq_dscores(s, dp, 0, q0, row_pos, lse_r, di_r, lane, scale_log2);
+        to_afrag<64>(dsf, dp);
+      }
+      // key tile j: S_j, dP_j and tile j-1's dQ product on the tensor
+      // cores, then dS_j while the dQ product may still run
+      for (int j = 1; j < n_kt; ++j) {
+        const int st = j % kR, ph = (j / kR) & 1;
+        const int pst = (j - 1) % kR;  // tile j-1's slot
+        mbar_wait(&full[st], ph);
+        named_sync(bar_me);
+        fence_regs(s);
+        fence_regs(dp);
+        fence_acc(adq);
+        fence_regs(dsf);
+        wgmma_fence();
+        issue_scores<D>(s, qrows, W::ATOM_BIG, Ks + st * W::STEP, W::ATOM_STEP);
+        issue_scores<D>(dp, dorows, W::ATOM_BIG, Vs + st * W::STEP,
+                        W::ATOM_STEP);
+        wgmma_commit();
+        issue_accum<W::NA>(adq, dsf, Ks + pst * W::STEP, W::ATOM_STEP);
+        wgmma_commit();
+        named_arrive(bar_other);
+        wgmma_wait<1>();  // S_j and dP_j done
+        fence_regs(s);
+        fence_regs(dp);
+        dq_dscores(s, dp, j * kStep, q0, row_pos, lse_r, di_r, lane,
+                   scale_log2);
+        wgmma_wait<0>();  // tile j-1's dQ product done: free its slot
+        fence_acc(adq);
+        fence_regs(dsf);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[pst]);
+        to_afrag<64>(dsf, dp);
+      }
+      // the last tile's dQ product
+      {
+        const int pst = (n_kt - 1) % kR;
+        named_sync(bar_me);
+        fence_acc(adq);
+        fence_regs(dsf);
+        wgmma_fence();
+        issue_accum<W::NA>(adq, dsf, Ks + pst * W::STEP, W::ATOM_STEP);
+        wgmma_commit();
+        if (wg == 0) named_arrive(bar_other);  // see bwd_dkdv_wgmma_kernel
+        wgmma_wait<0>();
+        fence_acc(adq);
+        fence_regs(dsf);
+      }
+    } else {
+      // three 64-column atoms: dQ takes 96 registers, too many to hold
+      // tile j's S and dP beside tile j-1's dS fragments (ptxas spills),
+      // so a tile's products run one after the other; the two warpgroups
+      // still take turns
+      for (int j = 0; j < n_kt; ++j) {
+        const int st = j % kR, ph = (j / kR) & 1;
+        const uint8_t* ks = Ks + st * W::STEP;
+        mbar_wait(&full[st], ph);
+        named_sync(bar_me);
+        fence_regs(s);
+        fence_regs(dp);
+        wgmma_fence();
+        issue_scores<D>(s, qrows, W::ATOM_BIG, ks, W::ATOM_STEP);
+        issue_scores<D>(dp, dorows, W::ATOM_BIG, Vs + st * W::STEP,
+                        W::ATOM_STEP);
+        wgmma_commit();
+        named_arrive(bar_other);
+        wgmma_wait<0>();
+        fence_regs(s);
+        fence_regs(dp);
+        dq_dscores(s, dp, j * kStep, q0, row_pos, lse_r, di_r, lane,
+                   scale_log2);
+        to_afrag<64>(dsf, dp);
+        named_sync(bar_me);
+        fence_acc(adq);
+        fence_regs(dsf);
+        wgmma_fence();
+        issue_accum<W::NA>(adq, dsf, ks, W::ATOM_STEP);
+        wgmma_commit();
+        // warpgroup 1 arrived once ahead of its first turn: its last turn
+        // hands nothing on
+        if (wg == 0 || j < n_kt - 1) named_arrive(bar_other);
+        wgmma_wait<0>();
+        fence_acc(adq);
+        fence_regs(dsf);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[st]);
+      }
     }
 
 #pragma unroll
@@ -1085,6 +1380,15 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+// the dK/dV kernel at head dim D (both take the same arguments)
+template <int D>
+auto dkdv_kernel() {
+  if constexpr (BwdShape<D>::SPLIT)
+    return bwd_dkdv_split_kernel<D>;
+  else
+    return bwd_dkdv_wgmma_kernel<D>;
+}
+
 template <int D>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          const void* dout, const float* lse2,
@@ -1095,36 +1399,36 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   const int G = H / KH;
   const int BQ = kPacked / G;
   // dK/dV: (Q, dO) boxes of kStep positions of one head, (K, V) of the
-  // CTA's 128 keys; dQ: (Q, dO) boxes of G heads x BQ positions (the
-  // packed rows), (K, V) of kStep keys
-  CUtensorMap q1, do1, k128, v128, qp, dop, k64, v64;
+  // CTA's keys (128, or 64 when split); dQ: (Q, dO) boxes of G heads x BQ
+  // positions (the packed rows), (K, V) of kStep keys
+  constexpr int kRes = W::SPLIT ? kStep : kKeys;
+  CUtensorMap q1, do1, kres, vres, qp, dop, k64, v64;
   if (!rows_map(&q1, q, 2, B, S, S, H, D, kStep) ||
       !rows_map(&do1, dout, 2, B, S, S, H, D, kStep) ||
-      !rows_map(&k128, k, 2, B, S, S, KH, D, kKeys) ||
-      !rows_map(&v128, v, 2, B, S, S, KH, D, kKeys) ||
+      !rows_map(&kres, k, 2, B, S, S, KH, D, kRes) ||
+      !rows_map(&vres, v, 2, B, S, S, KH, D, kRes) ||
       !rows_map(&qp, q, 2, B, S, S, H, D, BQ, G) ||
       !rows_map(&dop, dout, 2, B, S, S, H, D, BQ, G) ||
       !rows_map(&k64, k, 2, B, S, S, KH, D, kStep) ||
       !rows_map(&v64, v, 2, B, S, S, KH, D, kStep))
     return cudaErrorNotSupported;
+  const auto dkdv = dkdv_kernel<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      bwd_dkdv_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      W::SMEM);
+      dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, W::DKDV_SMEM);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(bwd_dq_wgmma_kernel<D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             W::SMEM);
+                             W::DQ_SMEM);
   if (err != cudaSuccess) return err;
-  bwd_dkdv_wgmma_kernel<D>
-      <<<dim3(B * KH, (S + kKeys - 1) / kKeys), kBwdThreads, W::SMEM,
-         stream>>>(q1, do1, k128, v128, lse2, dsum,
+  dkdv<<<dim3(B * KH, (S + kRes - 1) / kRes), kBwdThreads, W::DKDV_SMEM,
+         stream>>>(q1, do1, kres, vres, lse2, dsum,
                    static_cast<__nv_bfloat16*>(dk),
                    static_cast<__nv_bfloat16*>(dv), S, H, KH, G, scale_log2,
                    scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   bwd_dq_wgmma_kernel<D>
-      <<<dim3(B * KH, (S + BQ - 1) / BQ), kBwdThreads, W::SMEM, stream>>>(
+      <<<dim3(B * KH, (S + BQ - 1) / BQ), kBwdThreads, W::DQ_SMEM, stream>>>(
           qp, dop, k64, v64, lse2, dsum, static_cast<__nv_bfloat16*>(dq), S,
           H, KH, G, BQ, scale_log2, scale);
   return cudaGetLastError();
@@ -1134,7 +1438,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
 
 // q, o, dout, dq: (B, S, H, D); k, v, dk, dv: (B, S, KH, D); float32 or
 // bfloat16 (is_bf16: D of 64, 80, 128 or 192), contiguous and 16-byte
-// aligned.
+// aligned.  bfloat16 runs on wgmma, float32 on FMAs: nothing falls back.
 // lse2: float32 (B, H, S), each row's log-sum-exp of its scaled scores in
 // base 2, as the forward writes it.  scratch: B*H*S float32 (the rows'
 // D_i), written and read by the call.
@@ -1149,7 +1453,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
       D < 1 || D > 192 || static_cast<long long>(B) * H > (1ll << 31) - 1 ||
       (S + kT - 1) / kT > 65535 ||
       (is_bf16 && (D != 64 && D != 80 && D != 128 && D != 192)) ||
-      (is_bf16 && D != 192 &&
+      (is_bf16 &&
        (S + kPacked / (H / KH) - 1) / (kPacked / (H / KH)) > 65535)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1176,10 +1480,6 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (is_bf16 && D == 192)
-    return static_cast<int>(launch_fma<192, __nv_bfloat16>(
-        q, k, v, dout, l2, dsum, dq, dk, dv, B, S, H, KH, D, scale_log2,
-        scale, st));
   if (is_bf16) {
     if (D == 64)
       err = launch_wgmma<64>(q, k, v, dout, l2, dsum, dq, dk, dv, B, S, H, KH,
@@ -1187,22 +1487,32 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
     else if (D == 80)
       err = launch_wgmma<80>(q, k, v, dout, l2, dsum, dq, dk, dv, B, S, H, KH,
                              scale_log2, scale, st);
-    else
+    else if (D == 128)
       err = launch_wgmma<128>(q, k, v, dout, l2, dsum, dq, dk, dv, B, S, H,
+                              KH, scale_log2, scale, st);
+    else
+      err = launch_wgmma<192>(q, k, v, dout, l2, dsum, dq, dk, dv, B, S, H,
                               KH, scale_log2, scale, st);
     return static_cast<int>(err);
   }
+  const float* qf = static_cast<const float*>(q);
+  const float* kf = static_cast<const float*>(k);
+  const float* vf = static_cast<const float*>(v);
+  const float* df = static_cast<const float*>(dout);
+  float* dqf = static_cast<float*>(dq);
+  float* dkf = static_cast<float*>(dk);
+  float* dvf = static_cast<float*>(dv);
   if (D <= 64)
-    err = launch_fma<64, float>(q, k, v, dout, l2, dsum, dq, dk, dv, B, S, H,
-                                KH, D, scale_log2, scale, st);
+    err = launch_fma<64>(qf, kf, vf, df, l2, dsum, dqf, dkf, dvf, B, S, H,
+                         KH, D, scale_log2, scale, st);
   else if (D <= 96)
-    err = launch_fma<96, float>(q, k, v, dout, l2, dsum, dq, dk, dv, B, S, H,
-                                KH, D, scale_log2, scale, st);
+    err = launch_fma<96>(qf, kf, vf, df, l2, dsum, dqf, dkf, dvf, B, S, H,
+                         KH, D, scale_log2, scale, st);
   else if (D <= 128)
-    err = launch_fma<128, float>(q, k, v, dout, l2, dsum, dq, dk, dv, B, S, H,
-                                 KH, D, scale_log2, scale, st);
+    err = launch_fma<128>(qf, kf, vf, df, l2, dsum, dqf, dkf, dvf, B, S, H,
+                          KH, D, scale_log2, scale, st);
   else
-    err = launch_fma<192, float>(q, k, v, dout, l2, dsum, dq, dk, dv, B, S, H,
-                                 KH, D, scale_log2, scale, st);
+    err = launch_fma<192>(qf, kf, vf, df, l2, dsum, dqf, dkf, dvf, B, S, H,
+                          KH, D, scale_log2, scale, st);
   return static_cast<int>(err);
 }

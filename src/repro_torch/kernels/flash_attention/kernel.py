@@ -19,8 +19,10 @@ forward stores no log-sum-exp.  CPU tensors take the plain version
 ``attention_ref``, which autograd differentiates.
 
 Head dim 192 (MLA: 128 nope + 64 rope columns, v zero-padded) runs its
-forward on ``wgmma`` and its backward on float32 FMAs over tiles read
-from bfloat16, as the float32 backward runs at every D.
+forward and, in bfloat16, its backward on ``wgmma`` (dK/dV in CTAs of 64
+keys whose two warpgroups split by output, dQ in 128 packed rows); the
+float32 backward runs on FMAs at every D.  Nothing falls back: a
+bfloat16 call either launches the ``wgmma`` kernels or raises.
 
 ``meta`` tensors stand for the card's in a plan (``launch/dryrun.py``):
 the forward and the backward then make only what the kernels make (the

@@ -146,14 +146,23 @@ def test_cpu_backward_wrapper_takes_lse():
     assert (KA.launches, KA.bwd_launches) == counts
 
 
-@pytest.mark.parametrize("B,S,H", [(1, 24, 4), (2, 13, 2)])
-def test_attention_bwd_ref_at_mla_head_dim_matches_jax_vjp(B, S, H):
+@pytest.mark.parametrize("B,S,H,KH", [
+    pytest.param(1, 24, 4, 4, id="1-24-4"),
+    pytest.param(2, 13, 2, 2, id="2-13-2"),
+    # G = 2 (the card's tests run the kernel at (1, 129, 4, 2) against
+    # this plain version, which has no tiles; past S ~ 70 at D = 192 the
+    # float32 sums of either side round beyond the elementwise atol), and
+    # S one past a 64-row tile
+    pytest.param(1, 24, 4, 2, id="1-24-4-2"),
+    pytest.param(2, 65, 2, 2, id="2-65-2-2"),
+])
+def test_attention_bwd_ref_at_mla_head_dim_matches_jax_vjp(B, S, H, KH):
     """MLA's training shapes: the core at head dim 192 (128 nope + 64
     rope), v of 128 columns zero-padded to 192 and the output sliced back,
     so the padded columns of dO are zero and their dV is dropped.  The
     plain backward against ``jax.vjp`` of the oracle, every column."""
     D, VD = 192, 128
-    q, k, v, dout = _inputs(B, S, H, H, D, 5 * S + H)
+    q, k, v, dout = _inputs(B, S, H, KH, D, 5 * S + H)
     v[..., VD:] = 0.0
     dout[..., VD:] = 0.0
     out, vjp = jax.vjp(JRA.attention_ref, *map(jnp.asarray, (q, k, v)))

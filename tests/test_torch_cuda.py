@@ -321,10 +321,12 @@ def test_flash_attention_bf16_head_dim_192_tiles_and_edges(card, S, G):
 ])
 def test_flash_attention_bwd_head_dim_192_matches_plain(card, B, S, H, KH,
                                                         dtype):
-    """The backward at MLA's head dim (FMAs over 64 x 192 tiles, P and dS
-    in one buffer): against the plain version at 2e-2 (bfloat16) and 1e-4
-    (float32) of each output's largest |value|, two calls bitwise equal;
-    under autograd ``flash_attention`` records it."""
+    """The backward at MLA's head dim (bfloat16 on wgmma: dK/dV in 64-key
+    CTAs split by output, dQ in 128 packed rows; float32 on FMAs over
+    64 x 192 tiles, P and dS in one buffer): against the plain version at
+    2e-2 (bfloat16) and 1e-4 (float32) of each output's largest |value|,
+    two calls bitwise equal; under autograd ``flash_attention`` records
+    it."""
     from repro_torch.kernels.flash_attention import kernel as KA, ref as RA
     q, k, v = _attn_inputs(card, B, S, H, KH, 192, dtype, S + 17)
     dout = _attn_inputs(card, B, S, H, H, 192, dtype, S + 19)[0]
@@ -440,16 +442,16 @@ def test_flash_attention_keeps_lse_matching_plain(card, B, S, H, KH, D,
                                **ATTN_LSE_TOL)
 
 
-@pytest.mark.parametrize("D", [64, 80, 128])
+@pytest.mark.parametrize("D", [64, 80, 128, 192])
 @pytest.mark.parametrize("G", [1, 4, 6, 8])
 @pytest.mark.parametrize("S", [1, 50, 127, 129, 1000])
 def test_flash_attention_bwd_bf16_tiles_and_edges(card, S, G, D):
-    """The wgmma backward across its 128-key dK/dV CTA, its 64-row steps
-    and its 128 packed dQ rows (S = 50, 127, 129, 1000), one position,
-    every G of the dense configs and G = 6 (idle packed rows), every
-    bfloat16 head dim: against the plain version, two calls bitwise
-    equal, and the log-sum-exp kept by the forward giving bitwise the
-    gradients of a call that has the forward write it again."""
+    """The wgmma backward across its dK/dV CTA (128 keys; 64 at D = 192),
+    its 64-row steps and its 128 packed dQ rows (S = 50, 127, 129, 1000),
+    one position, every G of the dense configs and G = 6 (idle packed
+    rows), every bfloat16 head dim: against the plain version, two calls
+    bitwise equal, and the log-sum-exp kept by the forward giving bitwise
+    the gradients of a call that has the forward write it again."""
     from repro_torch.kernels.flash_attention import kernel as KA, ref as RA
     B = 2 if S < 1000 else 1
     q, k, v = _attn_inputs(card, B, S, 2 * G, 2, D, torch.bfloat16,
