@@ -6,10 +6,11 @@
     python3 chip_smoke.py --phase fleet  # the build and phase 8a alone
     python3 chip_smoke.py --phase plan   # the build and phases 26-30 alone
 
-The whole script took 637 s of command time on one H100 with phases 26-30
-(planning every cell takes about 80 s of it); ``--phase fleet`` builds the
-kernels and runs phase 8a alone and ``--phase plan`` phases 26-30 (about
-2.5 minutes), printing no kernels line.
+The whole script took 617 s of command time on one H100 from a clean
+checkout, builds and phases 26-30 included (planning every cell takes
+about 80 s of it); ``--phase fleet`` builds the kernels and runs phase
+8a alone and ``--phase plan`` phases 26-30 (about 2.5 minutes),
+printing no kernels line.
 
 Phases, each fatal on failure:
 
@@ -163,8 +164,9 @@ Phases, each fatal on failure:
     restored into a fresh state, whose next step's loss must equal the
     original's;
 14. check that the bfloat16 backward's dK/dV and dQ kernels run on
-    ``wgmma`` at D = 64, 80, 128 and 192 (HGMMA in their SASS,
-    ``cuobjdump``); hold
+    ``wgmma`` at D = 64, 80, 128 and 192, and the forward at (D, Dv) =
+    (64, 64), (80, 80), (128, 128), (192, 128) and (192, 192) (HGMMA in
+    their SASS, ``cuobjdump``); hold
     ``flash_attention_bwd``, fed the log-sum-exp that the forward keeps,
     against ``attention_bwd_ref`` at the training packet (B=1, S=4096,
     32/8 heads, D=64, bfloat16), a ragged S, head dims 80 and 128 in both
@@ -175,13 +177,17 @@ Phases, each fatal on failure:
     time the backward alone, plain version and SDPA's backward
     (``torch.autograd.grad`` through one ``scaled_dot_product_attention``)
     at the training packet;
-15. hold ``flash_attention`` at MLA's head dim 192 (deepseek-v2-lite-16b:
-    128 nope + 64 rope columns, H = KH = 16) against its plain version at
-    the MLA prefill shape (B=4, S=256), the long shape (B=1, S=4096;
-    ``--small``: 1024), a ragged S and G = 2, bfloat16 at 2e-2 and
-    float32 at rtol 1e-4 / atol 2e-5, and time kernel, plain version and
-    SDPA at the prefill and the long shape (the ``flash_attention_d192``
-    record);
+15. hold ``flash_attention`` at MLA's widths (deepseek-v2-lite-16b: q
+    and k at 192 = 128 nope + 64 rope columns, v at 128, H = KH = 16)
+    against its plain version at the MLA prefill shape (B=4, S=256), the
+    long shape (B=1, S=4096; ``--small``: 1024), ragged S (1000, 127,
+    129), G = 2 and 3, bfloat16 at 2e-2 and float32 at rtol 1e-4 / atol
+    2e-5, its kept log-sum-exp against ``attention_lse_ref``; time kernel,
+    plain version and SDPA at the prefill and the long shape (the
+    ``flash_attention_d192`` record), SDPA on v zero-padded to 192 and on
+    v at 128, each with the backend it took, the faster the yardstick;
+    hold and time the equal-width instance (v of 192 columns) at the
+    prefill shape;
 16. serve deepseek-v2-lite-16b at full width (``--small``: 2 of its 27
     layers, the dense one and one MoE layer) in bfloat16 with the set-up
     of phase 6.  All must be served; the launch counters, set to 0 after
@@ -291,7 +297,10 @@ Phases, each fatal on failure:
     backward; the timed bfloat16 call's three kernels (D_i,
     ``bwd_dkdv_split_kernel<192>``, ``bwd_dq_wgmma_kernel<192>``: on
     ``wgmma``, no FMA kernel) each logged with its device time
-    (``kernels_ms`` in the record);
+    (``kernels_ms`` in the record); at that shape with v at 128, the
+    gradients under autograd bitwise those of the backward on v, the
+    output and its gradient zero-padded to 192, and the padding's cost
+    timed (``v_width_ms`` against ``v_padded_ms``);
 29. deepseek-v2-lite-16b at full width on its first 3 layers (the dense
     one and two MoE; 1.670 B parameters), its rows chosen by the plan
     (4 x 4,096 tokens unless two groups' packets would not fit): the
@@ -466,6 +475,9 @@ SERVE = dict(requests=16, prompt=256, gen=32, lws=4)
 PARITY = dict(batch=2, prompt=64, steps=4)
 # kernel against plain version: those of tests/test_kernels.py:120-124
 ATTN_TOL = {"bfloat16": (2e-2, 2e-2), "float32": (1e-4, 2e-5)}
+# the forward's kept log-sum-exp against attention_lse_ref: that of
+# tests/test_torch_cuda.py (float32 sums in another order, ex2.approx)
+ATTN_LSE_TOL = dict(rtol=1e-5, atol=1e-4)
 # the selective scan: that of tests/test_kernels.py:152
 SCAN_TOL = (1e-4, 1e-5)
 # falcon-mamba-7b's card-against-host check runs its first 8 layers
@@ -753,28 +765,56 @@ def long_entry(r, label="long shape"):
                 library_ms=r["library_ms"], max_abs_err=r["err"])
 
 
-def attn_check(torch, randn, B, S, h, kh, d, dtype, timed=False):
+def sdpa_backends(torch, fn):
+    """The device kernels that one call of ``fn`` (an SDPA call) runs, by
+    name (``traced_window``): which of PyTorch's backends took it."""
+    return sorted({e.key.split("(")[0].split("<")[0][:48]
+                   for e in traced_window(torch, fn, 1)})
+
+
+def attn_check(torch, randn, B, S, h, kh, d, dtype, timed=False, dv=None):
     """Hold ``flash_attention`` against ``attention_ref`` on (B, S, h, d)
-    queries and (B, S, kh, d) keys and values from ``randn`` at
-    ``ATTN_TOL``; with ``timed``, time kernel, plain version and SDPA and
-    return the measurements for a kernel record."""
+    queries, (B, S, kh, d) keys and (B, S, kh, dv) values (``dv``: d
+    unless given) from ``randn`` at ``ATTN_TOL``; at dv < d also the kept
+    log-sum-exp against ``attention_lse_ref`` at ``ATTN_LSE_TOL`` and the
+    output with it bitwise equal to the one without.  With ``timed``, time
+    kernel, plain version and SDPA and return the measurements for a
+    kernel record; at dv < d SDPA runs twice, on v zero-padded to d (what
+    one equal-width call computes) and on v at dv, each with the backend
+    it took, and the faster is the record's yardstick."""
     from repro_torch.kernels.flash_attention import kernel as KA, ref as RA
     F = torch.nn.functional
+    dv = d if dv is None else dv
     q, k, v = (randn(s, dtype) for s in ((B, S, h, d), (B, S, kh, d),
-                                         (B, S, kh, d)))
+                                         (B, S, kh, dv)))
     got = KA.flash_attention(q, k, v)
     want = RA.attention_ref(q, k, v)
     rtol, atol = ATTN_TOL[str(dtype).split(".")[-1]]
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
                                atol=atol)
     err = float((got.float() - want.float()).abs().max())
-    shape = f"B={B} S={S} H={h} KH={kh} D={d} {dtype}"
+    shape = (f"B={B} S={S} H={h} KH={kh} D={d}"
+             + (f" Dv={dv}" if dv != d else "") + f" {dtype}")
     log(f"  flash_attention {shape}: max abs err {err:.3g}")
+    if dv != d:
+        out, lse = KA.flash_attention_fwd(q, k, v, keep_lse=True)
+        check(torch.equal(out, got), f"flash_attention {shape}: the output "
+                                     f"differs when it keeps the lse")
+        lse_want = RA.attention_lse_ref(q, k, v)
+        torch.testing.assert_close(lse, lse_want, **ATTN_LSE_TOL)
+        log(f"  flash_attention {shape}: kept log-sum-exp max abs err "
+            f"{float((lse - lse_want).abs().max()):.3g}")
+        del out, lse, lse_want
     if not timed:
         return None
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                         enable_gqa=True)
+    vpt = F.pad(vt, (0, d - dv)) if dv != d else vt
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vpt, is_causal=True,
+                                              enable_gqa=True)
+
+    lib = sdpa()[..., :dv]
     lib_err = float((lib.transpose(1, 2).float() - got.float()).abs()
                     .max())
     log(f"  sdpa vs kernel max abs diff {lib_err:.3g}")
@@ -787,16 +827,39 @@ def attn_check(torch, randn, B, S, h, kh, d, dtype, timed=False):
         keep_lse_ms=cuda_ms(lambda: KA.flash_attention_fwd(
             q, k, v, keep_lse=True), torch),
         plain_ms=cuda_ms(lambda: RA.attention_ref(q, k, v), torch, 2),
-        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), torch),
-        nbytes=elt * (2 * B * S * h * d + 2 * B * S * kh * d),
-        ops=4.0 * B * h * d * S * (S + 1) / 2,
+        library_ms=cuda_ms(sdpa, torch),
+        nbytes=elt * B * S * (h + kh) * (d + dv),
+        ops=2.0 * B * h * (d + dv) * S * (S + 1) / 2,
         ops_per_s=BF16_OPS_S if dtype == torch.bfloat16 else FP32_OPS_S)
+    if dv != d:
+        # SDPA on v at its own width, where this PyTorch takes it
+        def sdpa_dv():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=h != kh)
+
+        res["library_pad_ms"] = res["library_ms"]
+        res["library_pad_backend"] = sdpa_backends(torch, sdpa)
+        try:
+            lib_dv = sdpa_dv()
+        except RuntimeError as e:
+            log(f"  sdpa on v at {dv} columns refused: {e}")
+            res["library_dv_ms"] = res["library_dv_backend"] = None
+        else:
+            diff = (lib_dv.transpose(1, 2).float() - got.float()).abs()
+            log(f"  sdpa (v at {dv}) vs kernel max abs diff "
+                f"{float(diff.max()):.3g}")
+            res["library_dv_ms"] = cuda_ms(sdpa_dv, torch)
+            res["library_dv_backend"] = sdpa_backends(torch, sdpa_dv)
+            res["library_ms"] = min(res["library_ms"], res["library_dv_ms"])
+            del lib_dv
+        log(f"  sdpa on v padded to {d}: {res['library_pad_ms']:.4f} ms "
+            f"({res['library_pad_backend']}); on v at {dv}: "
+            f"{res['library_dv_ms']} ms ({res['library_dv_backend']})")
     log(f"  timed {shape}: kernel {res['ms']:.4f} ms (keeping the "
         f"log-sum-exp {res['keep_lse_ms']:.4f} ms), SDPA "
         f"{res['library_ms']:.4f} ms, kernel/SDPA "
         f"{res['ms'] / res['library_ms']:.3f}")
-    del q, k, v, qt, kt, vt, got, want, lib
+    del q, k, v, qt, kt, vt, vpt, got, want, lib
     torch.cuda.empty_cache()
     return res
 
@@ -1337,7 +1400,7 @@ def mla_phases(args, torch, dev0, record):
     if args.small:
         cfg = replace(cfg, n_layers=2)       # the dense layer and one MoE
     m = cfg.mla
-    H, D = cfg.n_heads, m.nope_head_dim + m.rope_head_dim
+    H, D, DV = cfg.n_heads, m.nope_head_dim + m.rope_head_dim, m.v_head_dim
     P, lws = SERVE["prompt"], SERVE["lws"]
     bf16, f32 = torch.bfloat16, torch.float32
 
@@ -1347,13 +1410,26 @@ def mla_phases(args, torch, dev0, record):
     def randn(shape, dtype):
         return torch.randn(shape, generator=gen_t, device=dev0).to(dtype)
 
-    log(f"flash_attention at MLA's head dim {D} against its plain version:")
-    mla_a = attn_check(torch, randn, lws, P, H, H, D, bf16, timed=True)
+    log(f"flash_attention at MLA's head dims (q, k {D}; v {DV}) against "
+        f"its plain version:")
+    mla_a = attn_check(torch, randn, lws, P, H, H, D, bf16, timed=True,
+                       dv=DV)
     long_S = 1024 if args.small else 4096
-    long_a = attn_check(torch, randn, 1, long_S, H, H, D, bf16, timed=True)
-    attn_check(torch, randn, 2, 1000, H, H, D, bf16)      # ragged S
+    long_a = attn_check(torch, randn, 1, long_S, H, H, D, bf16, timed=True,
+                        dv=DV)
+    for S_, h_, kh_ in ((1000, H, H), (127, H, H), (129, H, H),   # ragged
+                        (77, 4, 2), (300, 8, 4),                 # G = 2
+                        (129, 6, 2)):                            # G = 3
+        attn_check(torch, randn, 2, S_, h_, kh_, D, bf16, dv=DV)
+    for S_, h_, kh_ in ((P, H, H), (1000, H, H), (77, 4, 2)):
+        attn_check(torch, randn, lws if S_ == P else 2, S_, h_, kh_, D, f32,
+                   dv=DV)
+    # the equal-width instance (v of 192 columns), which MLA's model no
+    # longer calls: held and timed at the prefill shape
+    log("flash_attention at D = Dv = 192 (v zero-padded, the earlier "
+        "model's call):")
+    eq_a = attn_check(torch, randn, lws, P, H, H, D, bf16, timed=True)
     attn_check(torch, randn, 2, 77, 4, 2, D, bf16)        # G = 2, ragged
-    attn_check(torch, randn, lws, P, H, H, D, f32)
     attn_check(torch, randn, 1, 1000, H, H, D, f32)       # ragged S
 
     # ---------------------------- phase 16: serve at full width, bf16
@@ -1366,7 +1442,15 @@ def mla_phases(args, torch, dev0, record):
            mla_a["ms"], mla_a["plain_ms"], mla_a["nbytes"], mla_a["ops"],
            mla_a["library_ms"], mla_a["shape"] + " (MLA prefill)",
            mla_a["ops_per_s"], n_launches=served["flash_attention"],
-           long_shape=long_entry(long_a))
+           long_shape=long_entry(long_a),
+           library_note="the faster of two F.scaled_dot_product_attention"
+                        "(is_causal=True) calls: v zero-padded to D "
+                        "(library_pad_ms) and v at Dv (library_dv_ms)",
+           **{f"{key}_{sh}": r[key] for sh, r in (("prefill", mla_a),
+                                                  ("long", long_a))
+              for key in ("library_pad_ms", "library_dv_ms",
+                          "library_pad_backend", "library_dv_backend")},
+           equal_width_shape=long_entry(eq_a, "D = Dv = 192"))
 
     # ------------- phase 17: card against host, f32, first layers only
     n_par = min(MOE_PARITY_LAYERS, cfg.n_layers)
@@ -2418,7 +2502,45 @@ def mla_bwd_phase(args, torch, dev0):
     attn_bwd_check(torch, randn, 1, 1000, H, H, D, f32)
     attn_bwd_check(torch, randn, 2, 77, 4, 2, D, bf16)         # G = 2
     attn_bwd_check(torch, randn, 2, 77, 4, 2, D, f32)
+    res.update(v_width_bwd(torch, randn, S, H, D, m.v_head_dim))
     return res
+
+
+def v_width_bwd(torch, randn, S, H, D, DV):
+    """MLA's model calls the forward with v at DV < D columns: under
+    autograd its gradients must be bitwise those of the backward kernel
+    on v, the output and its gradient zero-padded to D (dv cut back).
+    Times ``flash_attention_bwd`` given the DV-wide tensors (it pads them)
+    against the same call on tensors padded beforehand: the padding's
+    cost.  Returns both times for the record."""
+    from repro_torch.kernels.flash_attention import kernel as KA
+    F = torch.nn.functional
+    bf16 = torch.bfloat16
+    q, k = randn((1, S, H, D), bf16), randn((1, S, H, D), bf16)
+    v, dout = randn((1, S, H, DV), bf16), randn((1, S, H, DV), bf16)
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    out = KA.flash_attention(qg, kg, vg)
+    got = torch.autograd.grad(out, (qg, kg, vg), dout)
+    out = out.detach()
+    lse = KA.flash_attention_fwd(q, k, v, keep_lse=True)[1]
+    vp, outp, doutp = (F.pad(t, (0, D - DV)) for t in (v, out, dout))
+    want = KA.flash_attention_bwd(q, k, vp, outp, doutp, lse)
+    shape = f"B=1 S={S} H=KH={H} D={D} Dv={DV} bf16"
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        check(torch.equal(g, w[..., :g.shape[-1]]),
+              f"flash_attention {shape}: autograd's {name} differs from "
+              f"the backward on the zero-padded inputs")
+    ms = cuda_ms(lambda: KA.flash_attention_bwd(q, k, v, out, dout, lse),
+                 torch)
+    padded_ms = cuda_ms(lambda: KA.flash_attention_bwd(q, k, vp, outp,
+                                                       doutp, lse), torch)
+    log(f"  flash_attention {shape} under autograd: gradients bitwise "
+        f"those of the padded backward; flash_attention_bwd at Dv {ms:.4f}"
+        f" ms, on inputs padded beforehand {padded_ms:.4f} ms (the "
+        f"padding {ms - padded_ms:.4f} ms)")
+    del q, k, v, dout, qg, kg, vg, out, got, lse, vp, outp, doutp, want
+    torch.cuda.empty_cache()
+    return {"v_width_ms": ms, "v_padded_ms": padded_ms}
 
 
 def deepseek_train_phases(args, torch, dev0):
@@ -2848,6 +2970,16 @@ def attention_bwd_phase(args, torch, dev0, record):
         check(len(bwd_mma) == 8, f"flash_attention_bwd: HGMMA in "
                                  f"{sorted(bwd_mma)}, expected the dK/dV "
                                  f"and dQ kernels at D = 64, 80, 128, 192")
+        # the forward's instances by (D, Dv), MLA's (192, 128) among them
+        fwd_mma = {k: n for k, n in counts.items()
+                   if "flash_fwd_wgmma_kernel" in k}
+        log("flash_attention SASS: HGMMA instructions " + ", ".join(
+            f"{n} in {k[:60]}" for k, n in sorted(fwd_mma.items())))
+        check(len(fwd_mma) == 5
+              and any("ILi192ELi128E" in k for k in fwd_mma),
+              f"flash_attention: HGMMA in {sorted(fwd_mma)}, expected the "
+              f"wgmma forward at (D, Dv) = (64, 64), (80, 80), (128, 128), "
+              f"(192, 128) and (192, 192)")
     log("flash_attention_bwd against its plain version:")
 
     def bwd(*shape, timed=False):
@@ -3899,6 +4031,7 @@ def main() -> int:
            n_launches=ds_l["flash_attention_bwd"],
            launches_by_path={ds_path: ds_l["flash_attention_bwd"]},
            kernels_ms=mla_b["kernels_ms"],
+           v_width_ms=mla_b["v_width_ms"], v_padded_ms=mla_b["v_padded_ms"],
            replaces_note="the gradient of that kernel's function at MLA's "
                          "head dim: the JAX package differentiates its jnp "
                          "attention (src/repro/models/layers.py:315-335) "

@@ -1,7 +1,8 @@
 // Hopper building blocks shared by the attention kernels: mbarriers, TMA
-// tile loads, the host-side tensor-map encoder, and the wgmma products
-// (fence/commit/wait, the 128-byte-swizzle descriptor, shared-memory and
-// register A operands) that the forward and the backward both issue.
+// tile loads and stores, the host-side tensor-map encoder, and the wgmma
+// products (fence/commit/wait, the 128-byte-swizzle descriptor,
+// shared-memory and register A operands) that the forward and the
+// backward both issue.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums only: no -lcuda
@@ -75,6 +76,38 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// TMA: shared memory into the box at (c0, c1, c2, c3) of a 4-D tensor
+// map (parts of the box past the tensor's bounds are not written), as
+// one bulk group of this thread's
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's bulk groups still read shared
+// memory (Read) or are still in flight at all
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// make this thread's shared-memory writes visible to the async proxy
+// (a TMA store that reads them)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
@@ -87,6 +120,10 @@ __device__ __forceinline__ void named_sync(int id) {
 }
 __device__ __forceinline__ void named_arrive(int id) {
   asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+// named barrier over one warpgroup (128 threads)
+__device__ __forceinline__ void warpgroup_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {

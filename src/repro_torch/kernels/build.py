@@ -45,7 +45,7 @@ PROTOTYPES = {
     "mandelbrot_counts": [_P, _I, _I, _I, _I, _I, _I, _I, _P],
     "gaussian_blur_rows": [_P, _P, _P] + [_I] * 7 + [_P],
     "nbody_step": [_P, _P, _P, _I, _I, _I, _F, _F, _P],
-    "flash_attention_fwd": [_P] * 5 + [_I] * 6 + [_P],
+    "flash_attention_fwd": [_P] * 5 + [_I] * 7 + [_P],
     "flash_attention_bwd": [_P] * 10 + [_I] * 6 + [_P],
     "flash_decode_fwd": [_P] * 7 + [_I] * 11 + [_P],
     "selective_scan_fwd": [_P] * 7 + [_I] * 4 + [_P],

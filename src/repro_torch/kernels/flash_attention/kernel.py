@@ -18,9 +18,16 @@ is :func:`flash_attention_bwd`.  Without grad (serving, prefill) the
 forward stores no log-sum-exp.  CPU tensors take the plain version
 ``attention_ref``, which autograd differentiates.
 
-Head dim 192 (MLA: 128 nope + 64 rope columns, v zero-padded) runs its
-forward and, in bfloat16, its backward on ``wgmma`` (dK/dV in CTAs of 64
-keys whose two warpgroups split by output, dQ in 128 packed rows); the
+v (and so the output) may be narrower than q and k: MLA's q and k have
+head dim 192 (128 nope + 64 rope columns) and its v 128.  The forward
+takes v at its own width D_v (bfloat16 (D, D_v) in ``BF16_PAIRS``, on
+``wgmma`` with 128-key tiles at (192, 128); float32 any D_v <= D), which
+computes what the JAX package computes on v zero-padded to D, sliced
+back.  The backward kernel takes equal widths: at D_v < D
+:func:`flash_attention_bwd` pads v, the output and its gradient with
+zeros to D and slices dv back.
+The bfloat16 backward at 192 runs on ``wgmma`` (dK/dV in CTAs of 64 keys
+whose two warpgroups split by output, dQ in 128 packed rows); the
 float32 backward runs on FMAs at every D.  Nothing falls back: a
 bfloat16 call either launches the ``wgmma`` kernels or raises.
 
@@ -44,14 +51,17 @@ bwd_launches = 0
 meta_cost: dict = {}    # build.tally of the calls on meta tensors
 
 MAX_HEAD_DIM = 192
-# the wgmma kernel's: every dense config's, and MLA's 128 + 64
-BF16_HEAD_DIMS = (64, 80, 128, 192)
+# the wgmma kernel's (D, D_v): every dense config's, MLA's 128 + 64 with
+# v at 128, and 192 with v as wide
+BF16_PAIRS = ((64, 64), (80, 80), (128, 128), (192, 192), (192, 128))
 BWD_MAX_HEAD_DIM = 192  # the backward kernel's
 MAX_GROUP = 64          # query heads per kv head: one CTA holds >= 1 position
 
 
 def _check(name, q, k, v, *more):
-    """Raise on what the kernels do not take; returns (B, S, H, KH, D)."""
+    """Raise on what the kernels do not take: q (B,S,H,D), k (B,S,KH,D),
+    v (B,S,KH,D_v) and each of ``more`` (B,S,H,D_v), with D_v <= D
+    (bfloat16: a pair of ``BF16_PAIRS``); returns (B, S, H, KH, D, D_v)."""
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{name}: expected float32 or bfloat16, "
                         f"got {q.dtype}")
@@ -61,38 +71,42 @@ def _check(name, q, k, v, *more):
         if t.device != q.device:
             raise ValueError(f"{name}: {tn} on another device")
     B, S, H, D = q.shape
-    KH = k.shape[2]
-    if k.shape != (B, S, KH, D) or v.shape != k.shape:
+    KH, DV = k.shape[2], v.shape[3]
+    if k.shape != (B, S, KH, D) or v.shape[:3] != k.shape[:3]:
         raise ValueError(f"{name}: k {tuple(k.shape)} / v "
                          f"{tuple(v.shape)} do not fit q {tuple(q.shape)}")
     for tn, t in more:
-        if t.shape != q.shape:
+        if t.shape != (B, S, H, DV):
             raise ValueError(f"{name}: {tn} {tuple(t.shape)} does not fit "
-                             f"q {tuple(q.shape)}")
+                             f"q {tuple(q.shape)} and v {tuple(v.shape)}")
     if (KH == 0 or H % KH or H // KH > MAX_GROUP or not 0 < D <= MAX_HEAD_DIM
-            or (q.dtype == torch.bfloat16 and D not in BF16_HEAD_DIMS)):
-        raise ValueError(f"{name}: H={H}, KH={KH}, D={D}, "
+            or not 0 < DV <= D
+            or (q.dtype == torch.bfloat16 and (D, DV) not in BF16_PAIRS)):
+        raise ValueError(f"{name}: H={H}, KH={KH}, D={D}, D_v={DV}, "
                          f"{q.dtype} not supported (H % KH == 0, H/KH <= "
-                         f"{MAX_GROUP}, D <= {MAX_HEAD_DIM}; bfloat16: D in "
-                         f"{BF16_HEAD_DIMS})")
+                         f"{MAX_GROUP}, D_v <= D <= {MAX_HEAD_DIM}; "
+                         f"bfloat16: (D, D_v) in {BF16_PAIRS})")
     if q.device.type != "meta" and any(t.data_ptr() % 16 for _, t in ts):
         raise ValueError(f"{name}: {', '.join(n for n, _ in ts)} must be "
                          f"16-byte aligned")
-    return B, S, H, KH, D
+    return B, S, H, KH, D, DV
 
 
 def flash_attention_fwd(q, k, v, keep_lse=False):
     """The forward kernel alone, outside autograd, on CUDA tensors: the
-    output; with ``keep_lse`` also each row's log-sum-exp of its scaled
-    scores (float32 (B, H, S), base 2), which the kernel then writes."""
+    output (B, S, H, D_v); with ``keep_lse`` also each row's log-sum-exp
+    of its scaled scores (float32 (B, H, S), base 2), which the kernel
+    then writes."""
     global launches
-    B, S, H, KH, D = _check("flash_attention", q, k, v)
-    out = torch.empty_like(q)
+    B, S, H, KH, D, DV = _check("flash_attention", q, k, v)
+    out = q.new_empty((B, S, H, DV))
     lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
            if keep_lse else None)
     if q.device.type == "meta":
-        ops = 4.0 * B * H * D * S * (S + 1) / 2
-        nbytes = q.element_size() * 2 * B * S * D * (H + KH)
+        # Q.K^T at D and P.V at D_v; q, k read at D, v read and o written
+        # at D_v
+        ops = 2.0 * B * H * (D + DV) * S * (S + 1) / 2
+        nbytes = q.element_size() * B * S * (H + KH) * (D + DV)
         build.tally(meta_cost, "flash_attention", ops,
                     nbytes + (4 * B * H * S if keep_lse else 0),
                     dot_flops=ops, transcendentals=B * H * S * (S + 1) / 2)
@@ -100,7 +114,7 @@ def flash_attention_fwd(q, k, v, keep_lse=False):
         build.launch("flash_attention_fwd", q, q.data_ptr(), k.data_ptr(),
                      v.data_ptr(), out.data_ptr(),
                      None if lse is None else lse.data_ptr(), B, S, H, KH,
-                     D, int(q.dtype == torch.bfloat16))
+                     D, DV, int(q.dtype == torch.bfloat16))
         launches += 1
     return (out, lse) if keep_lse else out
 
@@ -119,12 +133,18 @@ class _FlashAttention(torch.autograd.Function):
 
 
 def flash_attention(q, k, v):
-    """Causal GQA attention.  q: (B,S,H,D); k,v: (B,S,KH,D), float32
-    (D <= 192) or bfloat16 (D of 64, 80, 128 or 192), any S -> (B,S,H,D)
-    in q's dtype.  CPU tensors take the plain version; CUDA tensors launch
-    the kernel, and with grad enabled record its backward; ``meta``
-    tensors are planned (the module's docstring)."""
+    """Causal GQA attention.  q: (B,S,H,D); k: (B,S,KH,D); v: (B,S,KH,D_v)
+    with D_v <= D, float32 (D <= 192) or bfloat16 ((D, D_v) in
+    ``BF16_PAIRS``), any S -> (B,S,H,D_v) in q's dtype.  CPU tensors take
+    the plain version (at D_v < D on v zero-padded to D, sliced back: the
+    JAX package's ops); CUDA tensors launch the kernel, and with grad
+    enabled record its backward; ``meta`` tensors are planned (the
+    module's docstring)."""
     if q.device.type == "cpu":
+        dv = v.shape[-1]
+        if dv < q.shape[-1]:
+            vp = torch.nn.functional.pad(v, (0, q.shape[-1] - dv))
+            return R.attention_ref(q, k, vp)[..., :dv]
         return R.attention_ref(q, k, v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
@@ -133,20 +153,28 @@ def flash_attention(q, k, v):
 
 
 def flash_attention_bwd(q, k, v, out, dout, lse=None):
-    """Gradient of causal GQA attention.  q, out, dout: (B,S,H,D); k, v:
-    (B,S,KH,D), all of one dtype (float32 or bfloat16, the forward's
-    limits) -> (dq, dk, dv) in that dtype.  ``lse``: each row's
-    log-sum-exp as the forward keeps it (float32 (B, H, S), base 2); when
-    it is None the forward kernel first runs again to write it.  CPU
-    tensors take the plain version ``attention_bwd_ref``; CUDA tensors
-    launch the kernels."""
+    """Gradient of causal GQA attention.  q: (B,S,H,D); k: (B,S,KH,D); v:
+    (B,S,KH,D_v); out, dout: (B,S,H,D_v), all of one dtype (float32 or
+    bfloat16, the forward's limits) -> (dq, dk, dv) in that dtype.
+    ``lse``: each row's log-sum-exp as the forward keeps it (float32 (B,
+    H, S), base 2); when it is None the forward kernel first runs again to
+    write it.  CPU tensors take the plain version ``attention_bwd_ref``;
+    CUDA tensors launch the kernels, which take equal widths: at D_v < D,
+    v, out and dout are zero-padded to D (the padded columns add exact
+    zeros to every sum) and dv's first D_v columns returned."""
     global bwd_launches
     if q.device.type == "cpu":
         return R.attention_bwd_ref(q, k, v, out, dout, lse)
-    B, S, H, KH, D = _check("flash_attention_bwd", q, k, v, ("out", out),
-                            ("dout", dout))
+    B, S, H, KH, D, DV = _check("flash_attention_bwd", q, k, v,
+                                ("out", out), ("dout", dout))
     if lse is None:
         lse = flash_attention_fwd(q, k, v, keep_lse=True)[1]
+    if DV < D:
+        pad = (0, D - DV)
+        F = torch.nn.functional
+        dq, dk, dv = flash_attention_bwd(q, k, F.pad(v, pad), F.pad(out, pad),
+                                         F.pad(dout, pad), lse)
+        return dq, dk, dv[..., :DV]
     build.check_cuda("flash_attention_bwd lse", lse, torch.float32, 3,
                      meta_ok=True)
     if lse.shape != (B, H, S) or lse.device != q.device:

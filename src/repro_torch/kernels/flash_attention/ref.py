@@ -14,8 +14,9 @@ LOG2E = 1.4426950408889634
 
 
 def attention_ref(q, k, v):
-    """q: (B,S,H,D); k,v: (B,S,KH,D) with H % KH == 0 -> (B,S,H,D) in
-    q's dtype; scores, softmax and the value sum in float32."""
+    """q: (B,S,H,D); k: (B,S,KH,D); v: (B,S,KH,D_v) with H % KH == 0 ->
+    (B,S,H,D_v) in q's dtype; scores, softmax and the value sum in
+    float32."""
     B, S, H, D = q.shape
     KH = k.shape[2]
     G = H // KH
@@ -26,7 +27,7 @@ def attention_ref(q, k, v):
     s = s.masked_fill(~mask, float("-inf"))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgst,btkd->bskgd", p, v.float())
-    return o.reshape(B, S, H, D).to(q.dtype)
+    return o.reshape(B, S, H, v.shape[-1]).to(q.dtype)
 
 
 def _scores(q, k):
@@ -55,17 +56,18 @@ def attention_bwd_ref(q, k, v, out, dout, lse=None):
     """Gradient of :func:`attention_ref` by the explicit formulas, with
     the probabilities P materialised in float32: dV = P^T dO, dP = dO V^T,
     D_i = sum_d dO*O, dS = P (dP - D_i), dQ = dS K / sqrt(D), dK = dS^T Q
-    / sqrt(D).  q, out, dout: (B,S,H,D); k, v: (B,S,KH,D) -> (dq, dk, dv)
-    in the inputs' dtypes.  With ``lse`` (float32 (B, H, S), as
-    :func:`attention_lse_ref` gives it) P is formed from it as the kernel
-    forms it, 2^(s log2 e - lse), instead of by a softmax."""
+    / sqrt(D).  q: (B,S,H,D); k: (B,S,KH,D); v: (B,S,KH,D_v); out, dout:
+    (B,S,H,D_v) -> (dq, dk, dv) in the inputs' dtypes.  With ``lse``
+    (float32 (B, H, S), as :func:`attention_lse_ref` gives it) P is
+    formed from it as the kernel forms it, 2^(s log2 e - lse), instead of
+    by a softmax."""
     B, S, H, D = q.shape
-    KH = k.shape[2]
+    KH, DV = k.shape[2], v.shape[3]
     G = H // KH
     scale = 1.0 / math.sqrt(D)
     qg = q.reshape(B, S, KH, G, D).float()
-    dog = dout.reshape(B, S, KH, G, D).float()
-    og = out.reshape(B, S, KH, G, D).float()
+    dog = dout.reshape(B, S, KH, G, DV).float()
+    og = out.reshape(B, S, KH, G, DV).float()
     s = _scores(q, k)
     if lse is None:
         p = torch.softmax(s, dim=-1)

@@ -19,8 +19,10 @@ MLA (deepseek-v2) keeps ``wq`` (d, H*(nope+rope)), ``wkv_a`` (d,
 R+rope), ``kv_norm`` (R,), ``wkv_b`` (R, H*(nope+v)) and ``wo`` (H*v, d)
 in the same layout and caches the compressed ``ckv`` (B, Smax, R) and the
 shared rotated key ``krope`` (B, Smax, rope).  Its prefill expands the
-keys and values per head and runs the shared causal core at head dim
-nope + rope = 192 (v zero-padded to it), hence ``flash_attention``; its
+keys and values per head and runs the shared causal core with q and k at
+head dim nope + rope = 192 and v at its own width (128), hence
+``flash_attention`` (the JAX package pads v to 192 and slices the output
+back, which gives the same values); its
 decode step stays in the latent space (the absorbed path) in plain
 products with float32 results, as the JAX package computes it outside
 any Pallas kernel.
@@ -121,7 +123,8 @@ def apply_rope(x, cos, sin):
 # ---------------------------------------------------------------------------
 
 def blocked_causal_attention(q, k, v, chunk: int = 2048):
-    """Exact causal attention. q: (B,S,H,D); k,v: (B,S,KH,D).  ``chunk``
+    """Exact causal attention. q: (B,S,H,D); k: (B,S,KH,D); v:
+    (B,S,KH,D_v), D_v <= D -> (B,S,H,D_v).  ``chunk``
     is the JAX schedule's kv-block size; the kernel picks its own tiles
     and takes any S, and neither changes the result beyond rounding."""
     del chunk
@@ -289,16 +292,14 @@ def mla_apply(cfg: ModelConfig, p: MLA, x, positions, *,
                           wkv_b[..., nope:]).to(x.dtype)
     else:
         # expanded path: per-head keys and values, the shared causal core
-        # at head dim nope + rope with v zero-padded to it, sliced back
+        # with q and k at head dim nope + rope and v at its own vd columns
         kv = (ckv @ p.wkv_b).view(B, S, H, nope + vd)
         k = torch.cat([kv[..., :nope],
                        k_rope[:, :, None, :].expand(B, S, H, rope_d)],
                       dim=-1)
         qq = torch.cat([q_nope, q_rope], dim=-1)
-        pad = nope + rope_d - vd
-        v = F.pad(kv[..., nope:], (0, pad)) if pad > 0 else kv[..., nope:]
-        out = blocked_causal_attention(qq, k, v.contiguous(),
-                                       cfg.attn_chunk)[..., :vd]
+        out = blocked_causal_attention(qq, k, kv[..., nope:].contiguous(),
+                                       cfg.attn_chunk)
         if cache is not None:  # prefill: write the whole prefix in place
             cache["ckv"][:, :S] = ckv
             cache["krope"][:, :S] = k_rope

@@ -350,6 +350,87 @@ def test_flash_attention_bwd_head_dim_192_matches_plain(card, B, S, H, KH,
         assert err <= ATTN_BWD_TOL[dtype] * top + 1e-5, (name, err, top)
 
 
+def _mla_inputs(card, B, S, H, KH, dtype, seed):
+    """q (B,S,H,192), k (B,S,KH,192) and v (B,S,KH,128): MLA's widths."""
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            .to(card, dtype) for shape in ((B, S, H, 192), (B, S, KH, 192),
+                                           (B, S, KH, 128))]
+
+
+# MLA's prefill, the long shape, ragged S across the 128-key tile, G = 2,
+# G = 3 and 6 (a warpgroup's 64 rows not whole positions: its rows stored
+# from registers), one position
+MLA_CASES = [(4, 256, 16, 16), (1, 4096, 16, 16), (2, 1000, 16, 16),
+             (2, 127, 4, 4), (2, 129, 4, 4), (2, 77, 4, 2), (2, 300, 8, 4),
+             (2, 129, 6, 2), (1, 200, 12, 2), (2, 1, 4, 4)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,S,H,KH", MLA_CASES)
+def test_flash_attention_at_v_width_128_matches_plain(card, B, S, H, KH,
+                                                      dtype):
+    """MLA's widths (q, k at 192, v at 128): bfloat16 on the wgmma kernel
+    with 128-key tiles and v's two atoms, float32 on FMAs, each against
+    the plain version on the same inputs; keeping the log-sum-exp leaves
+    the output bitwise as it is, and the log-sum-exp matches
+    ``attention_lse_ref``."""
+    from repro_torch.kernels.flash_attention import kernel as KA, ref as RA
+    q, k, v = _mla_inputs(card, B, S, H, KH, dtype, S + 3 * H + KH)
+    before = KA.launches
+    got = KA.flash_attention(q, k, v)
+    out, lse = KA.flash_attention_fwd(q, k, v, keep_lse=True)
+    torch.cuda.synchronize()
+    assert KA.launches == before + 2
+    assert got.shape == (B, S, H, 128) and got.dtype == dtype
+    assert torch.equal(got, out)
+    rtol, atol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), RA.attention_ref(q, k, v).float(),
+                               rtol=rtol, atol=atol)
+    torch.testing.assert_close(lse, RA.attention_lse_ref(q, k, v),
+                               **ATTN_LSE_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,S,H,KH", [(2, 200, 16, 16), (1, 129, 4, 2),
+                                      (1, 1, 4, 4)])
+def test_flash_attention_grads_at_v_width_128_are_the_padded_calls(
+        card, B, S, H, KH, dtype):
+    """Under autograd at MLA's widths the gradients are bitwise those of
+    ``flash_attention_bwd`` on v, the output and its gradient zero-padded
+    to 192 (the backward kernel takes equal widths), dv cut back to 128."""
+    from repro_torch.kernels.flash_attention import kernel as KA
+    F = torch.nn.functional
+    q, k, v = _mla_inputs(card, B, S, H, KH, dtype, 2 * S + H)
+    dout = _mla_inputs(card, B, S, H, H, dtype, S + 1)[2]
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    fwd, bwd = KA.launches, KA.bwd_launches
+    out = KA.flash_attention(qg, kg, vg)
+    got = torch.autograd.grad(out, (qg, kg, vg), dout)
+    torch.cuda.synchronize()
+    assert (KA.launches, KA.bwd_launches) == (fwd + 1, bwd + 1)
+    lse = KA.flash_attention_fwd(q, k, v, keep_lse=True)[1]
+    want = KA.flash_attention_bwd(q, k, F.pad(v, (0, 64)),
+                                  F.pad(out.detach(), (0, 64)),
+                                  F.pad(dout, (0, 64)), lse)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == (q if name == "dq" else k if name == "dk"
+                           else v).shape
+        assert torch.equal(g, w[..., :g.shape[-1]]), name
+
+
+def test_flash_attention_rejects_bf16_v_widths_without_instance(card):
+    from repro_torch.kernels.flash_attention import kernel as KA
+    before = KA.launches
+    for d, dv in ((192, 64), (128, 64), (128, 192)):
+        q, k = _attn_inputs(card, 1, 77, 4, 2, d, torch.bfloat16, 0)[:2]
+        v = _attn_inputs(card, 1, 77, 4, 2, dv, torch.bfloat16, 1)[2]
+        with pytest.raises(ValueError, match="D_v"):
+            KA.flash_attention(q, k, v)
+    assert KA.launches == before
+
+
 def test_flash_attention_kernel_rejects_bf16_head_dim_without_tile(card):
     from repro_torch.kernels.flash_attention import kernel as KA
     q, k, v = _attn_inputs(card, 1, 77, 4, 2, 96, torch.bfloat16, 0)
