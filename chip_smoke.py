@@ -5,12 +5,15 @@
     python3 chip_smoke.py --small        # small sizes: a quick build-and-run
     python3 chip_smoke.py --phase fleet  # the build and phase 8a alone
     python3 chip_smoke.py --phase plan   # the build and phases 26-30 alone
+    python3 chip_smoke.py --phase served # the build and phases 31-34 alone
 
-The whole script took 617 s of command time on one H100 from a clean
-checkout, builds and phases 26-30 included (planning every cell takes
-about 80 s of it); ``--phase fleet`` builds the kernels and runs phase
-8a alone and ``--phase plan`` phases 26-30 (about 2.5 minutes),
-printing no kernels line.
+The whole script took 794 s of command time on one H100 from a clean
+checkout, builds, phases 26-30 (planning every cell takes about 80 s)
+and phases 31-34 (about 160 s) included; ``--phase fleet`` builds the
+kernels and runs phase 8a alone, ``--phase plan`` phases 26-30 (about
+2.5 minutes) and ``--phase served`` phases 31-34, printing no kernels
+line.  Each phase
+group's start is logged with the seconds since the script started.
 
 Phases, each fatal on failure:
 
@@ -309,14 +312,38 @@ Phases, each fatal on failure:
     x 2 and 3 ``flash_attention_bwd`` launches a packet), each step's
     model-FLOP share logged;
 30. card against host in float32 on its first 2 layers, batch 1 x 256,
-    as phase 24, every token routed alike.
+    as phase 24, every token routed alike;
+31. qwen3-32b (64/8 heads, G = 8, D = 128, q/k RMSNorm) at full width
+    and depth, all 64 layers (65.5 GB of bfloat16 weights; ``--small``:
+    2 layers): hold ``flash_attention`` at its serving prefill (B=4,
+    S=256) and ``flash_decode`` at its serving decode (B=4, Smax=288,
+    pos=287) in bfloat16 against their plain versions, timed (the
+    ``qwen3_shape`` entries), and both at a ragged S in float32; serve it
+    as phase 6 does (one ``flash_attention`` launch a layer and prefill,
+    one ``flash_decode`` launch a layer and decode step, no other
+    kernel); card against host in float32 on a model of its first 2
+    layers made fresh from the cut config (the embedding and head of
+    151,936 tokens included);
+32. yi-9b (32/4, G = 8, D = 128) likewise, all 48 layers (17.7 GB), card
+    against host on 4 layers (``yi_shape``);
+33. stablelm-3b (32/32, G = 1, D = 80) likewise, all 32 layers (5.6
+    GB), card against host on 8 layers (``stablelm_shape``);
+34. dbrx-132b (48/8, G = 6, D = 128; 16 experts, top 4, every layer) at
+    full width on its first 8 of 40 layers (54.6 GB: the whole 263 GB
+    does not fit one card; ``--small``: 2), as phase 31, its capacity
+    dispatch running all 16 experts in a decode step; card against host
+    on 2 layers (13 GB of float32 a layer) with every token routed to
+    the same experts on both sides (``dbrx_shape``).  The four serving
+    rows (served s, tokens/s, peak and weights GB, prefill and decode-step
+    ms with their busy shares) are logged as one JSON line.
 
 Phases 8a and 18–25 add their launches to the records of
 ``flash_attention``, ``flash_attention_bwd``, ``flash_decode`` and
 ``selective_scan`` (``launches_by_path``); phase 22's record is ``selective_scan_bwd``,
 whose launches are phases 23–25's; phase 28's is ``flash_attention_bwd_d192``,
 whose launches are phase 29's, which also adds its forward launches to
-``flash_attention_d192`` and both to the records of all head dims.  The line
+``flash_attention_d192`` and both to the records of all head dims; phases
+31-34 add theirs to ``flash_attention`` and ``flash_decode``.  The line
 before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  It exits non-zero, printing no result,
 without a card or outside a checkout of the repository.
@@ -363,8 +390,16 @@ SMALL_SIZES = {
 }
 
 
+START = time.perf_counter()
+
+
 def log(*a):
     print(*a, flush=True)
+
+
+def stamp(what):
+    """Log the seconds since the script started, as a phase begins."""
+    log(f"[{time.perf_counter() - START:.1f} s] {what}")
 
 
 def check(ok: bool, what: str) -> None:
@@ -569,14 +604,19 @@ def time_steps(torch, prefill, step, prefill_what, step_what, w_bytes,
                who="serve"):
     """Time a prefill and a decode step with CUDA events, beside the least
     time to read the weights once, and profile both (a diagnostic: the run
-    goes on without a trace)."""
+    goes on without a trace).  Returns the times, the bound, and each
+    profile's kernel time and busy share (None without a trace)."""
     prefill_ms = cuda_ms(prefill, torch, 5)
     step_ms = cuda_ms(step, torch, 20)
+    least_ms = w_bytes / HBM_BYTES_S * 1e3
     log(f"{who}: prefill ({prefill_what}) {prefill_ms:.3f} ms, decode step "
         f"({step_what}) {step_ms:.3f} ms; reading the weights once takes "
-        f"at least {w_bytes / HBM_BYTES_S * 1e3:.3f} ms")
+        f"at least {least_ms:.3f} ms")
+    out = dict(prefill_ms=prefill_ms, step_ms=step_ms, least_ms=least_ms)
     for label, fn, ms_call in (("prefill", prefill, prefill_ms),
                                ("decode step", step, step_ms)):
+        key = label.split()[-1]
+        out[f"{key}_kernels_ms"] = out[f"{key}_busy"] = None
         try:
             prof = profile_window(torch, fn, 3)
         except Exception as e:
@@ -586,11 +626,12 @@ def time_steps(torch, prefill, step, prefill_what, step_what, w_bytes,
             log(f"profile {label}: no device time in the trace")
             continue
         dev_ms, top = prof
+        out[f"{key}_kernels_ms"], out[f"{key}_busy"] = dev_ms, dev_ms / ms_call
         log(f"profile {label}: {dev_ms:.3f} ms of kernels per call "
             f"against {ms_call:.3f} ms between CUDA events (busy "
             f"{dev_ms / ms_call:.1%}); "
             + "; ".join(f"{ms:.3f} ms {k[:60]}" for ms, k in top))
-    return prefill_ms, step_ms
+    return out
 
 
 def serve_model(torch, dev0, cfg, params, launches, per_prefill, per_step):
@@ -599,7 +640,9 @@ def serve_model(torch, dev0, cfg, params, launches, per_prefill, per_step):
     launched ``per_prefill[name]`` times a prefill plus ``per_step[name]``
     times a decode step (and the others never), and that the tokens are
     replica-invariant; time a prefill and a decode step and profile
-    both.  Records the path's launch counts in ``launches``."""
+    both.  Records the path's launch counts in ``launches``; returns the
+    serving row (served s, tokens/s, peak and weights GB, and
+    ``time_steps``'s times and busy shares)."""
     from repro_torch.models import transformer as T
     from repro_torch.serve import (CoexecServer, Replica, RequestQueue,
                                    ServerConfig, make_requests)
@@ -686,16 +729,21 @@ def serve_model(torch, dev0, cfg, params, launches, per_prefill, per_step):
         f"{[r.rid for r in first]}; that packet alone on a fresh replica "
         f"took {alone_s:.3f} s")
 
+    row = dict(served=st.served, served_s=st.duration,
+               tokens_s=n_req * gen / st.duration, peak_gb=peak_gb,
+               weights_gb=w_bytes / 1e9)
     with torch.inference_mode():
         batch = torch.as_tensor(prompts[:lws], device=dev0)
         cache = T.init_cache(cfg, lws, P + gen, dev0)
-        time_steps(torch, lambda: T.prefill(cfg, params, batch, cache),
-                   lambda: T.decode_step(cfg, params, batch[:, :1], cache,
-                                         P + gen // 2),
-                   f"batch {lws} x {P}", f"batch {lws}, pos {P + gen // 2}",
-                   w_bytes)
-    del server, reps, out
+        row.update(time_steps(
+            torch, lambda: T.prefill(cfg, params, batch, cache),
+            lambda: T.decode_step(cfg, params, batch[:, :1], cache,
+                                  P + gen // 2),
+            f"batch {lws} x {P}", f"batch {lws}, pos {P + gen // 2}",
+            w_bytes))
+    del server, reps, out, cache
     torch.cuda.empty_cache()
+    return row
 
 
 def card_against_host(torch, dev0, cfg32, p32, label, prompt=None,
@@ -3574,6 +3622,104 @@ def host_phase(args, torch, dev0, attach, host_runs, build_s):
                 build_s=build_s[0], gxx_s=build_s[1], ray=entries["ray"])
 
 
+# ------------------------- the dense configs and dbrx served (31-34)
+# (arch, layers served at full width (None: all of them), layers of the
+# float32 card-against-host model, its kernel records' entry, seed).
+# qwen3-32b's 64 layers are 65.5 GB of bfloat16 weights and fit the card
+# whole; dbrx-132b's 40 are 263 GB: its first 8 (27.3 B parameters, 54.6
+# GB) are served.  The float32 models are made fresh from the cut config
+# (never a float32 copy of the served weights: qwen3's would be 131 GB):
+# qwen3 2 layers with its 151,936-token embedding and head (10.1 GB a
+# side), yi 4, stablelm 8, dbrx 2 (31 GB a side, 13 GB a layer)
+SERVED_CONFIGS = (("qwen3-32b", None, 2, "qwen3_shape", 8),
+                  ("yi-9b", None, 4, "yi_shape", 9),
+                  ("stablelm-3b", None, 8, "stablelm_shape", 10),
+                  ("dbrx-132b", 8, 2, "dbrx_shape", 11))
+
+
+def served_config_phase(args, torch, dev0, arch, n_layers, n_parity, seed):
+    """Phases 31-34, one config each: hold ``flash_attention`` and
+    ``flash_decode`` against their plain versions at the config's heads
+    (the serving prefill and decode shapes in bfloat16, timed; a ragged S
+    in float32), serve it at full width on ``n_layers`` layers (all of
+    them where None; ``--small``: 2) through ``serve_model`` (one
+    ``flash_attention`` launch a layer and prefill, one ``flash_decode``
+    launch a layer and decode step), then hold a float32 model of its
+    first ``n_parity`` layers, made fresh from the cut config, card
+    against host (an MoE config with the routing equal).  Returns (the
+    path's launches, the two kernels' measurements at its heads, the
+    serving row)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    free_card(torch, dev0, f"{arch} phase")
+    full = get_config(arch)
+    n = 2 if args.small else (n_layers or full.n_layers)
+    cfg = full if n == full.n_layers else replace(full, n_layers=n)
+    H, KH, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    P, gen, lws = (SERVE[k] for k in ("prompt", "gen", "lws"))
+    bf16, f32 = torch.bfloat16, torch.float32
+    gen_t = torch.Generator(dev0).manual_seed(seed)
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen_t, device=dev0).to(dtype)
+
+    log(f"kernels at {arch}'s heads ({H} query heads over {KH}, G = "
+        f"{H // KH}, D = {D}) against their plain versions:")
+    attn = attn_check(torch, randn, lws, P, H, KH, D, bf16, timed=True)
+    attn_check(torch, randn, 2, 1000, H, KH, D, f32)       # ragged S
+    dec = decode_check(torch, randn, lws, P + gen, H, KH, D, P + gen - 1,
+                       bf16, timed=True)
+    decode_check(torch, randn, 3, 1000, H, KH, D, 700, f32)
+
+    # -------------------------------- serve at full width, bfloat16
+    if args.small:
+        log(f"serve {arch}: {n} of its {full.n_layers} layers (--small)")
+    elif n != full.n_layers:
+        log(f"serve {arch}: depth cut to its first {n} of {full.n_layers} "
+            f"layers at full width (the whole model's "
+            f"{T.param_count(full)[0] * 2 / 1e9:.1f} GB of bfloat16 "
+            f"weights do not fit the card)")
+    params = make_params(torch, dev0, cfg)
+    served = {}
+    row = serve_model(torch, dev0, cfg, params, served,
+                      per_prefill={"flash_attention": n},
+                      per_step={"flash_decode": n})
+    row.update(layers=n, of_layers=full.n_layers)
+    del params
+    free_card(torch, dev0, f"{arch} parity")
+
+    # ------------- card against host, float32, a fresh cut model
+    cut = replace(full, n_layers=min(n_parity, n), dtype="float32")
+    p32 = T.init_params(cut, torch.Generator(dev0).manual_seed(seed))
+    log(f"parity {arch}: a float32 model of its first {cut.n_layers} of "
+        f"{full.n_layers} layers at full width, made from the cut config "
+        f"({T.param_bytes(p32) / 1e9:.2f} GB on each side; host memory "
+        f"and time)")
+    compare = (routed_card_against_host if cut.moe.n_routed
+               else card_against_host)
+    compare(torch, dev0, cut, p32, f"{arch} ({cut.n_layers} layers)")
+    del p32
+    return served, attn, dec, row
+
+
+def served_configs_phases(args, torch, dev0):
+    """Phases 31-34 in turn; returns (launches by config, the kernels'
+    entries by record key, the serving rows)."""
+    paths, entries, rows = {}, {"flash_attention": {}, "flash_decode": {}}, {}
+    for i, (arch, n_layers, n_parity, key, seed) in enumerate(
+            SERVED_CONFIGS):
+        stamp(f"phase {31 + i}: {arch}")
+        paths[arch], a, d, rows[arch] = served_config_phase(
+            args, torch, dev0, arch, n_layers, n_parity, seed)
+        for name, r in (("flash_attention", a), ("flash_decode", d)):
+            entries[name][key] = long_entry(r, f"{arch}'s heads")
+    log("serving table: " + json.dumps(rows))
+    return paths, entries, rows
+
+
 def device_line(torch) -> str:
     return json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3584,10 +3730,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--small", action="store_true",
                     help="small sizes instead of the paper's")
-    ap.add_argument("--phase", choices=["fleet", "plan"],
-                    help="build, then run this phase alone (fleet: 8a; "
-                         "plan: 26-30) as a quicker check; prints no "
-                         "kernels line")
+    ap.add_argument("--phase", choices=["fleet", "plan", "served"],
+                    help="build, then run these phases alone (fleet: 8a; "
+                         "plan: 26-30; served: 31-34) as a quicker check; "
+                         "prints no kernels line")
     args = ap.parse_args()
 
     import torch
@@ -3644,6 +3790,13 @@ def main() -> int:
         print(device_line(torch))
         return 0
 
+    if args.phase == "served":
+        served, _, _ = served_configs_phases(args, torch, dev0)
+        log(f"served launches: {json.dumps(served)}")
+        print(smi)
+        print(device_line(torch))
+        return 0
+
     if args.phase == "plan":
         plan_phase(args)
         checks = {"llama3.2-1b": llama_plan_phase(args, torch, dev0)}
@@ -3671,6 +3824,7 @@ def main() -> int:
             check_host_group(res, kernels[k].host_calls, name)
 
     # ----------------------------------------------------- main path
+    stamp("phases 3-5")
     launches, largest, smallest = {}, {}, {}
     outputs, host_runs = {}, {}
     for name, kw in sizes.items():
@@ -3949,19 +4103,30 @@ def main() -> int:
                   cuda_ms(lambda: KN.step_rows(pm, vel, t0s, nts), torch),
                   *nbody_bytes_ops(nts), f"{nts} targets x {N} sources")
 
+    stamp("phases 5a-5e")
     suite_phases(args, torch, dev0, attach, host_runs)
+    stamp("phase 5f")
     host_info = host_phase(args, torch, dev0, attach, host_runs,
                            host_build_s)
+    stamp("phases 6-8")
     serving_phases(args, torch, dev0, launches, record)
     paths = {}
+    stamp("phase 8a")
     fleet_phase(args, torch, dev0, paths)
+    stamp("phases 9-11")
     mamba_phases(args, torch, dev0, launches, record)
+    stamp("phases 12-13")
     training_phases(args, torch, dev0, launches, attach)
+    stamp("phase 14")
     attention_bwd_phase(args, torch, dev0, record)
+    stamp("phases 15-17")
     mla_phases(args, torch, dev0, record)
+    stamp("phases 18-19")
     paths["jamba-v0.1-52b"], jamba_a, jamba_d = jamba_phases(args, torch,
                                                              dev0)
+    stamp("phase 20")
     paths["internvl2-1b"], g7_a, g7_d = vlm_phase(args, torch, dev0)
+    stamp("phase 21")
     paths["musicgen-large"], mg_a, mg_d = audio_phase(args, torch, dev0)
     # phases 8a and 18-21 add their paths' launches to the three kernels'
     # records
@@ -3980,18 +4145,24 @@ def main() -> int:
 
     # phases 22-25: training of the Mamba, hybrid, MoE and frontend
     # families, through the scan's backward kernel
+    stamp("phase 22")
     scan_bwd = scan_bwd_phase(args, torch, dev0)
     trained = {}
+    stamp("phases 23-24")
     trained["jamba-v0.1-52b"], jamba_b = jamba_train_phases(args, torch,
                                                             dev0)
     trained["falcon-mamba-7b"] = falcon_train_phase(args, torch, dev0)
+    stamp("phase 25")
     front, front_b = frontend_train_phase(args, torch, dev0)
     trained.update(front)
 
     # phases 26-30: the planner, then MLA's backward and deepseek trained
+    stamp("phases 26-27")
     plan_phase(args)
     plan_checks = {"llama3.2-1b": llama_plan_phase(args, torch, dev0)}
+    stamp("phase 28")
     mla_b = mla_bwd_phase(args, torch, dev0)
+    stamp("phases 29-30")
     ds_run, plan_checks["deepseek-v2-lite-16b"] = deepseek_train_phases(
         args, torch, dev0)
     trained["deepseek-v2-lite-16b"] = ds_run
@@ -4050,6 +4221,15 @@ def main() -> int:
                                "G = 7 (internvl2-1b)"),
            musicgen_shape=long_entry(front_b["musicgen-large"],
                                      "musicgen-large's heads"))
+    # phases 31-34: qwen3-32b, yi-9b, stablelm-3b and dbrx-132b served;
+    # their launches join the two served kernels' records
+    served, entries, _ = served_configs_phases(args, torch, dev0)
+    for rec in records:
+        if rec["name"] in entries:
+            by = rec["launches_by_path"]
+            by.update((m, c[rec["name"]]) for m, c in served.items()
+                      if c.get(rec["name"]))
+            rec.update(launches=sum(by.values()), **entries[rec["name"]])
     log("training table: " + json.dumps(
         {m: {k: t[k] for k in ("step_s", "tokens_s", "busy", "peak_gb")}
          for m, t in trained.items()}))
@@ -4060,6 +4240,7 @@ def main() -> int:
     leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "repro")]
     check(not leaked, f"the port imported {leaked}")
 
+    stamp("done")
     print(json.dumps({"kernels": records, "host": host_info}))
     print(smi)
     print(device_line(torch))

@@ -13,6 +13,10 @@ published shapes, drawn from a ``torch.Generator`` seeded with 0.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
       --requests 16 --prompt-len 256 --gen 32 --replicas r0:1,r1:2
 
+``--arch qwen3-32b`` (q/k RMSNorm), ``yi-9b`` and ``stablelm-3b`` serve
+the dense configs at full depth on one card (65.5, 17.7 and 5.6 GB of
+bfloat16 weights); ``--arch dbrx-132b`` builds all 40 of its layers,
+263 GB, more than one card (``chip_smoke.py`` serves its first 8).
 ``--arch deepseek-v2-lite-16b`` serves the MLA + MoE model the same way
 (on a card: all 27 layers, 31.4 GB of bfloat16 weights), ``--arch
 jamba-v0.1-52b`` the hybrid attention/Mamba period with MoE (its 32

@@ -262,6 +262,13 @@ ATTN_TOL = {torch.bfloat16: (2e-2, 2e-2), torch.float32: (1e-4, 2e-5)}
                    (2, 1000))),
     (4, 256, 32, 32, 64, torch.bfloat16),     # musicgen-large's prefill
     (2, 1000, 32, 32, 64, torch.float32),     # ragged S, musicgen's heads
+    # the served dense configs' and dbrx's heads at their serving prefill,
+    # and a ragged S in float32: qwen3-32b (G = 8), yi-9b (G = 8),
+    # stablelm-3b (G = 1 at D = 80) and dbrx-132b (G = 6: 21 positions x
+    # 6 heads in 126 of 128 rows)
+    *((B, S, H, KH, D, dt) for H, KH, D in ((64, 8, 128), (32, 4, 128),
+                                            (32, 32, 80), (48, 8, 128))
+      for B, S, dt in ((4, 256, torch.bfloat16), (2, 1000, torch.float32))),
 ])
 def test_flash_attention_kernel_matches_plain(card, B, S, H, KH, D, dtype):
     from repro_torch.kernels.flash_attention import kernel as KA, ref as RA
@@ -577,6 +584,14 @@ def test_flash_attention_bwd_bf16_tiles_and_edges(card, S, G, D):
                         (3, 700, 500))),
     (4, 288, 32, 32, 64, 287, torch.bfloat16),  # musicgen-large's decode
     (3, 1000, 32, 32, 64, 700, torch.float32),
+    # the served dense configs' and dbrx's heads at their serving decode,
+    # and a ragged tail in float32 (qwen3-32b, yi-9b, stablelm-3b,
+    # dbrx-132b)
+    *((B, S, H, KH, D, pos, dt)
+      for H, KH, D in ((64, 8, 128), (32, 4, 128), (32, 32, 80),
+                       (48, 8, 128))
+      for B, S, pos, dt in ((4, 288, 287, torch.bfloat16),
+                            (3, 1000, 700, torch.float32))),
 ])
 def test_flash_decode_kernel_matches_plain(card, B, S, H, KH, D, pos, dtype):
     from repro_torch.kernels.flash_decode import kernel as KD, ref as RD
