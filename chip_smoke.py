@@ -6,13 +6,15 @@
     python3 chip_smoke.py --phase fleet  # the build and phase 8a alone
     python3 chip_smoke.py --phase plan   # the build and phases 26-30 alone
     python3 chip_smoke.py --phase served # the build and phases 31-34 alone
+    python3 chip_smoke.py --phase sharded  # the build and phases 35-37 alone
 
-The whole script took 794 s of command time on one H100 from a clean
-checkout, builds, phases 26-30 (planning every cell takes about 80 s)
-and phases 31-34 (about 160 s) included; ``--phase fleet`` builds the
-kernels and runs phase 8a alone, ``--phase plan`` phases 26-30 (about
-2.5 minutes) and ``--phase served`` phases 31-34, printing no kernels
-line.  Each phase
+The whole script took 848 s of command time on one H100 from a clean
+checkout, builds, phases 26-30 (planning every cell takes about 80 s),
+phases 31-34 (about 150 s) and phases 35-37 (about 90 s) included;
+``--phase fleet`` builds the kernels and runs phase 8a alone, ``--phase
+plan`` phases 26-30 (about 2.5 minutes), ``--phase served`` phases 31-34
+and ``--phase sharded`` phases 35-37 (about 2.5 minutes with the build),
+printing no kernels line.  Each phase
 group's start is logged with the seconds since the script started.
 
 Phases, each fatal on failure:
@@ -336,6 +338,33 @@ Phases, each fatal on failure:
     the same experts on both sides (``dbrx_shape``).  The four serving
     rows (served s, tokens/s, peak and weights GB, prefill and decode-step
     ms with their busy shares) are logged as one JSON line.
+35. jamba-v0.1-52b split over four ranks on the card, the ("data",
+    "model") = (1, 4) mesh (``parallel/spmd.py``, gloo: NCCL refuses two
+    ranks on one GPU, and gloo gathers no CUDA tensor, so the logits'
+    gather goes through host memory).  The parent builds the kernels;
+    the ranks only load them.  One period of 4 (layers 0, 1, 4, 5 of the
+    served model's kinds) in float32, 27.5 GB, runs on one process; each
+    rank makes its blocks of the same weights (each layer drawn from a
+    generator of its own, made whole in turn and cut by
+    ``transformer.shard_params``: 6.9 GB a rank) and runs the same
+    teacher-forced prefill and 4 decode steps; every rank's logits equal
+    the one process's at rtol = atol = 2e-4, bitwise equal on the four
+    ranks, with every token routed to the same experts;
+36. 16 of the 32 layers at full width in bfloat16 (52.11 GB, 13.0 GB a
+    rank, never more than one whole layer on the card beside the blocks)
+    served by the four ranks: batch 4, prompt 256, 32 greedy tokens, the
+    launches of each rank counted from 0 just before (2 ``flash_attention``
+    and 14 ``selective_scan`` a prefill, 2 ``flash_decode`` a step), the
+    tokens equal on every rank; per rank a prefill's and a decode step's
+    time (CUDA events), its kernel time and busy share, peak memory, the
+    collectives a step (``OpCost``) and the time in them;
+37. ``launch.dryrun.plan`` of the same cells on ``h100x4`` predicts
+    phase 36's collectives kind by kind (count, result and wire bytes);
+    its per-device peaks beside the measured one; ``flash_attention``,
+    ``flash_decode`` and ``selective_scan`` held against their plain
+    versions at a rank's shapes (8/2 heads, ``d_inner`` 2048) and timed
+    (``sharded_shape`` of their records, whose ``launches_by_path`` gain
+    phase 36's launches over the four ranks).
 
 Phases 8a and 18–25 add their launches to the records of
 ``flash_attention``, ``flash_attention_bwd``, ``flash_decode`` and
@@ -343,7 +372,8 @@ Phases 8a and 18–25 add their launches to the records of
 whose launches are phases 23–25's; phase 28's is ``flash_attention_bwd_d192``,
 whose launches are phase 29's, which also adds its forward launches to
 ``flash_attention_d192`` and both to the records of all head dims; phases
-31-34 add theirs to ``flash_attention`` and ``flash_decode``.  The line
+31-34 add theirs to ``flash_attention`` and ``flash_decode``, and 35-37
+theirs to those two and ``selective_scan``.  The line
 before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  It exits non-zero, printing no result,
 without a card or outside a checkout of the repository.
@@ -754,8 +784,6 @@ def card_against_host(torch, dev0, cfg32, p32, label, prompt=None,
     prompt length; ``patches`` (numpy, (batch, n, d)) go to the prefill
     (the ``vit_stub`` frontend); an ``encodec_stub`` model takes tokens
     of all its codebooks.  Moves ``p32`` to the host."""
-    from repro_torch.models import transformer as T
-
     B2, P2, n_steps = (PARITY[k] for k in ("batch", "prompt", "steps"))
     P2 = prompt or P2
     cb = ((cfg32.n_codebooks,) if cfg32.frontend == "encodec_stub"
@@ -763,26 +791,14 @@ def card_against_host(torch, dev0, cfg32, p32, label, prompt=None,
     ptoks = np.random.default_rng(1).integers(
         0, cfg32.vocab_size, (B2, P2 + n_steps) + cb).astype(np.int32)
 
-    def teacher_forced(device):
-        with torch.inference_mode():
-            t = torch.as_tensor(ptoks, device=device)
-            pt = (None if patches is None
-                  else torch.as_tensor(patches, device=device))
-            cache = T.init_cache(cfg32, B2, P2 + n_steps, device)
-            lg, cache = T.prefill(cfg32, p32, t[:, :P2], cache, patches=pt)
-            outs = [lg[:, 0]]
-            for i in range(P2, P2 + n_steps):
-                lg, cache = T.decode_step(cfg32, p32, t[:, i:i + 1], cache, i)
-                outs.append(lg[:, 0])
-            return torch.stack(outs, dim=1).cpu()
-
     t0 = time.perf_counter()
-    card = teacher_forced(dev0)
+    card = teacher_forced(torch, cfg32, p32, ptoks, P2, dev0, patches=patches)
     t_card = time.perf_counter() - t0
     p32.to("cpu")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    host = teacher_forced(torch.device("cpu"))
+    host = teacher_forced(torch, cfg32, p32, ptoks, P2, torch.device("cpu"),
+                          patches=patches)
     t_host = time.perf_counter() - t0
     top = float(host.abs().max())
     err = float((card - host).abs().max())
@@ -1296,12 +1312,52 @@ def fleet_phase(args, torch, dev0, launches):
     torch.cuda.empty_cache()
 
 
+def scan_kernel_check(torch, dev0, gen_t, B, S, d, s, with_h0=False,
+                      timed=False):
+    """Hold ``selective_scan`` against its plain version on (B, S, d, s)
+    inputs drawn from ``gen_t`` at ``SCAN_TOL``; with ``timed``, time both
+    and return the measurements for a kernel record."""
+    from repro_torch.kernels.mamba_scan import kernel as KS, ref as RS
+
+    # the inputs of tests/test_kernels.py: a in [0.5, 0.99)
+    a = 0.5 + 0.49 * torch.rand((B, S, d, s), generator=gen_t,
+                                device=dev0)
+    b = torch.randn((B, S, d, s), generator=gen_t, device=dev0) * 0.1
+    C = torch.randn((B, S, s), generator=gen_t, device=dev0)
+    h0 = (torch.randn((B, d, s), generator=gen_t, device=dev0)
+          if with_h0 else None)
+    y, h = KS.selective_scan(a, b, C, h0)
+    yr, hr = RS.selective_scan(a, b, C, h0)
+    rtol, atol = SCAN_TOL
+    torch.testing.assert_close(y, yr, rtol=rtol, atol=atol)
+    torch.testing.assert_close(h, hr, rtol=rtol, atol=atol)
+    err = max(float((y - yr).abs().max()), float((h - hr).abs().max()))
+    shape = (f"B={B} S={S} di={d} ds={s} float32"
+             + (" h0" if with_h0 else ""))
+    log(f"  selective_scan {shape}: max abs err {err:.3g}")
+    res = None
+    if timed:
+        # each input read once, each output written once; a multiply-
+        # add, a multiply and a share of the ds-lane sum per element
+        res = dict(
+            err=err, shape=shape,
+            ms=cuda_ms(lambda: KS.selective_scan(a, b, C, h0), torch),
+            plain_ms=cuda_ms(lambda: RS.selective_scan(a, b, C, h0),
+                             torch, 1),
+            library_ms=None,
+            nbytes=4.0 * (2 * B * S * d * s + B * S * s + B * S * d
+                          + B * d * s * (2 if with_h0 else 1)),
+            ops=float(B * S * d * (4 * s - 1)), ops_per_s=FP32_OPS_S)
+    del a, b, C, h0, y, h, yr, hr
+    torch.cuda.empty_cache()
+    return res
+
+
 def mamba_phases(args, torch, dev0, launches, record):
     import copy
     from dataclasses import replace
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels.mamba_scan import kernel as KS, ref as RS
     from repro_torch.models import transformer as T
 
     cfg = get_config("falcon-mamba-7b")
@@ -1332,39 +1388,8 @@ def mamba_phases(args, torch, dev0, launches, record):
     # ------------------------------ selective scan against plain version
     gen_t = torch.Generator(dev0).manual_seed(3)
 
-    def scan_check(B, S, d, s, with_h0=False, timed=False):
-        # the inputs of tests/test_kernels.py: a in [0.5, 0.99)
-        a = 0.5 + 0.49 * torch.rand((B, S, d, s), generator=gen_t,
-                                    device=dev0)
-        b = torch.randn((B, S, d, s), generator=gen_t, device=dev0) * 0.1
-        C = torch.randn((B, S, s), generator=gen_t, device=dev0)
-        h0 = (torch.randn((B, d, s), generator=gen_t, device=dev0)
-              if with_h0 else None)
-        y, h = KS.selective_scan(a, b, C, h0)
-        yr, hr = RS.selective_scan(a, b, C, h0)
-        rtol, atol = SCAN_TOL
-        torch.testing.assert_close(y, yr, rtol=rtol, atol=atol)
-        torch.testing.assert_close(h, hr, rtol=rtol, atol=atol)
-        err = max(float((y - yr).abs().max()), float((h - hr).abs().max()))
-        shape = (f"B={B} S={S} di={d} ds={s} float32"
-                 + (" h0" if with_h0 else ""))
-        log(f"  selective_scan {shape}: max abs err {err:.3g}")
-        res = None
-        if timed:
-            # each input read once, each output written once; a multiply-
-            # add, a multiply and a share of the ds-lane sum per element
-            res = dict(
-                err=err, shape=shape,
-                ms=cuda_ms(lambda: KS.selective_scan(a, b, C, h0), torch),
-                plain_ms=cuda_ms(lambda: RS.selective_scan(a, b, C, h0),
-                                 torch, 1),
-                library_ms=None,
-                nbytes=4.0 * (2 * B * S * d * s + B * S * s + B * S * d
-                              + B * d * s * (2 if with_h0 else 1)),
-                ops=float(B * S * d * (4 * s - 1)), ops_per_s=FP32_OPS_S)
-        del a, b, C, h0, y, h, yr, hr
-        torch.cuda.empty_cache()
-        return res
+    def scan_check(*shape, **kw):
+        return scan_kernel_check(torch, dev0, gen_t, *shape, **kw)
 
     log("selective_scan against its plain version:")
     serve_s = scan_check(lws, P, di, ds, timed=True)
@@ -2388,6 +2413,15 @@ def _plan_cell(cell):
     return D.plan_meshes(*cell, mesh_names=PLAN_MESHES)
 
 
+def sharded_note(rec) -> str:
+    """A four-card serve record's rank 0 step: its collectives, or why
+    the config is refused."""
+    step = rec.get("sharded_step")
+    if step is None:
+        return ""
+    return f"; rank 0's step: {step.get('refused') or rec['collectives']}"
+
+
 def plan_phase(args):
     """26. Plan every cell on one card and four; returns the records."""
     import multiprocessing as mp
@@ -2412,7 +2446,7 @@ def plan_phase(args):
             f" GB a device, flops {r['flops']:.4e} ({r['flops_per_device']:.4e}"
             f" a device, dots {r['dot_flops']:.4e}), traffic "
             f"{r['traffic_bytes']:.4e} B, kernels {calls}; the step on meta "
-            f"in {r['meta_run_s']:.1f} s")
+            f"in {r['meta_run_s']:.1f} s" + sharded_note(r))
     log(f"plan: {len(cells)} cells x {len(PLAN_MESHES)} meshes in "
         f"{wall:.1f} s wall ({PLAN_WORKERS} processes, meta device)")
     return recs
@@ -3720,6 +3754,430 @@ def served_configs_phases(args, torch, dev0):
     return paths, entries, rows
 
 
+# ---------------------- jamba-v0.1-52b served by four ranks (35-37)
+# four ranks on the one card, as the ("data", "model") = (1, 4) mesh of the
+# planner's h100x4, joined by gloo (NCCL refuses two ranks on one GPU)
+SHARDED_WORLD = 4
+SHARDED_PATH = "jamba-v0.1-52b sharded (1, 4)"
+# phase 36: 16 of the 32 layers at full width in bfloat16 (52.11 GB, 13.0
+# GB a rank), the llama set-up's request shape: batch 4, prompt 256, 32
+# greedy tokens
+SHARDED_RUN = dict(batch=4, prompt=256, gen=32)
+# phase 35: the ranks' float32 logits against the one-process card run
+# (TF32 off), the tolerance of tests/test_torch_dense_configs.py
+SHARDED_TOL = dict(rtol=2e-4, atol=2e-4)
+# one rank set's limit: its weights made in turns, then its runs (a
+# gloo all-reduce of four ranks on one card took 6.7-16.4 ms,
+# gloo_times.py, PERF.md)
+SHARDED_TIMEOUT_S = 600
+# layer i's weights come from a generator seeded SHARDED_SEED * 1000 + i,
+# the embedding, final norm and head from SHARDED_SEED * 1000 + n_layers
+SHARDED_SEED = 11
+# the ranks' allocator settings (their environment at spawn)
+ALLOC_CONF = "PYTORCH_CUDA_ALLOC_CONF"
+
+
+def seeded_params(torch, cfg, dev, res=None):
+    """``cfg``'s weights on ``dev``, each layer drawn from a generator of
+    its own (``SHARDED_SEED``), so that every rank can make its blocks of
+    the one-process model's weights.  With ``res`` the rank's blocks
+    (``transformer.shard_params``): the ranks make each layer whole in
+    turn and cut it, so that one whole layer at a time is on the card."""
+    import torch.distributed as dist
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    def gen(i):
+        return torch.Generator(dev).manual_seed(SHARDED_SEED * 1000 + i)
+
+    def cut(module):
+        return module if res is None else T.shard_params(cfg, module, res)
+
+    dtype = getattr(torch, cfg.dtype)
+    V, d = cfg.vocab_size, cfg.d_model
+    g = gen(cfg.n_layers)
+    top = cut(T.LM(L._dense_init(g, (V, d), dtype, V, scale=0.02), [],
+                   L._ones(d, dtype, dev),
+                   None if cfg.tie_embeddings
+                   else L._dense_init(g, (d, V), dtype, d)))
+    layers = []
+    for i in range(cfg.n_layers):
+        for turn in range(1 if res is None else res.size):
+            if res is None or turn == res.rank:
+                layers.append(cut(T._layer_init(cfg, i, gen(i), dtype)))
+                torch.cuda.synchronize(dev)
+                # the whole layer's blocks back to the card, not to this
+                # process's cache, before the next rank's turn
+                torch.cuda.empty_cache()
+            if res is not None:
+                dist.barrier()
+    return T.LM(top.embed, layers, top.final_norm, top.lm_head)
+
+
+def teacher_forced(torch, cfg, params, tokens, prompt, dev, res=None,
+                   patches=None):
+    """Prefill ``prompt`` tokens of ``tokens`` (numpy (B, S), or (B, S, CB)
+    with codebooks; ``patches`` numpy (B, n, d) for the ``vit_stub``
+    frontend), then one decode step each for the rest; the logits of
+    each, stacked on the host."""
+    from repro_torch.models import transformer as T
+
+    with torch.inference_mode():
+        t = torch.as_tensor(tokens, device=dev)
+        pt = None if patches is None else torch.as_tensor(patches,
+                                                          device=dev)
+        cache = T.init_cache(cfg, t.shape[0], t.shape[1], dev, res=res)
+        lg, cache = T.prefill(cfg, params, t[:, :prompt], cache, patches=pt,
+                              res=res)
+        outs = [lg[:, 0]]
+        for i in range(prompt, t.shape[1]):
+            lg, cache = T.decode_step(cfg, params, t[:, i:i + 1], cache, i,
+                                      res=res)
+            outs.append(lg[:, 0])
+        return torch.stack(outs, dim=1).cpu()
+
+
+def rank_setup(rank, world, cfg):
+    """A rank's start: the kernels loaded (the parent built them: a rank
+    that compiles fails), TF32 off, nothing of ``jax`` or ``repro``
+    imported, and its ``res`` on the (1, ``world``) mesh."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.parallel.collectives import sharded_run
+
+    build.load()
+    check(build.build_seconds == 0.0, f"rank {rank} compiled the kernels")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res = sharded_run(cfg, make_test_mesh(world), rank=rank,
+                      group=dist.group.WORLD)
+    leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "repro")]
+    check(not leaked, f"rank {rank} imported {leaked}")
+    return torch, res, torch.device("cuda", torch.cuda.current_device())
+
+
+def sharded_parity_rank(rank, world, cfg, tokens, prompt):
+    """Phase 35 on one rank: its float32 blocks of the parent's weights,
+    the teacher-forced logits and every routing's chosen experts."""
+    torch, res, dev = rank_setup(rank, world, cfg)
+    params = seeded_params(torch, cfg, dev, res)
+    with recorded_routes() as routes:
+        logits = teacher_forced(torch, cfg, params, tokens, prompt, dev, res)
+    return dict(logits=logits.numpy(), routes=[i.numpy() for _, i in routes],
+                weights_gb=sum(p.numel() * p.element_size()
+                               for p in params.parameters()) / 1e9)
+
+
+def rank_kernel_ms(torch, fn, n, tries: int = 3):
+    """This rank's kernel ms a call of ``fn`` over ``n`` calls: the
+    device rows of a ``torch.profiler`` trace bracketed by spin kernels,
+    as ``traced_window`` takes it.  ``fn`` joins the other ranks in its
+    collectives, so every rank takes each trace together: a trace that
+    lost a spin kernel on any rank is taken again on all of them, and
+    one still lost after ``tries`` fails the phase."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(100_000)
+            for _ in range(n):
+                fn()
+            torch.cuda._sleep(100_000)
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        spins = sum(e.count for e in events if "spin_kernel" in e.key)
+        lost = torch.tensor([float(spins != 2)])
+        dist.all_reduce(lost)          # gloo, on the host
+        if not lost.item():
+            break
+        log(f"  rank trace {attempt + 1} of {tries}: {int(lost.item())} "
+            f"ranks lost events (this one holds {spins} of the 2 spin "
+            f"kernels)")
+    check(not lost.item(), f"the ranks' profiler traces lost events "
+          f"{tries} times")
+    us = sum(e.self_device_time_total for e in events
+             if "spin_kernel" not in e.key)
+    check(us > 0, "a rank's profiler trace holds no kernel time")
+    return us / n / 1e3
+
+
+def sharded_serve_rank(rank, world, cfg, prompts, gen):
+    """Phase 36 on one rank: its bfloat16 blocks of ``cfg`` made in
+    turns, ``gen`` greedy tokens after ``prompts`` (launches counted from
+    0 just before), a prefill's and a decode step's time (CUDA events), kernel
+    time (busy share), peak memory, and on extra steps the collectives
+    ``OpCost`` counts and the time spent in them."""
+    import dataclasses
+
+    torch, res, dev = rank_setup(rank, world, cfg)
+    import torch.distributed as dist
+
+    from repro_torch.launch import op_cost
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel.collectives import ShardedRun
+
+    t0 = time.perf_counter()
+    params = seeded_params(torch, cfg, dev, res)
+    build_s = time.perf_counter() - t0
+    B, P = prompts.shape
+    batch = torch.as_tensor(prompts, device=dev)
+
+    def greedy(n_tok):
+        cache = T.init_cache(cfg, B, P + gen, dev, res=res)
+        lg, cache = T.prefill(cfg, params, batch, cache, res=res)
+        out = []
+        for i in range(n_tok):
+            out.append(lg[:, -1].argmax(-1, keepdim=True))
+            if i + 1 < n_tok:
+                lg, cache = T.decode_step(cfg, params, out[-1], cache, P + i,
+                                          res=res)
+        return torch.cat(out, dim=1)
+
+    counters = counted_kernels()
+    with torch.inference_mode():
+        greedy(2)                               # first launches
+        torch.cuda.synchronize()
+        dist.barrier()
+        for k in counters.values():
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        tokens = greedy(gen)
+        torch.cuda.synchronize()
+        served_s = time.perf_counter() - t0
+        launches = {n: k.launches for n, k in counters.items()}
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+
+        cache = T.init_cache(cfg, B, P + gen, dev, res=res)
+        tok = tokens[:, :1].contiguous()
+
+        def prefill(run=res):
+            return T.prefill(cfg, params, batch, cache, res=run)
+
+        def step(run=res):
+            return T.decode_step(cfg, params, tok, cache, P + gen // 2,
+                                 res=run)
+
+        def event_ms(fn, reps):
+            # no spin kernel first (cuda_ms): it would hold the card that
+            # the other ranks share
+            fn()
+            torch.cuda.synchronize()
+            dist.barrier()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(reps):
+                fn()
+            end.record()
+            end.synchronize()
+            return start.elapsed_time(end) / reps
+
+        prefill_ms, step_ms = event_ms(prefill, 3), event_ms(step, 10)
+        dist.barrier()
+        kernels = {"prefill": rank_kernel_ms(torch, prefill, 2),
+                   "decode": rank_kernel_ms(torch, step, 5)}
+        counted = {}
+        for kind, fn in (("prefill", prefill), ("decode", step)):
+            with op_cost.OpCost() as oc:
+                fn()
+            counted[kind] = oc.summary()["collectives"]
+
+        class TimedRun(ShardedRun):
+            """The run with each collective's time on the host clock,
+            the card drained before and after it."""
+            seconds = 0.0
+
+            def _timed(self, fn, *a):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                y = fn(*a)
+                torch.cuda.synchronize()
+                self.seconds += time.perf_counter() - t
+                return y
+
+            def all_reduce(self, x):
+                return self._timed(super().all_reduce, x)
+
+            def all_gather(self, x, dim):
+                return self._timed(super().all_gather, x, dim)
+
+        coll_ms = {}
+        for kind, fn in (("prefill", prefill), ("decode", step)):
+            timed = TimedRun(**{f.name: getattr(res, f.name)
+                                for f in dataclasses.fields(res)})
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(timed)
+            torch.cuda.synchronize()
+            coll_ms[kind] = (timed.seconds * 1e3,
+                             (time.perf_counter() - t0) * 1e3)
+    return dict(tokens=tokens.cpu().numpy(), launches=launches,
+                served_s=served_s, build_s=build_s, prefill_ms=prefill_ms,
+                step_ms=step_ms, kernels_ms=kernels, peak_gb=peak_gb,
+                weights_gb=T.param_bytes(params) / 1e9,
+                collectives=counted, collective_ms=coll_ms)
+
+
+def sharded_phases(args, torch, dev0):
+    """Phases 35-37: jamba-v0.1-52b split over four ranks on the card
+    (``parallel/spmd.py``, gloo): float32 parity of one period of 4
+    against the one-process card run (35), 16 of its 32 layers at full
+    width served greedily by the four ranks (36), the planner's
+    collectives against the ranks' and the three kernels at the per-rank
+    shapes (37).  Returns (each kernel's launches over the four ranks of
+    phase 36, its record entry at the per-rank shapes)."""
+    import os
+    import tempfile
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import card_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import spmd
+
+    world = SHARDED_WORLD
+    full = get_config("jamba-v0.1-52b")
+    # gloo gathers no CUDA tensor (its all_gather_into_tensor ended four
+    # ranks on one card with SIGSEGV); through host memory it took 6.39
+    # and 7.94 ms in two runs against 7.58 and 7.64 ms for an all-reduce
+    # of a zero-filled buffer of the gathered size (gloo_times.py,
+    # PERF.md): no faster, and it moves a quarter of the bytes
+    log(f"sharded: {world} ranks on {dev0} over gloo; the logits' gather "
+        f"through host memory, the all-reduces on the card's tensors")
+
+    def ranks(fn, *a):
+        free_card(torch, dev0, f"before {world} ranks")
+        # expandable segments: emptying a rank's cache after its turn then
+        # returns every free page, not only the segments no block holds
+        # (fragments kept 7 GB a rank, and phase 36 ran out of memory)
+        before = os.environ.get(ALLOC_CONF)
+        os.environ[ALLOC_CONF] = "expandable_segments:True"
+        try:
+            with tempfile.TemporaryDirectory() as d:
+                return spmd.run(fn, world, store_dir=d, backend="gloo",
+                                device=str(dev0), args=a,
+                                timeout=SHARDED_TIMEOUT_S)
+        finally:
+            if before is None:
+                del os.environ[ALLOC_CONF]
+            else:
+                os.environ[ALLOC_CONF] = before
+
+    # ------------- phase 35: float32, one period of 4, ranks against one
+    stamp("phase 35")
+    cut = replace(full, dtype="float32", **JAMBA_PERIOD4)
+    B2, P2, n_steps = (PARITY[k] for k in ("batch", "prompt", "steps"))
+    ptoks = np.random.default_rng(1).integers(
+        0, cut.vocab_size, (B2, P2 + n_steps)).astype(np.int32)
+    p32 = seeded_params(torch, cut, dev0)
+    log(f"sharded parity: {cut.name} as one period of 4 at full width, "
+        f"{T.param_bytes(p32) / 1e9:.2f} GB in float32 on one process")
+    with recorded_routes() as routes:
+        want = teacher_forced(torch, cut, p32, ptoks, P2, dev0)
+    del p32
+    got = ranks(sharded_parity_rank, cut, ptoks, P2)
+    top = float(want.abs().max())
+    for r, g in enumerate(got):
+        lg = torch.from_numpy(g["logits"])
+        err = float((lg - want).abs().max())
+        check(bool(torch.isfinite(lg).all()) and lg.shape == want.shape,
+              f"sharded parity: rank {r}'s logits")
+        torch.testing.assert_close(lg, want, **SHARDED_TOL)
+        check(np.array_equal(g["logits"], got[0]["logits"]),
+              f"sharded parity: rank {r}'s logits differ from rank 0's")
+        check(len(g["routes"]) == len(routes) and all(
+            np.array_equal(a, b.numpy())
+            for a, (_, b) in zip(g["routes"], routes)),
+            f"sharded parity: rank {r} routes tokens to other experts")
+        log(f"sharded parity rank {r}: {g['weights_gb']:.2f} GB of float32 "
+            f"weights; max |ranks - one process| {err:.3g} = "
+            f"{err / top:.3g} of the largest logit {top:.3g} (rtol = atol "
+            f"= 2e-4), {len(routes)} routings equal")
+
+    # ------------- phase 36: 16 layers, bfloat16, four ranks, greedy
+    stamp("phase 36")
+    cfg = (replace(full, **JAMBA_PERIOD4) if args.small
+           else replace(full, n_layers=JAMBA_SERVED_LAYERS))
+    n_attn = sum(cfg.mixer_kind(i) == "attn" for i in range(cfg.n_layers))
+    B, P, gen = (SHARDED_RUN[k] for k in ("batch", "prompt", "gen"))
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, P)).astype(np.int32)
+    served = ranks(sharded_serve_rank, cfg, prompts, gen)
+    want_l = {"flash_attention": n_attn,
+              "selective_scan": cfg.n_layers - n_attn,
+              "flash_decode": n_attn * (gen - 1)}
+    for r, s in enumerate(served):
+        check(np.array_equal(s["tokens"], served[0]["tokens"]),
+              f"sharded serve: rank {r}'s tokens differ from rank 0's")
+        check(s["launches"] == want_l, f"sharded serve: rank {r} launched "
+              f"{s['launches']}, expected {want_l}")
+        call_ms = {"prefill": s["prefill_ms"], "decode": s["step_ms"]}
+        busy = {k: round(v / call_ms[k], 4)
+                for k, v in s["kernels_ms"].items()}
+        log(f"sharded serve rank {r}: {s['weights_gb']:.2f} GB of weights "
+            f"made in {s['build_s']:.1f} s; {B} x {P} prompt + {gen} greedy "
+            f"tokens in {s['served_s']:.3f} s; prefill {s['prefill_ms']:.3f}"
+            f" ms, decode step {s['step_ms']:.3f} ms (CUDA events); kernel "
+            f"ms a call {s['kernels_ms']}, busy {busy}; peak "
+            f"{s['peak_gb']:.2f} GB; collectives a step "
+            f"{json.dumps(s['collectives'])}; in collectives (ms, of the "
+            f"step's ms, host clock, card drained around each) "
+            f"{s['collective_ms']}")
+    toks = served[0]["tokens"]
+    check(toks.shape == (B, gen) and int(toks.min()) >= 0
+          and int(toks.max()) < cfg.vocab_size,
+          f"sharded serve: tokens of shape {toks.shape} out of range")
+    log(f"sharded serve: {cfg.name} on {cfg.n_layers} of {full.n_layers} "
+        f"layers, tokens equal on the {world} ranks; launches a rank "
+        f"{want_l}")
+
+    # ------------- phase 37: the planner against the ranks; the kernels
+    stamp("phase 37")
+    peak = max(s["peak_gb"] for s in served)
+    for kind, seq in (("prefill", P), ("decode", P + gen)):
+        rec = D.plan(cfg, ShapeConfig(f"sharded_{kind}", seq, B, kind),
+                     card_mesh("h100x4"))
+        check(rec["collectives"] == served[0]["collectives"][kind],
+              f"plan {kind}: collectives {rec['collectives']} against the "
+              f"card's {served[0]['collectives'][kind]}")
+        even = rec["predicted_peak_bytes_per_device"] / 1e9
+        own = rec["sharded_step"]["predicted_peak_bytes"] / 1e9
+        log(f"plan h100x4 {kind} (batch {B}, seq {seq}): collectives equal "
+            f"to the card run's, {json.dumps(rec['collectives'])}; "
+            f"predicted peak a device {even:.2f} GB (even share), rank 0's "
+            f"step {own:.2f} GB; measured peak of phase 36's run "
+            f"{peak:.2f} GB")
+    H, KH = cfg.n_heads // world, cfg.n_kv_heads // world
+    D_, di = cfg.resolved_head_dim, cfg.d_inner // world
+    bf16 = torch.bfloat16
+    gen_t = torch.Generator(dev0).manual_seed(6)
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen_t, device=dev0).to(dtype)
+
+    log("kernels at the per-rank shapes against their plain versions:")
+    shapes = {
+        "flash_attention": attn_check(torch, randn, B, P, H, KH, D_, bf16,
+                                      timed=True),
+        "flash_decode": decode_check(torch, randn, B, P + gen, H, KH, D_,
+                                     P + gen - 1, bf16, timed=True),
+        "selective_scan": scan_kernel_check(torch, dev0, gen_t, B, P, di,
+                                            cfg.ssm.d_state, timed=True)}
+    entries = {k: long_entry(r, f"{k}, a rank's share")
+               for k, r in shapes.items()}
+    launches = {k: sum(s["launches"][k] for s in served) for k in want_l}
+    return launches, entries
+
+
 def device_line(torch) -> str:
     return json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3730,10 +4188,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--small", action="store_true",
                     help="small sizes instead of the paper's")
-    ap.add_argument("--phase", choices=["fleet", "plan", "served"],
+    ap.add_argument("--phase", choices=["fleet", "plan", "served",
+                                        "sharded"],
                     help="build, then run these phases alone (fleet: 8a; "
-                         "plan: 26-30; served: 31-34) as a quicker check; "
-                         "prints no kernels line")
+                         "plan: 26-30; served: 31-34; sharded: 35-37) as a "
+                         "quicker check; prints no kernels line")
     args = ap.parse_args()
 
     import torch
@@ -3793,6 +4252,13 @@ def main() -> int:
     if args.phase == "served":
         served, _, _ = served_configs_phases(args, torch, dev0)
         log(f"served launches: {json.dumps(served)}")
+        print(smi)
+        print(device_line(torch))
+        return 0
+
+    if args.phase == "sharded":
+        sharded, _ = sharded_phases(args, torch, dev0)
+        log(f"sharded launches: {json.dumps(sharded)}")
         print(smi)
         print(device_line(torch))
         return 0
@@ -4230,6 +4696,16 @@ def main() -> int:
             by.update((m, c[rec["name"]]) for m, c in served.items()
                       if c.get(rec["name"]))
             rec.update(launches=sum(by.values()), **entries[rec["name"]])
+    # phases 35-37: jamba-v0.1-52b served by four ranks on the card; the
+    # ranks' launches join the three kernels' records
+    stamp("phases 35-37")
+    sharded, shapes = sharded_phases(args, torch, dev0)
+    for rec in records:
+        if rec["name"] in sharded:
+            by = rec["launches_by_path"]
+            by[SHARDED_PATH] = sharded[rec["name"]]
+            rec.update(launches=sum(by.values()),
+                       sharded_shape=shapes[rec["name"]])
     log("training table: " + json.dumps(
         {m: {k: t[k] for k in ("step_s", "tokens_s", "busy", "peak_gb")}
          for m, t in trained.items()}))

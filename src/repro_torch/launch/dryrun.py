@@ -19,6 +19,13 @@ sharding resolver over the state's logical axes, with the JAX package's
 resolvers: FSDP for training, ``serve_2d_weights`` for prefill.  Nothing
 is allocated and no card is needed.
 
+A prefill or decode cell on a mesh whose "model" axis exceeds 1 also runs
+rank 0's own step (``sharded_step``): its block of the weights and cache
+(``transformer.shard_params``, ``init_cache(res=...)``) on ``meta``, its
+collectives under a ``fake``-backend group of the axis' size, counted by
+``OpCost``; the record's ``collectives`` are that step's.  A config that
+``transformer.check_shardable`` refuses keeps ``{}`` and records why.
+
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh h100
     PYTHONPATH=src python -m repro_torch.launch.dryrun \\
         --arch deepseek-v2-lite-16b --shape train_4k --mesh h100x4 \\
@@ -45,6 +52,8 @@ from repro_torch.launch import specs as SP
 from repro_torch.launch.mesh import card_mesh
 from repro_torch.models import transformer as T
 from repro_torch.optim.adamw import OptConfig
+from repro_torch.parallel import spmd
+from repro_torch.parallel.collectives import MODEL, sharded_run
 from repro_torch.parallel.sharding import Mesh, ShardingResolver
 from repro_torch.training import step as STEP
 
@@ -124,10 +133,11 @@ def _gradient_bytes(cfg, res, opt, accum: int) -> Dict[str, int]:
 
 
 def run_step(cfg: ModelConfig, shape: ShapeConfig,
-             opt: Optional[OptConfig] = None) -> op_cost.OpCost:
+             opt: Optional[OptConfig] = None, res=None) -> op_cost.OpCost:
     """The cell's step on ``meta`` under :class:`op_cost.OpCost`; the
     state and inputs are made before the mode starts, so its peak is of
-    what the step allocates beside them."""
+    what the step allocates beside them.  With ``res`` (a prefill or
+    decode cell) the step of that rank of the sharded model."""
     opt = opt or OptConfig()
     ins = SP.input_specs(cfg, shape)
     if shape.kind == "train":
@@ -138,16 +148,41 @@ def run_step(cfg: ModelConfig, shape: ShapeConfig,
             fn(state, ins)
     else:
         params, _ = SP.abstract_params(cfg)
-        cache, _ = SP.abstract_cache(cfg, shape.global_batch, shape.seq_len)
+        if res is not None:
+            params = T.shard_params(cfg, params, res)
+        cache = T.init_cache(cfg, shape.global_batch, shape.seq_len,
+                             device=SP.META, res=res)
         with op_cost.OpCost() as oc:
             if shape.kind == "prefill":
-                STEP.make_prefill_step(cfg)(params, ins, cache)
+                STEP.make_prefill_step(cfg, res=res)(params, ins, cache)
             elif shape.kind == "decode":
-                STEP.make_decode_step(cfg)(params, ins["token"], cache,
-                                           shape.seq_len - 1)
+                STEP.make_decode_step(cfg, res=res)(
+                    params, ins["token"], cache, shape.seq_len - 1)
             else:
                 raise ValueError(shape.kind)
     return oc
+
+
+def sharded_step(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh,
+                 arg_bytes: int) -> Dict:
+    """Rank 0's step of a prefill or decode cell split over ``mesh``'s
+    "model" axis (the module's docstring): its totals, collectives and
+    predicted peak (``arg_bytes``, a device's arguments, plus what the
+    step holds), or ``{"refused": why}``."""
+    try:
+        T.check_shardable(cfg, mesh)
+    except ValueError as e:
+        return {"refused": str(e)}
+    with spmd.fake_group(mesh.size) as group:
+        res = sharded_run(cfg, mesh, group=group)
+        oc = run_step(cfg, shape, res=res)
+    s = oc.summary()
+    out = {k: s[k] for k in ("flops", "dot_flops", "traffic_bytes",
+                             "peak_held_bytes", "kernels", "collectives",
+                             "collective_wire_bytes")}
+    out.update(meta_run_s=oc.seconds, op_histogram=oc.op_histogram(),
+               predicted_peak_bytes=arg_bytes + s["peak_held_bytes"])
+    return out
 
 
 def plan(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh, *,
@@ -184,8 +219,9 @@ def plan(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh, *,
         "meta_run_s": cost.seconds,
         "per_device_bytes": args,
         "argument_bytes_per_device": arg_bytes,
-        # the whole step's totals (eager ops, no partitioner: a device of
-        # n does 1/n of them where the resolver splits the work evenly)
+        # the whole step's totals and an even share of them a device (a
+        # serve cell split over "model" also has rank 0's own step under
+        # "sharded_step", and its collectives here)
         "flops": summary["flops"],
         "dot_flops": summary["dot_flops"],
         "transcendentals": summary["transcendentals"],
@@ -202,6 +238,14 @@ def plan(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh, *,
         "predicted_peak_bytes_per_device":
             arg_bytes + summary["peak_held_bytes"] / n,
     }
+    if shape.kind != "train" and dict(zip(mesh.axis_names,
+                                          mesh.shape)).get(MODEL, 1) > 1:
+        step = record["sharded_step"] = sharded_step(cfg, shape, mesh,
+                                                     arg_bytes)
+        if "refused" not in step:
+            record["collectives"] = step["collectives"]
+            record["collective_wire_bytes_per_device"] = step[
+                "collective_wire_bytes"]
     if n == 1:
         rounded = _arguments(cfg, shape, res, opt, rounded=True)
         record["argument_bytes_allocated"] = sum(rounded.values())

@@ -9,7 +9,7 @@ port runs on.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 from repro_torch.parallel.sharding import Mesh
 
@@ -45,3 +45,15 @@ def card_mesh(name: str) -> Mesh:
     if name not in CARD_MESHES:
         raise KeyError(f"unknown mesh {name!r}; known: {sorted(CARD_MESHES)}")
     return make_test_mesh(CARD_MESHES[name])
+
+
+def coords(mesh: Mesh, rank: int) -> Dict[str, int]:
+    """Rank ``rank``'s index on each axis of ``mesh``: ranks numbered
+    row-major, the last axis fastest, as the JAX package's
+    ``np.array(jax.devices()).reshape(mesh.shape)`` places its devices."""
+    if not 0 <= rank < mesh.size:
+        raise ValueError(f"rank {rank} outside a mesh of {mesh.size}")
+    out = {}
+    for name, n in reversed(list(zip(mesh.axis_names, mesh.shape))):
+        rank, out[name] = divmod(rank, n)
+    return {name: out[name] for name in mesh.axis_names}

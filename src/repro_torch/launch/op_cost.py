@@ -36,17 +36,23 @@ whose aten ops the mode counts as any others.
 
 No loop-trip correction is needed: eager code runs every iteration, so a
 layer loop or a gradient-accumulation loop is counted as often as it
-runs.  Collectives have no counterpart on one card:
-:func:`collective_stats` returns none until several cards hold shards of
-one program (ROADMAP.md Queue A item 11), where DTensor's
-``CommDebugMode`` can count them.
+runs.
+
+Collectives: a rank of a sharded model (``parallel/collectives.py``)
+calls ``torch.ops._c10d_functional``'s ops, which the mode sees on real
+tensors and on ``meta`` ones under the ``fake`` backend alike.  Each is
+counted by kind (``all-reduce``, ``all-gather``, ``reduce-scatter``,
+``all-to-all``) with its result bytes and its ring wire bytes, the
+formulas of the JAX package's ``hlo_analysis._wire_bytes`` over the
+process group's size; ``wait_tensor`` moves nothing.  A program that
+runs none has ``{}`` and 0 wire bytes.
 """
 from __future__ import annotations
 
 import importlib
 import time
 from collections import defaultdict
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch.multiprocessing.reductions import StorageWeakRef
@@ -76,7 +82,13 @@ _REDUCTION = {
 # products by the argument whose last dim is the contraction
 _PRODUCTS = {"mm": 0, "bmm": 0, "addmm": 1, "baddbmm": 1}
 _NO_TRAFFIC = {"empty", "empty_like", "empty_strided", "new_empty",
-               "new_empty_strided", "detach", "lift_fresh", "alias"}
+               "new_empty_strided", "detach", "lift_fresh", "alias",
+               "wait_tensor", "_wrap_tensor_autograd"}
+# ``_c10d_functional`` ops by kind (their in-place and coalesced forms too)
+_COLLECTIVES = {"all_reduce": "all-reduce",
+                "all_gather_into_tensor": "all-gather",
+                "reduce_scatter_tensor": "reduce-scatter",
+                "all_to_all_single": "all-to-all"}
 
 
 def rounded_bytes(nbytes: int) -> int:
@@ -100,6 +112,30 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+def wire_bytes(kind: str, out_bytes: float, group: int) -> float:
+    """Ring estimate of the bytes a device sends for one collective of
+    ``out_bytes`` result bytes over ``group`` devices (the JAX package's
+    ``hlo_analysis._wire_bytes``)."""
+    g = max(group, 2)
+    if kind == "all-reduce":
+        return 2.0 * out_bytes * (g - 1) / g
+    if kind == "all-gather":
+        return out_bytes * (g - 1) / g
+    if kind == "reduce-scatter":
+        return out_bytes * (g - 1)
+    if kind == "all-to-all":
+        return out_bytes * (g - 1) / g
+    return float(out_bytes)  # collective-permute
+
+
+def _group_size(args) -> int:
+    """The size of the process group named by a ``_c10d_functional`` op's
+    last string argument."""
+    from torch.distributed import distributed_c10d as c10d
+    name = next(a for a in reversed(args) if isinstance(a, str))
+    return c10d._resolve_process_group(name).size()
+
+
 def _kernel_tallies() -> Dict[str, Dict[str, float]]:
     out = {}
     for path in KERNEL_MODULES:
@@ -119,6 +155,7 @@ class OpCost(TorchDispatchMode):
         self.transcendentals = 0.0
         self.traffic_bytes = 0.0
         self.hist: Dict[str, int] = defaultdict(int)
+        self.collectives: Dict[str, Dict[str, float]] = {}
         self.kernels: Dict[str, Dict[str, float]] = {}
         self.live: Dict[int, Tuple[StorageWeakRef, int]] = {}
         self.current = 0          # allocated since entry, freed or not
@@ -191,10 +228,19 @@ class OpCost(TorchDispatchMode):
                 return out
         out = func(*args, **kwargs)
         name = func.overloadpacket.__name__
-        self.hist[f"aten.{name}"] += 1
+        self.hist[f"{func.namespace}.{name}"] += 1
         if func.is_view:
             return out
         ins, outs = _tensors((args, kwargs)), _tensors(out)
+        kind = (_COLLECTIVES.get(name.rstrip("_").removesuffix("_coalesced"))
+                if func.namespace == "_c10d_functional" else None)
+        if kind:
+            nbytes = sum(map(_nbytes, outs))
+            s = self.collectives.setdefault(
+                kind, {"count": 0.0, "result_bytes": 0.0, "wire_bytes": 0.0})
+            s["count"] += 1
+            s["result_bytes"] += nbytes
+            s["wire_bytes"] += wire_bytes(kind, nbytes, _group_size(args))
         self._track(ins, outs)
         if name not in _NO_TRAFFIC:
             self.traffic_bytes += sum(map(_nbytes, ins)) + sum(
@@ -225,8 +271,9 @@ class OpCost(TorchDispatchMode):
         return {"flops": self.flops, "dot_flops": self.dot_flops,
                 "transcendentals": self.transcendentals,
                 "traffic_bytes": self.traffic_bytes,
-                "collectives": collective_stats(),
-                "collective_wire_bytes": 0.0,
+                "collectives": collective_stats(self),
+                "collective_wire_bytes": sum(
+                    c["wire_bytes"] for c in self.collectives.values()),
                 "kernels": self.kernels,
                 "peak_held_bytes": self.peak}
 
@@ -240,9 +287,12 @@ def op_histogram(hist: Dict[str, int], top: int = 25
     return sorted(hist.items(), key=lambda kv: -kv[1])[:top]
 
 
-def collective_stats() -> Dict[str, Dict[str, float]]:
-    """Collectives by kind: none on one card (the module's docstring)."""
-    return {}
+def collective_stats(cost: Optional[OpCost] = None
+                     ) -> Dict[str, Dict[str, float]]:
+    """The collectives ``cost`` counted, by kind: count, result bytes and
+    wire bytes (none without one, or on one card)."""
+    return {} if cost is None else {k: dict(v) for k, v in
+                                    cost.collectives.items()}
 
 
 def analyze(fn, *args, **kwargs) -> Dict:

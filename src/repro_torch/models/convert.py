@@ -19,7 +19,9 @@ the only place that knows both layouts.  Any tree of the
 parameters' structure maps the same way: a JAX gradient tree or an AdamW
 moment tree becomes a dict keyed by the port's parameter names
 (:func:`named_from_jax`), and a whole JAX ``TrainState`` becomes the
-port's (:func:`state_from_jax`).
+port's (:func:`state_from_jax`).  Given a rank of a sharded model
+(``res``), :func:`params_from_jax` returns that rank's block of the
+parameters (``transformer.shard_params``).
 """
 from __future__ import annotations
 
@@ -45,10 +47,11 @@ def _tensor(a, device) -> nn.Parameter:
 
 
 def params_from_jax(cfg: ModelConfig, params_np: Mapping[str, Any],
-                    device="cuda") -> T.LM:
+                    device="cuda", res=None) -> T.LM:
     """``params_np``: the JAX parameter tree of ``transformer.init_params``
     as nested dicts of numpy arrays -> the port's :class:`LM` on
-    ``device``, in the arrays' dtype."""
+    ``device``, in the arrays' dtype; with ``res`` (a rank of a sharded
+    model) that rank's local :class:`LM`."""
     T.check_supported(cfg)
     P = cfg.block_period
     blocks = params_np["blocks"]
@@ -107,8 +110,9 @@ def params_from_jax(cfg: ModelConfig, params_np: Mapping[str, Any],
             layers.append(layer(sliced(blocks[f"sub{i}"], b)))
     head = (None if cfg.tie_embeddings
             else _tensor(params_np["lm_head"], device))
-    return T.LM(_tensor(params_np["embed"], device), layers,
-                _tensor(params_np["final_norm"], device), head)
+    lm = T.LM(_tensor(params_np["embed"], device), layers,
+              _tensor(params_np["final_norm"], device), head)
+    return lm if res is None else T.shard_params(cfg, lm, res)
 
 
 def named_from_jax(cfg: ModelConfig, tree_np: Mapping[str, Any],

@@ -40,6 +40,14 @@ and layouts; its scan (prefill, and training, where autograd records
 the kernel's backward) goes through the hand-written CUDA kernels of
 ``kernels/mamba_scan``, and its decode step is one recurrence step in
 plain ops, as in the JAX package.
+
+Sharded serving: the ``res`` of ``parallel/collectives.py`` gives a rank
+of a model split over the mesh's "model" axis.  A layer reads its local
+widths from its weights (heads, kv heads, experts, ``d_inner``) and, where
+its weights split a product's contraction, adds the ranks' partial sums
+with ``res.all_reduce``: after ``wo``, ``w_down``, the experts' combine,
+and Mamba's ``x_proj`` and ``out_proj``.  With ``res`` None a layer runs
+as on one card.
 """
 from __future__ import annotations
 
@@ -172,12 +180,15 @@ def gqa_init(cfg: ModelConfig, gen: torch.Generator, dtype) -> GQA:
 
 
 def gqa_apply(cfg: ModelConfig, p: GQA, x, positions, *,
-              cache: Optional[Dict] = None, pos: Optional[int] = None):
+              cache: Optional[Dict] = None, pos: Optional[int] = None,
+              res=None):
     """x: (B,S,d).  Train/prefill when ``pos`` is None (the prefix is
     written into ``cache`` when one is given); decode when x has S == 1
-    and ``cache``/``pos`` are given.  Returns (y, cache)."""
+    and ``cache``/``pos`` are given.  The heads are the weights' (a
+    rank's block of them under ``res``).  Returns (y, cache)."""
     B, S, _ = x.shape
-    H, KH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    hd = cfg.resolved_head_dim
+    H, KH = p.wq.shape[1] // hd, p.wk.shape[1] // hd
     q = (x @ p.wq).view(B, S, H, hd)
     k = (x @ p.wk).view(B, S, KH, hd)
     v = (x @ p.wv).view(B, S, KH, hd)
@@ -199,6 +210,8 @@ def gqa_apply(cfg: ModelConfig, p: GQA, x, positions, *,
             cache["k"][:, :S] = k
             cache["v"][:, :S] = v
     y = out.reshape(B, S, H * hd) @ p.wo
+    if res is not None and H < cfg.n_heads:
+        y = res.all_reduce(y)
     return y, cache
 
 
@@ -342,9 +355,14 @@ def mlp_init(cfg: ModelConfig, gen: torch.Generator, dtype,
                _dense_init(gen, (f, d), dtype, f))
 
 
-def mlp_apply(cfg: ModelConfig, p: MLP, x):
+def mlp_apply(cfg: ModelConfig, p: MLP, x, res=None, d_ff=None):
+    """``d_ff`` as in :func:`mlp_init` (``cfg.d_ff`` unless given): a
+    narrower ``w_down`` is a rank's block of it, all-reduced after."""
     h = torch.nn.functional.silu(x @ p.w_gate) * (x @ p.w_up)
-    return h @ p.w_down
+    y = h @ p.w_down
+    if res is not None and p.w_down.shape[0] < (d_ff or cfg.d_ff):
+        y = res.all_reduce(y)
+    return y
 
 
 # ---------------------------------------------------------------------------
@@ -396,32 +414,40 @@ def _capacity(cfg: ModelConfig, n_tokens: int) -> int:
     return int(max(1, math.ceil(cfg.moe.capacity_factor * k * n_tokens / E)))
 
 
-def _dispatch(cfg: ModelConfig, p: MoE, x, gate_vals, gate_idx, C):
+def _dispatch(cfg: ModelConfig, p: MoE, x, gate_vals, gate_idx, C,
+              e0: int = 0):
     """Capacity dispatch within each group (leading dim G of x (G, T, d)
     and of gate_vals/gate_idx (G, T, k)): slot = the choice's exclusive
     running count of its expert over (token, choice) order; choices at
-    slot >= C are dropped (sent to the pad row E*C, never read back).
+    slot >= C are dropped (sent to the pad row, never read back).
     The experts run on their (G*C, d) rows as three batched products;
     returns the gate-weighted sum over each token's kept choices, (G, T,
-    d) in x's dtype."""
+    d) in x's dtype.  The experts are ``p``'s, from expert ``e0`` on (a
+    rank's block of them): the slots are counted over all E, as on one
+    card, and a choice of another rank's expert adds nothing here."""
     G, T, d = x.shape
     E, k = cfg.moe.n_routed, cfg.moe.top_k
+    El = p.w_gate.shape[0]
     flat_idx = gate_idx.reshape(G, T * k)
     onehot = F.one_hot(flat_idx, E)                        # (G, T*k, E)
     pos_in_e = onehot.cumsum(dim=1) - onehot               # exclusive
     slot = pos_in_e.gather(2, flat_idx[..., None])[..., 0]
     keep = slot < C
+    if El < E:
+        flat_idx = flat_idx - e0
+        keep = keep & (flat_idx >= 0) & (flat_idx < El)
     dest = torch.where(keep, flat_idx * C + slot,
-                       torch.full_like(flat_idx, E * C))
-    buf = x.new_zeros((G, E * C + 1, d))
+                       torch.full_like(flat_idx, El * C))
+    buf = x.new_zeros((G, El * C + 1, d))
     # distinct rows but for the pad row, whose contents are discarded
     buf.scatter_(1, dest[..., None].expand(G, T * k, d),
                  x.repeat_interleave(k, dim=1))
-    xe = buf[:, :E * C].view(G, E, C, d).transpose(0, 1).reshape(E, G * C, d)
+    xe = buf[:, :El * C].view(G, El, C, d).transpose(0, 1).reshape(
+        El, G * C, d)
     h = F.silu(torch.bmm(xe, p.w_gate)) * torch.bmm(xe, p.w_up)
-    out_e = torch.bmm(h, p.w_down)                          # (E, G*C, d)
-    out_b = out_e.view(E, G, C, d).transpose(0, 1).reshape(G, E * C, d)
-    safe = dest.clamp_max(E * C - 1)
+    out_e = torch.bmm(h, p.w_down)                          # (El, G*C, d)
+    out_b = out_e.view(El, G, C, d).transpose(0, 1).reshape(G, El * C, d)
+    safe = dest.clamp_max(El * C - 1)
     gathered = out_b.gather(1, safe[..., None].expand(G, T * k, d))
     gathered = torch.where(keep[..., None], gathered,
                            torch.zeros((), dtype=x.dtype, device=x.device))
@@ -429,39 +455,47 @@ def _dispatch(cfg: ModelConfig, p: MoE, x, gate_vals, gate_idx, C):
             * gate_vals[..., None].to(x.dtype)).sum(dim=2)
 
 
-def _moe_global_dispatch(cfg: ModelConfig, p: MoE, x):
+def _moe_global_dispatch(cfg: ModelConfig, p: MoE, x, e0: int = 0):
     """The whole batch as one group of B*S tokens (the JAX package's
     naive scatter).  Returns (y (B,S,d), probs (B*S, E), gate_idx (B*S,
     k))."""
     B, S, d = x.shape
     xt = x.reshape(1, B * S, d)
     probs, gate_vals, gate_idx = moe_route(cfg, p, xt)
-    y = _dispatch(cfg, p, xt, gate_vals, gate_idx, _capacity(cfg, B * S))
+    y = _dispatch(cfg, p, xt, gate_vals, gate_idx, _capacity(cfg, B * S),
+                  e0)
     return (y.view(B, S, d), probs.view(B * S, -1),
             gate_idx.view(B * S, -1))
 
 
-def _moe_grouped_dispatch(cfg: ModelConfig, p: MoE, x):
+def _moe_grouped_dispatch(cfg: ModelConfig, p: MoE, x, e0: int = 0):
     """Each batch row a group of S tokens (GShard-style: the position
     cumsum, scatter and combine stay local to the row).  Returns (y
     (B,S,d), probs (B*S, E), gate_idx (B*S, k))."""
     B, S, d = x.shape
     probs, gate_vals, gate_idx = moe_route(cfg, p, x)
-    y = _dispatch(cfg, p, x, gate_vals, gate_idx, _capacity(cfg, S))
+    y = _dispatch(cfg, p, x, gate_vals, gate_idx, _capacity(cfg, S), e0)
     return y, probs.view(B * S, -1), gate_idx.view(B * S, -1)
 
 
-def moe_apply(cfg: ModelConfig, p: MoE, x):
+def moe_apply(cfg: ModelConfig, p: MoE, x, res=None):
     """x: (B,S,d) -> (y (B,S,d), aux): token-dropping capacity MoE, plus
     the shared MLP, with the Switch-style load-balancing loss E *
-    sum_e(density_e * mean_prob_e) in float32."""
+    sum_e(density_e * mean_prob_e) in float32.  Under ``res`` the router
+    (replicated) routes every token over all E experts on every rank,
+    each rank runs its block of the experts, and one all-reduce adds the
+    ranks' gate-weighted sums."""
+    E, (El, _, f) = cfg.moe.n_routed, p.w_gate.shape
+    e0 = res.rank * El if res is not None and El < E else 0
     if cfg.moe.dispatch == "grouped":
-        y, probs, gate_idx = _moe_grouped_dispatch(cfg, p, x)
+        y, probs, gate_idx = _moe_grouped_dispatch(cfg, p, x, e0)
     else:
-        y, probs, gate_idx = _moe_global_dispatch(cfg, p, x)
+        y, probs, gate_idx = _moe_global_dispatch(cfg, p, x, e0)
+    if res is not None and (El < E or f < cfg.moe_d_ff):
+        y = res.all_reduce(y)
     if p.shared is not None:
-        y = y + mlp_apply(cfg, p.shared, x)
-    E = cfg.moe.n_routed
+        y = y + mlp_apply(cfg, p.shared, x, res,
+                          d_ff=cfg.moe.n_shared * cfg.moe_d_ff)
     density = F.one_hot(gate_idx, E).float().mean(dim=(0, 1))
     aux = E * (density * probs.mean(dim=0)).sum()
     return y, aux
@@ -539,13 +573,17 @@ def _ssm_scan_chunked(a, b, C, h0, chunk):
 
 
 def mamba_apply(cfg: ModelConfig, p: Mamba, x, cache: Optional[Dict] = None,
-                decode: bool = False):
+                decode: bool = False, res=None):
     """x: (B,S,d).  Train/prefill (``decode`` False: the scan from the
     cache's h, or zeros, and a zero-padded conv) or one decode step (S ==
-    1, ``cache`` = {"h", "conv"}).  Returns (y, new cache or None)."""
+    1, ``cache`` = {"h", "conv"}).  ``d_inner`` is the weights' (a rank's
+    block of it under ``res``, whose ``x_proj`` output is then a partial
+    sum over it, all-reduced before ``dt_proj``, B and C).  Returns (y,
+    new cache or None)."""
     B, S, _ = x.shape
-    di, ds = cfg.d_inner, cfg.ssm.d_state
+    di, ds = p.D.shape[0], cfg.ssm.d_state
     dtr = cfg.resolved_dt_rank
+    split = res is not None and di < cfg.d_inner
     xz = x @ p.in_proj
     xin, z = xz[..., :di], xz[..., di:]
     conv_state = cache.get("conv") if cache else None
@@ -553,6 +591,8 @@ def mamba_apply(cfg: ModelConfig, p: Mamba, x, cache: Optional[Dict] = None,
                                 state=conv_state if decode else None)
     xc = F.silu(xc)
     proj = xc @ p.x_proj
+    if split:
+        proj = res.all_reduce(proj)
     dt = F.softplus(proj[..., :dtr] @ p.dt_proj + p.dt_bias)
     Bmat = proj[..., dtr:dtr + ds].float()                  # (B,S,ds)
     Cmat = proj[..., dtr + ds:].float()
@@ -572,6 +612,8 @@ def mamba_apply(cfg: ModelConfig, p: Mamba, x, cache: Optional[Dict] = None,
     y = y.to(x.dtype) + xc * p.D.to(x.dtype)
     y = y * F.silu(z)
     out = y @ p.out_proj
+    if split:
+        out = res.all_reduce(out)
     new_cache = None
     if cache is not None:
         new_cache = {"h": new_h}

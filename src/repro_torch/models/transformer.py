@@ -34,9 +34,19 @@ positions' token embeddings; ``encodec_stub`` takes (B, S, CB) tokens of
 CB codebooks, sums their embeddings (``embed`` is (CB, V, d)) and
 predicts every codebook at each position (``lm_head`` (d, V*CB), logits
 (..., CB, V)).
+
+Sharded serving (``res``, a ``parallel.collectives.ShardedRun``): each
+rank holds its block of every weight (:func:`shard_params`) and of every
+cache entry (:func:`init_cache`), split over the ("data", "model") mesh's
+"model" axis as the JAX package's resolver splits them, and the layers
+join the partial results with the run's collectives.  The embedding is a
+lookup of the rank's vocab rows and one all-reduce; the head gathers the
+last position's logits over the vocab, so every rank holds them whole.
+With ``res`` None every function runs as it does on one card.
 """
 from __future__ import annotations
 
+import copy
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -44,6 +54,8 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.parallel.sharding import (MODEL, Mesh, ShardingResolver,
+                                           local_slice, shard_shape)
 
 Cache = List[Dict[str, torch.Tensor]]
 Logical = Tuple[Optional[str], ...]
@@ -219,37 +231,134 @@ def param_bytes(params: LM) -> int:
 
 
 # ---------------------------------------------------------------------------
+# sharding over the mesh's "model" axis
+# ---------------------------------------------------------------------------
+
+def check_shardable(cfg: ModelConfig, mesh: Mesh) -> None:
+    """Raise ``ValueError`` unless ranks can serve ``cfg`` split over
+    ``mesh``'s "model" axis: no other axis may exceed 1, and the resolver
+    may put no cache entry over "kv_seq" (every MLA cache, and GQA's when
+    the kv heads do not divide over the axis: each rank would hold a
+    stretch of positions, whose decode attention needs a cross-rank
+    combine of ``flash_decode``'s partials)."""
+    check_supported(cfg)
+    sizes = dict(zip(mesh.axis_names, mesh.shape))
+    if MODEL not in sizes or any(n > 1 for a, n in sizes.items()
+                                 if a != MODEL):
+        raise ValueError(f"{cfg.name}: sharded serving splits the "
+                         f"'{MODEL}' axis alone, not mesh "
+                         f"{mesh.axis_names} x {mesh.shape}")
+    res = ShardingResolver(mesh)
+    n = sizes[MODEL]
+    cache = init_cache(cfg, 1, n, device="meta")   # kv_seq divides by n
+    for i, entry in enumerate(cache_axes(cfg, cache)):
+        for k, ax in entry.items():
+            spec = res.spec(ax, cache[i][k].shape)
+            if any(a == "kv_seq" and sp is not None
+                   for a, sp in zip(ax, spec)):
+                raise ValueError(
+                    f"{cfg.name}: the resolver puts layer {i}'s cache "
+                    f"entry {k!r} {ax} over 'kv_seq' on mesh {mesh.tag}; "
+                    f"a cache split by positions is not served sharded")
+
+
+def _local(res, cfg: ModelConfig, owner: nn.Module, leaf: str, axes,
+           t: torch.Tensor) -> nn.Parameter:
+    """The rank's block of parameter ``t`` (a copy: the whole tensor can
+    be freed).  Mamba's fused ``in_proj`` (d, 2 di) is split half by
+    half, the rank's block of the x columns beside the same block of the
+    z columns."""
+    if isinstance(owner, L.Mamba) and leaf == "in_proj":
+        halves = [_local(res, cfg, owner, "", axes, h)
+                  for h in t.chunk(2, dim=-1)]
+        return L._frozen(torch.cat(halves, dim=-1))
+    shape = logical_shape(cfg, axes, t.shape)
+    spec = res.resolver.spec(axes, shape, param=True)
+    block = t.reshape(shape)[local_slice(res.mesh, spec, shape,
+                                         res.coords)]
+    if len(shape) > t.dim():   # a (heads, hd) pair the port keeps flat
+        i = next(k for k in range(t.dim()) if t.shape[k] != shape[k])
+        block = block.flatten(i, i + 1)
+    return L._frozen(block.clone())
+
+
+def shard_params(cfg: ModelConfig, params: LM, res) -> LM:
+    """The rank's local :class:`LM`: every parameter's block under the
+    resolver's spec (``param_axes``, ``logical_shape``), modules and
+    names as in ``params``; a tied embedding is split once, over the
+    vocab.  ``params`` is left as it is."""
+    axes = param_axes(cfg, params)
+
+    def local(module: nn.Module, prefix: str) -> nn.Module:
+        new = copy.copy(module)
+        new._parameters = {
+            k: None if p is None else _local(res, cfg, module, k,
+                                             axes[prefix + k], p)
+            for k, p in module._parameters.items()}
+        new._modules = {k: None if m is None else local(m, f"{prefix}{k}.")
+                        for k, m in module._modules.items()}
+        return new
+    return local(params, "")
+
+
+# ---------------------------------------------------------------------------
 # embedding / head
 # ---------------------------------------------------------------------------
 
-def embed_tokens(cfg: ModelConfig, params: LM, tokens, patches=None):
+def _lookup(cfg: ModelConfig, table, ids, res=None):
+    """``table[ids]``; with ``res`` and a block of the vocab's rows (fewer
+    than ``cfg.vocab_size``), the rank's rows and zeros for the others."""
+    if res is None or table.shape[0] == cfg.vocab_size:
+        return table[ids]
+    n = table.shape[0]
+    local = ids - res.rank * n
+    hit = (local >= 0) & (local < n)
+    rows = table[local.clamp(0, n - 1)]
+    return torch.where(hit[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                         device=rows.device))
+
+
+def embed_tokens(cfg: ModelConfig, params: LM, tokens, patches=None,
+                 res=None):
     """tokens: (B,S) int, or (B,S,CB) with the ``encodec_stub`` frontend
     (the codebooks' embeddings summed in order); with the ``vit_stub``
-    frontend, ``patches`` (B,n,d) take the first n positions' places."""
+    frontend, ``patches`` (B,n,d) take the first n positions' places.
+    With ``res`` splitting the vocab each rank sums its rows (zeros for
+    the others' tokens) and one all-reduce adds the ranks' sums."""
     tokens = tokens.long()
     if _codebooks(cfg):
-        x = params.embed[0][tokens[..., 0]]
+        x = _lookup(cfg, params.embed[0], tokens[..., 0], res)
         for cb in range(1, cfg.n_codebooks):
-            x = x + params.embed[cb][tokens[..., cb]]
+            x = x + _lookup(cfg, params.embed[cb], tokens[..., cb], res)
     else:
-        x = params.embed[tokens]
+        x = _lookup(cfg, params.embed, tokens, res)
+    if res is not None and params.embed.shape[-2] < cfg.vocab_size:
+        x = res.all_reduce(x)
     if cfg.frontend == "vit_stub" and patches is not None:
         n = patches.shape[1]
         x = torch.cat([patches.to(x.dtype), x[:, n:]], dim=1)
     return x
 
 
-def lm_head(cfg: ModelConfig, params: LM, x):
+def lm_head(cfg: ModelConfig, params: LM, x, res=None):
     """(..., d) -> logits (..., V), or (..., CB, V) with the
     ``encodec_stub`` frontend (a tied head reads the codebooks'
-    embeddings as one (CB*V, d) table)."""
+    embeddings as one (CB*V, d) table).  With ``res`` splitting the
+    vocab the rank's logits are gathered over it: every rank returns them
+    whole."""
+    cb = _codebooks(cfg)
     if cfg.tie_embeddings:
         logits = x @ params.embed.reshape(-1, cfg.d_model).T
+        if cb:
+            logits = logits.unflatten(-1, (cb, -1))
+        split = params.embed.shape[-2] < cfg.vocab_size
     else:
         logits = x @ params.lm_head
-    if _codebooks(cfg):
-        logits = logits.reshape(logits.shape[:-1]
-                                + (cfg.n_codebooks, cfg.vocab_size))
+        split = params.lm_head.shape[-1] < cfg.vocab_size * max(cb, 1)
+    if res is not None and split:
+        logits = res.all_gather(logits, -1)
+    if cb and not cfg.tie_embeddings:
+        logits = logits.unflatten(-1, (cb, cfg.vocab_size))
     return logits
 
 
@@ -258,24 +367,27 @@ def lm_head(cfg: ModelConfig, params: LM, x):
 # ---------------------------------------------------------------------------
 
 def _apply_layer(cfg: ModelConfig, lp: Layer, x, positions, cache=None,
-                 pos=None):
+                 pos=None, res=None):
     """Returns (x, the layer's aux loss (float32; 0 but for an MoE
     layer), the layer's cache entry); decode when ``pos`` is given."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = L.rmsnorm(x, lp.ln1, cfg.norm_eps)
     if isinstance(lp.mixer, L.Mamba):
         h, cache = L.mamba_apply(cfg, lp.mixer, h, cache=cache,
-                                 decode=pos is not None)
+                                 decode=pos is not None, res=res)
+    elif isinstance(lp.mixer, L.MLA):
+        h, cache = L.mla_apply(cfg, lp.mixer, h, positions, cache=cache,
+                               pos=pos)
     else:
-        fn = L.mla_apply if isinstance(lp.mixer, L.MLA) else L.gqa_apply
-        h, cache = fn(cfg, lp.mixer, h, positions, cache=cache, pos=pos)
+        h, cache = L.gqa_apply(cfg, lp.mixer, h, positions, cache=cache,
+                               pos=pos, res=res)
     x = x + h
     if lp.mlp is not None:
         h = L.rmsnorm(x, lp.ln2, cfg.norm_eps)
         if isinstance(lp.mlp, L.MoE):
-            h, aux = L.moe_apply(cfg, lp.mlp, h)
+            h, aux = L.moe_apply(cfg, lp.mlp, h, res=res)
         else:
-            h = L.mlp_apply(cfg, lp.mlp, h)
+            h = L.mlp_apply(cfg, lp.mlp, h, res=res)
         x = x + h
     return x, aux, cache
 
@@ -311,7 +423,7 @@ def _remat_layer(cfg: ModelConfig, lp: Layer, x, positions):
 
 
 def _run(cfg, params: LM, x, positions, cache=None, pos=None,
-         remat: bool = False):
+         remat: bool = False, res=None):
     """The layers and the final norm; returns (x, the summed aux loss)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, lp in enumerate(params.layers):
@@ -320,7 +432,7 @@ def _run(cfg, params: LM, x, positions, cache=None, pos=None,
         else:
             x, a, layer_cache = _apply_layer(
                 cfg, lp, x, positions, None if cache is None else cache[i],
-                pos)
+                pos, res)
             if cache is not None:
                 cache[i] = layer_cache
         aux = aux + a
@@ -353,15 +465,22 @@ def forward(cfg: ModelConfig, params: LM, tokens, *, patches=None,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
-               device="cuda") -> Cache:
+               device="cuda", res=None) -> Cache:
     """One zeroed cache per layer, in ``cfg.dtype``: ``{"k", "v"}`` of
     (batch, max_seq, KH, hd) for a GQA layer; ``{"ckv", "krope"}`` of
     (batch, max_seq, kv_lora_rank) and (batch, max_seq, rope_head_dim)
     for an MLA layer; ``{"h", "conv"}`` for a Mamba layer
     (``mamba_cache_init``: its size does not depend on ``max_seq``),
-    each layer's as its mixer kind says."""
+    each layer's as its mixer kind says.  With ``res``, the rank's block
+    of each entry (the resolver's spec over ``cache_axes``)."""
     check_supported(cfg)
     dtype = _dtype(cfg)
+    if res is not None:
+        whole = init_cache(cfg, batch, max_seq, device="meta")
+        return [{k: torch.zeros(shard_shape(res.mesh, res.resolver.spec(
+                    ax[k], t.shape), t.shape), dtype=t.dtype, device=device)
+                 for k, t in c.items()}
+                for c, ax in zip(whole, cache_axes(cfg, whole))]
 
     def layer_cache(i):
         if cfg.mixer_kind(i) == "mamba":
@@ -373,24 +492,25 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
 
 
 def prefill(cfg: ModelConfig, params: LM, tokens, cache: Cache, *,
-            patches=None):
+            patches=None, res=None):
     """Fill the cache with the prompt (GQA and MLA layers in place, Mamba
     layers' entries replaced in the list); ``patches`` as in
-    :func:`forward`.  Returns (logits of the last position (B,1,V), or
+    :func:`forward`; ``res`` a rank of a sharded model (the module's
+    docstring).  Returns (logits of the last position (B,1,V), or
     (B,1,CB,V), cache)."""
-    x = embed_tokens(cfg, params, tokens, patches)
+    x = embed_tokens(cfg, params, tokens, patches, res)
     positions = torch.arange(x.shape[1], device=x.device)
-    x, _ = _run(cfg, params, x, positions, cache)
-    return lm_head(cfg, params, x[:, -1:]), cache
+    x, _ = _run(cfg, params, x, positions, cache, res=res)
+    return lm_head(cfg, params, x[:, -1:], res), cache
 
 
 def decode_step(cfg: ModelConfig, params: LM, token, cache: Cache,
-                pos: int):
+                pos: int, *, res=None):
     """One decode step. token: (B,1) int, or (B,1,CB); ``pos`` a Python
     int.  Writes the new k/v (GQA) or compressed row (MLA) at ``pos`` in
     place, or replaces the layer's state (Mamba); returns (logits (B,1,V)
     or (B,1,CB,V), cache)."""
-    x = embed_tokens(cfg, params, token)
+    x = embed_tokens(cfg, params, token, res=res)
     positions = torch.full((1,), pos, device=x.device)
-    x, _ = _run(cfg, params, x, positions, cache, pos)
-    return lm_head(cfg, params, x), cache
+    x, _ = _run(cfg, params, x, positions, cache, pos, res=res)
+    return lm_head(cfg, params, x, res), cache

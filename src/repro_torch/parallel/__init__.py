@@ -3,6 +3,7 @@ from repro_torch.parallel.sharding import (  # noqa: F401
     Mesh,
     ShardingResolver,
     constrain,
+    local_slice,
     shapes_of,
     shard_shape,
 )

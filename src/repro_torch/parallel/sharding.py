@@ -19,7 +19,9 @@ The rules, priorities and passes are the JAX package's, name for name;
 what differs is the mesh, here a plain :class:`Mesh` of axis names and
 sizes (no device objects), and the spec, a tuple with the entries of the
 JAX package's ``PartitionSpec``.  :func:`shard_shape` gives a tensor's
-per-device shape under a spec, as ``NamedSharding.shard_shape`` does.
+per-device shape under a spec, as ``NamedSharding.shard_shape`` does, and
+:func:`local_slice` a device's block of it, as ``NamedSharding`` lays the
+shards out on a mesh whose devices are numbered row-major.
 """
 from __future__ import annotations
 
@@ -27,6 +29,9 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
+
+# The mesh axis that sharded serving splits weights over
+MODEL = "model"
 
 # Candidate mesh-axis tuples per logical axis, in preference order.  An empty
 # tuple means "replicate" and always succeeds.
@@ -187,12 +192,34 @@ def shard_shape(mesh: Mesh, spec: Spec, shape: Sequence[int]
     return tuple(out)
 
 
+def local_slice(mesh: Mesh, spec: Spec, shape: Sequence[int],
+                coords: Mapping[str, int]) -> Tuple[slice, ...]:
+    """The block of a tensor of ``shape`` that the device at ``coords``
+    (mesh axis -> index) holds under ``spec``: each sharded dim's
+    contiguous ``shard_shape`` block, numbered over the dim's mesh axes
+    in their order (the first the slowest), as ``NamedSharding`` places
+    shards on a row-major mesh."""
+    sizes = dict(zip(mesh.axis_names, mesh.shape))
+    local = shard_shape(mesh, spec, shape)
+    out = []
+    for n, ax in zip(local, tuple(spec) + (None,) * (len(shape)
+                                                    - len(spec))):
+        idx = 0
+        for a in (() if ax is None else (ax,) if isinstance(ax, str)
+                  else tuple(ax)):
+            idx = idx * sizes[a] + coords[a]
+        out.append(slice(idx * n, (idx + 1) * n))
+    return tuple(out)
+
+
 def constrain(x: torch.Tensor, resolver: Optional[ShardingResolver],
               logical: Logical) -> torch.Tensor:
     """The identity.  The JAX package tells XLA's SPMD partitioner where
-    an activation lies (``with_sharding_constraint``); eager PyTorch has
-    no partitioner to tell, and placing tensors over several cards
-    (DTensor) is ROADMAP.md Queue A item 11."""
+    an activation lies (``with_sharding_constraint``) and the partitioner
+    inserts the collectives; the port runs each rank's shard as plain
+    tensors and calls its collectives itself, at the products whose
+    contraction the weights split (``parallel/collectives.py``), so there
+    is nothing to tell."""
     del resolver, logical
     return x
 

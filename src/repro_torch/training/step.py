@@ -8,7 +8,8 @@ gradients), accumulation over microbatches in float32, optional int8
 error-feedback gradient compression, and AdamW in place.
 
 ``make_prefill_step`` / ``make_decode_step`` wrap the cached model paths
-for serving.  The port runs eagerly: nothing here is traced or compiled.
+for serving, on one card or as one rank of a model sharded over the
+mesh's "model" axis (``res``).  The port runs eagerly: nothing here is traced or compiled.
 """
 from __future__ import annotations
 
@@ -106,15 +107,17 @@ def make_train_step(cfg: ModelConfig, opt: OptConfig, *,
     return train_step
 
 
-def make_prefill_step(cfg: ModelConfig):
+def make_prefill_step(cfg: ModelConfig, *, res=None):
+    """``res``: a rank of a sharded model (``parallel/collectives.py``),
+    where the JAX package passes its resolver."""
     @torch.inference_mode()
     def prefill_step(params, batch, cache):
-        return T.prefill(cfg, params, batch["tokens"], cache)
+        return T.prefill(cfg, params, batch["tokens"], cache, res=res)
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig):
+def make_decode_step(cfg: ModelConfig, *, res=None):
     @torch.inference_mode()
     def decode_step(params, token, cache, pos):
-        return T.decode_step(cfg, params, token, cache, pos)
+        return T.decode_step(cfg, params, token, cache, pos, res=res)
     return decode_step
