@@ -7,14 +7,16 @@
     python3 chip_smoke.py --phase plan   # the build and phases 26-30 alone
     python3 chip_smoke.py --phase served # the build and phases 31-34 alone
     python3 chip_smoke.py --phase sharded  # the build and phases 35-37 alone
+    python3 chip_smoke.py --phase trained  # the build and phases 38-41 alone
 
-The whole script took 848 s of command time on one H100 from a clean
-checkout, builds, phases 26-30 (planning every cell takes about 80 s),
-phases 31-34 (about 150 s) and phases 35-37 (about 90 s) included;
+The whole script took about 1,000 s of command time on one H100 from a
+clean checkout, builds, phases 26-30 (planning every cell takes about
+80 s), phases 31-34 (about 150 s), phases 35-37 (about 80 s) and phases
+38-41 (about 150 s) included;
 ``--phase fleet`` builds the kernels and runs phase 8a alone, ``--phase
 plan`` phases 26-30 (about 2.5 minutes), ``--phase served`` phases 31-34
 and ``--phase sharded`` phases 35-37 (about 2.5 minutes with the build),
-printing no kernels line.  Each phase
+``--phase trained`` phases 38-41, printing no kernels line.  Each phase
 group's start is logged with the seconds since the script started.
 
 Phases, each fatal on failure:
@@ -153,9 +155,11 @@ Phases, each fatal on failure:
     tokens, a global batch of 8 (TRAIN_4K's 256 cut to 8), lws 1, AdamW
     (lr 1e-3, warm-up 1, 8 total steps), 6 steps.  Every loss finite,
     8 x 4,096 tokens a step, the last loss below the first, rows on both
-    groups; the launch counters, set to 0 before each step, must show 2 x
-    16 ``flash_attention`` launches (forward and rematerialised recompute)
-    and 16 ``flash_attention_bwd`` calls per packet.  Step time, tokens/s,
+    groups; the launch counters, set to 0 before each step, must show 44
+    ``flash_attention`` launches (the forward and the rematerialised
+    recomputes: 4 remat groups of 4 layers, 3 runs of each layer but
+    for a group's last, which runs twice: ``T.forward_runs``) and 16
+    ``flash_attention_bwd`` calls per packet.  Step time, tokens/s,
     balance, rows per group, peak memory and a profile of one more step;
     then ``launch.train`` in-process (2 steps, batch 4, accum 2) with
     finite losses and gradient norms;
@@ -273,8 +277,9 @@ Phases, each fatal on failure:
     on both sides and in the rematerialised recompute as in the forward
     (the smallest top-2 margin logged); falcon-mamba-7b on 8 of its 64
     layers (``--small``: 2), 2 ``make_train_step`` steps of batch 2 x
-    4,096: finite losses and gradient norms, 2 scan and 1 backward
-    launches a layer; card against host on its first 2 layers;
+    4,096: finite losses and gradient norms, the scan's launches of
+    ``T.forward_runs`` (2 remat groups of 4 layers: 22) and 1 backward
+    launch a layer; card against host on its first 2 layers;
 25. hold ``flash_attention_bwd`` at internvl2-1b's G = 7 (14/2, D = 64)
     and musicgen-large's 32/32 heads (D = 64), timed at S=4096 with SDPA's
     backward, and at ragged S in both dtypes; train internvl2-1b (24
@@ -364,7 +369,29 @@ Phases, each fatal on failure:
     ``flash_decode`` and ``selective_scan`` held against their plain
     versions at a rank's shapes (8/2 heads, ``d_inner`` 2048) and timed
     (``sharded_shape`` of their records, whose ``launches_by_path`` gain
-    phase 36's launches over the four ranks).
+    phase 36's launches over the four ranks);
+38-41. qwen3-32b, yi-9b, stablelm-3b and dbrx-132b trained at full width
+    (``DENSE_TRAIN``; ``--small``: 2 layers at 1,024 tokens), one phase
+    each: ``flash_attention`` at the config's heads (64/8, 32/4 and 48/8
+    at D = 128, 32/32 at D = 80) against its plain version at B=1
+    S=4096, ``flash_attention_bwd`` there too, timed beside SDPA's
+    backward (``<config>_train_shape`` entries of its record), and at a
+    ragged S; the depth and the groups chosen by ``launch.dryrun.plan``
+    of a one-row packet under ``PLAN_FILL`` (``dense_train_plan``: the
+    state, the bfloat16 sums of the gradients and one packet in flight
+    on each group; two groups where any depth fits with two); that
+    packet's plan held against the card as phase 27 holds llama's; then
+    3 steps through ``HeteroDPTrainer`` of 4 x 4,096 tokens, bf16, AdamW
+    with float32 moments at lr 1e-4, with phase 23's checks (launches a
+    packet by ``T.forward_runs``, finite losses, a lower held-out
+    objective) and
+    its peak beside the planned one; qwen3, yi and stablelm then a
+    float32 step of their first 2 layers card against host, the
+    gradients and one AdamW step (``check_updates``), dbrx the attention
+    backward at 48/8 heads in float32 at a ragged S instead (the host
+    cannot hold a float32 dbrx layer with its moments).  The four run on
+    the allocator's expandable segments (``dense_train_phases``).  One
+    "dense training table" JSON line.
 
 Phases 8a and 18–25 add their launches to the records of
 ``flash_attention``, ``flash_attention_bwd``, ``flash_decode`` and
@@ -372,8 +399,9 @@ Phases 8a and 18–25 add their launches to the records of
 whose launches are phases 23–25's; phase 28's is ``flash_attention_bwd_d192``,
 whose launches are phase 29's, which also adds its forward launches to
 ``flash_attention_d192`` and both to the records of all head dims; phases
-31-34 add theirs to ``flash_attention`` and ``flash_decode``, and 35-37
-theirs to those two and ``selective_scan``.  The line
+31-34 add theirs to ``flash_attention`` and ``flash_decode``, 35-37
+theirs to those two and ``selective_scan``, and 38-41 theirs to
+``flash_attention`` and ``flash_attention_bwd``.  The line
 before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  It exits non-zero, printing no result,
 without a card or outside a checkout of the repository.
@@ -1870,12 +1898,17 @@ def read_counts(reset=False):
 
 def per_packet(cfg):
     """Launches a training packet makes: each attention and Mamba layer's
-    forward kernel twice (the forward and its rematerialised recompute)
-    and its backward once."""
-    n_attn = sum(cfg.mixer_kind(i) == "attn" for i in range(cfg.n_layers))
-    n_mamba = cfg.n_layers - n_attn
-    return {"flash_attention": 2 * n_attn, "flash_attention_bwd": n_attn,
-            "selective_scan": 2 * n_mamba, "selective_scan_bwd": n_mamba}
+    forward kernel as often as the step runs the layer's forward (the
+    forward and its rematerialised recomputes, ``T.forward_runs``: twice
+    under a flat remat, three times inside a remat group but for the
+    group's last layer) and its backward once."""
+    from repro_torch.models import transformer as T
+    runs = T.forward_runs(cfg)
+    attn = [cfg.mixer_kind(i) == "attn" for i in range(cfg.n_layers)]
+    return {"flash_attention": sum(r for r, a in zip(runs, attn) if a),
+            "flash_attention_bwd": sum(attn),
+            "selective_scan": sum(r for r, a in zip(runs, attn) if not a),
+            "selective_scan_bwd": len(attn) - sum(attn)}
 
 
 def profile_step(torch, fn):
@@ -1939,10 +1972,11 @@ def held_out_loss(torch, dev0, cfg, params, pipeline, step):
 
 
 def hetero_train(torch, dev0, cfg, seq, batch, steps, label,
-                 must_learn=False, held_out=False):
+                 must_learn=False, held_out=False, groups=2, opt=None):
     """Train ``cfg`` (random weights from seed 0) through
-    ``HeteroDPTrainer``: two groups on ``dev0`` (throttles 1 and 2),
-    ``SyntheticPipeline`` (seed 1234), lws 1, AdamW (``TRAIN_OPT``).
+    ``HeteroDPTrainer``: ``groups`` groups on ``dev0`` (two: throttles 1
+    and 2; one: throttle 1), ``SyntheticPipeline`` (seed 1234), lws 1,
+    AdamW (``opt``, by default ``TRAIN_OPT``).
     Every loss finite, every step's tokens, rows on both groups (with
     ``must_learn``, the last loss below the first) and each kernel's
     launches (counters set to 0 before each step) ``per_packet`` times
@@ -1960,7 +1994,7 @@ def hetero_train(torch, dev0, cfg, seq, batch, steps, label,
     from repro_torch.optim.adamw import OptConfig
 
     t0 = time.perf_counter()
-    opt = OptConfig(**TRAIN_OPT)
+    opt = OptConfig(**(opt or TRAIN_OPT))
     params = T.init_params(cfg, torch.Generator(dev0).manual_seed(0))
     state = adamw.init_state(params, opt)
     torch.cuda.synchronize()
@@ -1975,7 +2009,7 @@ def hetero_train(torch, dev0, cfg, seq, batch, steps, label,
     shape = ShapeConfig(f"train_{seq}_batch{batch}", seq, batch, "train")
     pipeline = SyntheticPipeline(cfg, shape, DataConfig(seed=TRAIN["seed"]))
     groups = [DeviceGroup("g0", device=dev0, throttle=1.0),
-              DeviceGroup("g1", device=dev0, throttle=2.0)]
+              DeviceGroup("g1", device=dev0, throttle=2.0)][:groups]
     trainer = HeteroDPTrainer(cfg, opt, shape, groups, pipeline,
                               lws=TRAIN["lws"])
     want1 = per_packet(cfg)
@@ -2051,13 +2085,16 @@ def hetero_train(torch, dev0, cfg, seq, batch, steps, label,
     return params, summary
 
 
-def train_card_against_host(torch, dev0, cfg32, p32, batch, label):
+def train_card_against_host(torch, dev0, cfg32, p32, batch, label,
+                            opt=None):
     """One loss and gradient in float32 (TF32 off), ``p32`` on the card
     (kernels) and a copy on the host (plain versions), on the numpy
     ``batch``: the loss within 1e-4 relative and every gradient within
     1e-3 of its parameter's largest |g|.  With MoE layers, every token
     routed to the same experts on both sides and in the rematerialised
-    recompute as in the forward; the smallest top-k margin is logged."""
+    recompute as in the forward; the smallest top-k margin is logged.
+    With ``opt``, one AdamW step from fresh moments on each side, the
+    updated parameters held by ``check_updates`` (``p32`` is updated)."""
     import copy
 
     from repro_torch.training.step import make_grad_fn
@@ -2112,6 +2149,17 @@ def train_card_against_host(torch, dev0, cfg32, p32, batch, label):
         route_note = (f"; {m} routings a pass, experts equal card against "
                       f"host and recompute against forward, smallest "
                       f"top-{k} margin {margin:.3g}")
+    if opt is not None:
+        from repro_torch.optim import adamw
+        sc = adamw.apply_updates(adamw.init_state(p32, opt), gc, opt)[0]
+        sh = adamw.apply_updates(adamw.init_state(host32, opt), gh, opt)[0]
+        worst_p, outside, n_el = check_updates(
+            torch, sc.params, sh.params, opt.lr, f"train parity {label}")
+        route_note += (f"; after one AdamW step the parameters within "
+                       f"{worst_p:.3g} of 1e-3 of their largest |value|, "
+                       f"{outside} of {n_el} elements outside (at most "
+                       f"{TRAIN_FLIPS:g} of them)")
+        del sc, sh
     log(f"train parity {label} float32 (TF32 off): loss card "
         f"{float(lc):.6f} host {float(lh):.6f} ({rel:.3g} relative, limit "
         f"1e-4), aux card {float(mc['aux']):.6g} host "
@@ -2715,12 +2763,13 @@ def check_updates(torch, got, want, lr, label):
     """``got`` and ``want``: two updated models (same structure; ``got``
     anywhere, ``want`` on the host).  Every element within 1e-3 of its
     parameter's largest |value|, except at most TRAIN_FLIPS of all
-    elements, each within 2 lr more.  Returns (worst share of its tol,
-    elements outside, elements)."""
+    elements, each within 2 lr more.  The differences are taken in
+    float32 on ``got``'s device, a parameter at a time.  Returns (worst
+    share of its tol, elements outside, elements)."""
     worst, outside, total = 0.0, 0, 0
     for (n, a), b in zip(got.named_parameters(), want.parameters()):
-        a = a.detach().to("cpu", torch.float32)
-        b = b.detach().float()
+        a = a.detach().float()
+        b = b.detach().to(a.device, torch.float32)
         tol = 1e-3 * float(b.abs().max())
         d = (a - b).abs()
         over = d > tol
@@ -2758,7 +2807,7 @@ def training_phases(args, torch, dev0, launches, attach):
     from repro_torch.models import transformer as T
     from repro_torch.optim import adamw
     from repro_torch.optim.adamw import OptConfig
-    from repro_torch.training.step import make_grad_fn, make_train_step
+    from repro_torch.training.step import make_train_step
 
     cfg = get_config("llama3.2-1b")
     if args.small:
@@ -2804,41 +2853,9 @@ def training_phases(args, torch, dev0, launches, attach):
         f"layers at full width (host memory and time), float32, TF32 off")
     pshape = ShapeConfig("parity", TRAIN_PARITY["seq"],
                          TRAIN_PARITY["batch"], "train")
-    toks = SyntheticPipeline(cfg32, pshape).batch_at(0)["tokens"]
-    host32 = copy.deepcopy(p32).to("cpu")
-    grad_fn = make_grad_fn(cfg32)
-    for p in (p32, host32):
-        p.requires_grad_(True)
-    t0 = time.perf_counter()
-    (lc, _), gc = grad_fn(p32, {"tokens": torch.as_tensor(toks, device=dev0)})
-    torch.cuda.synchronize()
-    t_card = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    (lh, _), gh = grad_fn(host32, {"tokens": torch.from_numpy(toks)})
-    t_host = time.perf_counter() - t0
-    rel = abs(float(lc) - float(lh)) / abs(float(lh))
-    check(rel <= 1e-4, f"train parity: loss {float(lc)} on the card, "
-                       f"{float(lh)} on the host ({rel:.3g} relative)")
-    worst_g = 0.0
-    for n, w in gh.items():
-        top = float(w.abs().max())
-        err = float((gc[n].cpu() - w).abs().max())
-        check(err <= 1e-3 * top,
-              f"train parity: {n} gradient differs by {err:.3g}, above "
-              f"1e-3 of its largest |g| {top:.3g}")
-        worst_g = max(worst_g, err / max(top, 1e-30))
-    sc = adamw.apply_updates(adamw.init_state(p32, opt), gc, opt)[0]
-    sh = adamw.apply_updates(adamw.init_state(host32, opt), gh, opt)[0]
-    worst_p, outside, n_el = check_updates(torch, sc.params, sh.params,
-                                           opt.lr, "train parity")
-    log(f"train parity: loss card {float(lc):.6f} host {float(lh):.6f} "
-        f"({rel:.3g} relative, limit 1e-4); gradients within "
-        f"{worst_g:.3g} of each parameter's largest |g| (limit 1e-3); "
-        f"after one AdamW step the parameters within {worst_p:.3g} of "
-        f"1e-3 of their largest |value|, {outside} of {n_el} elements "
-        f"outside (at most {TRAIN_FLIPS:g} of them); card {t_card:.2f} s, "
-        f"host {t_host:.2f} s")
-    del gc, gh, sc, sh, host32
+    train_card_against_host(torch, dev0, cfg32, p32,
+                            SyntheticPipeline(cfg32, pshape).batch_at(0),
+                            f"{cfg.name} ({n_par} layers)", opt=opt)
 
     # the paper's pair against the card alone, one step from one state
     class FixedBatch:
@@ -4178,6 +4195,213 @@ def sharded_phases(args, torch, dev0):
     return launches, entries
 
 
+# ------------------------ the served configs trained (phases 38-41)
+# qwen3-32b, yi-9b, stablelm-3b and dbrx-132b trained at full width on
+# TRAIN_4K's sequence: (arch, seed, parity layers; 0 where the host cannot
+# hold a float32 copy of a layer with its moments, so the attention
+# backward at the config's heads is held on the card instead)
+DENSE_TRAIN = (("qwen3-32b", 21, 2), ("yi-9b", 22, 2),
+               ("stablelm-3b", 23, 2), ("dbrx-132b", 24, 0))
+# each run: TRAIN_4K's 256 rows cut to 4 (a packet holds one or two of
+# them: lws 1), 3 steps
+DENSE_TRAIN_RUN = dict(rows=4, steps=3)
+# AdamW at a tenth of TRAIN_OPT's rate: at 1e-3 qwen3-32b's held-out
+# objective rose over 4 steps (12.43 -> 13.26, PERF.md)
+DENSE_TRAIN_OPT = dict(TRAIN_OPT, lr=1e-4)
+
+
+def dense_train_plan(torch, dev0, full, S):
+    """The depth and the number of groups that the plan lets one card
+    train ``full`` with: the deepest cut, with two groups where any depth
+    fits with two, else one.  A step of ``HeteroDPTrainer`` holds the
+    state (the plan's arguments), its bfloat16 sums of the packets'
+    gradients (the parameters' bytes) and, on each group, one packet in
+    flight (the plan's step of one row, ``make_train_step``): that must
+    stay under ``PLAN_FILL`` of the card less what it holds already.  The
+    plans of 1 and 2 layers reckon the first depth to plan (a layer adds
+    its state, its sums and its gradients to each packet); the cut steps
+    down from it until the plan fits, and up while the next one fits.
+    Returns (the cut config, the packet's shape, its plan, the groups,
+    the need in bytes)."""
+    from dataclasses import replace
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import transformer as T
+
+    total = torch.cuda.get_device_properties(dev0).total_memory
+    held = torch.cuda.memory_allocated(dev0)   # what earlier phases keep
+    limit = PLAN_FILL * total - held
+    shape = ShapeConfig(f"train_{S}_packet", S, 1, "train")
+    plans = {}
+
+    def need(n, groups):
+        if n not in plans:
+            cfg = replace(full, n_layers=n)
+            rec = D.plan(cfg, shape, make_test_mesh(1))
+            sums = T.param_bytes(T.init_abstract(cfg))
+            plans[n] = (cfg, rec, sums)
+            log(f"plan {full.name} ({n} of {full.n_layers} layers) x one "
+                f"row of {S}: arguments "
+                f"{rec['argument_bytes_allocated'] / 1e9:.3f} GB, a packet "
+                f"{rec['step_peak_bytes'] / 1e9:.3f} GB, the gradients' "
+                f"sums {sums / 1e9:.3f} GB; the step on meta in "
+                f"{rec['meta_run_s']:.1f} s")
+        _, rec, sums = plans[n]
+        return rec["argument_bytes_allocated"] + sums + groups * rec[
+            "step_peak_bytes"]
+
+    for groups in (2, 1):
+        one = need(1, groups)
+        if one > limit:
+            continue
+        # a layer adds its state and sums, and its gradients to each
+        # packet in flight
+        two = min(2, full.n_layers)
+        need(two, groups)
+        per = (plans[two][1]["argument_bytes_allocated"]
+               - plans[1][1]["argument_bytes_allocated"]
+               + (1 + groups) * (plans[two][2] - plans[1][2]))
+        n = full.n_layers if per <= 0 else min(
+            full.n_layers, 1 + int((limit - one) // per))
+        while n > 1 and need(n, groups) > limit:
+            n -= 1
+        while n < full.n_layers and need(n + 1, groups) <= limit:
+            n += 1
+        cfg, rec, _ = plans[n]
+        log(f"plan {full.name}: {n} of {full.n_layers} layers, {groups} "
+            f"group(s): {need(n, groups) / 1e9:.3f} GB beside the "
+            f"{held / 1e9:.3f} GB held, of the card's {total / 1e9:.1f} GB "
+            f"(fill limit {PLAN_FILL})"
+            + ("" if n == full.n_layers else
+               f"; {n + 1} layers would need "
+               f"{need(n + 1, groups) / 1e9:.3f} GB"))
+        return cfg, shape, rec, groups, need(n, groups)
+    check(False, f"{full.name}: not one layer fits the card with one group")
+
+
+def dense_train_phase(args, torch, dev0, arch, seed, n_parity):
+    """One of phases 38-41: hold ``flash_attention`` and
+    ``flash_attention_bwd`` against their plain versions at the config's
+    heads (the backward timed beside SDPA's at B=1 S=4096), choose the
+    depth and groups by the plan (``dense_train_plan``), hold the packet's
+    plan against the card (``plan_against_card``), train the cut through
+    ``HeteroDPTrainer`` (``hetero_train``: launches a packet, finite
+    losses, a lower held-out objective), then, with ``n_parity``, a
+    float32 step of its first layers card against host
+    (``train_card_against_host`` with the AdamW step); without, the
+    attention backward in float32 at a ragged S.  Returns (the training
+    summary, the plan check, the timed backward)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticPipeline
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import OptConfig
+
+    free_card(torch, dev0, f"{arch} training phase")
+    t0 = time.perf_counter()
+
+    def mark(what):
+        log(f"{arch}: {what} by {time.perf_counter() - t0:.1f} s into "
+            f"the phase")
+
+    full = get_config(arch)
+    if args.small:
+        full = replace(full, n_layers=2)
+    S = 1024 if args.small else TRAIN["seq"]
+    H, KH, D = full.n_heads, full.n_kv_heads, full.resolved_head_dim
+    bf16, f32 = torch.bfloat16, torch.float32
+    gen_t = torch.Generator(dev0).manual_seed(seed)
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen_t, device=dev0).to(dtype)
+
+    log(f"attention at {arch}'s heads ({H}/{KH}, G = {H // KH}, D = {D}) "
+        f"against its plain versions:")
+    attn_check(torch, randn, 1, S, H, KH, D, bf16)
+    bwd = attn_bwd_check(torch, randn, 1, S, H, KH, D, bf16, timed=True)
+    attn_bwd_check(torch, randn, 2, 1000, H, KH, D, bf16)     # ragged S
+    if not n_parity:
+        attn_bwd_check(torch, randn, 1, 1000, H, KH, D, f32)
+
+    mark("attention checked")
+    cfg, shape, rec, groups, need = dense_train_plan(torch, dev0, full, S)
+    label = f"{arch} ({cfg.n_layers} of {get_config(arch).n_layers} layers)"
+    mark("planned")
+    card = plan_against_card(torch, dev0, cfg, shape, rec, label)
+    free_card(torch, dev0, f"{arch} training")
+    mark("the plan held against the card")
+    rows = DENSE_TRAIN_RUN["rows"]
+    held = torch.cuda.memory_allocated(dev0)
+    params, summary = hetero_train(
+        torch, dev0, cfg, S, rows, DENSE_TRAIN_RUN["steps"], label,
+        held_out=True, groups=groups, opt=DENSE_TRAIN_OPT)
+    summary.update(layers=cfg.n_layers, of_layers=full.n_layers,
+                   groups=groups, rows=rows, tokens=rows * S,
+                   planned_gb=need / 1e9,
+                   peak_ratio=(summary["peak_gb"] * 1e9 - held) / need,
+                   flop_share=[rec["flops"] * rows / t / BF16_OPS_S
+                               for t in summary["step_times"]])
+    log(f"train {label}: peak {summary['peak_gb']:.3f} GB "
+        f"(max_memory_allocated; {held / 1e9:.3f} GB of it held before) "
+        f"against {need / 1e9:.3f} GB planned for the state, the sums and "
+        f"{groups} packet(s) in flight (measured/planned "
+        f"{summary['peak_ratio']:.4f}); "
+        f"model-FLOP share a step "
+        f"{[round(x, 4) for x in summary['flop_share']]} ({rows} x "
+        f"{rec['flops']:.4e} planned flops a row / step time / 989e12)")
+    mark("trained")
+    if n_parity:
+        free_card(torch, dev0, f"{arch} training parity")
+        n = min(n_parity, cfg.n_layers)
+        p32 = T.LM(params.embed, list(params.layers[:n]), params.final_norm,
+                   params.lm_head).to(f32)
+        del params
+        cfg32 = replace(cfg, n_layers=n, dtype="float32")
+        batch = SyntheticPipeline(cfg32, ShapeConfig(
+            "parity", TRAIN_PARITY_SEQ, 1, "train")).batch_at(0)
+        train_card_against_host(torch, dev0, cfg32, p32, batch,
+                                f"{arch} ({n} layers)",
+                                opt=OptConfig(**DENSE_TRAIN_OPT))
+        del p32
+        mark("card against host")
+    else:
+        del params
+    return summary, card, bwd
+
+
+def dense_train_phases(args, torch, dev0):
+    """Phases 38-41 in turn, on expandable segments; returns (training
+    summaries, plan checks and the backward's entries at each config's
+    heads, by config).  Each group's packets run on a stream of its own,
+    whose cached blocks the other stream's allocations cannot take: with
+    dbrx-132b's 45 GB of state beside what earlier phases keep, an H100
+    ran out of memory with 10.7 GiB reserved but unallocated.  Expandable
+    segments map the pages a stream frees where the other needs them."""
+    from torch.cuda.memory import _set_allocator_settings
+
+    runs, checks, entries = {}, {}, {}
+    free_card(torch, dev0, "phases 38-41")
+    _set_allocator_settings("expandable_segments:True")
+    try:
+        for i, (arch, seed, n_parity) in enumerate(DENSE_TRAIN):
+            stamp(f"phase {38 + i}: {arch} trained")
+            runs[arch], checks[arch], bwd = dense_train_phase(
+                args, torch, dev0, arch, seed, n_parity)
+            entries[arch] = long_entry(bwd, f"{arch}'s heads, backward")
+    finally:
+        _set_allocator_settings("expandable_segments:False")
+    log("dense training table: " + json.dumps(
+        {m: {k: r[k] for k in ("layers", "of_layers", "groups", "rows",
+                               "tokens", "step_s", "tokens_s", "busy",
+                               "peak_gb", "planned_gb", "peak_ratio")}
+         for m, r in runs.items()}))
+    return runs, checks, entries
+
+
 def device_line(torch) -> str:
     return json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4189,10 +4413,11 @@ def main() -> int:
     ap.add_argument("--small", action="store_true",
                     help="small sizes instead of the paper's")
     ap.add_argument("--phase", choices=["fleet", "plan", "served",
-                                        "sharded"],
+                                        "sharded", "trained"],
                     help="build, then run these phases alone (fleet: 8a; "
-                         "plan: 26-30; served: 31-34; sharded: 35-37) as a "
-                         "quicker check; prints no kernels line")
+                         "plan: 26-30; served: 31-34; sharded: 35-37; "
+                         "trained: 38-41) as a quicker check; prints no "
+                         "kernels line")
     args = ap.parse_args()
 
     import torch
@@ -4259,6 +4484,14 @@ def main() -> int:
     if args.phase == "sharded":
         sharded, _ = sharded_phases(args, torch, dev0)
         log(f"sharded launches: {json.dumps(sharded)}")
+        print(smi)
+        print(device_line(torch))
+        return 0
+
+    if args.phase == "trained":
+        runs, _, _ = dense_train_phases(args, torch, dev0)
+        log("trained launches: " + json.dumps(
+            {m: r["launches"] for m, r in runs.items()}))
         print(smi)
         print(device_line(torch))
         return 0
@@ -4706,6 +4939,19 @@ def main() -> int:
             by[SHARDED_PATH] = sharded[rec["name"]]
             rec.update(launches=sum(by.values()),
                        sharded_shape=shapes[rec["name"]])
+    # phases 38-41: qwen3-32b, yi-9b, stablelm-3b and dbrx-132b trained;
+    # their launches join the two attention kernels' records
+    dense, dense_checks, dense_b = dense_train_phases(args, torch, dev0)
+    trained.update(dense)
+    plan_checks.update(dense_checks)
+    for rec in records:
+        if rec["name"] in ("flash_attention", "flash_attention_bwd"):
+            by = rec["launches_by_path"]
+            by.update((f"{m} training", t["launches"][rec["name"]])
+                      for m, t in dense.items())
+            rec.update(launches=sum(by.values()))
+    attach("flash_attention_bwd", **{
+        f"{m.split('-')[0]}_train_shape": e for m, e in dense_b.items()})
     log("training table: " + json.dumps(
         {m: {k: t[k] for k in ("step_s", "tokens_s", "busy", "peak_gb")}
          for m, t in trained.items()}))

@@ -172,12 +172,15 @@ class HeteroDPTrainer:
             loss, g = res
             n_rows = pkt.size * lws
             w = float(n_rows)
-            g = {n: x.to(home) for n, x in g.items()}
+            # each gradient is the packet's own tensor, with a storage of
+            # its own: scaled in place, the first packet's become the
+            # sums, so no second copy of the model's gradients is made
+            g = {n: x.to(home).mul_(w) for n, x in g.items()}
             if acc["g"] is None:
-                acc["g"] = {n: x * w for n, x in g.items()}
+                acc["g"] = g
             else:
                 for n, x in g.items():
-                    acc["g"][n] += x * w
+                    acc["g"][n] += x
             acc["loss"] += float(loss) * n_rows
             acc["rows"] += n_rows
             rows_by_dev[dev.name] = rows_by_dev.get(dev.name, 0) + n_rows
@@ -190,7 +193,7 @@ class HeteroDPTrainer:
         if acc["rows"] != B:
             raise RuntimeError(
                 f"step {step_idx}: incomplete batch ({acc['rows']}/{B})")
-        grads = {n: x / acc["rows"] for n, x in acc["g"].items()}
+        grads = {n: x.div_(acc["rows"]) for n, x in acc["g"].items()}
         acc["g"] = None
         if self.compress:
             if self._err is None:

@@ -8,11 +8,18 @@ norm -> head``.  A PyTorch port of the JAX package's
 ``models/transformer.py``.
 
 The JAX package stacks its layers' parameters over ``n_blocks`` and runs
-them with ``lax.scan`` (rematerialised for training); the port keeps one
-``nn.Module`` per layer and runs them in a plain Python loop, each layer
-under ``torch.utils.checkpoint`` when the training forward rematerialises
-(``cfg.remat_policy``; the JAX package's two-level grouping,
-``_auto_groups``, changes memory only and is not ported yet).  Layer i's
+them with ``lax.scan``; the port keeps one ``nn.Module`` per layer and
+runs them in a plain Python loop.  The training forward rematerialises
+as the JAX package's does, in two levels: the blocks (runs of
+``cfg.block_period`` layers after the ``first_dense`` pre-blocks) fall
+into G groups (``cfg.remat_groups``, else :func:`_auto_groups`), each
+group under one ``torch.utils.checkpoint``, so that only the groups'
+inputs are kept; with ``cfg.remat_inner`` "full" each layer inside a
+group is checkpointed as well (a layer's forward then runs up to three
+times a step), with "none" it is not.  With one group (or G not dividing
+the blocks) each layer runs under its own checkpoint ("full") or none
+("none"); a pre-block, which the JAX package leaves unchecked, runs
+under its own checkpoint whenever the forward rematerialises.  Layer i's
 mixer and MLP follow ``cfg.mixer_kind(i)`` and ``cfg.mlp_kind(i)``, as
 the JAX package's ``_layer_init`` builds them: an attention (GQA or MLA)
 or Mamba mixer; an MoE MLP, else a dense one when ``d_ff > 0``, else no
@@ -407,34 +414,117 @@ def _save_dots():
     return create_selective_checkpoint_contexts(policy)
 
 
-def _remat_layer(cfg: ModelConfig, lp: Layer, x, positions):
-    """One training layer, rematerialised as ``cfg.remat_policy`` says:
-    "nothing" saves only the layer's input and recomputes the rest in
-    the backward, "dots" also saves the matmul outputs.  Returns (x,
-    the layer's aux loss)."""
+def _auto_groups(n_blocks: int) -> int:
+    """The largest divisor of ``n_blocks`` that is at most its square
+    root: the JAX package's number of remat groups when the config sets
+    none."""
+    g, d = 1, 1
+    while d * d <= n_blocks:
+        if n_blocks % d == 0:
+            g = d
+        d += 1
+    return g
+
+
+def remat_segments(cfg: ModelConfig,
+                   n_layers: Optional[int] = None) -> Tuple[List[int],
+                                                            List[List[int]]]:
+    """How the training forward checkpoints ``n_layers`` layers (the
+    config's by default): (the pre-blocks' indices, each under its own
+    checkpoint; the groups, each a list of layer indices under one
+    checkpoint).  No groups when G is 1 or does not divide the blocks:
+    every layer is then a pre-block of its own, as the flat remat runs
+    them."""
+    n = cfg.n_layers if n_layers is None else n_layers
+    pre = min(cfg.moe.first_dense, n)
+    n_blocks = (n - pre) // cfg.block_period
+    G = cfg.remat_groups or _auto_groups(n_blocks)
+    if G <= 1 or n_blocks % G or (n - pre) % cfg.block_period:
+        return list(range(n)), []
+    seg = (n - pre) // G
+    return list(range(pre)), [list(range(pre + g * seg, pre + (g + 1) * seg))
+                              for g in range(G)]
+
+
+def forward_runs(cfg: ModelConfig,
+                 n_layers: Optional[int] = None) -> List[int]:
+    """How many times one training step (:func:`forward` with remat, and
+    its backward) runs each layer's forward: once, once more for its own
+    checkpoint's recompute, and once more for its group's.  A group's
+    recompute stops once it has rebuilt what the group keeps (the
+    checkpoint's early stop), so with ``remat_inner`` "full" it leaves
+    the group's last layer out; with "none" it runs every layer of the
+    group, whose internals the group keeps."""
+    n = cfg.n_layers if n_layers is None else n_layers
+    if cfg.remat_policy == "everything":
+        return [1] * n
+    pre, groups = remat_segments(cfg, n)
+    inner = cfg.remat_inner != "none"
+    runs = [1] * n
+    for i in pre:
+        runs[i] = 2 if inner or groups else 1
+    for group in groups:
+        for i in group:
+            runs[i] = 3 if inner and i != group[-1] else 2
+    return runs
+
+
+def _checkpoint(cfg: ModelConfig, fn, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant), as
+    ``cfg.remat_policy`` says: "nothing" keeps only the inputs and
+    recomputes the rest in the backward, "dots" also keeps the matmul
+    outputs."""
     from torch.utils.checkpoint import checkpoint
-
-    def body(x):
-        return _apply_layer(cfg, lp, x, positions)[:2]
     if cfg.remat_policy == "dots":
-        return checkpoint(body, x, use_reentrant=False,
+        return checkpoint(fn, *args, use_reentrant=False,
                           context_fn=_save_dots)
-    return checkpoint(body, x, use_reentrant=False)
+    return checkpoint(fn, *args, use_reentrant=False)
 
 
-def _run(cfg, params: LM, x, positions, cache=None, pos=None,
-         remat: bool = False, res=None):
+def _run_layers(cfg: ModelConfig, layers, positions, inner: bool):
+    """A function of (x, aux) that runs ``layers`` in turn, each under
+    its own checkpoint when ``inner``, and adds their aux losses."""
+    def body(lp):
+        return lambda x: _apply_layer(cfg, lp, x, positions)[:2]
+
+    def run(x, aux):
+        for lp in layers:
+            if inner:
+                x, a = _checkpoint(cfg, body(lp), x)
+            else:
+                x, a, _ = _apply_layer(cfg, lp, x, positions)
+            aux = aux + a
+        return x, aux
+    return run
+
+
+def _run_remat(cfg: ModelConfig, params: LM, x, positions):
+    """The training forward's layers and final norm, checkpointed as
+    :func:`remat_segments` says (the module's docstring); returns (x, the
+    summed aux loss).  The aux sum runs through the groups in layer
+    order, so its value is that of the forward without remat."""
+    pre, groups = remat_segments(cfg, len(params.layers))
+    inner = cfg.remat_inner != "none"
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    # "none" without groups rematerialises nothing
+    x, aux = _run_layers(cfg, [params.layers[i] for i in pre], positions,
+                         inner or bool(groups))(x, aux)
+    for group in groups:
+        x, aux = _checkpoint(cfg, _run_layers(
+            cfg, [params.layers[i] for i in group], positions, inner),
+            x, aux)
+    return L.rmsnorm(x, params.final_norm, cfg.norm_eps), aux
+
+
+def _run(cfg, params: LM, x, positions, cache=None, pos=None, res=None):
     """The layers and the final norm; returns (x, the summed aux loss)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, lp in enumerate(params.layers):
-        if remat:
-            x, a = _remat_layer(cfg, lp, x, positions)
-        else:
-            x, a, layer_cache = _apply_layer(
-                cfg, lp, x, positions, None if cache is None else cache[i],
-                pos, res)
-            if cache is not None:
-                cache[i] = layer_cache
+        x, a, layer_cache = _apply_layer(
+            cfg, lp, x, positions, None if cache is None else cache[i],
+            pos, res)
+        if cache is not None:
+            cache[i] = layer_cache
         aux = aux + a
     return L.rmsnorm(x, params.final_norm, cfg.norm_eps), aux
 
@@ -450,17 +540,17 @@ def forward(cfg: ModelConfig, params: LM, tokens, *, patches=None,
     aux_loss): the MoE layers' load-balancing losses summed (float32; 0.0
     without MoE layers).
 
-    With ``remat`` and grad enabled each layer runs under
-    ``torch.utils.checkpoint`` (``use_reentrant=False``) unless
-    ``cfg.remat_policy`` is "everything" or ``cfg.remat_inner`` is
-    "none", as the JAX package checkpoints its scan body.  Checkpointing
-    changes what the backward keeps, not the values."""
+    With ``remat`` and grad enabled the layers are checkpointed in two
+    levels as the JAX package's are (the module's docstring,
+    :func:`remat_segments`) unless ``cfg.remat_policy`` is "everything".
+    Checkpointing changes what the backward keeps, not the values."""
     x = embed_tokens(cfg, params, tokens, patches)
     positions = torch.arange(x.shape[1], device=x.device)
-    remat = (remat and torch.is_grad_enabled()
-             and cfg.remat_policy != "everything"
-             and cfg.remat_inner != "none")
-    x, aux = _run(cfg, params, x, positions, remat=remat)
+    if (remat and torch.is_grad_enabled()
+            and cfg.remat_policy != "everything"):
+        x, aux = _run_remat(cfg, params, x, positions)
+    else:
+        x, aux = _run(cfg, params, x, positions)
     return lm_head(cfg, params, x), aux
 
 

@@ -8,7 +8,7 @@ float32, the bias corrections from the float32 step, and each new value
 is cast back to its parameter's dtype.  Where the JAX package builds new
 arrays, :func:`apply_updates` writes the parameters and moments in place
 under ``torch.no_grad()``: a second copy of the weights is never made,
-and the float32 update runs over slices of at most ``UPDATE_SLICE``
+and the float32 update runs over slices of at most :func:`update_slice`
 elements of each parameter.
 """
 from __future__ import annotations
@@ -35,8 +35,19 @@ class OptConfig:
 
 
 # elements updated at a time: the update's float32 temporaries of one
-# (E, d, f) expert array at full width would otherwise take tens of GB
+# (E, d, f) expert array at full width would otherwise take tens of GB.
+# On the host a slice's temporaries of hundreds of MB are fresh pages
+# each time (the C allocator maps them anew), several times slower than
+# slices of 2^20 elements, whose temporaries it reuses.  A card's caching
+# allocator reuses them at any size, and there fewer slices launch fewer
+# kernels
 UPDATE_SLICE = 1 << 26
+HOST_UPDATE_SLICE = 1 << 20
+
+
+def update_slice(t: torch.Tensor) -> int:
+    """The elements of ``t`` the update and the norm take at a time."""
+    return HOST_UPDATE_SLICE if t.device.type == "cpu" else UPDATE_SLICE
 
 
 class TrainState(NamedTuple):
@@ -82,8 +93,16 @@ def _reference_ndim(name: str, p: torch.Tensor) -> int:
 
 
 def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in tree.values()))
+    """The float32 norm of every tensor's elements together.  A tensor
+    above :func:`update_slice` elements is squared and summed a slice at
+    a time, as the update runs, so that its float32 temporaries stay
+    small; a smaller one in one sum."""
+    sums = []
+    for x in tree.values():
+        flat, n = x.reshape(-1), update_slice(x)
+        for i in range(0, max(flat.numel(), 1), n):
+            sums.append(torch.sum(torch.square(flat[i:i + n].float())))
+    return torch.sqrt(sum(sums))
 
 
 @torch.no_grad()
@@ -113,10 +132,11 @@ def apply_updates(state: TrainState, grads: Mapping[str, torch.Tensor],
                                      state.nu[name])]
         g_flat = grads[name].reshape(-1)
         # elementwise, so slices give the whole tensor's values: the
-        # float32 temporaries stay at UPDATE_SLICE elements each
-        for i in range(0, p.numel(), UPDATE_SLICE):
-            pf, mu, nu = (t[i:i + UPDATE_SLICE] for t in flat)
-            g = g_flat[i:i + UPDATE_SLICE].float() * sc
+        # float32 temporaries stay at update_slice(p) elements each
+        n = update_slice(p)
+        for i in range(0, p.numel(), n):
+            pf, mu, nu = (t[i:i + n] for t in flat)
+            g = g_flat[i:i + n].float() * sc
             mu32 = mu.float() * b1 + (1 - b1) * g
             nu32 = nu.float() * b2 + (1 - b2) * g * g
             mu_hat = mu32 / bc1_d

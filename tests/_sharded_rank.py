@@ -9,9 +9,9 @@ import numpy as np
 import torch
 
 # the smoke configs served sharded; GQA ones at 8/4 heads, so that the kv
-# heads divide over four ranks
-ARCHS = ["llama3.2-1b", "qwen3-32b", "dbrx-132b", "falcon-mamba-7b",
-         "jamba-v0.1-52b", "musicgen-large"]
+# heads divide over four ranks (stablelm-3b is MHA at 4 kv heads)
+ARCHS = ["llama3.2-1b", "qwen3-32b", "yi-9b", "stablelm-3b", "dbrx-132b",
+         "falcon-mamba-7b", "jamba-v0.1-52b", "musicgen-large"]
 HEADS = dict(n_heads=8, n_kv_heads=4)
 WORLD = 4
 # batch, prompt and teacher-forced decode steps (the dense cell's B and S

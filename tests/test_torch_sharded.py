@@ -3,10 +3,11 @@ package, on the CPU: four ``gloo`` ranks (``parallel/spmd.py``, a file
 store under ``tmp_path``), each holding its block of the weights and
 caches and joining the partial sums with explicit collectives.
 
-* Six smoke configs (llama3.2-1b with its tied head, qwen3-32b with q/k
-  norms, dbrx-132b with experts over ranks, falcon-mamba-7b over
-  ``d_inner``, jamba-v0.1-52b with attention, Mamba and MoE, and
-  musicgen-large with codebooks; GQA at 8/4 heads on both sides) run on
+* Eight smoke configs (llama3.2-1b with its tied head, qwen3-32b with q/k
+  norms, yi-9b, stablelm-3b with its 4 kv heads (MHA), dbrx-132b with
+  experts over ranks, falcon-mamba-7b over ``d_inner``, jamba-v0.1-52b
+  with attention, Mamba and MoE, and musicgen-large with codebooks; GQA
+  at 8/4 heads on both sides) run on
   one spawned set of ranks: the prefill's and three teacher-forced
   decode steps' logits of every rank equal the JAX package's unsharded
   ``make_prefill_step``/``make_decode_step`` at rtol = atol = 2e-4, are
