@@ -8,16 +8,19 @@
     python3 chip_smoke.py --phase served # the build and phases 31-34 alone
     python3 chip_smoke.py --phase sharded  # the build and phases 35-37 alone
     python3 chip_smoke.py --phase trained  # the build and phases 38-41 alone
+    python3 chip_smoke.py --phase sharded_train  # build, phases 42-43
 
-The whole script took about 1,000 s of command time on one H100 from a
-clean checkout, builds, phases 26-30 (planning every cell takes about
-80 s), phases 31-34 (about 150 s), phases 35-37 (about 80 s) and phases
-38-41 (about 150 s) included;
-``--phase fleet`` builds the kernels and runs phase 8a alone, ``--phase
-plan`` phases 26-30 (about 2.5 minutes), ``--phase served`` phases 31-34
-and ``--phase sharded`` phases 35-37 (about 2.5 minutes with the build),
-``--phase trained`` phases 38-41, printing no kernels line.  Each phase
-group's start is logged with the seconds since the script started.
+The whole script must finish within 1,100 s of command time on one H100
+from a clean checkout, builds included (``PERF.md`` has each run's);
+phase 26's planning of every cell runs from phase 6 on beside the card
+phases, in processes at the lowest priority, and phase 26 only waits for
+it.  ``--phase fleet`` builds the kernels and runs phase 8a alone,
+``--phase plan`` phases 26-30 (about 2.5 minutes, the planning in the
+foreground), ``--phase served`` phases 31-34 and ``--phase sharded``
+phases 35-37 (about 2.5 minutes with the build), ``--phase trained``
+phases 38-41 and ``--phase sharded_train`` phases 42-43, printing no
+kernels line.  Each phase group's start is logged with the seconds since
+the script started.
 
 Phases, each fatal on failure:
 
@@ -135,8 +138,9 @@ Phases, each fatal on failure:
     events, the router's predicted finish against the measured, peak
     memory, and ``simulate_fleet`` on the same requests at the measured
     per-worker powers beside the measured attainment and p99;
-9. serve falcon-mamba-7b at full width (``--small``: 2 of its 64 layers)
-   in bfloat16 with the set-up of phase 6.  All must be served; the launch
+9. serve falcon-mamba-7b at full width on 32 of its 64 layers
+   (``MAMBA_SERVED_LAYERS``; ``--small``: 2) in bfloat16 with the set-up
+   of phase 6.  All must be served; the launch
    counters, set to 0 after a warm-up, must show one ``selective_scan``
    launch per layer and prefill and none in a decode step (one recurrence
    step in plain ops); a fresh replica must give the same tokens.
@@ -197,9 +201,9 @@ Phases, each fatal on failure:
     v at 128, each with the backend it took, the faster the yardstick;
     hold and time the equal-width instance (v of 192 columns) at the
     prefill shape;
-16. serve deepseek-v2-lite-16b at full width (``--small``: 2 of its 27
-    layers, the dense one and one MoE layer) in bfloat16 with the set-up
-    of phase 6.  All must be served; the launch counters, set to 0 after
+16. serve deepseek-v2-lite-16b at full width on 14 of its 27 layers
+    (``MLA_SERVED_LAYERS``: the dense one and 13 MoE; ``--small``: 2, the
+    dense one and one MoE layer) in bfloat16 with the set-up of phase 6.  All must be served; the launch counters, set to 0 after
     a warm-up, must show one ``flash_attention`` launch per layer and
     prefill (MLA's expanded prefill at D = 192) and none of any kernel in
     a decode step (the absorbed decode runs plain products); a fresh
@@ -215,12 +219,12 @@ Phases, each fatal on failure:
 18. hold ``flash_attention`` and ``flash_decode`` against their plain
     versions at jamba-v0.1-52b's heads (H = 32, KH = 8, D = 128, the
     serving shapes, timed: the ``jamba_shape`` entries); serve
-    jamba-v0.1-52b at full width on 16 of its 32 layers (two periods of
-    8: 52.11 GB of bfloat16 weights; ``--small``: one period of 4,
+    jamba-v0.1-52b at full width on 8 of its 32 layers (one period of
+    8: 26.6 GB of bfloat16 weights; ``--small``: one period of 4,
     ``attn_every`` 4 at offset 2, the smoke config's period) with the
     set-up of phase 6.  All must be served; the launch counters, set to 0
     after a warm-up, must show one ``flash_attention`` launch per
-    attention layer (2) and one ``selective_scan`` launch per Mamba layer
+    attention layer (1) and one ``selective_scan`` launch per Mamba layer
     (14) a prefill, one ``flash_decode`` launch per attention layer and no
     scan a decode step; a fresh replica must give the same tokens.
     Prefill and decode-step times beside the weight-read bound (the
@@ -290,9 +294,10 @@ Phases, each fatal on failure:
     1b with 256 patch positions, which the loss leaves out; musicgen's
     loss averaged over its codebooks);
 26. plan every arch x shape cell of ``launch.dryrun`` on one card (1, 1)
-    and four (1, 4) in ``PLAN_WORKERS`` processes on the host (each
-    cell's step on the ``meta`` device): per-device argument bytes,
-    predicted peak and flops logged;
+    and four (1, 4) in ``PLAN_BACKGROUND_WORKERS`` processes on the host
+    at nice 19 (each cell's step on the ``meta`` device, and on (1, 4)
+    rank 0's step, a train cell's too), started after phase 5f: per-device
+    argument bytes, predicted peak and flops logged;
 27. hold llama3.2-1b's training cell (phase 12's 8 x 4,096 tokens, one
     row a microbatch) against its plan: the bytes the state and tokens
     ask of the caching allocator (``requested_bytes``) equal the planned
@@ -321,8 +326,8 @@ Phases, each fatal on failure:
 30. card against host in float32 on its first 2 layers, batch 1 x 256,
     as phase 24, every token routed alike;
 31. qwen3-32b (64/8 heads, G = 8, D = 128, q/k RMSNorm) at full width
-    and depth, all 64 layers (65.5 GB of bfloat16 weights; ``--small``:
-    2 layers): hold ``flash_attention`` at its serving prefill (B=4,
+    on 16 of its 64 layers (``SERVED_CONFIGS``; ``--small``: 2 layers):
+    hold ``flash_attention`` at its serving prefill (B=4,
     S=256) and ``flash_decode`` at its serving decode (B=4, Smax=288,
     pos=287) in bfloat16 against their plain versions, timed (the
     ``qwen3_shape`` entries), and both at a ragged S in float32; serve it
@@ -331,12 +336,12 @@ Phases, each fatal on failure:
     kernel); card against host in float32 on a model of its first 2
     layers made fresh from the cut config (the embedding and head of
     151,936 tokens included);
-32. yi-9b (32/4, G = 8, D = 128) likewise, all 48 layers (17.7 GB), card
+32. yi-9b (32/4, G = 8, D = 128) likewise, 24 of its 48 layers, card
     against host on 4 layers (``yi_shape``);
-33. stablelm-3b (32/32, G = 1, D = 80) likewise, all 32 layers (5.6
-    GB), card against host on 8 layers (``stablelm_shape``);
+33. stablelm-3b (32/32, G = 1, D = 80) likewise, 16 of its 32 layers,
+    card against host on 8 layers (``stablelm_shape``);
 34. dbrx-132b (48/8, G = 6, D = 128; 16 experts, top 4, every layer) at
-    full width on its first 8 of 40 layers (54.6 GB: the whole 263 GB
+    full width on its first 4 of 40 layers (28.5 GB; the whole 263 GB
     does not fit one card; ``--small``: 2), as phase 31, its capacity
     dispatch running all 16 experts in a decode step; card against host
     on 2 layers (13 GB of float32 a layer) with every token routed to
@@ -355,11 +360,11 @@ Phases, each fatal on failure:
     teacher-forced prefill and 4 decode steps; every rank's logits equal
     the one process's at rtol = atol = 2e-4, bitwise equal on the four
     ranks, with every token routed to the same experts;
-36. 16 of the 32 layers at full width in bfloat16 (52.11 GB, 13.0 GB a
-    rank, never more than one whole layer on the card beside the blocks)
+36. phase 18's 8 of the 32 layers at full width in bfloat16 (about a
+    quarter of 26.6 GB a rank, never more than one whole layer on the card beside the blocks)
     served by the four ranks: batch 4, prompt 256, 32 greedy tokens, the
-    launches of each rank counted from 0 just before (2 ``flash_attention``
-    and 14 ``selective_scan`` a prefill, 2 ``flash_decode`` a step), the
+    launches of each rank counted from 0 just before (1 ``flash_attention``
+    and 7 ``selective_scan`` a prefill, 1 ``flash_decode`` a step), the
     tokens equal on every rank; per rank a prefill's and a decode step's
     time (CUDA events), its kernel time and busy share, peak memory, the
     collectives a step (``OpCost``) and the time in them;
@@ -386,12 +391,33 @@ Phases, each fatal on failure:
     packet by ``T.forward_runs``, finite losses, a lower held-out
     objective) and
     its peak beside the planned one; qwen3, yi and stablelm then a
-    float32 step of their first 2 layers card against host, the
+    float32 step of their first layer (qwen3) or 2 card against host, the
     gradients and one AdamW step (``check_updates``), dbrx the attention
     backward at 48/8 heads in float32 at a ragged S instead (the host
     cannot hold a float32 dbrx layer with its moments).  The four run on
     the allocator's expandable segments (``dense_train_phases``).  One
     "dense training table" JSON line.
+42. jamba-v0.1-52b's 2-layer cut of phase 23 (attention + MoE, Mamba +
+    MLP) at full width split over four gloo ranks on the card as phase
+    35 splits it (8/2 heads, 4 of 16 experts, ``d_inner`` 2048, a
+    quarter of the vocab), trained through ``make_train_step(res=...)``,
+    whose collectives carry the gradients.  In float32 at 1 x 256 tokens
+    each rank's loss (rtol 1e-5), every gradient of its blocks (within
+    1e-4 of the whole gradient's largest |g|) and the gradients' norm
+    (rtol 1e-4) against the one-process run of the whole model, which
+    each rank runs in turn, every token routed alike;
+43. bfloat16, 3 AdamW steps of one row of 2,048 tokens at lr 1e-3
+    (``SHARDED_TRAIN_RUN``): each rank's launches a step
+    (``per_packet``), losses equal on the four ranks, the held-out
+    objective lower after, its step time, kernel time and busy share,
+    its time in collectives, its peak within ``SHARDED_TRAIN_PEAK`` of
+    the plan's rank-0 step (``launch.dryrun.plan`` on ``h100x4``) and
+    its counted collectives equal to the plan's; then
+    ``flash_attention`` and ``selective_scan`` and their backwards held
+    against their plain versions at a rank's shapes (B=1 S=2,048 8/2
+    heads of 128 in bfloat16; ``d_inner`` 2048, ``d_state`` 16) and
+    timed, the attention's beside SDPA (``sharded_train_shape`` of their
+    records, whose ``launches_by_path`` gain phase 43's launches).
 
 Phases 8a and 18–25 add their launches to the records of
 ``flash_attention``, ``flash_attention_bwd``, ``flash_decode`` and
@@ -400,8 +426,9 @@ whose launches are phases 23–25's; phase 28's is ``flash_attention_bwd_d192``,
 whose launches are phase 29's, which also adds its forward launches to
 ``flash_attention_d192`` and both to the records of all head dims; phases
 31-34 add theirs to ``flash_attention`` and ``flash_decode``, 35-37
-theirs to those two and ``selective_scan``, and 38-41 theirs to
-``flash_attention`` and ``flash_attention_bwd``.  The line
+theirs to those two and ``selective_scan``, 38-41 theirs to
+``flash_attention`` and ``flash_attention_bwd``, and 42-43 theirs to
+the two attention kernels and the two scan kernels.  The line
 before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  It exits non-zero, printing no result,
 without a card or outside a checkout of the repository.
@@ -573,7 +600,10 @@ ATTN_TOL = {"bfloat16": (2e-2, 2e-2), "float32": (1e-4, 2e-5)}
 ATTN_LSE_TOL = dict(rtol=1e-5, atol=1e-4)
 # the selective scan: that of tests/test_kernels.py:152
 SCAN_TOL = (1e-4, 1e-5)
-# falcon-mamba-7b's card-against-host check runs its first 8 layers
+# falcon-mamba-7b is served on 32 of its 64 layers (a cut of depth that
+# keeps the script within its time) and its card-against-host check runs
+# its first 8
+MAMBA_SERVED_LAYERS = 32
 MAMBA_PARITY_LAYERS = 8
 
 
@@ -1388,9 +1418,8 @@ def mamba_phases(args, torch, dev0, launches, record):
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
 
-    cfg = get_config("falcon-mamba-7b")
-    if args.small:
-        cfg = replace(cfg, n_layers=2)
+    cfg = replace(get_config("falcon-mamba-7b"),
+                  n_layers=2 if args.small else MAMBA_SERVED_LAYERS)
     P, lws = SERVE["prompt"], SERVE["lws"]
     di, ds = cfg.d_inner, cfg.ssm.d_state
 
@@ -1432,7 +1461,10 @@ def mamba_phases(args, torch, dev0, launches, record):
 
 
 # ------------------------------------------------ MLA and MoE (deepseek)
-# the card-against-host check runs the dense first layer and two MoE layers
+# deepseek-v2-lite-16b is served on 14 of its 27 layers (the dense first
+# and 13 MoE: a cut of depth that keeps the script within its time); the
+# card-against-host check runs the dense first layer and two MoE layers
+MLA_SERVED_LAYERS = 14
 MOE_PARITY_LAYERS = 3
 
 
@@ -1497,9 +1529,9 @@ def mla_phases(args, torch, dev0, record):
     # what the earlier phases left in reference cycles goes before the
     # 31.4 GB of weights come
     free_card(torch, dev0, "deepseek phases")
-    cfg = get_config("deepseek-v2-lite-16b")
-    if args.small:
-        cfg = replace(cfg, n_layers=2)       # the dense layer and one MoE
+    # --small: the dense layer and one MoE
+    cfg = replace(get_config("deepseek-v2-lite-16b"),
+                  n_layers=2 if args.small else MLA_SERVED_LAYERS)
     m = cfg.mla
     H, D, DV = cfg.n_heads, m.nope_head_dim + m.rope_head_dim, m.v_head_dim
     P, lws = SERVE["prompt"], SERVE["lws"]
@@ -1569,8 +1601,10 @@ def mla_phases(args, torch, dev0, record):
 
 # ------------------------------ the hybrid period (jamba) and the frontends
 # jamba-v0.1-52b's 32 layers hold 103.1 GB of bfloat16 weights: the card
-# serves two of its four periods of 8 (16 layers, 52.11 GB)
-JAMBA_SERVED_LAYERS = 16
+# serves one of its four periods of 8 (8 layers, 26.6 GB: a cut of depth
+# that keeps the script within its time), in phase 18 and on four ranks
+# in phase 36
+JAMBA_SERVED_LAYERS = 8
 # one period of 4 at full width (the smoke config's period): ``--small``
 # serves it, and the card-against-host check runs layers 0, 1, 4 and 5 of
 # the served model under it (Mamba + MoE, Mamba + MLP, attention + MoE,
@@ -1590,7 +1624,7 @@ SERVED_KERNELS = {"flash_attention": "llama3.2-1b",
 
 def jamba_phases(args, torch, dev0):
     """Hold the attention kernels at jamba's heads (D = 128, H = 32, KH =
-    8) and serve jamba-v0.1-52b at full width on 16 of its 32 layers
+    8) and serve jamba-v0.1-52b at full width on 8 of its 32 layers
     (phase 18); card against host in float32 on one period of 4 of its
     layers, with the routing equal (19).  Returns (the served path's
     launches, the two kernels' measurements at jamba's shapes)."""
@@ -1623,7 +1657,7 @@ def jamba_phases(args, torch, dev0):
     dec = decode_check(torch, randn, lws, P + gen, H, KH, D, P + gen - 1,
                        bf16, timed=True)
 
-    # ------------------ phase 18: serve at full width, 16 layers, bf16
+    # ------------------ phase 18: serve at full width, 8 layers, bf16
     params = make_params(torch, dev0, cfg)
     served = {}
     serve_model(torch, dev0, cfg, params, served,
@@ -2439,8 +2473,12 @@ def frontend_train_phase(args, torch, dev0):
 ALLOC_UNSPLIT = 1 << 20
 # the planner's meshes: one card, and four cards of one host
 PLAN_MESHES = ("h100", "h100x4")
-# processes that plan the cells on the host (the machine's 8 cores)
+# processes that plan the cells on the host: the machine's 8 cores when
+# phase 26 runs alone (--phase plan), 3 beside the card phases (with 8 in
+# the background from phase 3 on, phases 3-25 took 123 s longer than in
+# the foreground run before: the cores are shared; PERF.md, run S5)
 PLAN_WORKERS = 8
+PLAN_BACKGROUND_WORKERS = 3
 # the planned peak of a training step against the card's
 # max_memory_allocated: |measured / planned - 1| at most this (found on
 # the card: llama3.2-1b's cell 1.0025, deepseek's 1.0002; PERF.md)
@@ -2470,19 +2508,51 @@ def sharded_note(rec) -> str:
     return f"; rank 0's step: {step.get('refused') or rec['collectives']}"
 
 
-def plan_phase(args):
-    """26. Plan every cell on one card and four; returns the records."""
+def start_plan(workers=PLAN_WORKERS):
+    """Start phase 26's planning of every cell on one card and four in a
+    thread of its own, which runs the cells in ``workers`` spawned
+    processes at the lowest priority (``os.nice(19)``: they take the
+    cores the card phases leave idle) and stops them when the last cell
+    is planned.  Returns (the thread, the dict it fills: "recs", "wall",
+    "cells" and "workers", or "error")."""
     import multiprocessing as mp
+    import os
+    import threading
+    import traceback
 
     from repro_torch.launch import dryrun as D
 
     # the training cells (the longest steps on meta) first
     cells = sorted(D.cell_list(), key=lambda c: not c[1].startswith("train"))
+    out = {"cells": len(cells), "workers": workers}
+
+    def run():
+        t0 = time.perf_counter()
+        try:
+            with mp.get_context("spawn").Pool(
+                    workers, initializer=os.nice,
+                    initargs=(19,)) as pool:
+                out["recs"] = [r for pair in pool.map(_plan_cell, cells,
+                                                      chunksize=1)
+                               for r in pair]
+        except BaseException:
+            out["error"] = traceback.format_exc()
+        out["wall"] = time.perf_counter() - t0
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    return thread, out
+
+
+def plan_phase(args, started=None):
+    """26. Plan every cell on one card and four (``started``: a
+    ``start_plan`` already running); returns the records."""
+    thread, out = started or start_plan()
     t0 = time.perf_counter()
-    with mp.get_context("spawn").Pool(PLAN_WORKERS) as pool:
-        recs = [r for pair in pool.map(_plan_cell, cells, chunksize=1)
-                for r in pair]
-    wall = time.perf_counter() - t0
+    thread.join()
+    check("error" not in out, f"plan: {out.get('error')}")
+    recs, wall = out["recs"], out["wall"]
+    log(f"plan: waited {time.perf_counter() - t0:.1f} s for it")
     for r in recs:
         check(r["flops"] > 0 and r["argument_bytes_per_device"] > 0,
               f"plan {r['arch']} x {r['shape']} x {r['mesh']}: empty")
@@ -2495,8 +2565,9 @@ def plan_phase(args):
             f" a device, dots {r['dot_flops']:.4e}), traffic "
             f"{r['traffic_bytes']:.4e} B, kernels {calls}; the step on meta "
             f"in {r['meta_run_s']:.1f} s" + sharded_note(r))
-    log(f"plan: {len(cells)} cells x {len(PLAN_MESHES)} meshes in "
-        f"{wall:.1f} s wall ({PLAN_WORKERS} processes, meta device)")
+    log(f"plan: {out['cells']} cells x {len(PLAN_MESHES)} meshes in "
+        f"{wall:.1f} s wall ({out['workers']} processes at nice 19, meta "
+        f"device)")
     return recs
 
 
@@ -3676,16 +3747,16 @@ def host_phase(args, torch, dev0, attach, host_runs, build_s):
 # ------------------------- the dense configs and dbrx served (31-34)
 # (arch, layers served at full width (None: all of them), layers of the
 # float32 card-against-host model, its kernel records' entry, seed).
-# qwen3-32b's 64 layers are 65.5 GB of bfloat16 weights and fit the card
-# whole; dbrx-132b's 40 are 263 GB: its first 8 (27.3 B parameters, 54.6
-# GB) are served.  The float32 models are made fresh from the cut config
+# Each is served on a quarter to a half of its layers (dbrx-132b's 40
+# are 263 GB, qwen3-32b's 64 65.5 GB): a layer adds nothing the first
+# ones do not check, and the script's time is bounded (PERF.md).  The float32 models are made fresh from the cut config
 # (never a float32 copy of the served weights: qwen3's would be 131 GB):
 # qwen3 2 layers with its 151,936-token embedding and head (10.1 GB a
 # side), yi 4, stablelm 8, dbrx 2 (31 GB a side, 13 GB a layer)
-SERVED_CONFIGS = (("qwen3-32b", None, 2, "qwen3_shape", 8),
-                  ("yi-9b", None, 4, "yi_shape", 9),
-                  ("stablelm-3b", None, 8, "stablelm_shape", 10),
-                  ("dbrx-132b", 8, 2, "dbrx_shape", 11))
+SERVED_CONFIGS = (("qwen3-32b", 16, 2, "qwen3_shape", 8),
+                  ("yi-9b", 24, 4, "yi_shape", 9),
+                  ("stablelm-3b", 16, 8, "stablelm_shape", 10),
+                  ("dbrx-132b", 4, 2, "dbrx_shape", 11))
 
 
 def served_config_phase(args, torch, dev0, arch, n_layers, n_parity, seed):
@@ -3730,9 +3801,9 @@ def served_config_phase(args, torch, dev0, arch, n_layers, n_parity, seed):
         log(f"serve {arch}: {n} of its {full.n_layers} layers (--small)")
     elif n != full.n_layers:
         log(f"serve {arch}: depth cut to its first {n} of {full.n_layers} "
-            f"layers at full width (the whole model's "
+            f"layers at full width (the whole model: "
             f"{T.param_count(full)[0] * 2 / 1e9:.1f} GB of bfloat16 "
-            f"weights do not fit the card)")
+            f"weights; SERVED_CONFIGS says why)")
     params = make_params(torch, dev0, cfg)
     served = {}
     row = serve_model(torch, dev0, cfg, params, served,
@@ -3776,9 +3847,9 @@ def served_configs_phases(args, torch, dev0):
 # planner's h100x4, joined by gloo (NCCL refuses two ranks on one GPU)
 SHARDED_WORLD = 4
 SHARDED_PATH = "jamba-v0.1-52b sharded (1, 4)"
-# phase 36: 16 of the 32 layers at full width in bfloat16 (52.11 GB, 13.0
-# GB a rank), the llama set-up's request shape: batch 4, prompt 256, 32
-# greedy tokens
+# phase 36: phase 18's 8 of the 32 layers at full width in bfloat16 (26.6
+# GB, about a quarter of it a rank), the llama set-up's request shape:
+# batch 4, prompt 256, 32 greedy tokens
 SHARDED_RUN = dict(batch=4, prompt=256, gen=32)
 # phase 35: the ranks' float32 logits against the one-process card run
 # (TF32 off), the tolerance of tests/test_torch_dense_configs.py
@@ -3792,6 +3863,62 @@ SHARDED_TIMEOUT_S = 600
 SHARDED_SEED = 11
 # the ranks' allocator settings (their environment at spawn)
 ALLOC_CONF = "PYTORCH_CUDA_ALLOC_CONF"
+
+
+def run_ranks(torch, dev0, fn, *args):
+    """``fn(rank, world, *args)`` on ``SHARDED_WORLD`` gloo ranks of
+    ``dev0`` (``parallel/spmd.py``), the card's free blocks returned
+    first; their results, rank 0 first.  The ranks take expandable
+    segments: emptying a rank's cache after its turn then returns every
+    free page, not only the segments no block holds (fragments kept 7 GB
+    a rank, and phase 36 ran out of memory)."""
+    import os
+    import tempfile
+
+    from repro_torch.parallel import spmd
+
+    free_card(torch, dev0, f"before {SHARDED_WORLD} ranks")
+    before = os.environ.get(ALLOC_CONF)
+    os.environ[ALLOC_CONF] = "expandable_segments:True"
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            return spmd.run(fn, SHARDED_WORLD, store_dir=d, backend="gloo",
+                            device=str(dev0), args=args,
+                            timeout=SHARDED_TIMEOUT_S)
+    finally:
+        if before is None:
+            del os.environ[ALLOC_CONF]
+        else:
+            os.environ[ALLOC_CONF] = before
+
+
+def timed_run(torch, res):
+    """A copy of the rank's ``res`` that adds each collective's time on
+    the host clock (the backward's too), the card drained before and
+    after it, to its ``seconds``."""
+    import dataclasses
+
+    from repro_torch.parallel.collectives import ShardedRun
+
+    class TimedRun(ShardedRun):
+        seconds = 0.0
+
+        def _timed(self, fn, *a):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            y = fn(*a)
+            torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t
+            return y
+
+        def _reduce(self, x, op="sum"):
+            return self._timed(super()._reduce, x, op)
+
+        def _gather(self, x, dim):
+            return self._timed(super()._gather, x, dim)
+
+    return TimedRun(**{f.name: getattr(res, f.name)
+                       for f in dataclasses.fields(res)})
 
 
 def seeded_params(torch, cfg, dev, res=None):
@@ -3855,10 +3982,11 @@ def teacher_forced(torch, cfg, params, tokens, prompt, dev, res=None,
         return torch.stack(outs, dim=1).cpu()
 
 
-def rank_setup(rank, world, cfg):
+def rank_setup(rank, world, cfg, train=False):
     """A rank's start: the kernels loaded (the parent built them: a rank
     that compiles fails), TF32 off, nothing of ``jax`` or ``repro``
-    imported, and its ``res`` on the (1, ``world``) mesh."""
+    imported, and its ``res`` on the (1, ``world``) mesh (``train``: as
+    ``sharded_run`` checks a training run)."""
     import torch
     import torch.distributed as dist
 
@@ -3871,7 +3999,7 @@ def rank_setup(rank, world, cfg):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     res = sharded_run(cfg, make_test_mesh(world), rank=rank,
-                      group=dist.group.WORLD)
+                      group=dist.group.WORLD, train=train)
     leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "repro")]
     check(not leaked, f"rank {rank} imported {leaked}")
     return torch, res, torch.device("cuda", torch.cuda.current_device())
@@ -3930,14 +4058,11 @@ def sharded_serve_rank(rank, world, cfg, prompts, gen):
     0 just before), a prefill's and a decode step's time (CUDA events), kernel
     time (busy share), peak memory, and on extra steps the collectives
     ``OpCost`` counts and the time spent in them."""
-    import dataclasses
-
     torch, res, dev = rank_setup(rank, world, cfg)
     import torch.distributed as dist
 
     from repro_torch.launch import op_cost
     from repro_torch.models import transformer as T
-    from repro_torch.parallel.collectives import ShardedRun
 
     t0 = time.perf_counter()
     params = seeded_params(torch, cfg, dev, res)
@@ -4006,29 +4131,9 @@ def sharded_serve_rank(rank, world, cfg, prompts, gen):
                 fn()
             counted[kind] = oc.summary()["collectives"]
 
-        class TimedRun(ShardedRun):
-            """The run with each collective's time on the host clock,
-            the card drained before and after it."""
-            seconds = 0.0
-
-            def _timed(self, fn, *a):
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                y = fn(*a)
-                torch.cuda.synchronize()
-                self.seconds += time.perf_counter() - t
-                return y
-
-            def all_reduce(self, x):
-                return self._timed(super().all_reduce, x)
-
-            def all_gather(self, x, dim):
-                return self._timed(super().all_gather, x, dim)
-
         coll_ms = {}
         for kind, fn in (("prefill", prefill), ("decode", step)):
-            timed = TimedRun(**{f.name: getattr(res, f.name)
-                                for f in dataclasses.fields(res)})
+            timed = timed_run(torch, res)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             fn(timed)
@@ -4045,13 +4150,11 @@ def sharded_serve_rank(rank, world, cfg, prompts, gen):
 def sharded_phases(args, torch, dev0):
     """Phases 35-37: jamba-v0.1-52b split over four ranks on the card
     (``parallel/spmd.py``, gloo): float32 parity of one period of 4
-    against the one-process card run (35), 16 of its 32 layers at full
+    against the one-process card run (35), 8 of its 32 layers at full
     width served greedily by the four ranks (36), the planner's
     collectives against the ranks' and the three kernels at the per-rank
     shapes (37).  Returns (each kernel's launches over the four ranks of
     phase 36, its record entry at the per-rank shapes)."""
-    import os
-    import tempfile
     from dataclasses import replace
 
     from repro_torch.configs import get_config
@@ -4059,7 +4162,6 @@ def sharded_phases(args, torch, dev0):
     from repro_torch.launch import dryrun as D
     from repro_torch.launch.mesh import card_mesh
     from repro_torch.models import transformer as T
-    from repro_torch.parallel import spmd
 
     world = SHARDED_WORLD
     full = get_config("jamba-v0.1-52b")
@@ -4070,24 +4172,6 @@ def sharded_phases(args, torch, dev0):
     # PERF.md): no faster, and it moves a quarter of the bytes
     log(f"sharded: {world} ranks on {dev0} over gloo; the logits' gather "
         f"through host memory, the all-reduces on the card's tensors")
-
-    def ranks(fn, *a):
-        free_card(torch, dev0, f"before {world} ranks")
-        # expandable segments: emptying a rank's cache after its turn then
-        # returns every free page, not only the segments no block holds
-        # (fragments kept 7 GB a rank, and phase 36 ran out of memory)
-        before = os.environ.get(ALLOC_CONF)
-        os.environ[ALLOC_CONF] = "expandable_segments:True"
-        try:
-            with tempfile.TemporaryDirectory() as d:
-                return spmd.run(fn, world, store_dir=d, backend="gloo",
-                                device=str(dev0), args=a,
-                                timeout=SHARDED_TIMEOUT_S)
-        finally:
-            if before is None:
-                del os.environ[ALLOC_CONF]
-            else:
-                os.environ[ALLOC_CONF] = before
 
     # ------------- phase 35: float32, one period of 4, ranks against one
     stamp("phase 35")
@@ -4101,7 +4185,7 @@ def sharded_phases(args, torch, dev0):
     with recorded_routes() as routes:
         want = teacher_forced(torch, cut, p32, ptoks, P2, dev0)
     del p32
-    got = ranks(sharded_parity_rank, cut, ptoks, P2)
+    got = run_ranks(torch, dev0, sharded_parity_rank, cut, ptoks, P2)
     top = float(want.abs().max())
     for r, g in enumerate(got):
         lg = torch.from_numpy(g["logits"])
@@ -4120,7 +4204,7 @@ def sharded_phases(args, torch, dev0):
             f"{err / top:.3g} of the largest logit {top:.3g} (rtol = atol "
             f"= 2e-4), {len(routes)} routings equal")
 
-    # ------------- phase 36: 16 layers, bfloat16, four ranks, greedy
+    # ------------- phase 36: 8 layers, bfloat16, four ranks, greedy
     stamp("phase 36")
     cfg = (replace(full, **JAMBA_PERIOD4) if args.small
            else replace(full, n_layers=JAMBA_SERVED_LAYERS))
@@ -4128,7 +4212,7 @@ def sharded_phases(args, torch, dev0):
     B, P, gen = (SHARDED_RUN[k] for k in ("batch", "prompt", "gen"))
     prompts = np.random.default_rng(0).integers(
         0, cfg.vocab_size, (B, P)).astype(np.int32)
-    served = ranks(sharded_serve_rank, cfg, prompts, gen)
+    served = run_ranks(torch, dev0, sharded_serve_rank, cfg, prompts, gen)
     want_l = {"flash_attention": n_attn,
               "selective_scan": cfg.n_layers - n_attn,
               "flash_decode": n_attn * (gen - 1)}
@@ -4199,8 +4283,9 @@ def sharded_phases(args, torch, dev0):
 # qwen3-32b, yi-9b, stablelm-3b and dbrx-132b trained at full width on
 # TRAIN_4K's sequence: (arch, seed, parity layers; 0 where the host cannot
 # hold a float32 copy of a layer with its moments, so the attention
-# backward at the config's heads is held on the card instead)
-DENSE_TRAIN = (("qwen3-32b", 21, 2), ("yi-9b", 22, 2),
+# backward at the config's heads is held on the card instead; qwen3-32b's
+# one layer: the host's float32 step of two took 43 s)
+DENSE_TRAIN = (("qwen3-32b", 21, 1), ("yi-9b", 22, 2),
                ("stablelm-3b", 23, 2), ("dbrx-132b", 24, 0))
 # each run: TRAIN_4K's 256 rows cut to 4 (a packet holds one or two of
 # them: lws 1), 3 steps
@@ -4402,6 +4487,325 @@ def dense_train_phases(args, torch, dev0):
     return runs, checks, entries
 
 
+# ------------- jamba-v0.1-52b trained by four ranks (phases 42-43)
+SHARDED_TRAIN_PATH = "jamba-v0.1-52b sharded train (1, 4)"
+# phase 43: phase 23's 2-layer cut at full width, one row of 2,048 tokens
+# (the same row on every rank: "data" is 1), 3 AdamW steps with float32
+# moments at phase 23's lr 1e-3: a rank holds 0.92 B parameters, 1.8 GB
+# of bfloat16 weights, 1.8 GB of gradients and 7.4 GB of moments.  At lr
+# 1e-4 the held-out objective rose (11.5985 -> 11.6113, PERF.md): an
+# update of 1e-4 is about one bfloat16 step of a weight of 0.016
+SHARDED_TRAIN_RUN = dict(batch=1, seq=2048, steps=3)
+SHARDED_TRAIN_OPT = TRAIN_OPT
+# phase 42: float32 ranks against one process, at the tolerances of
+# tests/test_torch_train_dense.py: the loss (rtol), each gradient made
+# whole (of its largest |g|), the gradients' norm (rtol)
+SHARDED_TRAIN_TOL = dict(loss=1e-5, grad=1e-4, norm=1e-4)
+# phase 43's peak of a rank against the plan's rank-0 peak
+SHARDED_TRAIN_PEAK = (0.85, 1.15)
+
+
+def rank_blocks(cfg, res, whole, tensors):
+    """The rank's blocks (``transformer.shard_params``' cut) of
+    ``tensors``, a dict by parameter name of ``whole``'s shapes."""
+    from repro_torch.models import transformer as T
+    axes = T.param_axes(cfg, whole)
+    out = {}
+    for n, t in tensors.items():
+        owner, _, leaf = n.rpartition(".")
+        out[n] = T._local(res, cfg, whole.get_submodule(owner), leaf,
+                          axes[n], t).data
+    return out
+
+
+def grad_parity(torch, res, dev, cfg, batch):
+    """Phase 42 on one rank.  The four ranks run the sharded float32 loss
+    and gradients of their blocks of the weights (kept on the host); then,
+    in turn, each rank runs the one-process loss and gradients of the
+    whole model (``res`` None) and holds its blocks of them against its
+    own.  Returns the losses, norms, each parameter's error relative to
+    its whole gradient's largest |g|, and whether every routing was
+    equal."""
+    import torch.distributed as dist
+
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.training.step import make_grad_fn
+
+    b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    params = seeded_params(torch, cfg, dev, res)
+    params.requires_grad_(True)
+    weights_gb = T.param_bytes(params) / 1e9
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    with recorded_routes() as routes:
+        (total, _), grads = make_grad_fn(cfg, res)(params, b)
+    torch.cuda.synchronize()
+    sharded_s = time.perf_counter() - t0
+    norm = float(adamw.global_norm(grads, res, T.split_names(cfg, res)))
+    # the card holds one whole model and its gradients at a time
+    grads = {n: g.cpu() for n, g in grads.items()}
+    del params
+    torch.cuda.empty_cache()
+    for turn in range(res.size):
+        if turn == res.rank:
+            whole = seeded_params(torch, cfg, dev)
+            whole.requires_grad_(True)
+            t0 = time.perf_counter()
+            with recorded_routes() as one_routes:
+                (one_total, _), one = make_grad_fn(cfg)(whole, b)
+            torch.cuda.synchronize()
+            one_s = time.perf_counter() - t0
+            one_norm = float(adamw.global_norm(one))
+            errs = {}
+            for n, ref in rank_blocks(cfg, res, whole, one).items():
+                top = float(torch.linalg.vector_norm(one[n], math.inf))
+                errs[n] = float((grads[n].to(dev) - ref).abs().max()) / max(
+                    top, 1e-30)
+                del ref
+            del whole, one
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    same = len(routes) == len(one_routes) and all(
+        torch.equal(a[1], c[1]) for a, c in zip(routes, one_routes))
+    return dict(one_loss=float(one_total), loss=float(total),
+                one_norm=one_norm, norm=norm, errs=errs, routes_equal=same,
+                n_routes=len(routes), one_s=one_s, sharded_s=sharded_s,
+                weights_gb=weights_gb)
+
+
+def train_run(torch, res, dev, cfg, batches, held, steps, plan_peak):
+    """Phase 43 on one rank: its bfloat16 blocks made in turns, AdamW
+    state, the held-out objective before and after ``steps`` steps of
+    ``make_train_step(res=...)`` (launches counted from 0 just before,
+    each step timed, the peak since the state was made), then on extra
+    steps its kernel time, the collectives ``OpCost`` counts and the time
+    spent in them."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import op_cost
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import OptConfig, init_state
+    from repro_torch.training.step import make_loss_fn, make_train_step
+
+    t0 = time.perf_counter()
+    params = seeded_params(torch, cfg, dev, res)
+    opt = OptConfig(**SHARDED_TRAIN_OPT)
+    state = init_state(params, opt)
+    build_s = time.perf_counter() - t0
+    loss_fn = make_loss_fn(cfg, res)
+    step = make_train_step(cfg, opt, res=res)
+
+    def on_card(batch):
+        return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+    def objective():
+        with torch.no_grad():
+            return float(loss_fn(state.params, on_card(held))[0])
+
+    before = objective()
+    torch.cuda.synchronize()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats(dev)
+    read_counts(reset=True)
+    step_s, losses = [], []
+    for b in batches[:steps]:
+        t0 = time.perf_counter()
+        state, m = step(state, on_card(b))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    after = objective()
+    extra = on_card(batches[-1])
+
+    def one_step(run=res):
+        nonlocal state
+        fn = step if run is res else make_train_step(cfg, opt, res=run)
+        state, _ = fn(state, extra)
+
+    dist.barrier()
+    kernel_ms = rank_kernel_ms(torch, one_step, 1)
+    with op_cost.OpCost() as oc:
+        one_step()
+    counted = oc.summary()["collectives"]
+
+    timed = timed_run(torch, res)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one_step(timed)
+    torch.cuda.synchronize()
+    return dict(before=before, after=after, losses=losses, step_s=step_s,
+                launches=launches, peak=peak, plan_peak=plan_peak,
+                build_s=build_s, kernel_ms=kernel_ms, collectives=counted,
+                collective_ms=(timed.seconds * 1e3,
+                               (time.perf_counter() - t0) * 1e3),
+                weights_gb=T.param_bytes(state.params) / 1e9)
+
+
+def sharded_train_rank(rank, world, cfg32, parity_batch, cfg, batches, held,
+                       steps, plan_peak):
+    """Phases 42-43 on one rank, one spawn for both: :func:`grad_parity`
+    of the float32 ``cfg32``, then :func:`train_run` of ``cfg``."""
+    torch, res, dev = rank_setup(rank, world, cfg, train=True)
+    t0 = time.perf_counter()
+    parity = grad_parity(torch, res, dev, cfg32, parity_batch)
+    torch.cuda.empty_cache()
+    parity["s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train = train_run(torch, res, dev, cfg, batches, held, steps, plan_peak)
+    train["s"] = time.perf_counter() - t0
+    return dict(parity=parity, train=train)
+
+
+def sharded_train_phases(args, torch, dev0):
+    """Phases 42-43: jamba-v0.1-52b's 2-layer cut at full width trained
+    by four gloo ranks on the card.  42: the float32 loss, every
+    gradient made whole and the gradients' norm of the ranks against one
+    process, at 1 x 256 tokens; 43: 3 bfloat16 steps at 1 x 2,048 tokens
+    (launches, step time, busy share, peaks against the plan's rank-0
+    step, the plan's collectives against the card's, the held-out
+    objective), then the two attention kernels and the two scan kernels
+    at a rank's shapes against their plain versions.  Returns (each
+    kernel's launches over the four ranks of phase 43, its record entry
+    at a rank's shapes)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import card_mesh
+
+    world = SHARDED_WORLD
+    full = get_config("jamba-v0.1-52b")
+    # one microbatch: the row is the batch (the config accumulates 16)
+    cfg = replace(full, accum_override=0, **JAMBA_TRAIN)
+    log(f"sharded training: {cfg.name} on {cfg.n_layers} of "
+        f"{full.n_layers} layers (attention + MoE, Mamba + MLP) at full "
+        f"width, {world} gloo ranks on {dev0}")
+
+    # phase 42: float32 at 1 x 256 tokens, the ranks' gradients against
+    # one process's; phase 43: bfloat16, 3 steps of 1 x 2,048 tokens; one
+    # rank set runs both
+    cfg32 = replace(cfg, dtype="float32")
+    parity_batch = SyntheticPipeline(cfg32, ShapeConfig(
+        "parity", TRAIN_PARITY_SEQ, 1, "train")).batch_at(0)
+    B, S, steps = (SHARDED_TRAIN_RUN[k] for k in ("batch", "seq", "steps"))
+    if args.small:
+        S = 512
+    shape = ShapeConfig("sharded_train", S, B, "train")
+    pipe = SyntheticPipeline(cfg, shape, DataConfig(seed=TRAIN["seed"]))
+    batches = [pipe.batch_at(i) for i in range(steps)]
+    held = pipe.batch_at(steps + 1)
+    rec = D.plan(cfg, shape, card_mesh("h100x4"))
+    own = rec["sharded_step"]
+    check("refused" not in own, f"plan h100x4 train: {own.get('refused')}")
+    out = run_ranks(torch, dev0, sharded_train_rank, cfg32, parity_batch,
+                    cfg, batches, held, steps, own["predicted_peak_bytes"])
+    got = [o["parity"] for o in out]
+    runs = [o["train"] for o in out]
+    log(f"sharded training: phase 42 {max(g['s'] for g in got):.1f} s and "
+        f"phase 43 {max(t['s'] for t in runs):.1f} s on the ranks")
+
+    # ----------- phase 42: float32, the ranks' gradients against one
+    tol = SHARDED_TRAIN_TOL
+    for r, g in enumerate(got):
+        rel = abs(g["loss"] - g["one_loss"]) / abs(g["one_loss"])
+        worst = max(g["errs"].items(), key=lambda kv: kv[1])
+        nrel = abs(g["norm"] - g["one_norm"]) / g["one_norm"]
+        log(f"sharded train parity rank {r} (float32, TF32 off, 1 x "
+            f"{TRAIN_PARITY_SEQ}): {g['weights_gb']:.2f} GB of weights; "
+            f"loss {g['loss']:.7f} against one process's "
+            f"{g['one_loss']:.7f} ({rel:.3g} relative, limit "
+            f"{tol['loss']}); every gradient made whole within "
+            f"{worst[1]:.3g} of its largest |g| ({worst[0]}; limit "
+            f"{tol['grad']}); norm {g['norm']:.6f} against "
+            f"{g['one_norm']:.6f} ({nrel:.3g}, limit {tol['norm']}); "
+            f"{g['n_routes']} routings equal: {g['routes_equal']}; one "
+            f"process {g['one_s']:.2f} s, the ranks {g['sharded_s']:.2f} s")
+        check(math.isfinite(g["loss"]) and rel <= tol["loss"],
+              f"sharded train parity: rank {r}'s loss {g['loss']} against "
+              f"one process's {g['one_loss']} ({rel:.3g} relative)")
+        check(worst[1] <= tol["grad"], f"sharded train parity: rank {r}'s "
+              f"{worst[0]} gradient {worst[1]:.3g} of its largest away")
+        check(nrel <= tol["norm"], f"sharded train parity: rank {r}'s "
+              f"norm {g['norm']} against {g['one_norm']}")
+        check(g["routes_equal"] and g["n_routes"] > 0,
+              f"sharded train parity: rank {r} routes tokens to other "
+              f"experts than one process")
+        check(g["loss"] == got[0]["loss"] and g["norm"] == got[0]["norm"],
+              f"sharded train parity: rank {r}'s loss or norm differs "
+              f"from rank 0's")
+
+    # ----------- phase 43: bfloat16, 3 steps of 1 x 2,048 tokens
+    want_l = {k: v * steps for k, v in per_packet(cfg).items()}
+    lo, hi = SHARDED_TRAIN_PEAK
+    for r, t in enumerate(runs):
+        ratio = t["peak"] / t["plan_peak"]
+        step_ms = 1e3 * sum(t["step_s"][1:]) / max(len(t["step_s"]) - 1, 1)
+        log(f"sharded train rank {r}: {t['weights_gb']:.2f} GB of weights "
+            f"made with their moments in {t['build_s']:.1f} s; losses "
+            f"{[round(x, 4) for x in t['losses']]}; step s "
+            f"{[round(x, 3) for x in t['step_s']]} (steps 2-{steps} "
+            f"{step_ms:.1f} ms a step, {B * S / step_ms * 1e3:.0f} tokens/s "
+            f"a rank set); kernel ms a step {t['kernel_ms']:.1f}, busy "
+            f"{t['kernel_ms'] / step_ms:.1%}; in collectives "
+            f"{t['collective_ms'][0]:.1f} ms of the timed step's "
+            f"{t['collective_ms'][1]:.1f} ms (host clock, card drained "
+            f"around each); peak {t['peak'] / 1e9:.3f} GB against the "
+            f"plan's rank-0 {t['plan_peak'] / 1e9:.3f} GB ({ratio:.4f}, "
+            f"limits {lo}-{hi}); held-out objective {t['before']:.6f} -> "
+            f"{t['after']:.6f}; launches {t['launches']}; collectives a "
+            f"step {json.dumps(t['collectives'])}")
+        check(t["launches"] == want_l, f"sharded train: rank {r} launched "
+              f"{t['launches']}, expected {want_l}")
+        check(all(math.isfinite(x) for x in t["losses"])
+              and t["after"] < t["before"],
+              f"sharded train: rank {r}'s losses {t['losses']}, held-out "
+              f"objective {t['before']} -> {t['after']}")
+        check(t["losses"] == runs[0]["losses"], f"sharded train: rank {r}'s "
+              f"losses differ from rank 0's")
+        check(lo <= ratio <= hi, f"sharded train: rank {r}'s peak "
+              f"{t['peak'] / 1e9:.3f} GB against the plan's "
+              f"{t['plan_peak'] / 1e9:.3f} GB ({ratio:.4f})")
+        check(t["collectives"] == rec["collectives"],
+              f"sharded train: rank {r} counted {t['collectives']}, the "
+              f"plan {rec['collectives']}")
+    log(f"plan h100x4 train (batch {B}, seq {S}, {cfg.n_layers} layers): "
+        f"collectives equal to each rank's counted step, "
+        f"{json.dumps(rec['collectives'])}; rank 0's arguments "
+        f"{rec['argument_bytes_per_device'] / 1e9:.3f} GB, its predicted "
+        f"peak {own['predicted_peak_bytes'] / 1e9:.3f} GB (even share "
+        f"{rec['predicted_peak_bytes_per_device'] / 1e9:.3f} GB)")
+
+    H, KH = cfg.n_heads // world, cfg.n_kv_heads // world
+    D_, di = cfg.resolved_head_dim, cfg.d_inner // world
+    gen_t = torch.Generator(dev0).manual_seed(12)
+
+    def randn(shape_, dtype):
+        return torch.randn(shape_, generator=gen_t, device=dev0).to(dtype)
+
+    log("training kernels at a rank's shapes against their plain versions:")
+    bf16 = torch.bfloat16
+    shapes = {
+        "flash_attention": attn_check(torch, randn, B, S, H, KH, D_, bf16,
+                                      timed=True),
+        "flash_attention_bwd": attn_bwd_check(torch, randn, B, S, H, KH, D_,
+                                              bf16, timed=True),
+        "selective_scan": scan_kernel_check(torch, dev0, gen_t, B, S, di,
+                                            cfg.ssm.d_state, timed=True),
+        "selective_scan_bwd": scan_bwd_check(torch, dev0, gen_t, B, S, di,
+                                             cfg.ssm.d_state, timed=True)}
+    entries = {k: long_entry(r, f"{k}, a rank's training share")
+               for k, r in shapes.items()}
+    launches = {k: sum(t["launches"][k] for t in runs) for k in want_l}
+    return launches, entries
+
+
 def device_line(torch) -> str:
     return json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4413,11 +4817,12 @@ def main() -> int:
     ap.add_argument("--small", action="store_true",
                     help="small sizes instead of the paper's")
     ap.add_argument("--phase", choices=["fleet", "plan", "served",
-                                        "sharded", "trained"],
+                                        "sharded", "trained",
+                                        "sharded_train"],
                     help="build, then run these phases alone (fleet: 8a; "
                          "plan: 26-30; served: 31-34; sharded: 35-37; "
-                         "trained: 38-41) as a quicker check; prints no "
-                         "kernels line")
+                         "trained: 38-41; sharded_train: 42-43) as a "
+                         "quicker check; prints no kernels line")
     args = ap.parse_args()
 
     import torch
@@ -4484,6 +4889,13 @@ def main() -> int:
     if args.phase == "sharded":
         sharded, _ = sharded_phases(args, torch, dev0)
         log(f"sharded launches: {json.dumps(sharded)}")
+        print(smi)
+        print(device_line(torch))
+        return 0
+
+    if args.phase == "sharded_train":
+        sharded, _ = sharded_train_phases(args, torch, dev0)
+        log(f"sharded training launches: {json.dumps(sharded)}")
         print(smi)
         print(device_line(torch))
         return 0
@@ -4807,6 +5219,9 @@ def main() -> int:
     stamp("phase 5f")
     host_info = host_phase(args, torch, dev0, attach, host_runs,
                            host_build_s)
+    # phase 26's planning runs beside the card phases from here on (not
+    # beside phase 5f, which times the host routines on the host's cores)
+    planning = start_plan(PLAN_BACKGROUND_WORKERS)
     stamp("phases 6-8")
     serving_phases(args, torch, dev0, launches, record)
     paths = {}
@@ -4857,7 +5272,7 @@ def main() -> int:
 
     # phases 26-30: the planner, then MLA's backward and deepseek trained
     stamp("phases 26-27")
-    plan_phase(args)
+    plan_phase(args, planning)
     plan_checks = {"llama3.2-1b": llama_plan_phase(args, torch, dev0)}
     stamp("phase 28")
     mla_b = mla_bwd_phase(args, torch, dev0)
@@ -4952,6 +5367,16 @@ def main() -> int:
             rec.update(launches=sum(by.values()))
     attach("flash_attention_bwd", **{
         f"{m.split('-')[0]}_train_shape": e for m, e in dense_b.items()})
+    # phases 42-43: jamba-v0.1-52b trained by four ranks on the card; the
+    # ranks' launches join the four training kernels' records
+    stamp("phases 42-43")
+    sharded_t, shapes_t = sharded_train_phases(args, torch, dev0)
+    for rec in records:
+        if rec["name"] in sharded_t:
+            by = rec["launches_by_path"]
+            by[SHARDED_TRAIN_PATH] = sharded_t[rec["name"]]
+            rec.update(launches=sum(by.values()),
+                       sharded_train_shape=shapes_t[rec["name"]])
     log("training table: " + json.dumps(
         {m: {k: t[k] for k in ("step_s", "tokens_s", "busy", "peak_gb")}
          for m, t in trained.items()}))

@@ -19,12 +19,15 @@ sharding resolver over the state's logical axes, with the JAX package's
 resolvers: FSDP for training, ``serve_2d_weights`` for prefill.  Nothing
 is allocated and no card is needed.
 
-A prefill or decode cell on a mesh whose "model" axis exceeds 1 also runs
-rank 0's own step (``sharded_step``): its block of the weights and cache
-(``transformer.shard_params``, ``init_cache(res=...)``) on ``meta``, its
+A cell on a mesh whose "model" axis exceeds 1 also runs rank 0's own
+step (``sharded_step``): its block of the weights and cache
+(``transformer.shard_params``, ``init_cache(res=...)``) or of the
+training state (the blocks, their AdamW moments) on ``meta``, its
 collectives under a ``fake``-backend group of the axis' size, counted by
-``OpCost``; the record's ``collectives`` are that step's.  A config that
-``transformer.check_shardable`` refuses keeps ``{}`` and records why.
+``OpCost`` (a train step's forward, backward and remat recompute alike);
+the record's ``collectives`` are that step's.  A config that
+``transformer.check_shardable`` (serving) or ``check_trainable``
+(training) refuses keeps ``{}`` and records why.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh h100
     PYTHONPATH=src python -m repro_torch.launch.dryrun \\
@@ -51,6 +54,7 @@ from repro_torch.launch import op_cost
 from repro_torch.launch import specs as SP
 from repro_torch.launch.mesh import card_mesh
 from repro_torch.models import transformer as T
+from repro_torch.optim import adamw
 from repro_torch.optim.adamw import OptConfig
 from repro_torch.parallel import spmd
 from repro_torch.parallel.collectives import MODEL, sharded_run
@@ -136,13 +140,17 @@ def run_step(cfg: ModelConfig, shape: ShapeConfig,
              opt: Optional[OptConfig] = None, res=None) -> op_cost.OpCost:
     """The cell's step on ``meta`` under :class:`op_cost.OpCost`; the
     state and inputs are made before the mode starts, so its peak is of
-    what the step allocates beside them.  With ``res`` (a prefill or
-    decode cell) the step of that rank of the sharded model."""
+    what the step allocates beside them.  With ``res`` the step of that
+    rank of the sharded model."""
     opt = opt or OptConfig()
     ins = SP.input_specs(cfg, shape)
     if shape.kind == "train":
         state, _ = SP.abstract_train_state(cfg, opt)
-        fn = STEP.make_train_step(cfg, opt, accum_steps=cfg.accum_override
+        if res is not None:
+            state = adamw.init_state(T.shard_params(cfg, state.params, res),
+                                     opt)
+        fn = STEP.make_train_step(cfg, opt, res=res,
+                                  accum_steps=cfg.accum_override
                                   or shape.accum_steps)
         with op_cost.OpCost() as oc:
             fn(state, ins)
@@ -165,16 +173,17 @@ def run_step(cfg: ModelConfig, shape: ShapeConfig,
 
 def sharded_step(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh,
                  arg_bytes: int) -> Dict:
-    """Rank 0's step of a prefill or decode cell split over ``mesh``'s
-    "model" axis (the module's docstring): its totals, collectives and
-    predicted peak (``arg_bytes``, a device's arguments, plus what the
-    step holds), or ``{"refused": why}``."""
+    """Rank 0's step of a cell split over ``mesh``'s "model" axis (the
+    module's docstring): its totals, collectives and predicted peak
+    (``arg_bytes``, a device's arguments, plus what the step holds), or
+    ``{"refused": why}``."""
+    train = shape.kind == "train"
     try:
-        T.check_shardable(cfg, mesh)
+        (T.check_trainable if train else T.check_shardable)(cfg, mesh)
     except ValueError as e:
         return {"refused": str(e)}
     with spmd.fake_group(mesh.size) as group:
-        res = sharded_run(cfg, mesh, group=group)
+        res = sharded_run(cfg, mesh, group=group, train=train)
         oc = run_step(cfg, shape, res=res)
     s = oc.summary()
     out = {k: s[k] for k in ("flops", "dot_flops", "traffic_bytes",
@@ -220,7 +229,7 @@ def plan(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh, *,
         "per_device_bytes": args,
         "argument_bytes_per_device": arg_bytes,
         # the whole step's totals and an even share of them a device (a
-        # serve cell split over "model" also has rank 0's own step under
+        # cell split over "model" also has rank 0's own step under
         # "sharded_step", and its collectives here)
         "flops": summary["flops"],
         "dot_flops": summary["dot_flops"],
@@ -238,8 +247,7 @@ def plan(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh, *,
         "predicted_peak_bytes_per_device":
             arg_bytes + summary["peak_held_bytes"] / n,
     }
-    if shape.kind != "train" and dict(zip(mesh.axis_names,
-                                          mesh.shape)).get(MODEL, 1) > 1:
+    if dict(zip(mesh.axis_names, mesh.shape)).get(MODEL, 1) > 1:
         step = record["sharded_step"] = sharded_step(cfg, shape, mesh,
                                                      arg_bytes)
         if "refused" not in step:

@@ -21,7 +21,9 @@ moment tree becomes a dict keyed by the port's parameter names
 (:func:`named_from_jax`), and a whole JAX ``TrainState`` becomes the
 port's (:func:`state_from_jax`).  Given a rank of a sharded model
 (``res``), :func:`params_from_jax` returns that rank's block of the
-parameters (``transformer.shard_params``).
+parameters (``transformer.shard_params``), and :func:`whole_from_ranks`
+makes every rank's blocks of a parameter tree (parameters, gradients,
+moments) whole again.
 """
 from __future__ import annotations
 
@@ -34,7 +36,9 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.launch.mesh import coords as mesh_coords
 from repro_torch.optim.adamw import TrainState
+from repro_torch.parallel.sharding import Mesh, ShardingResolver, local_slice
 
 
 def _tensor(a, device) -> nn.Parameter:
@@ -134,3 +138,45 @@ def state_from_jax(cfg: ModelConfig, state_np, device="cuda") -> TrainState:
                           device=device),
         params=params, mu=named_from_jax(cfg, state_np.mu, device),
         nu=named_from_jax(cfg, state_np.nu, device))
+
+
+def _place(cfg: ModelConfig, resolver: ShardingResolver, coords, owner,
+           leaf: str, axes, whole: torch.Tensor, block: torch.Tensor):
+    """Write the block of the rank at ``coords`` into ``whole``, as
+    ``transformer.shard_params`` cut it (Mamba's fused ``in_proj`` half
+    by half; a (heads, hd) pair kept flat split by its heads)."""
+    if isinstance(owner, L.Mamba) and leaf == "in_proj":
+        for w, b in zip(whole.chunk(2, dim=-1), block.chunk(2, dim=-1)):
+            _place(cfg, resolver, coords, owner, "", axes, w, b)
+        return
+    shape = T.logical_shape(cfg, axes, whole.shape)
+    sl = local_slice(resolver.mesh, resolver.spec(axes, shape, param=True),
+                     shape, coords)
+    view = whole if len(shape) == whole.dim() else whole.view(shape)
+    view[sl] = block.reshape(view[sl].shape)
+
+
+def whole_from_ranks(cfg: ModelConfig, mesh: Mesh, blocks) -> Dict[
+        str, torch.Tensor]:
+    """``blocks``: rank by rank (row-major on ``mesh``), a dict from
+    parameter name to that rank's block of a parameter, a gradient or a
+    moment (``transformer.shard_params``'s names and layouts) -> a dict
+    from name to the whole tensor, as one process holds it, on the
+    blocks' device.  A tensor whole on every rank is rank 0's."""
+    abstract = T.init_abstract(cfg)
+    axes = T.param_axes(cfg, abstract)
+    resolver = ShardingResolver(mesh)
+    out = {}
+    for name, p in abstract.named_parameters():
+        first = blocks[0][name]
+        if first.shape == p.shape:
+            out[name] = first.clone()
+            continue
+        owner, _, leaf = name.rpartition(".")
+        whole = torch.empty(p.shape, dtype=first.dtype, device=first.device)
+        for r, b in enumerate(blocks):
+            _place(cfg, resolver, mesh_coords(mesh, r),
+                   abstract.get_submodule(owner), leaf, axes[name], whole,
+                   b[name])
+        out[name] = whole
+    return out

@@ -41,13 +41,18 @@ the kernel's backward) goes through the hand-written CUDA kernels of
 ``kernels/mamba_scan``, and its decode step is one recurrence step in
 plain ops, as in the JAX package.
 
-Sharded serving: the ``res`` of ``parallel/collectives.py`` gives a rank
+Sharded runs: the ``res`` of ``parallel/collectives.py`` gives a rank
 of a model split over the mesh's "model" axis.  A layer reads its local
 widths from its weights (heads, kv heads, experts, ``d_inner``) and, where
 its weights split a product's contraction, adds the ranks' partial sums
 with ``res.all_reduce``: after ``wo``, ``w_down``, the experts' combine,
-and Mamba's ``x_proj`` and ``out_proj``.  With ``res`` None a layer runs
-as on one card.
+and Mamba's ``x_proj`` and ``out_proj``.  The same widths say where a
+tensor equal on every rank meets the rank's block, which ``res.enter``
+marks for the backward: the input of GQA, MLA's ``wq``, the MLP and
+Mamba's ``in_proj``; MLA's compressed ``ckv`` and rotated key; the MoE
+layer's tokens and gates into the rank's experts; the ``dt``, B and C
+that leave Mamba's all-reduced ``x_proj``; qwen3's q/k norm weights.
+With ``res`` None a layer runs as on one card.
 """
 from __future__ import annotations
 
@@ -66,6 +71,11 @@ from repro_torch.kernels.mamba_scan.kernel import selective_scan
 
 def _frozen(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
+
+
+def _same(x):
+    """``res.enter``'s stand-in where nothing is split."""
+    return x
 
 
 class _Abstract:
@@ -189,12 +199,15 @@ def gqa_apply(cfg: ModelConfig, p: GQA, x, positions, *,
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     H, KH = p.wq.shape[1] // hd, p.wk.shape[1] // hd
+    split = res is not None and H < cfg.n_heads
+    enter = res.enter if split else _same
+    x = enter(x)
     q = (x @ p.wq).view(B, S, H, hd)
     k = (x @ p.wk).view(B, S, KH, hd)
     v = (x @ p.wv).view(B, S, KH, hd)
     if cfg.qk_norm:
-        q = rmsnorm(q, p.q_norm, cfg.norm_eps)
-        k = rmsnorm(k, p.k_norm, cfg.norm_eps)
+        q = rmsnorm(q, enter(p.q_norm), cfg.norm_eps)
+        k = rmsnorm(k, enter(p.k_norm), cfg.norm_eps)
     cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
@@ -210,7 +223,7 @@ def gqa_apply(cfg: ModelConfig, p: GQA, x, positions, *,
             cache["k"][:, :S] = k
             cache["v"][:, :S] = v
     y = out.reshape(B, S, H * hd) @ p.wo
-    if res is not None and H < cfg.n_heads:
+    if split:
         y = res.all_reduce(y)
     return y, cache
 
@@ -268,16 +281,23 @@ def _f32_einsum(eq, *xs):
 
 
 def mla_apply(cfg: ModelConfig, p: MLA, x, positions, *,
-              cache: Optional[Dict] = None, pos: Optional[int] = None):
+              cache: Optional[Dict] = None, pos: Optional[int] = None,
+              res=None):
     """x: (B,S,d).  Train/prefill (the expanded path; the compressed
     prefix is written into ``cache`` in place when one is given) or one
     decode step (S == 1 with ``cache``/``pos``: the absorbed path over
-    the cache's first ``pos`` + 1 rows).  Returns (y, cache)."""
+    the cache's first ``pos`` + 1 rows).  The heads are the weights' (a
+    rank's block of ``wq``'s and ``wkv_b``'s columns and ``wo``'s rows
+    under ``res``, ``wkv_a`` and ``kv_norm`` whole, an all-reduce after
+    ``wo``); the absorbed decode takes no split.  Returns (y, cache)."""
     m = cfg.mla
     B, S, _ = x.shape
-    H, R = cfg.n_heads, m.kv_lora_rank
+    R = m.kv_lora_rank
     nope, rope_d, vd = m.nope_head_dim, m.rope_head_dim, m.v_head_dim
-    q = (x @ p.wq).view(B, S, H, nope + rope_d)
+    H = p.wq.shape[1] // (nope + rope_d)
+    split = res is not None and H < cfg.n_heads
+    enter = res.enter if split else _same
+    q = (enter(x) @ p.wq).view(B, S, H, nope + rope_d)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     kv_a = x @ p.wkv_a
     ckv = rmsnorm(kv_a[..., :R], p.kv_norm, cfg.norm_eps)
@@ -286,6 +306,9 @@ def mla_apply(cfg: ModelConfig, p: MLA, x, positions, *,
     k_rope = apply_rope(kv_a[..., None, R:], cos, sin)[..., 0, :]
 
     if cache is not None and pos is not None and S == 1:
+        if split:
+            raise ValueError(f"{cfg.name}: MLA's absorbed decode takes "
+                             f"no split of its heads")
         # absorbed decode: never expand the per-token K/V.  The JAX
         # package inserts with a functional dynamic_update_slice and masks
         # the rows past pos; the port writes the cache in place and reads
@@ -306,9 +329,9 @@ def mla_apply(cfg: ModelConfig, p: MLA, x, positions, *,
     else:
         # expanded path: per-head keys and values, the shared causal core
         # with q and k at head dim nope + rope and v at its own vd columns
-        kv = (ckv @ p.wkv_b).view(B, S, H, nope + vd)
+        kv = (enter(ckv) @ p.wkv_b).view(B, S, H, nope + vd)
         k = torch.cat([kv[..., :nope],
-                       k_rope[:, :, None, :].expand(B, S, H, rope_d)],
+                       enter(k_rope)[:, :, None, :].expand(B, S, H, rope_d)],
                       dim=-1)
         qq = torch.cat([q_nope, q_rope], dim=-1)
         out = blocked_causal_attention(qq, k, kv[..., nope:].contiguous(),
@@ -317,6 +340,8 @@ def mla_apply(cfg: ModelConfig, p: MLA, x, positions, *,
             cache["ckv"][:, :S] = ckv
             cache["krope"][:, :S] = k_rope
     y = out.reshape(B, S, H * vd) @ p.wo
+    if split:
+        y = res.all_reduce(y)
     return y, cache
 
 
@@ -358,9 +383,12 @@ def mlp_init(cfg: ModelConfig, gen: torch.Generator, dtype,
 def mlp_apply(cfg: ModelConfig, p: MLP, x, res=None, d_ff=None):
     """``d_ff`` as in :func:`mlp_init` (``cfg.d_ff`` unless given): a
     narrower ``w_down`` is a rank's block of it, all-reduced after."""
+    split = res is not None and p.w_down.shape[0] < (d_ff or cfg.d_ff)
+    if split:
+        x = res.enter(x)
     h = torch.nn.functional.silu(x @ p.w_gate) * (x @ p.w_up)
     y = h @ p.w_down
-    if res is not None and p.w_down.shape[0] < (d_ff or cfg.d_ff):
+    if split:
         y = res.all_reduce(y)
     return y
 
@@ -455,26 +483,31 @@ def _dispatch(cfg: ModelConfig, p: MoE, x, gate_vals, gate_idx, C,
             * gate_vals[..., None].to(x.dtype)).sum(dim=2)
 
 
-def _moe_global_dispatch(cfg: ModelConfig, p: MoE, x, e0: int = 0):
+def _moe_global_dispatch(cfg: ModelConfig, p: MoE, x, e0: int = 0,
+                         enter=_same):
     """The whole batch as one group of B*S tokens (the JAX package's
-    naive scatter).  Returns (y (B,S,d), probs (B*S, E), gate_idx (B*S,
+    naive scatter).  ``enter`` marks the tokens and gates that reach the
+    rank's experts.  Returns (y (B,S,d), probs (B*S, E), gate_idx (B*S,
     k))."""
     B, S, d = x.shape
     xt = x.reshape(1, B * S, d)
     probs, gate_vals, gate_idx = moe_route(cfg, p, xt)
-    y = _dispatch(cfg, p, xt, gate_vals, gate_idx, _capacity(cfg, B * S),
-                  e0)
+    y = _dispatch(cfg, p, enter(xt), enter(gate_vals), gate_idx,
+                  _capacity(cfg, B * S), e0)
     return (y.view(B, S, d), probs.view(B * S, -1),
             gate_idx.view(B * S, -1))
 
 
-def _moe_grouped_dispatch(cfg: ModelConfig, p: MoE, x, e0: int = 0):
+def _moe_grouped_dispatch(cfg: ModelConfig, p: MoE, x, e0: int = 0,
+                          enter=_same):
     """Each batch row a group of S tokens (GShard-style: the position
-    cumsum, scatter and combine stay local to the row).  Returns (y
-    (B,S,d), probs (B*S, E), gate_idx (B*S, k))."""
+    cumsum, scatter and combine stay local to the row); ``enter`` as in
+    :func:`_moe_global_dispatch`.  Returns (y (B,S,d), probs (B*S, E),
+    gate_idx (B*S, k))."""
     B, S, d = x.shape
     probs, gate_vals, gate_idx = moe_route(cfg, p, x)
-    y = _dispatch(cfg, p, x, gate_vals, gate_idx, _capacity(cfg, S), e0)
+    y = _dispatch(cfg, p, enter(x), enter(gate_vals), gate_idx,
+                  _capacity(cfg, S), e0)
     return y, probs.view(B * S, -1), gate_idx.view(B * S, -1)
 
 
@@ -487,11 +520,13 @@ def moe_apply(cfg: ModelConfig, p: MoE, x, res=None):
     ranks' gate-weighted sums."""
     E, (El, _, f) = cfg.moe.n_routed, p.w_gate.shape
     e0 = res.rank * El if res is not None and El < E else 0
+    split = res is not None and (El < E or f < cfg.moe_d_ff)
+    enter = res.enter if split else _same
     if cfg.moe.dispatch == "grouped":
-        y, probs, gate_idx = _moe_grouped_dispatch(cfg, p, x, e0)
+        y, probs, gate_idx = _moe_grouped_dispatch(cfg, p, x, e0, enter)
     else:
-        y, probs, gate_idx = _moe_global_dispatch(cfg, p, x, e0)
-    if res is not None and (El < E or f < cfg.moe_d_ff):
+        y, probs, gate_idx = _moe_global_dispatch(cfg, p, x, e0, enter)
+    if split:
         y = res.all_reduce(y)
     if p.shared is not None:
         y = y + mlp_apply(cfg, p.shared, x, res,
@@ -584,6 +619,8 @@ def mamba_apply(cfg: ModelConfig, p: Mamba, x, cache: Optional[Dict] = None,
     di, ds = p.D.shape[0], cfg.ssm.d_state
     dtr = cfg.resolved_dt_rank
     split = res is not None and di < cfg.d_inner
+    if split:
+        x = res.enter(x)
     xz = x @ p.in_proj
     xin, z = xz[..., :di], xz[..., di:]
     conv_state = cache.get("conv") if cache else None
@@ -591,8 +628,8 @@ def mamba_apply(cfg: ModelConfig, p: Mamba, x, cache: Optional[Dict] = None,
                                 state=conv_state if decode else None)
     xc = F.silu(xc)
     proj = xc @ p.x_proj
-    if split:
-        proj = res.all_reduce(proj)
+    if split:      # whole on every rank; dt, B and C enter its d_inner
+        proj = res.enter(res.all_reduce(proj))
     dt = F.softplus(proj[..., :dtr] @ p.dt_proj + p.dt_bias)
     Bmat = proj[..., dtr:dtr + ds].float()                  # (B,S,ds)
     Cmat = proj[..., dtr + ds:].float()

@@ -42,14 +42,18 @@ CB codebooks, sums their embeddings (``embed`` is (CB, V, d)) and
 predicts every codebook at each position (``lm_head`` (d, V*CB), logits
 (..., CB, V)).
 
-Sharded serving (``res``, a ``parallel.collectives.ShardedRun``): each
+Sharded runs (``res``, a ``parallel.collectives.ShardedRun``): each
 rank holds its block of every weight (:func:`shard_params`) and of every
 cache entry (:func:`init_cache`), split over the ("data", "model") mesh's
 "model" axis as the JAX package's resolver splits them, and the layers
 join the partial results with the run's collectives.  The embedding is a
 lookup of the rank's vocab rows and one all-reduce; the head gathers the
-last position's logits over the vocab, so every rank holds them whole.
-With ``res`` None every function runs as it does on one card.
+logits over the vocab, so every rank holds them whole.  Training
+(:func:`forward` with ``res``) runs the same collectives, which carry
+the gradients back (``ShardedRun.enter`` where an equal tensor meets a
+block); under remat the recompute runs a segment's collectives again, in
+the same order on every rank.  With ``res`` None every function runs as it does on
+one card.
 """
 from __future__ import annotations
 
@@ -241,6 +245,33 @@ def param_bytes(params: LM) -> int:
 # sharding over the mesh's "model" axis
 # ---------------------------------------------------------------------------
 
+def _check_mesh(cfg: ModelConfig, mesh: Mesh, what: str) -> int:
+    """The size of ``mesh``'s "model" axis; ``ValueError`` unless it is
+    the only axis above 1."""
+    check_supported(cfg)
+    sizes = dict(zip(mesh.axis_names, mesh.shape))
+    if MODEL not in sizes or any(n > 1 for a, n in sizes.items()
+                                 if a != MODEL):
+        raise ValueError(f"{cfg.name}: sharded {what} splits the "
+                         f"'{MODEL}' axis alone, not mesh "
+                         f"{mesh.axis_names} x {mesh.shape}")
+    return sizes[MODEL]
+
+
+def check_trainable(cfg: ModelConfig, mesh: Mesh) -> None:
+    """Raise ``ValueError`` unless ranks can train ``cfg`` split over
+    ``mesh``'s "model" axis: no other axis may exceed 1, and GQA's kv
+    heads must split wherever its query heads do (a rank's query heads
+    would otherwise need kv heads of the others' groups).  No cache, so
+    none refuses it."""
+    n = _check_mesh(cfg, mesh, "training")
+    if (cfg.attn_kind == "gqa" and cfg.n_heads % n == 0
+            and cfg.n_kv_heads % n):
+        raise ValueError(f"{cfg.name}: {cfg.n_heads} query heads split "
+                         f"over {n} ranks and {cfg.n_kv_heads} kv heads "
+                         f"do not")
+
+
 def check_shardable(cfg: ModelConfig, mesh: Mesh) -> None:
     """Raise ``ValueError`` unless ranks can serve ``cfg`` split over
     ``mesh``'s "model" axis: no other axis may exceed 1, and the resolver
@@ -248,15 +279,8 @@ def check_shardable(cfg: ModelConfig, mesh: Mesh) -> None:
     the kv heads do not divide over the axis: each rank would hold a
     stretch of positions, whose decode attention needs a cross-rank
     combine of ``flash_decode``'s partials)."""
-    check_supported(cfg)
-    sizes = dict(zip(mesh.axis_names, mesh.shape))
-    if MODEL not in sizes or any(n > 1 for a, n in sizes.items()
-                                 if a != MODEL):
-        raise ValueError(f"{cfg.name}: sharded serving splits the "
-                         f"'{MODEL}' axis alone, not mesh "
-                         f"{mesh.axis_names} x {mesh.shape}")
+    n = _check_mesh(cfg, mesh, "serving")
     res = ShardingResolver(mesh)
-    n = sizes[MODEL]
     cache = init_cache(cfg, 1, n, device="meta")   # kv_seq divides by n
     for i, entry in enumerate(cache_axes(cfg, cache)):
         for k, ax in entry.items():
@@ -308,6 +332,23 @@ def shard_params(cfg: ModelConfig, params: LM, res) -> LM:
     return local(params, "")
 
 
+def split_names(cfg: ModelConfig, res) -> List[str]:
+    """The names of the parameters that :func:`shard_params` cuts into
+    blocks for ``res``'s rank (the resolver splits a dim of theirs), in
+    ``named_parameters()`` order; the others are whole, and equal, on
+    every rank.  Read from the shapes alone, so that a step counted by
+    ``launch/op_cost.py`` may call it before the mode starts."""
+    whole = init_abstract(cfg)
+    axes = param_axes(cfg, whole)
+    out = []
+    for n, p in whole.named_parameters():
+        shape = logical_shape(cfg, axes[n], p.shape)
+        if any(s is not None
+               for s in res.resolver.spec(axes[n], shape, param=True)):
+            out.append(n)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # embedding / head
 # ---------------------------------------------------------------------------
@@ -354,15 +395,18 @@ def lm_head(cfg: ModelConfig, params: LM, x, res=None):
     vocab the rank's logits are gathered over it: every rank returns them
     whole."""
     cb = _codebooks(cfg)
+    split = res is not None and (
+        params.embed.shape[-2] < cfg.vocab_size if cfg.tie_embeddings
+        else params.lm_head.shape[-1] < cfg.vocab_size * max(cb, 1))
+    if split:
+        x = res.enter(x)
     if cfg.tie_embeddings:
         logits = x @ params.embed.reshape(-1, cfg.d_model).T
         if cb:
             logits = logits.unflatten(-1, (cb, -1))
-        split = params.embed.shape[-2] < cfg.vocab_size
     else:
         logits = x @ params.lm_head
-        split = params.lm_head.shape[-1] < cfg.vocab_size * max(cb, 1)
-    if res is not None and split:
+    if split:
         logits = res.all_gather(logits, -1)
     if cb and not cfg.tie_embeddings:
         logits = logits.unflatten(-1, (cb, cfg.vocab_size))
@@ -384,7 +428,7 @@ def _apply_layer(cfg: ModelConfig, lp: Layer, x, positions, cache=None,
                                  decode=pos is not None, res=res)
     elif isinstance(lp.mixer, L.MLA):
         h, cache = L.mla_apply(cfg, lp.mixer, h, positions, cache=cache,
-                               pos=pos)
+                               pos=pos, res=res)
     else:
         h, cache = L.gqa_apply(cfg, lp.mixer, h, positions, cache=cache,
                                pos=pos, res=res)
@@ -481,24 +525,25 @@ def _checkpoint(cfg: ModelConfig, fn, *args):
     return checkpoint(fn, *args, use_reentrant=False)
 
 
-def _run_layers(cfg: ModelConfig, layers, positions, inner: bool):
+def _run_layers(cfg: ModelConfig, layers, positions, inner: bool,
+                res=None):
     """A function of (x, aux) that runs ``layers`` in turn, each under
     its own checkpoint when ``inner``, and adds their aux losses."""
     def body(lp):
-        return lambda x: _apply_layer(cfg, lp, x, positions)[:2]
+        return lambda x: _apply_layer(cfg, lp, x, positions, res=res)[:2]
 
     def run(x, aux):
         for lp in layers:
             if inner:
                 x, a = _checkpoint(cfg, body(lp), x)
             else:
-                x, a, _ = _apply_layer(cfg, lp, x, positions)
+                x, a, _ = _apply_layer(cfg, lp, x, positions, res=res)
             aux = aux + a
         return x, aux
     return run
 
 
-def _run_remat(cfg: ModelConfig, params: LM, x, positions):
+def _run_remat(cfg: ModelConfig, params: LM, x, positions, res=None):
     """The training forward's layers and final norm, checkpointed as
     :func:`remat_segments` says (the module's docstring); returns (x, the
     summed aux loss).  The aux sum runs through the groups in layer
@@ -508,10 +553,10 @@ def _run_remat(cfg: ModelConfig, params: LM, x, positions):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     # "none" without groups rematerialises nothing
     x, aux = _run_layers(cfg, [params.layers[i] for i in pre], positions,
-                         inner or bool(groups))(x, aux)
+                         inner or bool(groups), res)(x, aux)
     for group in groups:
         x, aux = _checkpoint(cfg, _run_layers(
-            cfg, [params.layers[i] for i in group], positions, inner),
+            cfg, [params.layers[i] for i in group], positions, inner, res),
             x, aux)
     return L.rmsnorm(x, params.final_norm, cfg.norm_eps), aux
 
@@ -534,24 +579,26 @@ def _run(cfg, params: LM, x, positions, cache=None, pos=None, res=None):
 # ---------------------------------------------------------------------------
 
 def forward(cfg: ModelConfig, params: LM, tokens, *, patches=None,
-            remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+            remat: bool = True, res=None) -> Tuple[torch.Tensor,
+                                                   torch.Tensor]:
     """Training/scoring forward. tokens: (B,S) int (or (B,S,CB));
-    ``patches`` (B,n,d) for the ``vit_stub`` frontend.  Returns (logits,
-    aux_loss): the MoE layers' load-balancing losses summed (float32; 0.0
-    without MoE layers).
+    ``patches`` (B,n,d) for the ``vit_stub`` frontend; ``res`` a rank of
+    a sharded model (the module's docstring), whose logits come out whole.
+    Returns (logits, aux_loss): the MoE layers' load-balancing losses
+    summed (float32; 0.0 without MoE layers).
 
     With ``remat`` and grad enabled the layers are checkpointed in two
     levels as the JAX package's are (the module's docstring,
     :func:`remat_segments`) unless ``cfg.remat_policy`` is "everything".
     Checkpointing changes what the backward keeps, not the values."""
-    x = embed_tokens(cfg, params, tokens, patches)
+    x = embed_tokens(cfg, params, tokens, patches, res)
     positions = torch.arange(x.shape[1], device=x.device)
     if (remat and torch.is_grad_enabled()
             and cfg.remat_policy != "everything"):
-        x, aux = _run_remat(cfg, params, x, positions)
+        x, aux = _run_remat(cfg, params, x, positions, res)
     else:
-        x, aux = _run(cfg, params, x, positions)
-    return lm_head(cfg, params, x), aux
+        x, aux = _run(cfg, params, x, positions, res=res)
+    return lm_head(cfg, params, x, res), aux
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,

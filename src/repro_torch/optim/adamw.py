@@ -10,12 +10,18 @@ arrays, :func:`apply_updates` writes the parameters and moments in place
 under ``torch.no_grad()``: a second copy of the weights is never made,
 and the float32 update runs over slices of at most :func:`update_slice`
 elements of each parameter.
+
+On a rank of a sharded model (``res``) the parameters, gradients and
+moments are the rank's blocks; the norm that clips them is the whole
+model's (the split blocks' squares summed over the ranks in one
+all-reduce, each whole parameter counted once), so every rank scales
+alike and the whole parameters stay equal on every rank.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Mapping, NamedTuple, Tuple
+from typing import Any, Dict, Mapping, NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -92,29 +98,50 @@ def _reference_ndim(name: str, p: torch.Tensor) -> int:
     return p.ndim + (1 if name.startswith("layers.") else 0)
 
 
-def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
-    """The float32 norm of every tensor's elements together.  A tensor
-    above :func:`update_slice` elements is squared and summed a slice at
-    a time, as the update runs, so that its float32 temporaries stay
-    small; a smaller one in one sum."""
+def _square_sum(xs) -> torch.Tensor:
+    """The float32 sum of the squares of every tensor's elements; a
+    tensor above :func:`update_slice` elements a slice at a time."""
     sums = []
-    for x in tree.values():
+    for x in xs:
         flat, n = x.reshape(-1), update_slice(x)
         for i in range(0, max(flat.numel(), 1), n):
             sums.append(torch.sum(torch.square(flat[i:i + n].float())))
-    return torch.sqrt(sum(sums))
+    return sum(sums)
+
+
+def global_norm(tree: Mapping[str, torch.Tensor], res=None,
+                split: Sequence[str] = ()) -> torch.Tensor:
+    """The float32 norm of every tensor's elements together.  A tensor
+    above :func:`update_slice` elements is squared and summed a slice at
+    a time, as the update runs, so that its float32 temporaries stay
+    small; a smaller one in one sum.  With ``res`` the tensors named in
+    ``split`` are the rank's blocks, whose squares are summed over the
+    ranks; the rest are whole on every rank and counted once."""
+    if res is None:
+        return torch.sqrt(_square_sum(tree.values()))
+    split = set(split)
+    blocks = [x for n, x in tree.items() if n in split]
+    whole = [x for n, x in tree.items() if n not in split]
+    total = (res.all_reduce(_square_sum(blocks)) if blocks
+             else torch.zeros((), dtype=torch.float32,
+                              device=next(iter(tree.values())).device))
+    if whole:
+        total = total + _square_sum(whole).to(total.device)
+    return torch.sqrt(total)
 
 
 @torch.no_grad()
 def apply_updates(state: TrainState, grads: Mapping[str, torch.Tensor],
-                  opt: OptConfig) -> Tuple[TrainState, Dict]:
+                  opt: OptConfig, *, res=None,
+                  split: Sequence[str] = ()) -> Tuple[TrainState, Dict]:
     """One AdamW step with ``grads`` (name -> gradient, any dtype, on each
     parameter's device).  Writes the parameters and moments in place and
     returns the state with the step advanced and ``{"grad_norm", "lr"}``
-    (0-d float32 tensors)."""
+    (0-d float32 tensors).  ``res``, ``split``: a rank's blocks, as
+    :func:`global_norm` takes them."""
     b1, b2 = opt.betas
     step = state.step + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, res, split)
     scale = torch.clamp(opt.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     lr = lr_at(opt, step)

@@ -11,6 +11,9 @@ So the port takes one scale per parameter outside the layers and one per
 parameter name across all layers (``layers.<i>.mixer.wq`` for every
 ``i`` shares one): the same codes as the reference's on the same
 gradients.  Every family the port covers repeats a period of one layer.
+On a rank of a sharded model (``res``) each group's absmax is the max
+over the ranks (one all-reduce of them all), the scale the reference
+takes of the whole tensors.
 """
 from __future__ import annotations
 
@@ -45,9 +48,10 @@ def init_error(params) -> Dict[str, torch.Tensor]:
 
 def compress_decompress(
         grads: Mapping[str, torch.Tensor],
-        err: Optional[Mapping[str, torch.Tensor]]
+        err: Optional[Mapping[str, torch.Tensor]], res=None
 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
-    """Returns (dequantized grads, new error-feedback buffers)."""
+    """Returns (dequantized grads, new error-feedback buffers); ``res``
+    a rank's blocks (the module's docstring)."""
     g32 = {n: g.float() + (err[n].float() if err is not None else 0.0)
            for n, g in grads.items()}
     absmax: Dict[str, torch.Tensor] = {}
@@ -55,6 +59,9 @@ def compress_decompress(
         k, m = _scale_group(n), torch.max(torch.abs(x))
         absmax[k] = m if k not in absmax else torch.maximum(
             absmax[k], m.to(absmax[k].device))
+    if res is not None and absmax:
+        both = res.all_reduce_max(torch.stack(list(absmax.values())))
+        absmax = dict(zip(absmax, both))
     deq, new_err = {}, {}
     for n, x in g32.items():
         q, scale = quantize(x, absmax[_scale_group(n)].to(x.device))

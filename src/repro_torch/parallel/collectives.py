@@ -20,6 +20,17 @@ block of a split dim, as the resolver's divisibility fallbacks chose it.
 The collectives go through ``torch.ops._c10d_functional`` and ``wait_tensor``,
 which ``launch/op_cost.py`` counts on the ``meta`` device (under the
 ``fake`` backend) and on real tensors alike.
+
+Training: the collectives carry gradients.  The all-reduce that ends a
+split product sums in the forward and passes the gradient through (every
+rank holds the same gradient of the sum); :meth:`ShardedRun.enter` is the
+identity in the forward and all-reduces the gradient in the backward: it
+marks where a tensor that is equal on every rank (an activation, a norm
+or the router's gates) meets the rank's block, so that the gradient of
+the equal tensor adds every rank's part.  The vocab gather's backward
+takes the rank's slice of the gradient of the gathered logits, which
+every rank holds whole.  Each backward collective goes through
+``_c10d_functional`` too, so the planner counts it.
 """
 from __future__ import annotations
 
@@ -31,7 +42,7 @@ import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch.mesh import coords as mesh_coords
-from repro_torch.models.transformer import check_shardable
+from repro_torch.models.transformer import check_shardable, check_trainable
 from repro_torch.parallel.sharding import MODEL, Mesh, ShardingResolver
 
 
@@ -56,16 +67,12 @@ class ShardedRun:
     def size(self) -> int:
         return dict(zip(self.mesh.axis_names, self.mesh.shape))[MODEL]
 
-    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
-        """The sum of every rank's ``x``."""
+    def _reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
         c = torch.ops._c10d_functional
-        return c.wait_tensor(c.all_reduce(x.contiguous(), "sum",
+        return c.wait_tensor(c.all_reduce(x.contiguous(), op,
                                           self.group.group_name))
 
-    def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
-        """Every rank's ``x`` concatenated along ``dim``, rank 0 first.
-        A CUDA tensor under gloo goes through host memory: gloo gathers
-        no CUDA tensor (four ranks on one card ended with SIGSEGV)."""
+    def _gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         c = torch.ops._c10d_functional
         dev = x.device
         y = x.movedim(dim, 0).contiguous()
@@ -75,15 +82,77 @@ class ShardedRun:
                                                    self.group.group_name))
         return y.to(dev).movedim(0, dim).contiguous()
 
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of every rank's ``x``; its gradient passes through."""
+        return _Sum.apply(x, self)
+
+    def all_reduce_max(self, x: torch.Tensor) -> torch.Tensor:
+        """The elementwise max of every rank's ``x`` (no gradient)."""
+        return self._reduce(x, "max")
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """``x``, equal on every rank, where it meets the rank's block:
+        the identity, whose backward sums the ranks' gradients."""
+        return _Enter.apply(x, self)
+
+    def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every rank's ``x`` concatenated along ``dim``, rank 0 first;
+        the backward takes the rank's slice.  A CUDA tensor under gloo
+        goes through host memory: gloo gathers no CUDA tensor (four ranks
+        on one card ended with SIGSEGV)."""
+        return _Gather.apply(x, self, dim)
+
+
+class _Sum(torch.autograd.Function):
+    """The all-reduce that ends a split product: the forward sums, the
+    backward passes the (equal) gradient to every rank's part."""
+
+    @staticmethod
+    def forward(ctx, x, run):
+        return run._reduce(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Enter(torch.autograd.Function):
+    """The identity where an equal-on-every-rank tensor meets the rank's
+    block; the backward all-reduces the ranks' partial gradients."""
+
+    @staticmethod
+    def forward(ctx, x, run):
+        ctx.run = run
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.run._reduce(g), None
+
+
+class _Gather(torch.autograd.Function):
+    """The vocab gather: the backward keeps the rank's slice of the
+    gradient, which every rank holds whole."""
+
+    @staticmethod
+    def forward(ctx, x, run, dim):
+        ctx.rank, ctx.dim, ctx.n = run.rank, dim, x.shape[dim]
+        return run._gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None, None
+
 
 def sharded_run(cfg: ModelConfig, mesh: Mesh, *, rank: int = 0,
-                group=None) -> ShardedRun:
-    """The ``res`` of mesh rank ``rank`` for ``cfg`` (refused by
-    ``transformer.check_shardable`` with ``ValueError``): tensor-parallel
-    weights, the JAX package's serving resolver (its FSDP variant
-    splits nothing more while "model" is the only axis above 1).
-    ``group`` spans the "model" axis."""
-    check_shardable(cfg, mesh)
+                group=None, train: bool = False) -> ShardedRun:
+    """The ``res`` of mesh rank ``rank`` for ``cfg``: tensor-parallel
+    weights, the JAX package's serving resolver (its FSDP variant splits
+    nothing more while "model" is the only axis above 1).  Refused with
+    ``ValueError`` by ``transformer.check_shardable``, or with ``train``
+    by ``transformer.check_trainable`` (no cache, so a cache split by
+    positions does not refuse it).  ``group`` spans the "model" axis."""
+    (check_trainable if train else check_shardable)(cfg, mesh)
     if group is not None and group.size() != mesh.size:
         raise ValueError(f"a group of {group.size()} for a mesh of "
                          f"{mesh.size}")

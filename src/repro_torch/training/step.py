@@ -7,9 +7,17 @@ next-token cross-entropy from float32 logits, gradients by
 gradients), accumulation over microbatches in float32, optional int8
 error-feedback gradient compression, and AdamW in place.
 
+Each factory takes ``res``, a rank of a model split over the mesh's
+"model" axis (``parallel/collectives.py``), where the JAX package takes
+its resolver.  A sharded train step computes on every rank the same loss
+from the logits gathered whole, takes the gradients of the rank's blocks
+(the collectives carry them back), and hands them to AdamW with ``res``:
+the norm is the whole model's and compression's scales are the whole
+tensors'.
+
 ``make_prefill_step`` / ``make_decode_step`` wrap the cached model paths
-for serving, on one card or as one rank of a model sharded over the
-mesh's "model" axis (``res``).  The port runs eagerly: nothing here is traced or compiled.
+for serving, on one card or as one rank of a sharded model.  The port
+runs eagerly: nothing here is traced or compiled.
 """
 from __future__ import annotations
 
@@ -26,7 +34,7 @@ from repro_torch.optim.adamw import OptConfig, TrainState
 AUX_WEIGHT = 0.01
 
 
-def make_loss_fn(cfg: ModelConfig):
+def make_loss_fn(cfg: ModelConfig, res=None):
     """loss_fn(params, batch) -> (loss + AUX_WEIGHT * aux, {"loss",
     "aux"}), the JAX package's loss: the mean next-token NLL of
     ``batch["tokens"]`` (B,S), with the MoE layers' load-balancing aux.
@@ -38,7 +46,7 @@ def make_loss_fn(cfg: ModelConfig):
     def loss_fn(params, batch):
         tokens = batch["tokens"]
         logits, aux = T.forward(cfg, params, tokens,
-                                patches=batch.get("patches"))
+                                patches=batch.get("patches"), res=res)
         logits = logits.float()
         tgt = tokens[:, 1:].long()          # (B,S-1), or (B,S-1,CB)
         lg = logits[:, :-1]                 # (B,S-1,V), or (B,S-1,CB,V)
@@ -58,13 +66,13 @@ def make_loss_fn(cfg: ModelConfig):
     return loss_fn
 
 
-def make_grad_fn(cfg: ModelConfig):
+def make_grad_fn(cfg: ModelConfig, res=None):
     """grad_fn(params, batch) -> ((total, metrics), grads), as
     ``jax.value_and_grad(loss_fn, has_aux=True)`` returns them: the
     objective and the loss's metrics (detached), and a dict from parameter
     name to its gradient in the parameter's dtype, by
-    ``torch.autograd.grad``."""
-    loss_fn = make_loss_fn(cfg)
+    ``torch.autograd.grad`` (with ``res``, of the rank's blocks)."""
+    loss_fn = make_loss_fn(cfg, res)
 
     def grad_fn(params, batch):
         names, leaves = zip(*params.named_parameters())
@@ -75,9 +83,10 @@ def make_grad_fn(cfg: ModelConfig):
     return grad_fn
 
 
-def make_train_step(cfg: ModelConfig, opt: OptConfig, *,
+def make_train_step(cfg: ModelConfig, opt: OptConfig, *, res=None,
                     accum_steps: int = 1, compress: bool = False):
-    grad_fn = make_grad_fn(cfg)
+    grad_fn = make_grad_fn(cfg, res)
+    split = () if res is None else T.split_names(cfg, res)
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
         if accum_steps == 1:
@@ -99,8 +108,9 @@ def make_train_step(cfg: ModelConfig, opt: OptConfig, *,
             grads = {name: g / A for name, g in grads.items()}
             metrics = {k: v / A for k, v in msum.items()}
         if compress:
-            grads, _ = C.compress_decompress(grads, None)
-        new_state, opt_metrics = adamw.apply_updates(state, grads, opt)
+            grads, _ = C.compress_decompress(grads, None, res=res)
+        new_state, opt_metrics = adamw.apply_updates(state, grads, opt,
+                                                     res=res, split=split)
         metrics = dict(metrics, **opt_metrics)
         return new_state, metrics
 

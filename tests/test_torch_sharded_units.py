@@ -229,9 +229,12 @@ def test_h100x4_decode_records_the_sharded_step(arch):
 
 
 def test_one_card_and_training_records_keep_no_sharded_step():
+    """On one card neither a serve nor a training record has a sharded
+    step (a training record on (1, 4) has one since the planner runs
+    rank 0's train step: ``tests/test_torch_sharded_train.py``)."""
     cfg = get_smoke("llama3.2-1b")
     one = D.plan(cfg, ShapeConfig("d", 32, 4, "decode"), make_test_mesh(1))
-    train = D.plan(cfg, ShapeConfig("t", 32, 4, "train"), MESH)
+    train = D.plan(cfg, ShapeConfig("t", 32, 4, "train"), make_test_mesh(1))
     for rec in (one, train):
         assert "sharded_step" not in rec and rec["collectives"] == {}
         assert rec["collective_wire_bytes_per_device"] == 0.0
