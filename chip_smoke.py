@@ -9,8 +9,9 @@
     python3 chip_smoke.py --phase sharded  # the build and phases 35-37 alone
     python3 chip_smoke.py --phase trained  # the build and phases 38-41 alone
     python3 chip_smoke.py --phase sharded_train  # build, phases 42-43
+    python3 chip_smoke.py --phase kvseq  # the build and phases 44-46 alone
 
-The whole script must finish within 1,100 s of command time on one H100
+The whole script must finish within 1,000 s of command time on one H100
 from a clean checkout, builds included (``PERF.md`` has each run's);
 phase 26's planning of every cell runs from phase 6 on beside the card
 phases, in processes at the lowest priority, and phase 26 only waits for
@@ -18,9 +19,9 @@ it.  ``--phase fleet`` builds the kernels and runs phase 8a alone,
 ``--phase plan`` phases 26-30 (about 2.5 minutes, the planning in the
 foreground), ``--phase served`` phases 31-34 and ``--phase sharded``
 phases 35-37 (about 2.5 minutes with the build), ``--phase trained``
-phases 38-41 and ``--phase sharded_train`` phases 42-43, printing no
-kernels line.  Each phase group's start is logged with the seconds since
-the script started.
+phases 38-41, ``--phase sharded_train`` phases 42-43 and ``--phase
+kvseq`` phases 44-46, printing no kernels line.  Each phase group's
+start is logged with the seconds since the script started.
 
 Phases, each fatal on failure:
 
@@ -360,11 +361,13 @@ Phases, each fatal on failure:
     teacher-forced prefill and 4 decode steps; every rank's logits equal
     the one process's at rtol = atol = 2e-4, bitwise equal on the four
     ranks, with every token routed to the same experts;
-36. phase 18's 8 of the 32 layers at full width in bfloat16 (about a
-    quarter of 26.6 GB a rank, never more than one whole layer on the card beside the blocks)
-    served by the four ranks: batch 4, prompt 256, 32 greedy tokens, the
-    launches of each rank counted from 0 just before (1 ``flash_attention``
-    and 7 ``selective_scan`` a prefill, 1 ``flash_decode`` a step), the
+36. one period of 4 of the 32 layers (attention at layer 2, three
+    Mamba layers, MoE on two) at full width in bfloat16 (about a quarter
+    of 13.8 GB a rank, never more than one whole layer on the card
+    beside the blocks) served by the four ranks: batch 4, prompt 256, 32
+    greedy tokens, the launches of each rank counted from 0 just before
+    (1 ``flash_attention`` and 3 ``selective_scan`` a prefill, 1
+    ``flash_decode`` a step), the
     tokens equal on every rank; per rank a prefill's and a decode step's
     time (CUDA events), its kernel time and busy share, peak memory, the
     collectives a step (``OpCost``) and the time in them;
@@ -417,7 +420,36 @@ Phases, each fatal on failure:
     against their plain versions at a rank's shapes (B=1 S=2,048 8/2
     heads of 128 in bfloat16; ``d_inner`` 2048, ``d_state`` 16) and
     timed, the attention's beside SDPA (``sharded_train_shape`` of their
-    records, whose ``launches_by_path`` gain phase 43's launches).
+    records, whose ``launches_by_path`` gain phase 43's launches);
+44. ``flash_decode_partial`` (a rank's stretch of a cache split by
+    positions: the live rows, a float32 output and each head's
+    log-sum-exp from the kernel) at internvl2-1b's heads (B=4, 14/2,
+    D=64) against its plain version, bfloat16 and float32, on a full, a
+    partly live and an empty stretch of 72 rows (no launch: o 0, lse
+    -inf) and on stretches of 8,192 that the kernel merges from several
+    splits, o rounded to the cache's type bitwise ``flash_decode``'s;
+    four stretches joined by ``ShardedRun.combine_lse`` in one process
+    against ``flash_decode`` over the whole cache (one to three ranks
+    empty); the kernel timed at the first stretch beside its bound and
+    SDPA over the same rows (``kvseq_shape`` of ``flash_decode``'s
+    record);
+45. internvl2-1b (all 24 layers) and deepseek-v2-lite-16b (its dense
+    layer and one MoE layer) at full width in float32 on four gloo ranks
+    of the card, whose caches the resolver splits by positions (each
+    rank's stretch is checked to be a quarter of the cache of 96): a
+    prompt of 64 (rank 3 empty) and 24 teacher-forced decode steps that
+    cross into rank 3; the logits against the one-process run at rtol =
+    atol = 2e-4, bitwise equal on the ranks, every routing equal;
+46. internvl2-1b whole and deepseek-v2-lite-16b on 4 of 27 layers at
+    full width in bfloat16, 16 greedy tokens after a prompt of 208 into a
+    cache of 288 (rank 3 empty until position 216): tokens equal on the
+    ranks, each rank's launches (``flash_attention`` a layer at the
+    prefill, ``flash_decode`` a GQA layer at each decode step whose
+    position the rank's stretch has reached), a decode step's time, its
+    share in gloo collectives and its peak within ``KVSEQ_PEAK`` of the
+    plan's rank-0 step, and the plan's prefill and decode collectives
+    equal to each rank's (``launch.dryrun.plan`` on ``h100x4``).  One
+    rank set runs 45 and 46.
 
 Phases 8a and 18–25 add their launches to the records of
 ``flash_attention``, ``flash_attention_bwd``, ``flash_decode`` and
@@ -427,8 +459,9 @@ whose launches are phase 29's, which also adds its forward launches to
 ``flash_attention_d192`` and both to the records of all head dims; phases
 31-34 add theirs to ``flash_attention`` and ``flash_decode``, 35-37
 theirs to those two and ``selective_scan``, 38-41 theirs to
-``flash_attention`` and ``flash_attention_bwd``, and 42-43 theirs to
-the two attention kernels and the two scan kernels.  The line
+``flash_attention`` and ``flash_attention_bwd``, 42-43 theirs to
+the two attention kernels and the two scan kernels, and 46 theirs to
+``flash_attention`` and ``flash_decode``.  The line
 before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  It exits non-zero, printing no result,
 without a card or outside a checkout of the repository.
@@ -3960,18 +3993,20 @@ def seeded_params(torch, cfg, dev, res=None):
 
 
 def teacher_forced(torch, cfg, params, tokens, prompt, dev, res=None,
-                   patches=None):
+                   patches=None, max_seq=None):
     """Prefill ``prompt`` tokens of ``tokens`` (numpy (B, S), or (B, S, CB)
     with codebooks; ``patches`` numpy (B, n, d) for the ``vit_stub``
-    frontend), then one decode step each for the rest; the logits of
-    each, stacked on the host."""
+    frontend) into a cache of ``max_seq`` (S unless given), then one
+    decode step each for the rest; the logits of each, stacked on the
+    host."""
     from repro_torch.models import transformer as T
 
     with torch.inference_mode():
         t = torch.as_tensor(tokens, device=dev)
         pt = None if patches is None else torch.as_tensor(patches,
                                                           device=dev)
-        cache = T.init_cache(cfg, t.shape[0], t.shape[1], dev, res=res)
+        cache = T.init_cache(cfg, t.shape[0], max_seq or t.shape[1], dev,
+                             res=res)
         lg, cache = T.prefill(cfg, params, t[:, :prompt], cache, patches=pt,
                               res=res)
         outs = [lg[:, 0]]
@@ -4150,8 +4185,9 @@ def sharded_serve_rank(rank, world, cfg, prompts, gen):
 def sharded_phases(args, torch, dev0):
     """Phases 35-37: jamba-v0.1-52b split over four ranks on the card
     (``parallel/spmd.py``, gloo): float32 parity of one period of 4
-    against the one-process card run (35), 8 of its 32 layers at full
-    width served greedily by the four ranks (36), the planner's
+    against the one-process card run (35), one period of 4 of its 32
+    layers at full width served greedily by the four ranks (36; cut
+    from 8 layers for the script's time), the planner's
     collectives against the ranks' and the three kernels at the per-rank
     shapes (37).  Returns (each kernel's launches over the four ranks of
     phase 36, its record entry at the per-rank shapes)."""
@@ -4204,10 +4240,9 @@ def sharded_phases(args, torch, dev0):
             f"{err / top:.3g} of the largest logit {top:.3g} (rtol = atol "
             f"= 2e-4), {len(routes)} routings equal")
 
-    # ------------- phase 36: 8 layers, bfloat16, four ranks, greedy
+    # ------------- phase 36: one period of 4, bfloat16, four ranks, greedy
     stamp("phase 36")
-    cfg = (replace(full, **JAMBA_PERIOD4) if args.small
-           else replace(full, n_layers=JAMBA_SERVED_LAYERS))
+    cfg = replace(full, **JAMBA_PERIOD4)
     n_attn = sum(cfg.mixer_kind(i) == "attn" for i in range(cfg.n_layers))
     B, P, gen = (SHARDED_RUN[k] for k in ("batch", "prompt", "gen"))
     prompts = np.random.default_rng(0).integers(
@@ -4806,6 +4841,490 @@ def sharded_train_phases(args, torch, dev0):
     return launches, entries
 
 
+# ----- caches split by positions on the (1, 4) mesh (phases 44-46)
+# internvl2-1b (14/2 heads: neither splits over four ranks, so its GQA
+# cache does) and deepseek-v2-lite-16b (MLA: its latent cache has no
+# heads) served by four ranks; launches_by_path keys
+KVSEQ_PATHS = {"internvl2-1b": "internvl2-1b kv_seq split (1, 4)",
+               "deepseek-v2-lite-16b": "deepseek-v2-lite-16b kv_seq split "
+                                       "(1, 4)"}
+# phase 45, float32: a cache of 96 (stretches of 24), a prompt of 64
+# (ranks 0 and 1 full, rank 2 two thirds, rank 3 empty) and 24 decode
+# steps, which cross into rank 3 at position 72
+KVSEQ_PARITY = dict(batch=2, max_seq=96, prompt=64, steps=24)
+# deepseek-v2-lite-16b's parity depth: the dense layer and one MoE layer
+# (4.5 GB of float32 in one process)
+KVSEQ_DEEPSEEK_PARITY_LAYERS = 2
+# phase 46, bfloat16 greedy: batch 4, a cache of 288 (stretches of 72),
+# a prompt of 208 (rank 3 empty), 16 tokens, the last 8 decoded with
+# position 216 on rank 3
+KVSEQ_RUN = dict(batch=4, max_seq=288, prompt=208, gen=16)
+# deepseek-v2-lite-16b served on 4 of its 27 layers (the dense one and 3
+# MoE layers, 3.2 GB of bfloat16 weights): its decode step carries 5-6
+# gloo collectives a layer, 6.7-16.4 ms each on one card (PERF.md)
+KVSEQ_DEEPSEEK_LAYERS = 4
+# phase 44: a rank's stretch at internvl2-1b's heads (B, H, KH, D) and
+# (stretch rows, live rows); the last two take several splits, merged in
+# the kernel (decode_32k's stretch of 8,192)
+KVSEQ_HEADS = (4, 14, 2, 64)
+KVSEQ_STRETCHES = ((72, 72), (72, 41), (72, 0), (8192, 8192), (8192, 5000))
+# the kept log-sum-exp against the plain version's (float32 sums of the
+# same products in another order)
+LSE_TOL = dict(rtol=1e-4, atol=1e-4)
+# a decode step's peak on a rank against the plan's rank-0 decode step
+KVSEQ_PEAK = (0.85, 1.15)
+
+
+def live_rows(pos, start, n):
+    """The rows of a stretch of ``n`` positions from ``start`` at or
+    before ``pos`` (0 for a stretch that starts past it)."""
+    return min(max(pos + 1 - start, 0), n)
+
+
+def stacked_ranks():
+    """Four ranks' partials in one process: a ``ShardedRun`` whose
+    collectives reduce over the tensors' leading dim, the rank (phase
+    44's ``combine_lse`` against the whole cache)."""
+    from repro_torch.parallel.collectives import ShardedRun
+
+    class Stacked(ShardedRun):
+        def _reduce(self, x, op="sum"):
+            y = x.amax(0) if op == "max" else x.sum(0)
+            return y.expand_as(x)
+
+    return Stacked(None, {"model": 0})
+
+
+def lse_check(torch, randn, S, n, dtype, timed=False):
+    """Hold ``flash_decode_partial`` against ``decode_attention_partial``
+    at internvl2-1b's heads on a stretch of ``S`` rows, ``n`` of them
+    live: o at ``ATTN_TOL``, the log-sum-exp at ``LSE_TOL``, o rounded to
+    bfloat16 bitwise equal to ``flash_decode``'s output (the lse pointer
+    changes nothing else); an empty stretch launches nothing and gives 0
+    and -inf.  With ``timed``: kernel, plain version and SDPA over the
+    live rows, for the kernel's record."""
+    from repro_torch.kernels.flash_decode import kernel as KD, ref as RD
+    F = torch.nn.functional
+    B, h, kh, d = KVSEQ_HEADS
+    q = randn((B, h, d), dtype)
+    kc, vc = randn((B, S, kh, d), dtype), randn((B, S, kh, d), dtype)
+    before = KD.launches
+    o, lse = KD.flash_decode_partial(q, kc, vc, n)
+    torch.cuda.synchronize()
+    shape = f"B={B} S={S} n={n} H={h} KH={kh} D={d} {dtype}"
+    check(o.dtype == lse.dtype == torch.float32
+          and o.shape == (B, h, d) and lse.shape == (B, h),
+          f"flash_decode_partial {shape}: o {o.dtype} {tuple(o.shape)}, "
+          f"lse {lse.dtype} {tuple(lse.shape)}")
+    if n == 0:
+        check(KD.launches == before and not o.any()
+              and bool((lse == -math.inf).all()),
+              f"flash_decode_partial {shape}: an empty stretch launched "
+              f"{KD.launches - before} or gave o != 0, lse != -inf")
+        log(f"  flash_decode_partial {shape}: no launch, o 0, lse -inf")
+        return None
+    check(KD.launches == before + 1, f"flash_decode_partial {shape}: "
+          f"{KD.launches - before} launches")
+    want_o, want_lse = RD.decode_attention_partial(q, kc, vc, n)
+    rtol, atol = ATTN_TOL[str(dtype).split(".")[-1]]
+    torch.testing.assert_close(o, want_o, rtol=rtol, atol=atol)
+    torch.testing.assert_close(lse, want_lse, **LSE_TOL)
+    same = KD.flash_decode(q, kc, vc, n - 1)
+    check(torch.equal(o.to(dtype), same), f"flash_decode_partial {shape}: "
+          f"o differs from flash_decode's output")
+    err = float((o - want_o).abs().max())
+    lse_err = float((lse - want_lse).abs().max())
+    log(f"  flash_decode_partial {shape}: max abs err o {err:.3g}, lse "
+        f"{lse_err:.3g}; o in {dtype} bitwise flash_decode's")
+    if not timed:
+        return None
+    ms = cuda_ms(lambda: KD.flash_decode_partial(q, kc, vc, n), torch)
+    plain_ms = cuda_ms(lambda: RD.decode_attention_partial(q, kc, vc, n),
+                       torch, 1)
+    qt = q[:, :, None]
+    kt, vt = (c[:, :n].transpose(1, 2).contiguous() for c in (kc, vc))
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, enable_gqa=True), torch)
+    elt = kc.element_size()
+    res = dict(err=err, shape=shape, ms=ms, plain_ms=plain_ms,
+               library_ms=library_ms,
+               nbytes=elt * (2 * B * n * kh * d + B * h * d)
+               + 4 * (B * h * d + B * h),
+               ops=4.0 * B * h * d * n,
+               ops_per_s=BF16_OPS_S if dtype == torch.bfloat16
+               else FP32_OPS_S)
+    log(f"  timed {shape}: kernel {ms:.4f} ms, SDPA {library_ms:.4f} ms, "
+        f"kernel/SDPA {ms / library_ms:.3f}")
+    return res
+
+
+def combine_check(torch, randn, S, pos, dtype):
+    """Four stretches of ``S`` rows, each rank's ``flash_decode_partial``
+    over its live rows, joined by ``ShardedRun.combine_lse`` in one
+    process, against ``flash_decode`` over the whole cache: the largest
+    error."""
+    from repro_torch.kernels.flash_decode import kernel as KD
+
+    B, h, kh, d = KVSEQ_HEADS
+    q = randn((B, h, d), dtype)
+    kc, vc = (randn((B, 4 * S, kh, d), dtype) for _ in range(2))
+    # each rank holds its stretch as a tensor of its own
+    parts = [KD.flash_decode_partial(
+        q, kc[:, r * S:(r + 1) * S].contiguous(),
+        vc[:, r * S:(r + 1) * S].contiguous(), live_rows(pos, r * S, S))
+        for r in range(4)]
+    got = stacked_ranks().combine_lse(
+        torch.stack([p[0] for p in parts]),
+        torch.stack([p[1] for p in parts]), dtype)
+    want = KD.flash_decode(q, kc, vc, pos)
+    check(all(torch.equal(got[r], got[0]) for r in range(4)),
+          "combine: the four ranks' results differ")
+    rtol, atol = ATTN_TOL[str(dtype).split(".")[-1]]
+    torch.testing.assert_close(got[0].float(), want.float(), rtol=rtol,
+                               atol=atol)
+    err = float((got[0].float() - want.float()).abs().max())
+    empty = sum(r * S > pos for r in range(4))
+    log(f"  combine of 4 stretches of {S} at pos {pos} ({empty} empty), "
+        f"{dtype}: max abs err against flash_decode over the whole cache "
+        f"{err:.3g}")
+    return err
+
+
+def kvseq_kernel_phase(torch, dev0):
+    """Phase 44: ``flash_decode_partial`` against its plain version (full,
+    partly live and empty stretches, one split and several, bfloat16 and
+    float32), four stretches combined against ``flash_decode`` over the
+    whole cache, and the kernel timed at phase 46's stretch (PERF.md row
+    6G4).  Returns its record entry."""
+    gen_t = torch.Generator(dev0).manual_seed(44)
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen_t, device=dev0).to(dtype)
+
+    log("flash_decode_partial against its plain version:")
+    timed = None
+    for dtype in (torch.bfloat16, torch.float32):
+        for i, (S, n) in enumerate(KVSEQ_STRETCHES):
+            r = lse_check(torch, randn, S, n, dtype,
+                          timed=i == 0 and dtype == torch.bfloat16)
+            timed = timed or r
+    errs = [combine_check(torch, randn, S, pos, dtype)
+            for dtype in (torch.bfloat16, torch.float32)
+            for S, pos in ((72, 5), (72, 150), (72, 287), (2048, 7000))]
+    log(f"combine: largest error over {len(errs)} cases {max(errs):.3g}")
+    torch.cuda.empty_cache()
+    return long_entry(timed, "flash_decode_partial, a rank's stretch")
+
+
+def kvseq_cfgs(deepseek_layers, dtype, small=False):
+    """The two configs at ``dtype``: internvl2-1b whole (4 layers with
+    ``small``), deepseek-v2-lite-16b at full width on its first
+    ``deepseek_layers``."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+
+    vlm = get_config("internvl2-1b")
+    return {"internvl2-1b": replace(vlm, dtype=dtype,
+                                    n_layers=4 if small else vlm.n_layers),
+            "deepseek-v2-lite-16b": replace(
+                get_config("deepseek-v2-lite-16b"), dtype=dtype,
+                n_layers=deepseek_layers)}
+
+
+def cache_layout(cfg, res, max_seq):
+    """(the rank's stretch of layer 0's first cache entry, the position
+    lengths of every entry of the rank's cache)."""
+    from repro_torch.models import transformer as T
+
+    meta = T.init_cache(cfg, 1, max_seq, device="meta")
+    name, axes = next(iter(T.cache_axes(cfg, meta)[0].items()))
+    own = T.init_cache(cfg, 1, max_seq, device="meta", res=res)
+    return (res.kv_stretch(axes, meta[0][name].shape),
+            sorted({t.shape[1] for c in own for t in c.values()}))
+
+
+def kvseq_serve(torch, res, dev, cfg, prompts, max_seq, gen):
+    """Phase 46 for one config on one rank: its bfloat16 blocks made in
+    turns; ``gen`` greedy tokens after ``prompts`` into a cache of
+    ``max_seq`` (launches counted from 0 just before, the peak since);
+    then on a fresh cache a decode step's time (CUDA events), its peak,
+    the collectives ``OpCost`` counts in a prefill and a decode step and
+    the decode step's time in them."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import op_cost
+    from repro_torch.models import transformer as T
+
+    t0 = time.perf_counter()
+    params = seeded_params(torch, cfg, dev, res)
+    build_s = time.perf_counter() - t0
+    B, P = prompts.shape
+    batch = torch.as_tensor(prompts, device=dev)
+
+    def greedy(n_tok):
+        cache = T.init_cache(cfg, B, max_seq, dev, res=res)
+        lg, cache = T.prefill(cfg, params, batch, cache, res=res)
+        out = []
+        for i in range(n_tok):
+            out.append(lg[:, -1].argmax(-1, keepdim=True))
+            if i + 1 < n_tok:
+                lg, cache = T.decode_step(cfg, params, out[-1], cache, P + i,
+                                          res=res)
+        return torch.cat(out, dim=1)
+
+    counters = counted_kernels()
+    with torch.inference_mode():
+        greedy(2)                               # first launches
+        torch.cuda.synchronize()
+        dist.barrier()
+        for k in counters.values():
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        tokens = greedy(gen)
+        torch.cuda.synchronize()
+        served_s = time.perf_counter() - t0
+        launches = {n: k.launches for n, k in counters.items()}
+        peak = torch.cuda.max_memory_allocated(dev)
+
+        cache = T.init_cache(cfg, B, max_seq, dev, res=res)
+        T.prefill(cfg, params, batch, cache, res=res)
+        tok = tokens[:, :1].contiguous()
+        pos = P + gen // 2
+
+        def step(run=res):
+            return T.decode_step(cfg, params, tok, cache, pos, res=run)
+
+        step()
+        torch.cuda.synchronize()
+        dist.barrier()
+        torch.cuda.reset_peak_memory_stats(dev)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(3):
+            step()
+        end.record()
+        end.synchronize()
+        step_ms = start.elapsed_time(end) / 3
+        step_peak = torch.cuda.max_memory_allocated(dev)
+        counted = {}
+        with op_cost.OpCost() as oc:
+            T.prefill(cfg, params, batch, cache, res=res)
+        counted["prefill"] = oc.summary()["collectives"]
+        with op_cost.OpCost() as oc:
+            step()
+        counted["decode"] = oc.summary()["collectives"]
+        timed = timed_run(torch, res)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(timed)
+        torch.cuda.synchronize()
+        coll_ms = (timed.seconds * 1e3, (time.perf_counter() - t0) * 1e3)
+    out = dict(tokens=tokens.cpu().numpy(), launches=launches,
+               served_s=served_s, build_s=build_s, peak=peak,
+               step_ms=step_ms, step_peak=step_peak, collectives=counted,
+               collective_ms=coll_ms, layout=cache_layout(cfg, res, max_seq),
+               weights_gb=T.param_bytes(params) / 1e9)
+    del params, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def kvseq_rank(rank, world, parity, serve):
+    """Phases 45-46 on one rank, one spawn for both.  ``parity``: by arch,
+    (float32 cfg, tokens) for :func:`teacher_forced` on a cache of
+    ``KVSEQ_PARITY``'s; ``serve``: by arch, (bfloat16 cfg, prompts) for
+    :func:`kvseq_serve`."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.parallel.collectives import sharded_run
+
+    first = next(iter(parity.values()))[0]
+    torch, _, dev = rank_setup(rank, world, first)
+    mesh = make_test_mesh(world)
+    got = {"parity": {}, "serve": {}}
+    p = KVSEQ_PARITY
+    for arch, (cfg, tokens) in parity.items():
+        t0 = time.perf_counter()
+        res = sharded_run(cfg, mesh, rank=rank, group=dist.group.WORLD)
+        params = seeded_params(torch, cfg, dev, res)
+        with recorded_routes() as routes:
+            logits = teacher_forced(torch, cfg, params, tokens, p["prompt"],
+                                    dev, res, max_seq=p["max_seq"])
+        got["parity"][arch] = dict(
+            logits=logits.numpy(), routes=[i.numpy() for _, i in routes],
+            layout=cache_layout(cfg, res, p["max_seq"]),
+            weights_gb=sum(t.numel() * t.element_size()
+                           for t in params.parameters()) / 1e9,
+            s=time.perf_counter() - t0)
+        del params
+        torch.cuda.empty_cache()
+    r = KVSEQ_RUN
+    for arch, (cfg, prompts) in serve.items():
+        t0 = time.perf_counter()
+        res = sharded_run(cfg, mesh, rank=rank, group=dist.group.WORLD)
+        got["serve"][arch] = kvseq_serve(torch, res, dev, cfg, prompts,
+                                         r["max_seq"], r["gen"])
+        got["serve"][arch]["s"] = time.perf_counter() - t0
+    return got
+
+
+def kvseq_launches(cfg, rank, P, gen, max_seq):
+    """Launches rank ``rank`` makes in a greedy run of ``gen`` tokens
+    after a prompt of ``P``: every attention layer's ``flash_attention``
+    once at the prefill, and for internvl2-1b's GQA one
+    ``flash_decode_partial`` a layer at each of the ``gen`` - 1 decode
+    steps whose position its stretch has reached (an empty stretch
+    launches nothing; MLA's absorbed decode is plain products)."""
+    n = cfg.n_layers
+    n_rows = max_seq // SHARDED_WORLD
+    steps = sum(live_rows(P + i, rank * n_rows, n_rows) > 0
+                for i in range(gen - 1))
+    return {"flash_attention": n, "selective_scan": 0,
+            "flash_decode": n * steps if cfg.attn_kind == "gqa" else 0}
+
+
+def kvseq_phases(args, torch, dev0):
+    """Phases 44-46: caches split by positions over four gloo ranks on
+    the card.  44: ``flash_decode_partial`` and the combine
+    (:func:`kvseq_kernel_phase`); 45: internvl2-1b whole and deepseek-v2-
+    lite-16b on 2 layers in float32, the ranks' teacher-forced logits
+    against one process's, bitwise equal on the ranks, routing equal; 46:
+    internvl2-1b whole and deepseek-v2-lite-16b on 4 layers in bfloat16,
+    greedy, tokens equal on the ranks, launches, a decode step's time and
+    peak against the plan's, the plan's collectives against the ranks'.
+    One rank set runs 45 and 46.  Returns (each kernel's launches by path
+    over the four ranks of phase 46, phase 44's record entry)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import card_mesh
+    from repro_torch.models import transformer as T
+
+    world = SHARDED_WORLD
+    stamp("phase 44")
+    entry = kvseq_kernel_phase(torch, dev0)
+
+    stamp("phases 45-46")
+    p, r = KVSEQ_PARITY, KVSEQ_RUN
+    cfg32 = kvseq_cfgs(KVSEQ_DEEPSEEK_PARITY_LAYERS, "float32", args.small)
+    cfg16 = kvseq_cfgs(KVSEQ_DEEPSEEK_LAYERS, "bfloat16", args.small)
+    rng = np.random.default_rng(45)
+    parity = {a: (c, rng.integers(0, c.vocab_size, (
+        p["batch"], p["prompt"] + p["steps"])).astype(np.int32))
+        for a, c in cfg32.items()}
+    serve = {a: (c, rng.integers(0, c.vocab_size, (
+        r["batch"], r["prompt"])).astype(np.int32))
+        for a, c in cfg16.items()}
+    # the one-process float32 runs first, on the card alone
+    want = {}
+    for arch, (cfg, tokens) in parity.items():
+        p32 = seeded_params(torch, cfg, dev0)
+        with recorded_routes() as routes:
+            want[arch] = (teacher_forced(torch, cfg, p32, tokens,
+                                         p["prompt"], dev0,
+                                         max_seq=p["max_seq"]),
+                          [i.numpy() for _, i in routes])
+        log(f"kv_seq parity: {arch} on {cfg.n_layers} layers, "
+            f"{T.param_bytes(p32) / 1e9:.2f} GB of float32 in one process")
+        del p32
+    t0 = time.perf_counter()
+    out = run_ranks(torch, dev0, kvseq_rank, parity, serve)
+    log(f"kv_seq ranks: {time.perf_counter() - t0:.1f} s with the spawn")
+
+    # ------------- phase 45: float32 ranks against one process
+    quarter = p["max_seq"] // world
+    for arch, (logits, routes) in want.items():
+        top = float(logits.abs().max())
+        for rk, o in enumerate(out):
+            g = o["parity"][arch]
+            check(g["layout"] == ((rk * quarter, quarter), [quarter]),
+                  f"kv_seq parity {arch}: rank {rk}'s cache {g['layout']}, "
+                  f"expected a stretch of {quarter} at {rk * quarter}")
+            lg = torch.from_numpy(g["logits"])
+            check(bool(torch.isfinite(lg).all()) and lg.shape == logits.shape,
+                  f"kv_seq parity {arch}: rank {rk}'s logits")
+            torch.testing.assert_close(lg, logits, **SHARDED_TOL)
+            check(np.array_equal(g["logits"],
+                                 out[0]["parity"][arch]["logits"]),
+                  f"kv_seq parity {arch}: rank {rk}'s logits differ from "
+                  f"rank 0's")
+            check(len(g["routes"]) == len(routes) and all(
+                np.array_equal(a, b) for a, b in zip(g["routes"], routes)),
+                f"kv_seq parity {arch}: rank {rk} routes tokens to other "
+                f"experts")
+            err = float((lg - logits).abs().max())
+            log(f"kv_seq parity {arch} rank {rk}: stretch {g['layout'][0]} "
+                f"of {p['max_seq']}; {g['weights_gb']:.2f} GB of float32 "
+                f"weights; max |ranks - one process| {err:.3g} = "
+                f"{err / top:.3g} of the largest logit {top:.3g} (rtol = "
+                f"atol = 2e-4) over a prompt of {p['prompt']} and "
+                f"{p['steps']} decode steps; {len(routes)} routings equal; "
+                f"{g['s']:.1f} s")
+
+    # ------------- phase 46: bfloat16 greedy on four ranks
+    launches = {}
+    quarter = r["max_seq"] // world
+    for arch, (cfg, _) in serve.items():
+        runs = [o["serve"][arch] for o in out]
+        plans = {kind: D.plan(cfg, ShapeConfig(
+                     f"kvseq_{kind}", seq, r["batch"], kind),
+                     card_mesh("h100x4"))
+                 for kind, seq in (("prefill", r["prompt"]),
+                                   ("decode", r["max_seq"]))}
+        plan_peak = plans["decode"]["sharded_step"]["predicted_peak_bytes"]
+        lo, hi = KVSEQ_PEAK
+        for rk, s in enumerate(runs):
+            want_l = kvseq_launches(cfg, rk, r["prompt"], r["gen"],
+                                    r["max_seq"])
+            check(np.array_equal(s["tokens"], runs[0]["tokens"]),
+                  f"kv_seq serve {arch}: rank {rk}'s tokens differ from "
+                  f"rank 0's")
+            check(s["layout"] == ((rk * quarter, quarter), [quarter]),
+                  f"kv_seq serve {arch}: rank {rk}'s cache {s['layout']}")
+            check(s["launches"] == want_l, f"kv_seq serve {arch}: rank {rk} "
+                  f"launched {s['launches']}, expected {want_l}")
+            for kind, rec in plans.items():
+                check(rec["collectives"] == s["collectives"][kind],
+                      f"kv_seq plan {arch} {kind}: {rec['collectives']} "
+                      f"against rank {rk}'s {s['collectives'][kind]}")
+            ratio = s["step_peak"] / plan_peak
+            coll, step_t = s["collective_ms"]
+            log(f"kv_seq serve {arch} rank {rk}: {s['weights_gb']:.2f} GB "
+                f"of weights made in {s['build_s']:.1f} s; {r['batch']} x "
+                f"{r['prompt']} prompt + {r['gen']} greedy tokens in "
+                f"{s['served_s']:.3f} s (peak {s['peak'] / 1e9:.3f} GB); "
+                f"decode step {s['step_ms']:.3f} ms (CUDA events), "
+                f"{coll:.1f} of a timed step's {step_t:.1f} ms in gloo "
+                f"collectives ({coll / step_t:.1%}, host clock, card "
+                f"drained around each); the step's peak "
+                f"{s['step_peak'] / 1e9:.4f} GB against the plan's rank-0 "
+                f"{plan_peak / 1e9:.4f} GB ({ratio:.4f}, limits {lo}-{hi}); "
+                f"launches {s['launches']}; {s['s']:.1f} s")
+            check(lo <= ratio <= hi, f"kv_seq serve {arch}: rank {rk}'s "
+                  f"step peak {s['step_peak'] / 1e9:.4f} GB against the "
+                  f"plan's {plan_peak / 1e9:.4f} GB")
+        toks = runs[0]["tokens"]
+        check(toks.shape == (r["batch"], r["gen"]) and int(toks.min()) >= 0
+              and int(toks.max()) < cfg.vocab_size,
+              f"kv_seq serve {arch}: tokens of shape {toks.shape} out of "
+              f"range")
+        for kind, rec in plans.items():
+            log(f"plan h100x4 {arch} {kind} (batch {r['batch']}, seq "
+                f"{rec['seq_len']}, {cfg.n_layers} layers): collectives "
+                f"equal to each rank's, {json.dumps(rec['collectives'])}; "
+                f"rank 0's cache {rec['per_device_bytes']['cache'] / 1e9:.4f}"
+                f" GB, predicted peak "
+                f"{rec['sharded_step']['predicted_peak_bytes'] / 1e9:.4f} GB")
+        launches[KVSEQ_PATHS[arch]] = {
+            k: sum(s["launches"][k] for s in runs)
+            for k in ("flash_attention", "flash_decode")}
+    log(f"kv_seq launches by path (four ranks): {json.dumps(launches)}")
+    return launches, entry
+
+
 def device_line(torch) -> str:
     return json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4818,11 +5337,12 @@ def main() -> int:
                     help="small sizes instead of the paper's")
     ap.add_argument("--phase", choices=["fleet", "plan", "served",
                                         "sharded", "trained",
-                                        "sharded_train"],
+                                        "sharded_train", "kvseq"],
                     help="build, then run these phases alone (fleet: 8a; "
                          "plan: 26-30; served: 31-34; sharded: 35-37; "
-                         "trained: 38-41; sharded_train: 42-43) as a "
-                         "quicker check; prints no kernels line")
+                         "trained: 38-41; sharded_train: 42-43; kvseq: "
+                         "44-46) as a quicker check; prints no kernels "
+                         "line")
     args = ap.parse_args()
 
     import torch
@@ -4896,6 +5416,13 @@ def main() -> int:
     if args.phase == "sharded_train":
         sharded, _ = sharded_train_phases(args, torch, dev0)
         log(f"sharded training launches: {json.dumps(sharded)}")
+        print(smi)
+        print(device_line(torch))
+        return 0
+
+    if args.phase == "kvseq":
+        kvseq, _ = kvseq_phases(args, torch, dev0)
+        log(f"kv_seq launches: {json.dumps(kvseq)}")
         print(smi)
         print(device_line(torch))
         return 0
@@ -5377,6 +5904,17 @@ def main() -> int:
             by[SHARDED_TRAIN_PATH] = sharded_t[rec["name"]]
             rec.update(launches=sum(by.values()),
                        sharded_train_shape=shapes_t[rec["name"]])
+    # phases 44-46: internvl2-1b and deepseek-v2-lite-16b served by four
+    # ranks over caches split by positions; their launches join the two
+    # attention kernels' records
+    kvseq, kvseq_entry = kvseq_phases(args, torch, dev0)
+    for rec in records:
+        if rec["name"] in ("flash_attention", "flash_decode"):
+            by = rec["launches_by_path"]
+            by.update((path, c[rec["name"]]) for path, c in kvseq.items()
+                      if c[rec["name"]])
+            rec.update(launches=sum(by.values()))
+    attach("flash_decode", kvseq_shape=kvseq_entry)
     log("training table: " + json.dumps(
         {m: {k: t[k] for k in ("step_s", "tokens_s", "busy", "peak_gb")}
          for m, t in trained.items()}))

@@ -54,6 +54,14 @@
 // does; the probabilities stay float32 until the bfloat16 kernel rounds
 // them for its P.V product (the plain version rounds them to the cache's
 // type too).
+//
+// A cache split by positions across ranks (the "model" axis of a mesh
+// that cannot split the kv heads): each rank attends to its own stretch
+// and the ranks combine their outputs by each head's log-sum-exp.  Given
+// an lse pointer, whichever CTA writes out (the one split, or the last to
+// merge) also writes ln(sum exp(scaled score)) of its head, from the max
+// and sum it merged anyway; the wrapper then asks for a float32 out, so
+// that the combine rounds once.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -99,14 +107,25 @@ struct Smem {
   static_assert(RING >= kThreads * 8 * 4, "the slice sums reuse the ring");
 };
 
+constexpr float kLn2 = 0.6931471805599453f;
+
+// a head's natural log-sum-exp of its scaled scores from the running max
+// mx (log2 units, q pre-scaled by scale * log2 e) and the sum den of
+// 2^(x - mx): ln(2^mx * den)
+__device__ __forceinline__ float lse_of(float mx, float den) {
+  return (mx + log2f(den)) * kLn2;
+}
+
 // With n_splits > 1, after the CTA wrote its partials of kv heads kvh0
 // ... kvh0 + hc - 1: the last CTA of this (batch, head group) to arrive
-// merges the splits into out and sets the arrival counter (that of
-// kvh0) back to 0.  Every thread of the CTA calls it.
+// merges the splits into out (and, when lse is not null, each head's
+// log-sum-exp into lse) and sets the arrival counter (that of kvh0) back
+// to 0.  Every thread of the CTA calls it.
 __device__ void merge_splits(const float* part_o, const float* part_ml,
-                             int* counters, void* out, int out_bf16, int b,
-                             int kvh0, int hc, int H, int KH, int D, int G,
-                             int n_splits, int* last_s) {
+                             int* counters, float* lse, void* out,
+                             int out_bf16, int b, int kvh0, int hc, int H,
+                             int KH, int D, int G, int n_splits,
+                             int* last_s) {
   const int t = threadIdx.x;
   __threadfence();
   __syncthreads();
@@ -139,6 +158,8 @@ __device__ void merge_splits(const float* part_o, const float* part_ml,
     } else {
       static_cast<float*>(out)[oi] = o / fmaxf(den, 1e-30f);
     }
+    if (lse != nullptr && d == 0)
+      lse[static_cast<size_t>(b) * H + kvh * G + g] = lse_of(mx, den);
   }
   if (t == 0) *counter = 0;  // zeroed for the next call on this stream
 }
@@ -152,6 +173,7 @@ decode_fma_kernel(const __grid_constant__ CUtensorMap tm_k,
                   const float* __restrict__ q, void* __restrict__ out,
                   int out_bf16, float* __restrict__ part_o,
                   float* __restrict__ part_ml, int* __restrict__ counters,
+                  float* __restrict__ lse,
                   int H, int KH, int D, int G, int pos, int keys_per_split,
                   float scale_log2) {
   using L = Smem<GM, NA>;
@@ -391,6 +413,8 @@ decode_fma_kernel(const __grid_constant__ CUtensorMap tm_k,
           static_cast<float*>(out)[o0 + e] = o8[e] * inv;
         }
       }
+      if (lse != nullptr && pc == 0)
+        lse[static_cast<size_t>(b) * H + h] = lse_of(mt_s[pg], lt_s[pg]);
     } else {
       const size_t p0 =
           ((static_cast<size_t>(b) * KH + kvh) * n_splits + split) * G + pg;
@@ -407,15 +431,16 @@ decode_fma_kernel(const __grid_constant__ CUtensorMap tm_k,
   }
   if (n_splits == 1) return;
 
-  merge_splits(part_o, part_ml, counters, out, out_bf16, b, kvh, 1, H, KH,
-               D, G, n_splits, last_s);
+  merge_splits(part_o, part_ml, counters, lse, out, out_bf16, b, kvh, 1, H,
+               KH, D, G, n_splits, last_s);
 }
 
 template <int GM, int NA>
-cudaError_t launch_fma(const void* q, const void* kc, const void* vc, void* out,
-                   int out_bf16, float* po, float* pml, int* counters, int B,
-                   int Smax, int H, int KH, int D, int pos, int ns, int kps,
-                   cudaStream_t stream) {
+cudaError_t launch_fma(const void* q, const void* kc, const void* vc,
+                       void* out, int out_bf16, float* po, float* pml,
+                       int* counters, float* lse, int B, int Smax, int H,
+                       int KH, int D, int pos, int ns, int kps,
+                       cudaStream_t stream) {
   constexpr int TK = Smem<GM, NA>::TK;
   CUtensorMap mk, mv;
   if (!rows_map(&mk, kc, 4, B, pos + 1, Smax, KH, D, TK) ||
@@ -428,8 +453,8 @@ cudaError_t launch_fma(const void* q, const void* kc, const void* vc, void* out,
   if (err != cudaSuccess) return err;
   const dim3 grid(ns, KH, B);
   decode_fma_kernel<GM, NA><<<grid, kThreads, smem, stream>>>(
-      mk, mv, static_cast<const float*>(q), out, out_bf16, po, pml, counters, H,
-      KH, D, H / KH, pos, kps,
+      mk, mv, static_cast<const float*>(q), out, out_bf16, po, pml, counters,
+      lse, H, KH, D, H / KH, pos, kps,
       static_cast<float>(1.4426950408889634 /
                          std::sqrt(static_cast<double>(D))));
   return cudaGetLastError();
@@ -438,19 +463,19 @@ cudaError_t launch_fma(const void* q, const void* kc, const void* vc, void* out,
 template <int NA>
 cudaError_t by_group(int G, const void* q, const void* kc, const void* vc,
                      void* out, int out_bf16, float* po, float* pml,
-                     int* cnt, int B, int Smax, int H, int KH, int D,
-                     int pos, int ns, int kps, cudaStream_t st) {
+                     int* cnt, float* lse, int B, int Smax, int H, int KH,
+                     int D, int pos, int ns, int kps, cudaStream_t st) {
   if (G <= 1)
-    return launch_fma<1, NA>(q, kc, vc, out, out_bf16, po, pml, cnt,
-                                    B, Smax, H, KH, D, pos, ns, kps, st);
+    return launch_fma<1, NA>(q, kc, vc, out, out_bf16, po, pml, cnt, lse, B,
+                             Smax, H, KH, D, pos, ns, kps, st);
   if (G <= 2)
-    return launch_fma<2, NA>(q, kc, vc, out, out_bf16, po, pml, cnt,
-                                    B, Smax, H, KH, D, pos, ns, kps, st);
+    return launch_fma<2, NA>(q, kc, vc, out, out_bf16, po, pml, cnt, lse, B,
+                             Smax, H, KH, D, pos, ns, kps, st);
   if (G <= 4)
-    return launch_fma<4, NA>(q, kc, vc, out, out_bf16, po, pml, cnt,
-                                    B, Smax, H, KH, D, pos, ns, kps, st);
-  return launch_fma<8, NA>(q, kc, vc, out, out_bf16, po, pml, cnt, B,
-                                  Smax, H, KH, D, pos, ns, kps, st);
+    return launch_fma<4, NA>(q, kc, vc, out, out_bf16, po, pml, cnt, lse, B,
+                             Smax, H, KH, D, pos, ns, kps, st);
+  return launch_fma<8, NA>(q, kc, vc, out, out_bf16, po, pml, cnt, lse, B,
+                           Smax, H, KH, D, pos, ns, kps, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -529,6 +554,7 @@ decode_mma_kernel(const __grid_constant__ CUtensorMap tm_k,
                   const __nv_bfloat16* __restrict__ q, void* __restrict__ out,
                   int out_bf16, float* __restrict__ part_o,
                   float* __restrict__ part_ml, int* __restrict__ counters,
+                  float* __restrict__ lse,
                   int H, int KH, int D_run, int G, int pos,
                   int keys_per_split, float scale_log2) {
   using M = MmaShape<NA, HC>;
@@ -721,6 +747,9 @@ decode_mma_kernel(const __grid_constant__ CUtensorMap tm_k,
       } else {
         static_cast<float*>(out)[oi] = v;
       }
+      if (lse != nullptr && d == 0)
+        lse[static_cast<size_t>(b) * H + (kvh0 + hh) * G + gg] =
+            lse_of(mx, den);
     } else {
       const size_t p0 =
           ((static_cast<size_t>(b) * KH + kvh0 + hh) * n_splits + split) * G +
@@ -733,15 +762,16 @@ decode_mma_kernel(const __grid_constant__ CUtensorMap tm_k,
     }
   }
   if (n_splits == 1) return;
-  merge_splits(part_o, part_ml, counters, out, out_bf16, b, kvh0, HC, H, KH,
-               D, G, n_splits, last_s);
+  merge_splits(part_o, part_ml, counters, lse, out, out_bf16, b, kvh0, HC,
+               H, KH, D, G, n_splits, last_s);
 }
 
 template <int NA, int HC, int DK>
 cudaError_t launch_mma(const void* q, const void* kc, const void* vc,
                        void* out, int out_bf16, float* po, float* pml,
-                       int* counters, int B, int Smax, int H, int KH, int D,
-                       int pos, int ns, int kps, cudaStream_t stream) {
+                       int* counters, float* lse, int B, int Smax, int H,
+                       int KH, int D, int pos, int ns, int kps,
+                       cudaStream_t stream) {
   CUtensorMap mk, mv;
   if (!heads_map(&mk, kc, B, pos + 1, Smax, KH, D, kWarpKeys, HC) ||
       !heads_map(&mv, vc, B, pos + 1, Smax, KH, D, kWarpKeys, HC))
@@ -754,7 +784,7 @@ cudaError_t launch_mma(const void* q, const void* kc, const void* vc,
   const dim3 grid(ns, KH / HC, B);
   decode_mma_kernel<NA, HC, DK><<<grid, M::W * 32, M::BYTES, stream>>>(
       mk, mv, static_cast<const __nv_bfloat16*>(q), out, out_bf16, po, pml,
-      counters, H, KH, D, H / KH, pos, kps,
+      counters, lse, H, KH, D, H / KH, pos, kps,
       static_cast<float>(1.4426950408889634 /
                          std::sqrt(static_cast<double>(D))));
   return cudaGetLastError();
@@ -763,21 +793,21 @@ cudaError_t launch_mma(const void* q, const void* kc, const void* vc,
 template <int NA, int DK>
 cudaError_t by_heads(int hc, const void* q, const void* kc, const void* vc,
                      void* out, int out_bf16, float* po, float* pml,
-                     int* cnt, int B, int Smax, int H, int KH, int D,
-                     int pos, int ns, int kps, cudaStream_t st) {
+                     int* cnt, float* lse, int B, int Smax, int H, int KH,
+                     int D, int pos, int ns, int kps, cudaStream_t st) {
   switch (hc) {
     case 1:
-      return launch_mma<NA, 1, DK>(q, kc, vc, out, out_bf16, po, pml, cnt, B,
-                                   Smax, H, KH, D, pos, ns, kps, st);
+      return launch_mma<NA, 1, DK>(q, kc, vc, out, out_bf16, po, pml, cnt,
+                                   lse, B, Smax, H, KH, D, pos, ns, kps, st);
     case 2:
-      return launch_mma<NA, 2, DK>(q, kc, vc, out, out_bf16, po, pml, cnt, B,
-                                   Smax, H, KH, D, pos, ns, kps, st);
+      return launch_mma<NA, 2, DK>(q, kc, vc, out, out_bf16, po, pml, cnt,
+                                   lse, B, Smax, H, KH, D, pos, ns, kps, st);
     case 4:
-      return launch_mma<NA, 4, DK>(q, kc, vc, out, out_bf16, po, pml, cnt, B,
-                                   Smax, H, KH, D, pos, ns, kps, st);
+      return launch_mma<NA, 4, DK>(q, kc, vc, out, out_bf16, po, pml, cnt,
+                                   lse, B, Smax, H, KH, D, pos, ns, kps, st);
     default:
-      return launch_mma<NA, 8, DK>(q, kc, vc, out, out_bf16, po, pml, cnt, B,
-                                   Smax, H, KH, D, pos, ns, kps, st);
+      return launch_mma<NA, 8, DK>(q, kc, vc, out, out_bf16, po, pml, cnt,
+                                   lse, B, Smax, H, KH, D, pos, ns, kps, st);
   }
 }
 
@@ -789,15 +819,19 @@ cudaError_t by_heads(int hc, const void* q, const void* kc, const void* vc,
 // are cut into n_splits ranges of keys_per_split.  With n_splits > 1,
 // part_o (B, KH, n_splits, G, D) and part_ml (B, KH, n_splits, G, 2) are
 // float32 scratch and counters holds B * KH ints that are 0 (the kernel
-// leaves them 0); with one split none of the three is touched.  A CTA
-// covers heads_per_cta kv heads (1, 2, 4 or 8 dividing KH; 1 for float32
-// and for a bfloat16 D other than 64, 80 or 128).  One launch.  H % KH == 0, H / KH <= 8, D <= 128 and D a multiple of 16
-// bytes' worth of elements.
+// leaves them 0); with one split none of the three is touched.  lse: null,
+// or (B, H) float32 that takes each head's natural log-sum-exp of its
+// scaled scores over keys [0, pos] (what a partial over a stretch of a
+// cache split across ranks needs for the ranks' combine); out is written
+// the same either way.  A CTA covers heads_per_cta kv heads (1, 2, 4 or
+// 8 dividing KH; 1 for float32 and for a bfloat16 D other than 64, 80 or
+// 128).  One launch.  H % KH == 0, H / KH <= 8, D <= 128 and D a multiple
+// of 16 bytes' worth of elements.
 extern "C" int flash_decode_fwd(const void* q, const void* kc,
                                 const void* vc, void* out, void* part_o,
-                                void* part_ml, void* counters, int B,
-                                int Smax, int H, int KH, int D, int pos,
-                                int n_splits, int keys_per_split,
+                                void* part_ml, void* counters, void* lse_out,
+                                int B, int Smax, int H, int KH, int D,
+                                int pos, int n_splits, int keys_per_split,
                                 int heads_per_cta, int cache_bf16,
                                 int out_bf16, void* stream) {
   const int vec = cache_bf16 ? 8 : 4;
@@ -820,32 +854,33 @@ extern "C" int flash_decode_fwd(const void* q, const void* kc,
   float* po = static_cast<float*>(part_o);
   float* pml = static_cast<float*>(part_ml);
   int* cnt = static_cast<int*>(counters);
+  float* lse = static_cast<float*>(lse_out);
   cudaError_t err;
   // NA: 128-byte atoms of a row, D padded up to 1, 2 or 4 of them
   if (cache_bf16 && (D == 64 || D == 80 || D == 128)) {
     err = D == 64   ? by_heads<1, 64>(heads_per_cta, q, kc, vc, out, out_bf16,
-                                      po, pml, cnt, B, Smax, H, KH, D, pos,
-                                      n_splits, keys_per_split, st)
+                                      po, pml, cnt, lse, B, Smax, H, KH, D,
+                                      pos, n_splits, keys_per_split, st)
           : D == 80 ? by_heads<2, 80>(heads_per_cta, q, kc, vc, out, out_bf16,
-                                      po, pml, cnt, B, Smax, H, KH, D, pos,
-                                      n_splits, keys_per_split, st)
+                                      po, pml, cnt, lse, B, Smax, H, KH, D,
+                                      pos, n_splits, keys_per_split, st)
                     : by_heads<2, 128>(heads_per_cta, q, kc, vc, out,
-                                       out_bf16, po, pml, cnt, B, Smax, H,
-                                       KH, D, pos, n_splits, keys_per_split,
-                                       st);
+                                       out_bf16, po, pml, cnt, lse, B, Smax,
+                                       H, KH, D, pos, n_splits,
+                                       keys_per_split, st);
   } else if (cache_bf16) {
     err = D <= 64 ? launch_mma<1, 1, 0>(q, kc, vc, out, out_bf16, po, pml,
-                                        cnt, B, Smax, H, KH, D, pos, n_splits,
-                                        keys_per_split, st)
+                                        cnt, lse, B, Smax, H, KH, D, pos,
+                                        n_splits, keys_per_split, st)
                   : launch_mma<2, 1, 0>(q, kc, vc, out, out_bf16, po, pml,
-                                        cnt, B, Smax, H, KH, D, pos, n_splits,
-                                        keys_per_split, st);
+                                        cnt, lse, B, Smax, H, KH, D, pos,
+                                        n_splits, keys_per_split, st);
   } else {
-    err = D <= 64 ? by_group<2>(G, q, kc, vc, out, out_bf16, po, pml, cnt, B,
-                                Smax, H, KH, D, pos, n_splits,
+    err = D <= 64 ? by_group<2>(G, q, kc, vc, out, out_bf16, po, pml, cnt,
+                                lse, B, Smax, H, KH, D, pos, n_splits,
                                 keys_per_split, st)
-                  : by_group<4>(G, q, kc, vc, out, out_bf16, po, pml, cnt, B,
-                                Smax, H, KH, D, pos, n_splits,
+                  : by_group<4>(G, q, kc, vc, out, out_bf16, po, pml, cnt,
+                                lse, B, Smax, H, KH, D, pos, n_splits,
                                 keys_per_split, st);
   }
   return static_cast<int>(err);

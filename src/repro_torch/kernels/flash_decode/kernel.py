@@ -5,7 +5,10 @@ through TMA rings in shared memory, bfloat16 products on the tensor
 cores; the last CTA of a (batch, kv head) to finish merges the splits,
 in the same launch), which replaces the
 JAX package's Pallas kernel ``kernels/flash_decode/kernel.py``
-``flash_decode``.
+``flash_decode``.  :func:`flash_decode_partial` is its form for a cache
+split by positions across ranks: the live rows of a rank's stretch, a
+float32 output and each head's log-sum-exp, which the kernel writes
+beside the output.
 
 ``meta`` tensors stand for the card's in a plan (``launch/dryrun.py``):
 the wrapper then makes the output and adds the kernel's least operations
@@ -78,44 +81,52 @@ def splits(batch: int, kv_heads: int, pos: int, sm_count: int,
     return -(-n_blocks // per_split), per_split * SPLIT_KEYS
 
 
-def flash_decode(q, k_cache, v_cache, pos):
-    """q: (B,H,D); caches: (B,Smax,KH,D) in their storage dtype (float32
-    or bfloat16); ``pos`` a Python int -> (B,H,D) in q's dtype, attending
-    to cache positions [0, pos].  CPU tensors take the plain version;
-    CUDA tensors launch the kernel, which reads only the live keys."""
-    global launches
-    pos = operator.index(pos)
-    if q.device.type == "cpu":
-        return R.decode_attention(q, k_cache, v_cache, pos)
+def _check(q, k_cache, v_cache, pos: int, what: str):
+    """The kernel's argument checks for keys [0, pos]; raise on what it
+    does not take."""
     cdt = k_cache.dtype
     if cdt not in (torch.float32, torch.bfloat16) or q.dtype not in (
             torch.float32, torch.bfloat16):
-        raise TypeError(f"flash_decode: q {q.dtype}, cache {cdt} (float32 "
+        raise TypeError(f"{what}: q {q.dtype}, cache {cdt} (float32 "
                         f"or bfloat16)")
-    build.check_cuda("flash_decode k_cache", k_cache, cdt, 4, meta_ok=True)
-    build.check_cuda("flash_decode v_cache", v_cache, cdt, 4, meta_ok=True)
-    build.check_cuda("flash_decode q", q, q.dtype, 3, meta_ok=True)
+    build.check_cuda(f"{what} k_cache", k_cache, cdt, 4, meta_ok=True)
+    build.check_cuda(f"{what} v_cache", v_cache, cdt, 4, meta_ok=True)
+    build.check_cuda(f"{what} q", q, q.dtype, 3, meta_ok=True)
     B, H, D = q.shape
     Smax, KH = k_cache.shape[1], k_cache.shape[2]
     if (k_cache.shape != (B, Smax, KH, D) or v_cache.shape != k_cache.shape
             or q.device != k_cache.device or v_cache.device != q.device):
-        raise ValueError(f"flash_decode: caches {tuple(k_cache.shape)} / "
+        raise ValueError(f"{what}: caches {tuple(k_cache.shape)} / "
                          f"{tuple(v_cache.shape)} do not fit q "
                          f"{tuple(q.shape)}")
     vec = 16 // k_cache.element_size()
     if (KH == 0 or H % KH or H // KH > MAX_GROUP or D > 128 or D % vec
             or not 0 <= pos < Smax):
-        raise ValueError(f"flash_decode: H={H}, KH={KH}, D={D}, pos={pos}, "
+        raise ValueError(f"{what}: H={H}, KH={KH}, D={D}, pos={pos}, "
                          f"Smax={Smax} not supported")
-    if q.device.type == "meta":
-        build.tally(meta_cost, "flash_decode", 4.0 * B * H * D * (pos + 1),
-                    k_cache.element_size() * 2 * B * (pos + 1) * KH * D
-                    + q.element_size() * 2 * B * H * D,
-                    dot_flops=4.0 * B * H * D * (pos + 1),
-                    transcendentals=B * H * (pos + 1))
-        return torch.empty((B, H, D), dtype=q.dtype, device=q.device)
+
+
+def _tally(q, k_cache, pos: int, out_bytes: int):
+    """A ``meta`` call's least work over keys [0, pos]: every live key and
+    value row read once, q read and ``out_bytes`` written."""
+    B, H, D = q.shape
+    KH = k_cache.shape[2]
+    build.tally(meta_cost, "flash_decode", 4.0 * B * H * D * (pos + 1),
+                k_cache.element_size() * 2 * B * (pos + 1) * KH * D
+                + q.element_size() * B * H * D + out_bytes,
+                dot_flops=4.0 * B * H * D * (pos + 1),
+                transcendentals=B * H * (pos + 1))
+
+
+def _launch(q, k_cache, v_cache, pos: int, out, lse=None):
+    """One launch over keys [0, pos] into ``out`` (and, given, each head's
+    log-sum-exp into ``lse``)."""
+    global launches
     if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
         raise ValueError("flash_decode: caches must be 16-byte aligned")
+    cdt = k_cache.dtype
+    B, H, D = q.shape
+    Smax, KH = k_cache.shape[1], k_cache.shape[2]
     # cached_decode_attention casts q to the cache's type
     qc = q.to(cdt).contiguous()
     sms = _sm_count(q.device)
@@ -123,7 +134,6 @@ def flash_decode(q, k_cache, v_cache, pos):
           if cdt == torch.bfloat16 and D in TILED_HEAD_DIMS else 1)
     ns, kps = splits(B, KH, pos, sms, hc)
     G = H // KH
-    out = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
     scratch = (None, None, None)      # one split: the CTA writes out
     if ns > 1:
         part_o = torch.empty((B, KH, ns, G, D), dtype=torch.float32,
@@ -133,8 +143,59 @@ def flash_decode(q, k_cache, v_cache, pos):
         scratch = (part_o.data_ptr(), part_ml.data_ptr(),
                    _split_counters(q.device, B * KH).data_ptr())
     build.launch("flash_decode_fwd", q, qc.data_ptr(), k_cache.data_ptr(),
-                 v_cache.data_ptr(), out.data_ptr(), *scratch, B, Smax, H,
+                 v_cache.data_ptr(), out.data_ptr(), *scratch,
+                 None if lse is None else lse.data_ptr(), B, Smax, H,
                  KH, D, pos, ns, kps, hc, int(cdt == torch.bfloat16),
-                 int(q.dtype == torch.bfloat16))
+                 int(out.dtype == torch.bfloat16))
     launches += 1
+
+
+def flash_decode(q, k_cache, v_cache, pos):
+    """q: (B,H,D); caches: (B,Smax,KH,D) in their storage dtype (float32
+    or bfloat16); ``pos`` a Python int -> (B,H,D) in q's dtype, attending
+    to cache positions [0, pos].  CPU tensors take the plain version;
+    CUDA tensors launch the kernel, which reads only the live keys."""
+    pos = operator.index(pos)
+    if q.device.type == "cpu":
+        return R.decode_attention(q, k_cache, v_cache, pos)
+    _check(q, k_cache, v_cache, pos, "flash_decode")
+    if q.device.type == "meta":
+        _tally(q, k_cache, pos, q.numel() * q.element_size())
+        return torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch(q, k_cache, v_cache, pos, out)
     return out
+
+
+def flash_decode_partial(q, k_cache, v_cache, n):
+    """A rank's part of decode attention over a cache split by positions:
+    q: (B,H,D); caches: (B,S,KH,D), the rank's stretch of positions in
+    their storage dtype; ``n`` a Python int, its live rows [0, n) (0 for
+    a rank whose stretch starts past the current position) -> (o (B,H,D)
+    float32, lse (B,H) float32: each head's natural log-sum-exp of its
+    scaled scores over those rows), which ``ShardedRun.combine_lse``
+    joins across ranks.  ``o`` stays float32 so that the combine rounds
+    once.  With ``n`` 0 nothing launches: o is 0 and lse -inf.  CPU
+    tensors take the plain version; CUDA tensors launch the kernel, which
+    writes the log-sum-exp beside o."""
+    n = operator.index(n)
+    if q.device.type == "cpu":
+        return R.decode_attention_partial(q, k_cache, v_cache, n)
+    if not 0 <= n <= k_cache.shape[1]:
+        raise ValueError(f"flash_decode_partial: n={n} of "
+                         f"{k_cache.shape[1]} rows")
+    B, H, D = q.shape
+    if n == 0:
+        _check(q, k_cache, v_cache, 0, "flash_decode_partial")
+        return (torch.zeros((B, H, D), dtype=torch.float32,
+                            device=q.device),
+                torch.full((B, H), float("-inf"), dtype=torch.float32,
+                           device=q.device))
+    _check(q, k_cache, v_cache, n - 1, "flash_decode_partial")
+    out = torch.empty((B, H, D), dtype=torch.float32, device=q.device)
+    lse = torch.empty((B, H), dtype=torch.float32, device=q.device)
+    if q.device.type == "meta":
+        _tally(q, k_cache, n - 1, 4 * (out.numel() + lse.numel()))
+        return out, lse
+    _launch(q, k_cache, v_cache, n - 1, out, lse)
+    return out, lse

@@ -52,7 +52,13 @@ marks for the backward: the input of GQA, MLA's ``wq``, the MLP and
 Mamba's ``in_proj``; MLA's compressed ``ckv`` and rotated key; the MoE
 layer's tokens and gates into the rank's experts; the ``dt``, B and C
 that leave Mamba's all-reduced ``x_proj``; qwen3's q/k norm weights.
-With ``res`` None a layer runs as on one card.
+A cache entry that the resolver splits by positions (``res.kv_stretch``
+of its logical axes and whole shape) holds the rank's stretch of them:
+the attention layers write only the positions that fall in it, and a
+decode step combines each rank's partial over its live rows
+(``flash_decode_partial`` for GQA, the absorbed decode's plain products
+for MLA, after an all-gather of its latent queries over heads) with
+``res.combine_lse``.  With ``res`` None a layer runs as on one card.
 """
 from __future__ import annotations
 
@@ -65,7 +71,8 @@ from torch.nn import functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.kernel import flash_attention
-from repro_torch.kernels.flash_decode.kernel import flash_decode
+from repro_torch.kernels.flash_decode.kernel import (flash_decode,
+                                                    flash_decode_partial)
 from repro_torch.kernels.mamba_scan.kernel import selective_scan
 
 
@@ -157,6 +164,49 @@ def cached_decode_attention(q, k_cache, v_cache, pos: int):
 
 
 # ---------------------------------------------------------------------------
+# caches split by positions across ranks
+# ---------------------------------------------------------------------------
+
+def _kv_stretch(res, cache, axes, whole):
+    """The rank's stretch (first position, length) of a layer's cache,
+    asked of ``res.kv_stretch`` with an entry's logical axes and whole
+    shape; None with no cache or ``res``, or where every rank holds every
+    position."""
+    return (None if cache is None or res is None
+            else res.kv_stretch(axes, whole))
+
+
+def _write_prefix(cache, rows, S: int, stretch):
+    """Prefill: each entry's positions [0, S) from ``rows`` in place; of
+    a stretch (start, n), its positions [start, start + n) that the
+    prompt reaches, at its rows from 0."""
+    for k, t in rows.items():
+        if stretch is None:
+            cache[k][:, :S] = t
+            continue
+        start, n = stretch
+        hi = min(S, start + n)
+        if hi > start:
+            cache[k][:, :hi - start] = t[:, start:hi]
+
+
+def _write_row(cache, rows, pos: int, stretch):
+    """Decode: each entry's position ``pos`` in place; of a stretch, only
+    by the rank whose stretch holds it."""
+    start, n = stretch if stretch is not None else (0, pos + 1)
+    if start <= pos < start + n:
+        for k, t in rows.items():
+            cache[k][:, pos - start:pos - start + 1] = t
+
+
+def _live(pos: int, stretch) -> int:
+    """The rows of a stretch at or before ``pos`` (0 for a stretch that
+    starts past it)."""
+    start, n = stretch
+    return min(max(pos + 1 - start, 0), n)
+
+
+# ---------------------------------------------------------------------------
 # GQA attention layer
 # ---------------------------------------------------------------------------
 
@@ -191,11 +241,16 @@ def gqa_init(cfg: ModelConfig, gen: torch.Generator, dtype) -> GQA:
 
 def gqa_apply(cfg: ModelConfig, p: GQA, x, positions, *,
               cache: Optional[Dict] = None, pos: Optional[int] = None,
-              res=None):
+              res=None, max_seq: Optional[int] = None):
     """x: (B,S,d).  Train/prefill when ``pos`` is None (the prefix is
     written into ``cache`` when one is given); decode when x has S == 1
     and ``cache``/``pos`` are given.  The heads are the weights' (a
-    rank's block of them under ``res``).  Returns (y, cache)."""
+    rank's block of them under ``res``).  Under ``res`` a cache of whole
+    length ``max_seq`` that the resolver splits by positions holds the
+    rank's stretch: the prefill writes the part the prompt reaches, a
+    decode step writes ``pos`` on the rank that holds it, and each rank's
+    partial over its live rows is combined across ranks.  Returns (y,
+    cache)."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     H, KH = p.wq.shape[1] // hd, p.wk.shape[1] // hd
@@ -211,17 +266,22 @@ def gqa_apply(cfg: ModelConfig, p: GQA, x, positions, *,
     cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
+    stretch = _kv_stretch(res, cache, GQA_CACHE_AXES["k"],
+                          (B, max_seq, cfg.n_kv_heads, hd))
     if cache is not None and pos is not None:
         # decode: the JAX package inserts the new k/v with a functional
         # dynamic_update_slice; the port writes the cache in place
-        cache["k"][:, pos:pos + 1] = k
-        cache["v"][:, pos:pos + 1] = v
-        out = cached_decode_attention(q, cache["k"], cache["v"], pos)
+        _write_row(cache, {"k": k, "v": v}, pos, stretch)
+        if stretch is None:
+            out = cached_decode_attention(q, cache["k"], cache["v"], pos)
+        else:
+            o, lse = flash_decode_partial(q[:, 0], cache["k"], cache["v"],
+                                          _live(pos, stretch))
+            out = res.combine_lse(o, lse, q.dtype)[:, None]
     else:
         out = blocked_causal_attention(q, k, v, cfg.attn_chunk)
-        if cache is not None:  # prefill: write the whole prefix in place
-            cache["k"][:, :S] = k
-            cache["v"][:, :S] = v
+        if cache is not None:  # prefill: write the prefix in place
+            _write_prefix(cache, {"k": k, "v": v}, S, stretch)
     y = out.reshape(B, S, H * hd) @ p.wo
     if split:
         y = res.all_reduce(y)
@@ -280,16 +340,32 @@ def _f32_einsum(eq, *xs):
     return torch.einsum(eq, *(x.float() for x in xs))
 
 
+def _mla_attend(q_lat, q_rope, ckv, krope, scale):
+    """The absorbed decode's attention over the latent rows it is given:
+    q_lat (B,1,H,R) and q_rope (B,1,H,rope) in the cache's dtype, ckv
+    (B,t,R) and krope (B,t,rope) -> (o_lat (B,1,H,R) float32, the scaled
+    scores (B,H,1,t) float32)."""
+    s = _f32_einsum("bshr,btr->bhst", q_lat, ckv)
+    s = s + _f32_einsum("bshk,btk->bhst", q_rope, krope)
+    s = s * scale
+    w = torch.softmax(s, dim=-1)
+    return _f32_einsum("bhst,btr->bshr", w.to(ckv.dtype), ckv), s
+
+
 def mla_apply(cfg: ModelConfig, p: MLA, x, positions, *,
               cache: Optional[Dict] = None, pos: Optional[int] = None,
-              res=None):
+              res=None, max_seq: Optional[int] = None):
     """x: (B,S,d).  Train/prefill (the expanded path; the compressed
     prefix is written into ``cache`` in place when one is given) or one
     decode step (S == 1 with ``cache``/``pos``: the absorbed path over
     the cache's first ``pos`` + 1 rows).  The heads are the weights' (a
     rank's block of ``wq``'s and ``wkv_b``'s columns and ``wo``'s rows
     under ``res``, ``wkv_a`` and ``kv_norm`` whole, an all-reduce after
-    ``wo``); the absorbed decode takes no split.  Returns (y, cache)."""
+    ``wo``).  Under ``res`` a cache of whole length ``max_seq`` that the
+    resolver splits by positions holds the rank's stretch of ``ckv`` and
+    ``krope``: the absorbed decode gathers every head's latent queries,
+    scores them over the rank's live rows, combines the ranks' partials
+    and takes the rank's heads on.  Returns (y, cache)."""
     m = cfg.mla
     B, S, _ = x.shape
     R = m.kv_lora_rank
@@ -305,25 +381,37 @@ def mla_apply(cfg: ModelConfig, p: MLA, x, positions, *,
     q_rope = apply_rope(q_rope, cos, sin)
     k_rope = apply_rope(kv_a[..., None, R:], cos, sin)[..., 0, :]
 
+    # krope's positions split as ckv's: no other dim of either takes the
+    # "model" axis
+    stretch = _kv_stretch(res, cache, MLA_CACHE_AXES["ckv"], (B, max_seq, R))
     if cache is not None and pos is not None and S == 1:
-        if split:
-            raise ValueError(f"{cfg.name}: MLA's absorbed decode takes "
-                             f"no split of its heads")
         # absorbed decode: never expand the per-token K/V.  The JAX
         # package inserts with a functional dynamic_update_slice and masks
         # the rows past pos; the port writes the cache in place and reads
         # its live prefix (the masked rows add exact zeros)
-        cache["ckv"][:, pos:pos + 1] = ckv
-        cache["krope"][:, pos:pos + 1] = k_rope
-        ckv_c = cache["ckv"][:, :pos + 1]
-        kr_c = cache["krope"][:, :pos + 1]
+        _write_row(cache, {"ckv": ckv, "krope": k_rope}, pos, stretch)
+        live = pos + 1 if stretch is None else _live(pos, stretch)
+        ckv_c = cache["ckv"][:, :live]
+        kr_c = cache["krope"][:, :live]
         wkv_b = p.wkv_b.view(R, H, nope + vd)
         q_lat = _f32_einsum("bshk,rhk->bshr", q_nope, wkv_b[..., :nope])
-        s = _f32_einsum("bshr,btr->bhst", q_lat.to(ckv_c.dtype), ckv_c)
-        s = s + _f32_einsum("bshk,btk->bhst", q_rope.to(kr_c.dtype), kr_c)
-        s = s * (1.0 / math.sqrt(nope + rope_d))
-        w = torch.softmax(s, dim=-1)
-        o_lat = _f32_einsum("bhst,btr->bshr", w.to(ckv_c.dtype), ckv_c)
+        scale = 1.0 / math.sqrt(nope + rope_d)
+        if stretch is None:
+            o_lat, _ = _mla_attend(q_lat.to(ckv_c.dtype),
+                                   q_rope.to(kr_c.dtype), ckv_c, kr_c, scale)
+        else:
+            # every head's queries meet the rank's stretch of positions
+            qq = torch.cat([q_lat.to(ckv_c.dtype), q_rope.to(kr_c.dtype)],
+                           dim=-1)
+            if split:
+                qq = res.all_gather(qq, 2)
+            o_lat, s = _mla_attend(qq[..., :R], qq[..., R:], ckv_c, kr_c,
+                                   scale)
+            # each head's log-sum-exp, -inf with no live row: (B,1,H)
+            lse = torch.logsumexp(s, dim=-1).transpose(1, 2)
+            o_lat = res.combine_lse(o_lat, lse)
+            if split:
+                o_lat = o_lat[:, :, res.rank * H:(res.rank + 1) * H]
         out = _f32_einsum("bshr,rhv->bshv", o_lat.to(wkv_b.dtype),
                           wkv_b[..., nope:]).to(x.dtype)
     else:
@@ -336,9 +424,8 @@ def mla_apply(cfg: ModelConfig, p: MLA, x, positions, *,
         qq = torch.cat([q_nope, q_rope], dim=-1)
         out = blocked_causal_attention(qq, k, kv[..., nope:].contiguous(),
                                        cfg.attn_chunk)
-        if cache is not None:  # prefill: write the whole prefix in place
-            cache["ckv"][:, :S] = ckv
-            cache["krope"][:, :S] = k_rope
+        if cache is not None:  # prefill: write the prefix in place
+            _write_prefix(cache, {"ckv": ckv, "krope": k_rope}, S, stretch)
     y = out.reshape(B, S, H * vd) @ p.wo
     if split:
         y = res.all_reduce(y)

@@ -46,9 +46,14 @@ Sharded runs (``res``, a ``parallel.collectives.ShardedRun``): each
 rank holds its block of every weight (:func:`shard_params`) and of every
 cache entry (:func:`init_cache`), split over the ("data", "model") mesh's
 "model" axis as the JAX package's resolver splits them, and the layers
-join the partial results with the run's collectives.  The embedding is a
-lookup of the rank's vocab rows and one all-reduce; the head gathers the
-logits over the vocab, so every rank holds them whole.  Training
+join the partial results with the run's collectives.  Where the resolver
+splits a cache by positions ("kv_seq"), a rank's entry is a stretch of
+them: :func:`init_cache` gives a :class:`RankCache` that knows the whole
+length, and :func:`prefill` and :func:`decode_step` hand it to the
+layers, which ask ``res.kv_stretch`` for the rank's stretch.  The
+embedding is a lookup of the rank's vocab rows and one all-reduce; the
+head gathers the logits over the vocab, so every rank holds them whole.
+Training
 (:func:`forward` with ``res``) runs the same collectives, which carry
 the gradients back (``ShardedRun.enter`` where an equal tensor meets a
 block); under remat the recompute runs a segment's collectives again, in
@@ -65,11 +70,21 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.parallel.sharding import (MODEL, Mesh, ShardingResolver,
-                                           local_slice, shard_shape)
+from repro_torch.parallel.sharding import (MODEL, Mesh, local_slice,
+                                           shard_shape)
 
 Cache = List[Dict[str, torch.Tensor]]
 Logical = Tuple[Optional[str], ...]
+
+
+class RankCache(list):
+    """A rank's cache (:func:`init_cache` with ``res``): the blocks of its
+    layers' entries, and ``max_seq``, the whole cache's length, from
+    which the layers ask the resolver whether the positions are split."""
+
+    def __init__(self, layers, max_seq: int):
+        super().__init__(layers)
+        self.max_seq = max_seq
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -258,13 +273,9 @@ def _check_mesh(cfg: ModelConfig, mesh: Mesh, what: str) -> int:
     return sizes[MODEL]
 
 
-def check_trainable(cfg: ModelConfig, mesh: Mesh) -> None:
-    """Raise ``ValueError`` unless ranks can train ``cfg`` split over
-    ``mesh``'s "model" axis: no other axis may exceed 1, and GQA's kv
-    heads must split wherever its query heads do (a rank's query heads
-    would otherwise need kv heads of the others' groups).  No cache, so
-    none refuses it."""
-    n = _check_mesh(cfg, mesh, "training")
+def _check_heads(cfg: ModelConfig, n: int) -> None:
+    """GQA's kv heads must split wherever its query heads do: a rank's
+    query heads would otherwise need kv heads of the others' groups."""
     if (cfg.attn_kind == "gqa" and cfg.n_heads % n == 0
             and cfg.n_kv_heads % n):
         raise ValueError(f"{cfg.name}: {cfg.n_heads} query heads split "
@@ -272,25 +283,21 @@ def check_trainable(cfg: ModelConfig, mesh: Mesh) -> None:
                          f"do not")
 
 
+def check_trainable(cfg: ModelConfig, mesh: Mesh) -> None:
+    """Raise ``ValueError`` unless ranks can train ``cfg`` split over
+    ``mesh``'s "model" axis: no other axis may exceed 1, and the heads
+    split as :func:`_check_heads` asks."""
+    _check_heads(cfg, _check_mesh(cfg, mesh, "training"))
+
+
 def check_shardable(cfg: ModelConfig, mesh: Mesh) -> None:
     """Raise ``ValueError`` unless ranks can serve ``cfg`` split over
-    ``mesh``'s "model" axis: no other axis may exceed 1, and the resolver
-    may put no cache entry over "kv_seq" (every MLA cache, and GQA's when
-    the kv heads do not divide over the axis: each rank would hold a
-    stretch of positions, whose decode attention needs a cross-rank
-    combine of ``flash_decode``'s partials)."""
-    n = _check_mesh(cfg, mesh, "serving")
-    res = ShardingResolver(mesh)
-    cache = init_cache(cfg, 1, n, device="meta")   # kv_seq divides by n
-    for i, entry in enumerate(cache_axes(cfg, cache)):
-        for k, ax in entry.items():
-            spec = res.spec(ax, cache[i][k].shape)
-            if any(a == "kv_seq" and sp is not None
-                   for a, sp in zip(ax, spec)):
-                raise ValueError(
-                    f"{cfg.name}: the resolver puts layer {i}'s cache "
-                    f"entry {k!r} {ax} over 'kv_seq' on mesh {mesh.tag}; "
-                    f"a cache split by positions is not served sharded")
+    ``mesh``'s "model" axis: no other axis may exceed 1, and the heads
+    split as :func:`_check_heads` asks.  A cache that the resolver splits
+    by positions ("kv_seq": every MLA cache, and GQA's when the kv heads
+    do not divide over the axis) is served: each rank holds a stretch of
+    positions and a decode step combines the ranks' partials."""
+    _check_heads(cfg, _check_mesh(cfg, mesh, "serving"))
 
 
 def _local(res, cfg: ModelConfig, owner: nn.Module, leaf: str, axes,
@@ -418,9 +425,10 @@ def lm_head(cfg: ModelConfig, params: LM, x, res=None):
 # ---------------------------------------------------------------------------
 
 def _apply_layer(cfg: ModelConfig, lp: Layer, x, positions, cache=None,
-                 pos=None, res=None):
+                 pos=None, res=None, max_seq=None):
     """Returns (x, the layer's aux loss (float32; 0 but for an MoE
-    layer), the layer's cache entry); decode when ``pos`` is given."""
+    layer), the layer's cache entry); decode when ``pos`` is given;
+    ``max_seq`` a rank's whole cache length (:class:`RankCache`)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = L.rmsnorm(x, lp.ln1, cfg.norm_eps)
     if isinstance(lp.mixer, L.Mamba):
@@ -428,10 +436,10 @@ def _apply_layer(cfg: ModelConfig, lp: Layer, x, positions, cache=None,
                                  decode=pos is not None, res=res)
     elif isinstance(lp.mixer, L.MLA):
         h, cache = L.mla_apply(cfg, lp.mixer, h, positions, cache=cache,
-                               pos=pos, res=res)
+                               pos=pos, res=res, max_seq=max_seq)
     else:
         h, cache = L.gqa_apply(cfg, lp.mixer, h, positions, cache=cache,
-                               pos=pos, res=res)
+                               pos=pos, res=res, max_seq=max_seq)
     x = x + h
     if lp.mlp is not None:
         h = L.rmsnorm(x, lp.ln2, cfg.norm_eps)
@@ -561,13 +569,26 @@ def _run_remat(cfg: ModelConfig, params: LM, x, positions, res=None):
     return L.rmsnorm(x, params.final_norm, cfg.norm_eps), aux
 
 
-def _run(cfg, params: LM, x, positions, cache=None, pos=None, res=None):
-    """The layers and the final norm; returns (x, the summed aux loss)."""
+def _max_seq(cache, res):
+    """The whole length of a rank's cache (None without ``res``); raise
+    unless a sharded run's cache is a :class:`RankCache`."""
+    if res is None:
+        return None
+    if not isinstance(cache, RankCache):
+        raise ValueError("a sharded run takes the rank's cache of "
+                         "init_cache(..., res=...)")
+    return cache.max_seq
+
+
+def _run(cfg, params: LM, x, positions, cache=None, pos=None, res=None,
+         max_seq=None):
+    """The layers and the final norm; returns (x, the summed aux loss).
+    ``max_seq``: a rank's whole cache length (:func:`_max_seq`)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, lp in enumerate(params.layers):
         x, a, layer_cache = _apply_layer(
             cfg, lp, x, positions, None if cache is None else cache[i],
-            pos, res)
+            pos, res, max_seq)
         if cache is not None:
             cache[i] = layer_cache
         aux = aux + a
@@ -608,16 +629,19 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     (batch, max_seq, kv_lora_rank) and (batch, max_seq, rope_head_dim)
     for an MLA layer; ``{"h", "conv"}`` for a Mamba layer
     (``mamba_cache_init``: its size does not depend on ``max_seq``),
-    each layer's as its mixer kind says.  With ``res``, the rank's block
-    of each entry (the resolver's spec over ``cache_axes``)."""
+    each layer's as its mixer kind says.  With ``res``, a
+    :class:`RankCache` of the rank's block of each entry (the resolver's
+    spec over ``cache_axes``: a stretch of ``max_seq`` // n positions
+    where it splits "kv_seq" over the n ranks)."""
     check_supported(cfg)
     dtype = _dtype(cfg)
     if res is not None:
         whole = init_cache(cfg, batch, max_seq, device="meta")
-        return [{k: torch.zeros(shard_shape(res.mesh, res.resolver.spec(
-                    ax[k], t.shape), t.shape), dtype=t.dtype, device=device)
-                 for k, t in c.items()}
-                for c, ax in zip(whole, cache_axes(cfg, whole))]
+        return RankCache(
+            [{k: torch.zeros(shard_shape(res.mesh, res.resolver.spec(
+                ax[k], t.shape), t.shape), dtype=t.dtype, device=device)
+              for k, t in c.items()}
+             for c, ax in zip(whole, cache_axes(cfg, whole))], max_seq)
 
     def layer_cache(i):
         if cfg.mixer_kind(i) == "mamba":
@@ -635,9 +659,10 @@ def prefill(cfg: ModelConfig, params: LM, tokens, cache: Cache, *,
     :func:`forward`; ``res`` a rank of a sharded model (the module's
     docstring).  Returns (logits of the last position (B,1,V), or
     (B,1,CB,V), cache)."""
+    max_seq = _max_seq(cache, res)
     x = embed_tokens(cfg, params, tokens, patches, res)
     positions = torch.arange(x.shape[1], device=x.device)
-    x, _ = _run(cfg, params, x, positions, cache, res=res)
+    x, _ = _run(cfg, params, x, positions, cache, res=res, max_seq=max_seq)
     return lm_head(cfg, params, x[:, -1:], res), cache
 
 
@@ -647,7 +672,9 @@ def decode_step(cfg: ModelConfig, params: LM, token, cache: Cache,
     int.  Writes the new k/v (GQA) or compressed row (MLA) at ``pos`` in
     place, or replaces the layer's state (Mamba); returns (logits (B,1,V)
     or (B,1,CB,V), cache)."""
+    max_seq = _max_seq(cache, res)
     x = embed_tokens(cfg, params, token, res=res)
     positions = torch.full((1,), pos, device=x.device)
-    x, _ = _run(cfg, params, x, positions, cache, pos, res=res)
+    x, _ = _run(cfg, params, x, positions, cache, pos, res=res,
+                max_seq=max_seq)
     return lm_head(cfg, params, x, res), cache

@@ -9,7 +9,14 @@ per-rank shapes) and calls the collectives itself where a product's
 contraction runs over a split dim: an all-reduce after ``wo``,
 ``w_down``, the experts' combine, Mamba's ``x_proj`` and ``out_proj``
 and the vocab-split embedding, and an all-gather of the vocab-split
-logits.
+logits.  A cache that the resolver splits by positions (its "kv_seq" on
+the "model" axis: every MLA cache, and GQA's whose kv heads do not
+divide over the axis) leaves each rank a stretch of positions
+(:meth:`ShardedRun.kv_stretch`); a decode step's attention is then each
+rank's partial over its live rows with each head's log-sum-exp, joined
+by :meth:`ShardedRun.combine_lse` (an all-reduce of the max, one of the
+weighted sums), MLA's after an all-gather of its latent queries over
+heads.
 
 :class:`ShardedRun` is the ``res`` that ``models/transformer.py`` and
 ``models/layers.py`` take: the resolver, the process group and the
@@ -35,7 +42,7 @@ every rank holds whole.  Each backward collective goes through
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -43,7 +50,8 @@ import torch.distributed as dist
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch.mesh import coords as mesh_coords
 from repro_torch.models.transformer import check_shardable, check_trainable
-from repro_torch.parallel.sharding import MODEL, Mesh, ShardingResolver
+from repro_torch.parallel.sharding import (MODEL, Mesh, ShardingResolver,
+                                           local_slice)
 
 
 @dataclass
@@ -89,6 +97,35 @@ class ShardedRun:
     def all_reduce_max(self, x: torch.Tensor) -> torch.Tensor:
         """The elementwise max of every rank's ``x`` (no gradient)."""
         return self._reduce(x, "max")
+
+    def kv_stretch(self, axes: Sequence[Optional[str]],
+                   shape: Sequence[int]) -> Optional[Tuple[int, int]]:
+        """For a cache entry of logical ``axes`` (one of them "kv_seq")
+        and whole ``shape``: (the rank's first position, its stretch's
+        length) where the resolver splits the positions over the mesh,
+        None where every rank holds them all."""
+        spec = self.resolver.spec(axes, shape)
+        i = list(axes).index("kv_seq")
+        if spec[i] is None:
+            return None
+        sl = local_slice(self.mesh, spec, shape, self.coords)[i]
+        return sl.start, sl.stop - sl.start
+
+    def combine_lse(self, o: torch.Tensor, lse: torch.Tensor,
+                    dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """Attention over a cache split by positions, from every rank's
+        partial: ``o`` (..., D) float32 over the rank's live rows and
+        ``lse`` (...) float32, each row's log-sum-exp of its scores (-inf
+        where the rank has no live row, whose weight is then exactly 0).
+        Two collectives: the max of the log-sum-exps, then one sum of
+        ``o`` and the weights packed together.  Returns the softmax-
+        weighted whole, in ``dtype`` (float32 when None).  Serving only:
+        no gradient."""
+        m = self.all_reduce_max(lse)
+        w = torch.exp(lse - m)[..., None]
+        tot = self._reduce(torch.cat([o * w, w], dim=-1))
+        out = tot[..., :-1] / tot[..., -1:]
+        return out if dtype is None else out.to(dtype)
 
     def enter(self, x: torch.Tensor) -> torch.Tensor:
         """``x``, equal on every rank, where it meets the rank's block:
@@ -148,10 +185,11 @@ def sharded_run(cfg: ModelConfig, mesh: Mesh, *, rank: int = 0,
                 group=None, train: bool = False) -> ShardedRun:
     """The ``res`` of mesh rank ``rank`` for ``cfg``: tensor-parallel
     weights, the JAX package's serving resolver (its FSDP variant splits
-    nothing more while "model" is the only axis above 1).  Refused with
-    ``ValueError`` by ``transformer.check_shardable``, or with ``train``
-    by ``transformer.check_trainable`` (no cache, so a cache split by
-    positions does not refuse it).  ``group`` spans the "model" axis."""
+    nothing more while "model" is the only axis above 1), caches split
+    by positions where the resolver puts "kv_seq" on the axis.  Refused
+    with ``ValueError`` by ``transformer.check_shardable``, or with
+    ``train`` by ``transformer.check_trainable``.  ``group`` spans the
+    "model" axis."""
     (check_trainable if train else check_shardable)(cfg, mesh)
     if group is not None and group.size() != mesh.size:
         raise ValueError(f"a group of {group.size()} for a mesh of "

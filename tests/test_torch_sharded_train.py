@@ -323,9 +323,12 @@ def test_check_trainable_refuses(mesh, heads):
 
 
 def test_deepseek_trains_sharded_though_not_served_sharded():
+    """Served sharded too since its cache split by positions is served
+    (``tests/test_torch_sharded_kvseq.py``): both runs take the mesh,
+    and only serving has a cache to split."""
     cfg = get_smoke("deepseek-v2-lite-16b")
-    with pytest.raises(ValueError, match="kv_seq"):
-        sharded_run(cfg, MESH)
+    assert sharded_run(cfg, MESH).kv_stretch(
+        ("batch", "kv_seq", "kv_lora"), (1, 16, 32)) == (0, 4)
     assert sharded_run(cfg, MESH, train=True).size == R.WORLD
 
 

@@ -1,7 +1,7 @@
 """The parts of sharded serving that need no rank set of their own: a
 rank's block of a tensor (``local_slice``) and of a model
-(``shard_params``, ``init_cache(res=...)``), mesh coordinates, the
-refusals of ``check_shardable``, ``parallel/spmd.py``'s failures and
+(``shard_params``, ``init_cache(res=...)``), mesh coordinates, what
+``check_shardable`` takes and refuses, ``parallel/spmd.py``'s failures and
 timeouts, ``OpCost``'s collective counts under the ``fake`` backend, and
 the planner's ``sharded_step`` records (and the cells that keep none).
 The four-rank runs against the JAX package are
@@ -30,8 +30,9 @@ from repro_torch.parallel.sharding import Mesh, local_slice, shard_shape
 
 SRC = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "src"))
 MESH = make_test_mesh(4)
-REFUSED = ("internvl2-1b", "deepseek-v2-lite-16b")
-SHARDABLE = [a for a in ARCH_IDS if a not in REFUSED]
+# the configs whose caches the resolver splits by positions ("kv_seq")
+KVSEQ = ("internvl2-1b", "deepseek-v2-lite-16b")
+SHARDABLE = [a for a in ARCH_IDS if a not in KVSEQ]
 
 
 # ------------------------------------------------------------- blocks
@@ -131,10 +132,20 @@ def test_init_cache_gives_the_ranks_blocks():
 
 
 # ----------------------------------------------------------- refusals
-@pytest.mark.parametrize("arch", REFUSED)
+@pytest.mark.parametrize("arch", KVSEQ)
 def test_check_shardable_refuses_caches_over_kv_seq(arch):
-    with pytest.raises(ValueError, match="kv_seq"):
-        T.check_shardable(get_config(arch), MESH)
+    """No longer refused: the two configs whose caches the resolver puts
+    over "kv_seq" pass, and each rank's cache is a stretch of a quarter
+    of the positions."""
+    cfg = get_config(arch)
+    T.check_shardable(cfg, MESH)
+    res = sharded_run(cfg, MESH, rank=3)
+    meta = T.init_cache(cfg, 1, 64, device="meta")
+    for entry, ax in zip(meta, T.cache_axes(cfg, meta)):
+        for k, t in entry.items():
+            assert res.kv_stretch(ax[k], t.shape) == (48, 16), k
+    cache = T.init_cache(cfg, 1, 64, device="meta", res=res)
+    assert all(t.shape[1] == 16 for c in cache for t in c.values())
 
 
 @pytest.mark.parametrize("arch", SHARDABLE)
@@ -206,19 +217,27 @@ def test_op_cost_counts_collectives_on_meta():
 def test_h100x4_decode_records_the_sharded_step(arch):
     rec = D.plan_cell(arch, "decode_32k", card_mesh("h100x4"))
     step = rec["sharded_step"]
-    if arch in REFUSED:
-        assert "kv_seq" in step["refused"] and rec["collectives"] == {}
-        assert rec["collective_wire_bytes_per_device"] == 0.0
-        return
+    assert "refused" not in step
     cfg = get_config(arch)
-    # an all-reduce after each layer's mixer and MLP (Mamba's two), one
-    # for the embedding; one gather of the logits
-    mamba = sum(cfg.mixer_kind(i) == "mamba" for i in range(cfg.n_layers))
-    mlps = sum(cfg.mlp_kind(i) == "moe" or cfg.d_ff > 0
-               for i in range(cfg.n_layers))
+    # an all-reduce after each layer's mixer and MLP (Mamba's two; an MoE
+    # layer's shared experts one more), one for the embedding; one gather
+    # of the logits.  A cache split by positions: the combine's max and
+    # sum a layer, MLA's gather of its latent queries; internvl2-1b's 14
+    # heads and 151,655 tokens do not split (no all-reduce after wo or
+    # the embedding, no gather of the logits)
+    n = cfg.n_layers
+    mamba = sum(cfg.mixer_kind(i) == "mamba" for i in range(n))
+    mlps = sum(cfg.mlp_kind(i) == "moe" or cfg.d_ff > 0 for i in range(n))
+    shared = sum(cfg.mlp_kind(i) == "moe" and cfg.moe.n_shared > 0
+                 for i in range(n))
+    vocab = int(cfg.vocab_size % 4 == 0)
+    mixers = n if cfg.n_heads % 4 == 0 or cfg.attn_kind == "none" else 0
+    combine = 2 * n if arch in KVSEQ else 0
     assert rec["collectives"]["all-reduce"]["count"] == (
-        1 + cfg.n_layers + mamba + mlps)
-    assert rec["collectives"]["all-gather"]["count"] == 1
+        vocab + mixers + mamba + mlps + shared + combine)
+    mla = n if cfg.attn_kind == "mla" else 0
+    assert rec["collectives"].get("all-gather", {}).get("count", 0) == (
+        vocab + mla)
     assert rec["collectives"] == step["collectives"]
     assert step["flops"] < rec["flops"]
     assert set(step["kernels"]) == set(rec["kernels"])
@@ -226,6 +245,22 @@ def test_h100x4_decode_records_the_sharded_step(arch):
         rec["argument_bytes_per_device"] + step["peak_held_bytes"])
     # the even share keeps its meaning
     assert rec["flops_per_device"] == rec["flops"] / 4
+
+
+@pytest.mark.parametrize("arch", KVSEQ)
+def test_h100x4_prefill_records_split_the_cache(arch):
+    """The two configs' ``prefill_32k`` records run rank 0's step: no
+    combine at prefill (each rank attends over the whole prompt, then
+    keeps its stretch), a device's cache a quarter of one card's."""
+    rec = D.plan_cell(arch, "prefill_32k", card_mesh("h100x4"))
+    step = rec["sharded_step"]
+    assert "refused" not in step and step["collectives"]
+    assert rec["collectives"] == step["collectives"]
+    one = D.plan_cell(arch, "prefill_32k", card_mesh("h100"))
+    assert 4 * rec["per_device_bytes"]["cache"] == one["per_device_bytes"][
+        "cache"]
+    assert step["predicted_peak_bytes"] == (
+        rec["argument_bytes_per_device"] + step["peak_held_bytes"])
 
 
 def test_one_card_and_training_records_keep_no_sharded_step():
