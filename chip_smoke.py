@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phase trained  # the build and phases 38-41 alone
     python3 chip_smoke.py --phase sharded_train  # build, phases 42-43
     python3 chip_smoke.py --phase kvseq  # the build and phases 44-46 alone
+    python3 chip_smoke.py --phase data   # the build and phases 47-49 alone
 
 The whole script must finish within 1,000 s of command time on one H100
 from a clean checkout, builds included (``PERF.md`` has each run's);
@@ -19,9 +20,11 @@ it.  ``--phase fleet`` builds the kernels and runs phase 8a alone,
 ``--phase plan`` phases 26-30 (about 2.5 minutes, the planning in the
 foreground), ``--phase served`` phases 31-34 and ``--phase sharded``
 phases 35-37 (about 2.5 minutes with the build), ``--phase trained``
-phases 38-41, ``--phase sharded_train`` phases 42-43 and ``--phase
-kvseq`` phases 44-46, printing no kernels line.  Each phase group's
-start is logged with the seconds since the script started.
+phases 38-41, ``--phase sharded_train`` phases 42-43, ``--phase
+kvseq`` phases 44-46 and ``--phase data`` phases 47-49 (llama3.2-1b
+trained on all 16 layers, about 6 minutes), printing no kernels line.
+Each phase group's start is logged with the seconds since the script
+started.
 
 Phases, each fatal on failure:
 
@@ -139,7 +142,7 @@ Phases, each fatal on failure:
     events, the router's predicted finish against the measured, peak
     memory, and ``simulate_fleet`` on the same requests at the measured
     per-worker powers beside the measured attainment and p99;
-9. serve falcon-mamba-7b at full width on 32 of its 64 layers
+9. serve falcon-mamba-7b at full width on 16 of its 64 layers
    (``MAMBA_SERVED_LAYERS``; ``--small``: 2) in bfloat16 with the set-up
    of phase 6.  All must be served; the launch
    counters, set to 0 after a warm-up, must show one ``selective_scan``
@@ -202,8 +205,8 @@ Phases, each fatal on failure:
     v at 128, each with the backend it took, the faster the yardstick;
     hold and time the equal-width instance (v of 192 columns) at the
     prefill shape;
-16. serve deepseek-v2-lite-16b at full width on 14 of its 27 layers
-    (``MLA_SERVED_LAYERS``: the dense one and 13 MoE; ``--small``: 2, the
+16. serve deepseek-v2-lite-16b at full width on 7 of its 27 layers
+    (``MLA_SERVED_LAYERS``: the dense one and 6 MoE; ``--small``: 2, the
     dense one and one MoE layer) in bfloat16 with the set-up of phase 6.  All must be served; the launch counters, set to 0 after
     a warm-up, must show one ``flash_attention`` launch per layer and
     prefill (MLA's expanded prefill at D = 192) and none of any kernel in
@@ -327,7 +330,7 @@ Phases, each fatal on failure:
 30. card against host in float32 on its first 2 layers, batch 1 x 256,
     as phase 24, every token routed alike;
 31. qwen3-32b (64/8 heads, G = 8, D = 128, q/k RMSNorm) at full width
-    on 16 of its 64 layers (``SERVED_CONFIGS``; ``--small``: 2 layers):
+    on 8 of its 64 layers (``SERVED_CONFIGS``; ``--small``: 2 layers):
     hold ``flash_attention`` at its serving prefill (B=4,
     S=256) and ``flash_decode`` at its serving decode (B=4, Smax=288,
     pos=287) in bfloat16 against their plain versions, timed (the
@@ -337,12 +340,12 @@ Phases, each fatal on failure:
     kernel); card against host in float32 on a model of its first 2
     layers made fresh from the cut config (the embedding and head of
     151,936 tokens included);
-32. yi-9b (32/4, G = 8, D = 128) likewise, 24 of its 48 layers, card
+32. yi-9b (32/4, G = 8, D = 128) likewise, 12 of its 48 layers, card
     against host on 4 layers (``yi_shape``);
-33. stablelm-3b (32/32, G = 1, D = 80) likewise, 16 of its 32 layers,
+33. stablelm-3b (32/32, G = 1, D = 80) likewise, 8 of its 32 layers,
     card against host on 8 layers (``stablelm_shape``);
 34. dbrx-132b (48/8, G = 6, D = 128; 16 experts, top 4, every layer) at
-    full width on its first 4 of 40 layers (28.5 GB; the whole 263 GB
+    full width on its first 2 of 40 layers (14.3 GB; the whole 263 GB
     does not fit one card; ``--small``: 2), as phase 31, its capacity
     dispatch running all 16 experts in a decode step; card against host
     on 2 layers (13 GB of float32 a layer) with every token routed to
@@ -364,13 +367,14 @@ Phases, each fatal on failure:
 36. one period of 4 of the 32 layers (attention at layer 2, three
     Mamba layers, MoE on two) at full width in bfloat16 (about a quarter
     of 13.8 GB a rank, never more than one whole layer on the card
-    beside the blocks) served by the four ranks: batch 4, prompt 256, 32
+    beside the blocks) served by the four ranks: batch 4, prompt 256, 16
     greedy tokens, the launches of each rank counted from 0 just before
     (1 ``flash_attention`` and 3 ``selective_scan`` a prefill, 1
     ``flash_decode`` a step), the
     tokens equal on every rank; per rank a prefill's and a decode step's
     time (CUDA events), its kernel time and busy share, peak memory, the
-    collectives a step (``OpCost``) and the time in them;
+    collectives a step (``OpCost``) and the time in them (one rank set
+    runs 35 and 36);
 37. ``launch.dryrun.plan`` of the same cells on ``h100x4`` predicts
     phase 36's collectives kind by kind (count, result and wire bytes);
     its per-device peaks beside the measured one; ``flash_attention``,
@@ -433,14 +437,15 @@ Phases, each fatal on failure:
     empty); the kernel timed at the first stretch beside its bound and
     SDPA over the same rows (``kvseq_shape`` of ``flash_decode``'s
     record);
-45. internvl2-1b (all 24 layers) and deepseek-v2-lite-16b (its dense
+45. internvl2-1b (12 of its 24 layers) and deepseek-v2-lite-16b (its dense
     layer and one MoE layer) at full width in float32 on four gloo ranks
     of the card, whose caches the resolver splits by positions (each
     rank's stretch is checked to be a quarter of the cache of 96): a
-    prompt of 64 (rank 3 empty) and 24 teacher-forced decode steps that
+    prompt of 64 (rank 3 empty) and 12 teacher-forced decode steps that
     cross into rank 3; the logits against the one-process run at rtol =
     atol = 2e-4, bitwise equal on the ranks, every routing equal;
-46. internvl2-1b whole and deepseek-v2-lite-16b on 4 of 27 layers at
+46. internvl2-1b on 12 of 24 layers and deepseek-v2-lite-16b on 4 of 27
+    layers at
     full width in bfloat16, 16 greedy tokens after a prompt of 208 into a
     cache of 288 (rank 3 empty until position 216): tokens equal on the
     ranks, each rank's launches (``flash_attention`` a layer at the
@@ -448,8 +453,32 @@ Phases, each fatal on failure:
     position the rank's stretch has reached), a decode step's time, its
     share in gloo collectives and its peak within ``KVSEQ_PEAK`` of the
     plan's rank-0 step, and the plan's prefill and decode collectives
-    equal to each rank's (``launch.dryrun.plan`` on ``h100x4``).  One
-    rank set runs 45 and 46.
+    equal to each rank's (``launch.dryrun.plan`` on ``h100x4``);
+47. the ("data", "model") = (2, 2) mesh on four gloo ranks of the card
+    (``DATA_MESH``), the batch split over "data": deepseek-v2-lite-16b's
+    dense and first MoE layers at full width in float32 under the FSDP
+    resolver (8 heads and 32 of 64 experts a "model" rank, each block
+    split over "data" too), one ``make_train_step`` of 4 x 256 tokens in
+    two microbatches (a row of each a "data" rank) against the
+    one-process step, which each rank runs in turn: the loss and norm
+    (rtol 1e-5, 1e-4; bitwise equal on the four ranks), every gradient of
+    its blocks within 1e-4 of the whole gradient's largest |g|, the
+    AdamW update (``check_updates``), every routing of its rows;
+48. llama3.2-1b at full width in bfloat16 under FSDP (all 16 layers with
+    ``--phase data``, its first 2 in the whole script), 3 steps of 4 x
+    2,048 tokens: phase 43's checks and records, the plan on
+    ``h100x2x2`` (its peak, its gathers, reduce-scatters and
+    all-reduces), the time in gloo by kind;
+49. llama3.2-1b whole in bfloat16 under the decode resolver (half the
+    weights a rank), batch 4, prompt 256, 16 greedy tokens: tokens
+    bitwise equal within each "data" pair, each rank's launches, the
+    plan's collectives equal to each rank's; its first 2 layers in
+    float32 against one process on each rank's rows; then
+    ``flash_attention`` and ``flash_attention_bwd`` at a rank's training
+    shape (B=2 S=2,048 16/4 heads of 64) and ``flash_decode`` at its
+    serving shape (B=2, 272 positions) against their plain versions,
+    timed beside SDPA (``data_shape`` of their records).  One rank set
+    runs 42-43, 45-46 and 47-49.
 
 Phases 8a and 18–25 add their launches to the records of
 ``flash_attention``, ``flash_attention_bwd``, ``flash_decode`` and
@@ -460,8 +489,9 @@ whose launches are phase 29's, which also adds its forward launches to
 31-34 add theirs to ``flash_attention`` and ``flash_decode``, 35-37
 theirs to those two and ``selective_scan``, 38-41 theirs to
 ``flash_attention`` and ``flash_attention_bwd``, 42-43 theirs to
-the two attention kernels and the two scan kernels, and 46 theirs to
-``flash_attention`` and ``flash_decode``.  The line
+the two attention kernels and the two scan kernels, 46 theirs to
+``flash_attention`` and ``flash_decode``, and 48-49 theirs to both
+attention kernels and ``flash_decode``.  The line
 before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  It exits non-zero, printing no result,
 without a card or outside a checkout of the repository.
@@ -633,10 +663,10 @@ ATTN_TOL = {"bfloat16": (2e-2, 2e-2), "float32": (1e-4, 2e-5)}
 ATTN_LSE_TOL = dict(rtol=1e-5, atol=1e-4)
 # the selective scan: that of tests/test_kernels.py:152
 SCAN_TOL = (1e-4, 1e-5)
-# falcon-mamba-7b is served on 32 of its 64 layers (a cut of depth that
-# keeps the script within its time) and its card-against-host check runs
-# its first 8
-MAMBA_SERVED_LAYERS = 32
+# falcon-mamba-7b is served on 16 of its 64 layers (a cut of depth that
+# keeps the script within its time: 32 before phases 47-49 were added)
+# and its card-against-host check runs its first 8
+MAMBA_SERVED_LAYERS = 16
 MAMBA_PARITY_LAYERS = 8
 
 
@@ -1494,10 +1524,11 @@ def mamba_phases(args, torch, dev0, launches, record):
 
 
 # ------------------------------------------------ MLA and MoE (deepseek)
-# deepseek-v2-lite-16b is served on 14 of its 27 layers (the dense first
-# and 13 MoE: a cut of depth that keeps the script within its time); the
-# card-against-host check runs the dense first layer and two MoE layers
-MLA_SERVED_LAYERS = 14
+# deepseek-v2-lite-16b is served on 7 of its 27 layers (the dense first
+# and 6 MoE: a cut of depth that keeps the script within its time, 14
+# before phases 47-49 were added); the card-against-host check runs the
+# dense first layer and two MoE layers
+MLA_SERVED_LAYERS = 7
 MOE_PARITY_LAYERS = 3
 
 
@@ -2865,13 +2896,16 @@ ATTN_BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 
 def check_updates(torch, got, want, lr, label):
     """``got`` and ``want``: two updated models (same structure; ``got``
-    anywhere, ``want`` on the host).  Every element within 1e-3 of its
-    parameter's largest |value|, except at most TRAIN_FLIPS of all
-    elements, each within 2 lr more.  The differences are taken in
-    float32 on ``got``'s device, a parameter at a time.  Returns (worst
-    share of its tol, elements outside, elements)."""
+    anywhere, ``want`` on the host), or two dicts of tensors by name.
+    Every element within 1e-3 of its parameter's largest |value|, except
+    at most TRAIN_FLIPS of all elements, each within 2 lr more.  The
+    differences are taken in float32 on ``got``'s device, a parameter at
+    a time.  Returns (worst share of its tol, elements outside,
+    elements)."""
     worst, outside, total = 0.0, 0, 0
-    for (n, a), b in zip(got.named_parameters(), want.parameters()):
+    pairs = (((n, a), want[n]) for n, a in got.items()) if isinstance(
+        got, dict) else zip(got.named_parameters(), want.parameters())
+    for (n, a), b in pairs:
         a = a.detach().float()
         b = b.detach().to(a.device, torch.float32)
         tol = 1e-3 * float(b.abs().max())
@@ -3780,16 +3814,18 @@ def host_phase(args, torch, dev0, attach, host_runs, build_s):
 # ------------------------- the dense configs and dbrx served (31-34)
 # (arch, layers served at full width (None: all of them), layers of the
 # float32 card-against-host model, its kernel records' entry, seed).
-# Each is served on a quarter to a half of its layers (dbrx-132b's 40
-# are 263 GB, qwen3-32b's 64 65.5 GB): a layer adds nothing the first
-# ones do not check, and the script's time is bounded (PERF.md).  The float32 models are made fresh from the cut config
-# (never a float32 copy of the served weights: qwen3's would be 131 GB):
+# Each is served on an eighth to a quarter of its layers (dbrx-132b's 40
+# are 263 GB, qwen3-32b's 64 65.5 GB; halved again when phases 47-49
+# were added): a layer adds nothing the first ones do not check, and the
+# script's time is bounded (PERF.md).  The float32 models are made fresh
+# from the cut config (never a float32 copy of the served weights:
+# qwen3's would be 131 GB):
 # qwen3 2 layers with its 151,936-token embedding and head (10.1 GB a
 # side), yi 4, stablelm 8, dbrx 2 (31 GB a side, 13 GB a layer)
-SERVED_CONFIGS = (("qwen3-32b", 16, 2, "qwen3_shape", 8),
-                  ("yi-9b", 24, 4, "yi_shape", 9),
-                  ("stablelm-3b", 16, 8, "stablelm_shape", 10),
-                  ("dbrx-132b", 4, 2, "dbrx_shape", 11))
+SERVED_CONFIGS = (("qwen3-32b", 8, 2, "qwen3_shape", 8),
+                  ("yi-9b", 12, 4, "yi_shape", 9),
+                  ("stablelm-3b", 8, 8, "stablelm_shape", 10),
+                  ("dbrx-132b", 2, 2, "dbrx_shape", 11))
 
 
 def served_config_phase(args, torch, dev0, arch, n_layers, n_parity, seed):
@@ -3880,10 +3916,11 @@ def served_configs_phases(args, torch, dev0):
 # planner's h100x4, joined by gloo (NCCL refuses two ranks on one GPU)
 SHARDED_WORLD = 4
 SHARDED_PATH = "jamba-v0.1-52b sharded (1, 4)"
-# phase 36: phase 18's 8 of the 32 layers at full width in bfloat16 (26.6
-# GB, about a quarter of it a rank), the llama set-up's request shape:
-# batch 4, prompt 256, 32 greedy tokens
-SHARDED_RUN = dict(batch=4, prompt=256, gen=32)
+# phase 36: one period of 4 of the 32 layers at full width in bfloat16
+# (13.8 GB, about a quarter of it a rank), the llama set-up's request
+# shape: batch 4, prompt 256, 16 greedy tokens (32 before phases 47-49
+# were added, for the script's time)
+SHARDED_RUN = dict(batch=4, prompt=256, gen=16)
 # phase 35: the ranks' float32 logits against the one-process card run
 # (TF32 off), the tolerance of tests/test_torch_dense_configs.py
 SHARDED_TOL = dict(rtol=2e-4, atol=2e-4)
@@ -3928,7 +3965,8 @@ def run_ranks(torch, dev0, fn, *args):
 def timed_run(torch, res):
     """A copy of the rank's ``res`` that adds each collective's time on
     the host clock (the backward's too), the card drained before and
-    after it, to its ``seconds``."""
+    after it, to its ``seconds`` and, by kind (all-reduce, all-gather,
+    reduce-scatter), to its ``by_kind``."""
     import dataclasses
 
     from repro_torch.parallel.collectives import ShardedRun
@@ -3936,30 +3974,40 @@ def timed_run(torch, res):
     class TimedRun(ShardedRun):
         seconds = 0.0
 
-        def _timed(self, fn, *a):
+        def _timed(self, kind, fn, *a):
             torch.cuda.synchronize()
             t = time.perf_counter()
             y = fn(*a)
             torch.cuda.synchronize()
-            self.seconds += time.perf_counter() - t
+            dt = time.perf_counter() - t
+            self.seconds += dt
+            self.by_kind[kind] = self.by_kind.get(kind, 0.0) + dt
             return y
 
-        def _reduce(self, x, op="sum"):
-            return self._timed(super()._reduce, x, op)
+        def _reduce(self, x, op="sum", group=None):
+            return self._timed("all-reduce", super()._reduce, x, op, group)
 
-        def _gather(self, x, dim):
-            return self._timed(super()._gather, x, dim)
+        def _gather(self, x, dim, group=None):
+            return self._timed("all-gather", super()._gather, x, dim,
+                               group)
 
-    return TimedRun(**{f.name: getattr(res, f.name)
-                       for f in dataclasses.fields(res)})
+        def _scatter(self, x, group):
+            return self._timed("reduce-scatter", super()._scatter, x,
+                               group)
+
+    run = TimedRun(**{f.name: getattr(res, f.name)
+                      for f in dataclasses.fields(res)})
+    run.by_kind = {}
+    return run
 
 
 def seeded_params(torch, cfg, dev, res=None):
     """``cfg``'s weights on ``dev``, each layer drawn from a generator of
     its own (``SHARDED_SEED``), so that every rank can make its blocks of
     the one-process model's weights.  With ``res`` the rank's blocks
-    (``transformer.shard_params``): the ranks make each layer whole in
-    turn and cut it, so that one whole layer at a time is on the card."""
+    (``transformer.shard_params``): the ranks of the process group make
+    each layer whole in turn and cut it, so that one whole layer at a
+    time is on the card."""
     import torch.distributed as dist
 
     from repro_torch.models import layers as L
@@ -3979,9 +4027,11 @@ def seeded_params(torch, cfg, dev, res=None):
                    None if cfg.tie_embeddings
                    else L._dense_init(g, (d, V), dtype, d)))
     layers = []
+    turns, me = ((1, 0) if res is None
+                 else (dist.get_world_size(), dist.get_rank()))
     for i in range(cfg.n_layers):
-        for turn in range(1 if res is None else res.size):
-            if res is None or turn == res.rank:
+        for turn in range(turns):
+            if turn == me:
                 layers.append(cut(T._layer_init(cfg, i, gen(i), dtype)))
                 torch.cuda.synchronize(dev)
                 # the whole layer's blocks back to the card, not to this
@@ -3993,20 +4043,21 @@ def seeded_params(torch, cfg, dev, res=None):
 
 
 def teacher_forced(torch, cfg, params, tokens, prompt, dev, res=None,
-                   patches=None, max_seq=None):
+                   patches=None, max_seq=None, batch=None):
     """Prefill ``prompt`` tokens of ``tokens`` (numpy (B, S), or (B, S, CB)
     with codebooks; ``patches`` numpy (B, n, d) for the ``vit_stub``
     frontend) into a cache of ``max_seq`` (S unless given), then one
     decode step each for the rest; the logits of each, stacked on the
-    host."""
+    host.  ``batch``: the whole batch whose rows ``tokens`` are (B unless
+    given: a rank's rows under a "data" axis above 1)."""
     from repro_torch.models import transformer as T
 
     with torch.inference_mode():
         t = torch.as_tensor(tokens, device=dev)
         pt = None if patches is None else torch.as_tensor(patches,
                                                           device=dev)
-        cache = T.init_cache(cfg, t.shape[0], max_seq or t.shape[1], dev,
-                             res=res)
+        cache = T.init_cache(cfg, batch or t.shape[0],
+                             max_seq or t.shape[1], dev, res=res)
         lg, cache = T.prefill(cfg, params, t[:, :prompt], cache, patches=pt,
                               res=res)
         outs = [lg[:, 0]]
@@ -4038,6 +4089,20 @@ def rank_setup(rank, world, cfg, train=False):
     leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "repro")]
     check(not leaked, f"rank {rank} imported {leaked}")
     return torch, res, torch.device("cuda", torch.cuda.current_device())
+
+
+def sharded_serving_rank(rank, world, cut, ptoks, prompt, cfg, prompts,
+                         gen):
+    """Phases 35 and 36 on one rank, one spawn for both: the float32
+    parity of ``cut``, then the bfloat16 greedy run of ``cfg``."""
+    import gc
+
+    import torch
+    parity = sharded_parity_rank(rank, world, cut, ptoks, prompt)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(parity=parity,
+                serve=sharded_serve_rank(rank, world, cfg, prompts, gen))
 
 
 def sharded_parity_rank(rank, world, cfg, tokens, prompt):
@@ -4184,10 +4249,11 @@ def sharded_serve_rank(rank, world, cfg, prompts, gen):
 
 def sharded_phases(args, torch, dev0):
     """Phases 35-37: jamba-v0.1-52b split over four ranks on the card
-    (``parallel/spmd.py``, gloo): float32 parity of one period of 4
-    against the one-process card run (35), one period of 4 of its 32
-    layers at full width served greedily by the four ranks (36; cut
-    from 8 layers for the script's time), the planner's
+    (``parallel/spmd.py``, gloo; one spawn runs 35 and 36): float32
+    parity of one period of 4 against the one-process card run (35), one
+    period of 4 of its 32 layers at full width served greedily by the
+    four ranks (36; cut from 8 layers for the script's time), the
+    planner's
     collectives against the ranks' and the three kernels at the per-rank
     shapes (37).  Returns (each kernel's launches over the four ranks of
     phase 36, its record entry at the per-rank shapes)."""
@@ -4221,7 +4287,18 @@ def sharded_phases(args, torch, dev0):
     with recorded_routes() as routes:
         want = teacher_forced(torch, cut, p32, ptoks, P2, dev0)
     del p32
-    got = run_ranks(torch, dev0, sharded_parity_rank, cut, ptoks, P2)
+    # one rank set runs phases 35 and 36
+    cfg = replace(full, **JAMBA_PERIOD4)
+    n_attn = sum(cfg.mixer_kind(i) == "attn" for i in range(cfg.n_layers))
+    B, P, gen = (SHARDED_RUN[k] for k in ("batch", "prompt", "gen"))
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, P)).astype(np.int32)
+    t0 = time.perf_counter()
+    ranks = run_ranks(torch, dev0, sharded_serving_rank, cut, ptoks, P2,
+                      cfg, prompts, gen)
+    log(f"sharded ranks (phases 35-36): {time.perf_counter() - t0:.1f} s "
+        f"with the spawn")
+    got = [r["parity"] for r in ranks]
     top = float(want.abs().max())
     for r, g in enumerate(got):
         lg = torch.from_numpy(g["logits"])
@@ -4242,12 +4319,7 @@ def sharded_phases(args, torch, dev0):
 
     # ------------- phase 36: one period of 4, bfloat16, four ranks, greedy
     stamp("phase 36")
-    cfg = replace(full, **JAMBA_PERIOD4)
-    n_attn = sum(cfg.mixer_kind(i) == "attn" for i in range(cfg.n_layers))
-    B, P, gen = (SHARDED_RUN[k] for k in ("batch", "prompt", "gen"))
-    prompts = np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (B, P)).astype(np.int32)
-    served = run_ranks(torch, dev0, sharded_serve_rank, cfg, prompts, gen)
+    served = [r["serve"] for r in ranks]
     want_l = {"flash_attention": n_attn,
               "selective_scan": cfg.n_layers - n_attn,
               "flash_decode": n_attn * (gen - 1)}
@@ -4612,12 +4684,14 @@ def grad_parity(torch, res, dev, cfg, batch):
 
 
 def train_run(torch, res, dev, cfg, batches, held, steps, plan_peak):
-    """Phase 43 on one rank: its bfloat16 blocks made in turns, AdamW
-    state, the held-out objective before and after ``steps`` steps of
-    ``make_train_step(res=...)`` (launches counted from 0 just before,
-    each step timed, the peak since the state was made), then on extra
-    steps its kernel time, the collectives ``OpCost`` counts and the time
-    spent in them."""
+    """Phase 43 (and 48) on one rank: its bfloat16 blocks made in turns,
+    AdamW state, the held-out objective before and after ``steps`` steps
+    of ``make_train_step(res=...)`` (launches counted from 0 just before,
+    each step timed, the peak since the state was made; the first step's
+    collectives counted by ``OpCost``, the last's each timed, by kind,
+    the steps between them plain: ``step_ms``), then on one extra step
+    its kernel time.  ``batches`` and ``held`` are whole batches: the
+    step and the objective take the rank's rows of them."""
     import torch.distributed as dist
 
     from repro_torch.launch import op_cost
@@ -4636,19 +4710,30 @@ def train_run(torch, res, dev, cfg, batches, held, steps, plan_peak):
     def on_card(batch):
         return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
 
+    # the loss takes the rank's rows (all of them where "data" is 1)
+    held_rows = {k: v[res.rows(len(v))] for k, v in held.items()}
+
     def objective():
         with torch.no_grad():
-            return float(loss_fn(state.params, on_card(held))[0])
+            return float(loss_fn(state.params, on_card(held_rows))[0])
 
     before = objective()
     torch.cuda.synchronize()
     dist.barrier()
     torch.cuda.reset_peak_memory_stats(dev)
     read_counts(reset=True)
+    timed = timed_run(torch, res)
+    step_timed = make_train_step(cfg, opt, res=timed)
     step_s, losses = [], []
-    for b in batches[:steps]:
+    for i, b in enumerate(batches[:steps]):
+        fn = step_timed if i == steps - 1 else step
         t0 = time.perf_counter()
-        state, m = step(state, on_card(b))
+        if i == 0:
+            with op_cost.OpCost() as oc:
+                state, m = fn(state, on_card(b))
+            counted = oc.summary()["collectives"]
+        else:
+            state, m = fn(state, on_card(b))
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
         losses.append(float(m["loss"]))
@@ -4657,27 +4742,20 @@ def train_run(torch, res, dev, cfg, batches, held, steps, plan_peak):
     after = objective()
     extra = on_card(batches[-1])
 
-    def one_step(run=res):
+    def one_step():
         nonlocal state
-        fn = step if run is res else make_train_step(cfg, opt, res=run)
-        state, _ = fn(state, extra)
+        state, _ = step(state, extra)
 
     dist.barrier()
     kernel_ms = rank_kernel_ms(torch, one_step, 1)
-    with op_cost.OpCost() as oc:
-        one_step()
-    counted = oc.summary()["collectives"]
-
-    timed = timed_run(torch, res)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    one_step(timed)
-    torch.cuda.synchronize()
+    plain = step_s[1:-1] or step_s
     return dict(before=before, after=after, losses=losses, step_s=step_s,
-                launches=launches, peak=peak, plan_peak=plan_peak,
-                build_s=build_s, kernel_ms=kernel_ms, collectives=counted,
-                collective_ms=(timed.seconds * 1e3,
-                               (time.perf_counter() - t0) * 1e3),
+                step_ms=1e3 * sum(plain) / len(plain), launches=launches,
+                peak=peak, plan_peak=plan_peak, build_s=build_s,
+                kernel_ms=kernel_ms, collectives=counted,
+                collective_ms=(timed.seconds * 1e3, step_s[-1] * 1e3),
+                collective_kinds_ms={k: v * 1e3 for k, v in
+                                     timed.by_kind.items()},
                 weights_gb=T.param_bytes(state.params) / 1e9)
 
 
@@ -4696,17 +4774,12 @@ def sharded_train_rank(rank, world, cfg32, parity_batch, cfg, batches, held,
     return dict(parity=parity, train=train)
 
 
-def sharded_train_phases(args, torch, dev0):
-    """Phases 42-43: jamba-v0.1-52b's 2-layer cut at full width trained
-    by four gloo ranks on the card.  42: the float32 loss, every
-    gradient made whole and the gradients' norm of the ranks against one
-    process, at 1 x 256 tokens; 43: 3 bfloat16 steps at 1 x 2,048 tokens
-    (launches, step time, busy share, peaks against the plan's rank-0
-    step, the plan's collectives against the card's, the held-out
-    objective), then the two attention kernels and the two scan kernels
-    at a rank's shapes against their plain versions.  Returns (each
-    kernel's launches over the four ranks of phase 43, its record entry
-    at a rank's shapes)."""
+def sharded_train_prepare(args, torch, dev0):
+    """Phases 42-43's set-up in the parent: jamba-v0.1-52b's 2-layer cut,
+    its float32 parity batch, the bfloat16 batches and the plan's
+    ``h100x4`` rank-0 step.  Returns (the context
+    :func:`sharded_train_finish` reads, the ranks' arguments of
+    :func:`sharded_train_rank`)."""
     from dataclasses import replace
 
     from repro_torch.configs import get_config
@@ -4715,17 +4788,14 @@ def sharded_train_phases(args, torch, dev0):
     from repro_torch.launch import dryrun as D
     from repro_torch.launch.mesh import card_mesh
 
-    world = SHARDED_WORLD
     full = get_config("jamba-v0.1-52b")
     # one microbatch: the row is the batch (the config accumulates 16)
     cfg = replace(full, accum_override=0, **JAMBA_TRAIN)
     log(f"sharded training: {cfg.name} on {cfg.n_layers} of "
         f"{full.n_layers} layers (attention + MoE, Mamba + MLP) at full "
-        f"width, {world} gloo ranks on {dev0}")
-
+        f"width, {SHARDED_WORLD} gloo ranks on {dev0}")
     # phase 42: float32 at 1 x 256 tokens, the ranks' gradients against
-    # one process's; phase 43: bfloat16, 3 steps of 1 x 2,048 tokens; one
-    # rank set runs both
+    # one process's; phase 43: bfloat16, 3 steps of 1 x 2,048 tokens
     cfg32 = replace(cfg, dtype="float32")
     parity_batch = SyntheticPipeline(cfg32, ShapeConfig(
         "parity", TRAIN_PARITY_SEQ, 1, "train")).batch_at(0)
@@ -4739,8 +4809,24 @@ def sharded_train_phases(args, torch, dev0):
     rec = D.plan(cfg, shape, card_mesh("h100x4"))
     own = rec["sharded_step"]
     check("refused" not in own, f"plan h100x4 train: {own.get('refused')}")
-    out = run_ranks(torch, dev0, sharded_train_rank, cfg32, parity_batch,
-                    cfg, batches, held, steps, own["predicted_peak_bytes"])
+    ctx = dict(cfg=cfg, B=B, S=S, steps=steps, rec=rec, own=own)
+    return ctx, (cfg32, parity_batch, cfg, batches, held, steps,
+                 own["predicted_peak_bytes"])
+
+
+def sharded_train_finish(args, torch, dev0, ctx, out):
+    """Phases 42-43's checks of the ranks' results ``out`` (the module's
+    phases: 42, the float32 loss, every gradient made whole and the
+    gradients' norm of the ranks against one process, at 1 x 256 tokens;
+    43, 3 bfloat16 steps at 1 x 2,048 tokens: launches, step time, busy
+    share, peaks against the plan's rank-0 step, the plan's collectives
+    against the card's, the held-out objective), then the two attention
+    kernels and the two scan kernels at a rank's shapes against their
+    plain versions.  Returns (each kernel's launches over the four ranks
+    of phase 43, its record entry at a rank's shapes)."""
+    world = SHARDED_WORLD
+    cfg, B, S, steps, rec, own = (ctx[k] for k in (
+        "cfg", "B", "S", "steps", "rec", "own"))
     got = [o["parity"] for o in out]
     runs = [o["train"] for o in out]
     log(f"sharded training: phase 42 {max(g['s'] for g in got):.1f} s and "
@@ -4781,12 +4867,12 @@ def sharded_train_phases(args, torch, dev0):
     lo, hi = SHARDED_TRAIN_PEAK
     for r, t in enumerate(runs):
         ratio = t["peak"] / t["plan_peak"]
-        step_ms = 1e3 * sum(t["step_s"][1:]) / max(len(t["step_s"]) - 1, 1)
+        step_ms = t["step_ms"]
         log(f"sharded train rank {r}: {t['weights_gb']:.2f} GB of weights "
             f"made with their moments in {t['build_s']:.1f} s; losses "
             f"{[round(x, 4) for x in t['losses']]}; step s "
-            f"{[round(x, 3) for x in t['step_s']]} (steps 2-{steps} "
-            f"{step_ms:.1f} ms a step, {B * S / step_ms * 1e3:.0f} tokens/s "
+            f"{[round(x, 3) for x in t['step_s']]} (the plain step "
+            f"{step_ms:.1f} ms, {B * S / step_ms * 1e3:.0f} tokens/s "
             f"a rank set); kernel ms a step {t['kernel_ms']:.1f}, busy "
             f"{t['kernel_ms'] / step_ms:.1%}; in collectives "
             f"{t['collective_ms'][0]:.1f} ms of the timed step's "
@@ -4849,9 +4935,10 @@ KVSEQ_PATHS = {"internvl2-1b": "internvl2-1b kv_seq split (1, 4)",
                "deepseek-v2-lite-16b": "deepseek-v2-lite-16b kv_seq split "
                                        "(1, 4)"}
 # phase 45, float32: a cache of 96 (stretches of 24), a prompt of 64
-# (ranks 0 and 1 full, rank 2 two thirds, rank 3 empty) and 24 decode
-# steps, which cross into rank 3 at position 72
-KVSEQ_PARITY = dict(batch=2, max_seq=96, prompt=64, steps=24)
+# (ranks 0 and 1 full, rank 2 two thirds, rank 3 empty) and 12 decode
+# steps, which cross into rank 3 at position 72 (24 before phases 47-49
+# were added, for the script's time)
+KVSEQ_PARITY = dict(batch=2, max_seq=96, prompt=64, steps=12)
 # deepseek-v2-lite-16b's parity depth: the dense layer and one MoE layer
 # (4.5 GB of float32 in one process)
 KVSEQ_DEEPSEEK_PARITY_LAYERS = 2
@@ -4863,6 +4950,10 @@ KVSEQ_RUN = dict(batch=4, max_seq=288, prompt=208, gen=16)
 # MoE layers, 3.2 GB of bfloat16 weights): its decode step carries 5-6
 # gloo collectives a layer, 6.7-16.4 ms each on one card (PERF.md)
 KVSEQ_DEEPSEEK_LAYERS = 4
+# internvl2-1b on 12 of its 24 layers in phases 45 and 46 (whole before
+# phases 47-49 were added, for the script's time): its decode step
+# carries 3 gloo all-reduces a layer
+KVSEQ_VLM_LAYERS = 12
 # phase 44: a rank's stretch at internvl2-1b's heads (B, H, KH, D) and
 # (stretch rows, live rows); the last two take several splits, merged in
 # the kernel (decode_32k's stretch of 8,192)
@@ -5016,17 +5107,17 @@ def kvseq_kernel_phase(torch, dev0):
     return long_entry(timed, "flash_decode_partial, a rank's stretch")
 
 
-def kvseq_cfgs(deepseek_layers, dtype, small=False):
-    """The two configs at ``dtype``: internvl2-1b whole (4 layers with
-    ``small``), deepseek-v2-lite-16b at full width on its first
-    ``deepseek_layers``."""
+def kvseq_cfgs(deepseek_layers, dtype, small=False, vlm_layers=None):
+    """The two configs at ``dtype``: internvl2-1b on ``vlm_layers`` (whole
+    unless given; 4 layers with ``small``), deepseek-v2-lite-16b at full
+    width on its first ``deepseek_layers``."""
     from dataclasses import replace
 
     from repro_torch.configs import get_config
 
     vlm = get_config("internvl2-1b")
-    return {"internvl2-1b": replace(vlm, dtype=dtype,
-                                    n_layers=4 if small else vlm.n_layers),
+    return {"internvl2-1b": replace(vlm, dtype=dtype, n_layers=4 if small
+                                    else vlm_layers or vlm.n_layers),
             "deepseek-v2-lite-16b": replace(
                 get_config("deepseek-v2-lite-16b"), dtype=dtype,
                 n_layers=deepseek_layers)}
@@ -5045,22 +5136,27 @@ def cache_layout(cfg, res, max_seq):
 
 
 def kvseq_serve(torch, res, dev, cfg, prompts, max_seq, gen):
-    """Phase 46 for one config on one rank: its bfloat16 blocks made in
-    turns; ``gen`` greedy tokens after ``prompts`` into a cache of
+    """Phase 46 (and 49) for one config on one rank: its bfloat16 blocks
+    made in turns; ``gen`` greedy tokens after the rank's rows of
+    ``prompts`` (all of them where "data" is 1) into a cache of
     ``max_seq`` (launches counted from 0 just before, the peak since);
     then on a fresh cache a decode step's time (CUDA events), its peak,
     the collectives ``OpCost`` counts in a prefill and a decode step and
-    the decode step's time in them."""
+    the decode step's time in them, by kind.  The peaks leave out what
+    the rank held before it made these weights (``held``: earlier
+    phases' cuBLAS workspaces on a rank set that runs several phases),
+    which no plan of this step holds."""
     import torch.distributed as dist
 
     from repro_torch.launch import op_cost
     from repro_torch.models import transformer as T
 
+    held = torch.cuda.memory_allocated(dev)
     t0 = time.perf_counter()
     params = seeded_params(torch, cfg, dev, res)
     build_s = time.perf_counter() - t0
     B, P = prompts.shape
-    batch = torch.as_tensor(prompts, device=dev)
+    batch = torch.as_tensor(prompts[res.rows(B)], device=dev)
 
     def greedy(n_tok):
         cache = T.init_cache(cfg, B, max_seq, dev, res=res)
@@ -5086,7 +5182,7 @@ def kvseq_serve(torch, res, dev, cfg, prompts, max_seq, gen):
         torch.cuda.synchronize()
         served_s = time.perf_counter() - t0
         launches = {n: k.launches for n, k in counters.items()}
-        peak = torch.cuda.max_memory_allocated(dev)
+        peak = torch.cuda.max_memory_allocated(dev) - held
 
         cache = T.init_cache(cfg, B, max_seq, dev, res=res)
         T.prefill(cfg, params, batch, cache, res=res)
@@ -5108,7 +5204,7 @@ def kvseq_serve(torch, res, dev, cfg, prompts, max_seq, gen):
         end.record()
         end.synchronize()
         step_ms = start.elapsed_time(end) / 3
-        step_peak = torch.cuda.max_memory_allocated(dev)
+        step_peak = torch.cuda.max_memory_allocated(dev) - held
         counted = {}
         with op_cost.OpCost() as oc:
             T.prefill(cfg, params, batch, cache, res=res)
@@ -5126,6 +5222,8 @@ def kvseq_serve(torch, res, dev, cfg, prompts, max_seq, gen):
                served_s=served_s, build_s=build_s, peak=peak,
                step_ms=step_ms, step_peak=step_peak, collectives=counted,
                collective_ms=coll_ms, layout=cache_layout(cfg, res, max_seq),
+               collective_kinds_ms={k: v * 1e3 for k, v in
+                                    timed.by_kind.items()}, held=held,
                weights_gb=T.param_bytes(params) / 1e9)
     del params, cache
     torch.cuda.empty_cache()
@@ -5187,30 +5285,22 @@ def kvseq_launches(cfg, rank, P, gen, max_seq):
             "flash_decode": n * steps if cfg.attn_kind == "gqa" else 0}
 
 
-def kvseq_phases(args, torch, dev0):
-    """Phases 44-46: caches split by positions over four gloo ranks on
-    the card.  44: ``flash_decode_partial`` and the combine
-    (:func:`kvseq_kernel_phase`); 45: internvl2-1b whole and deepseek-v2-
-    lite-16b on 2 layers in float32, the ranks' teacher-forced logits
-    against one process's, bitwise equal on the ranks, routing equal; 46:
-    internvl2-1b whole and deepseek-v2-lite-16b on 4 layers in bfloat16,
-    greedy, tokens equal on the ranks, launches, a decode step's time and
-    peak against the plan's, the plan's collectives against the ranks'.
-    One rank set runs 45 and 46.  Returns (each kernel's launches by path
-    over the four ranks of phase 46, phase 44's record entry)."""
-    from repro_torch.configs.base import ShapeConfig
-    from repro_torch.launch import dryrun as D
-    from repro_torch.launch.mesh import card_mesh
+def kvseq_prepare(args, torch, dev0):
+    """Phases 44-46's work in the parent before the ranks: phase 44
+    (:func:`kvseq_kernel_phase`), then the configs, tokens and the
+    one-process float32 runs of phase 45.  Returns (the context
+    :func:`kvseq_finish` reads, the ranks' arguments of
+    :func:`kvseq_rank`)."""
     from repro_torch.models import transformer as T
 
-    world = SHARDED_WORLD
     stamp("phase 44")
     entry = kvseq_kernel_phase(torch, dev0)
 
-    stamp("phases 45-46")
     p, r = KVSEQ_PARITY, KVSEQ_RUN
-    cfg32 = kvseq_cfgs(KVSEQ_DEEPSEEK_PARITY_LAYERS, "float32", args.small)
-    cfg16 = kvseq_cfgs(KVSEQ_DEEPSEEK_LAYERS, "bfloat16", args.small)
+    cfg32 = kvseq_cfgs(KVSEQ_DEEPSEEK_PARITY_LAYERS, "float32", args.small,
+                       KVSEQ_VLM_LAYERS)
+    cfg16 = kvseq_cfgs(KVSEQ_DEEPSEEK_LAYERS, "bfloat16", args.small,
+                       KVSEQ_VLM_LAYERS)
     rng = np.random.default_rng(45)
     parity = {a: (c, rng.integers(0, c.vocab_size, (
         p["batch"], p["prompt"] + p["steps"])).astype(np.int32))
@@ -5230,9 +5320,27 @@ def kvseq_phases(args, torch, dev0):
         log(f"kv_seq parity: {arch} on {cfg.n_layers} layers, "
             f"{T.param_bytes(p32) / 1e9:.2f} GB of float32 in one process")
         del p32
-    t0 = time.perf_counter()
-    out = run_ranks(torch, dev0, kvseq_rank, parity, serve)
-    log(f"kv_seq ranks: {time.perf_counter() - t0:.1f} s with the spawn")
+    return dict(want=want, parity=parity, serve=serve, entry=entry), (
+        parity, serve)
+
+
+def kvseq_finish(args, torch, dev0, ctx, out):
+    """Phases 45-46's checks of the ranks' results ``out``: 45,
+    internvl2-1b on 12 layers and deepseek-v2-lite-16b on 2 in float32,
+    the ranks' teacher-forced logits against one process's, bitwise equal
+    on the ranks, routing equal; 46, internvl2-1b on 12 layers and
+    deepseek-v2-lite-16b on 4 in bfloat16, greedy, tokens equal on the
+    ranks, launches, a decode step's time and peak against the plan's,
+    the plan's collectives against the ranks'.  Returns (each kernel's
+    launches by path over the four ranks of phase 46, phase 44's record
+    entry)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import card_mesh
+
+    world = SHARDED_WORLD
+    p, r = KVSEQ_PARITY, KVSEQ_RUN
+    want, serve, entry = ctx["want"], ctx["serve"], ctx["entry"]
 
     # ------------- phase 45: float32 ranks against one process
     quarter = p["max_seq"] // world
@@ -5293,7 +5401,8 @@ def kvseq_phases(args, torch, dev0):
             ratio = s["step_peak"] / plan_peak
             coll, step_t = s["collective_ms"]
             log(f"kv_seq serve {arch} rank {rk}: {s['weights_gb']:.2f} GB "
-                f"of weights made in {s['build_s']:.1f} s; {r['batch']} x "
+                f"of weights made in {s['build_s']:.1f} s beside "
+                f"{s['held'] / 2**20:.0f} MiB held before; {r['batch']} x "
                 f"{r['prompt']} prompt + {r['gen']} greedy tokens in "
                 f"{s['served_s']:.3f} s (peak {s['peak'] / 1e9:.3f} GB); "
                 f"decode step {s['step_ms']:.3f} ms (CUDA events), "
@@ -5325,6 +5434,489 @@ def kvseq_phases(args, torch, dev0):
     return launches, entry
 
 
+# ----- meshes with "data" above 1: the (2, 2) mesh (phases 47-49)
+DATA_MESH = "h100x2x2"
+DATA_PATHS = {"train": "llama3.2-1b train (2, 2)",
+              "serve": "llama3.2-1b serve (2, 2)"}
+# phase 47: deepseek-v2-lite-16b's first 2 layers (the dense one, an MoE
+# one) at full width in float32: MLA split by heads (8 a rank), 32 of 64
+# experts a rank, FSDP over "data"; 4 x 256 tokens (2 rows a "data"
+# rank) in two microbatches, against one process
+DATA_PARITY = dict(layers=2, batch=4, seq=256, accum=2)
+# phase 48: llama3.2-1b in bfloat16, 3 steps of 4 x 2,048 tokens (2 rows
+# a "data" rank) at TRAIN_OPT.  Alone (--phase data) all 16 layers: a
+# rank holds a quarter of the 1.24 B parameters (0.62 GB) and of their
+# float32 moments (2.47 GB), and one layer's gathered weights at a time;
+# a step moves 6.8 GB through gloo, 14.4 s on one card (PERF.md, DP1).
+# In the whole script its first 2 layers at full width, for the
+# script's time (the embedding and tied head are most of a step's bytes)
+DATA_TRAIN_RUN = dict(batch=4, seq=2048, steps=3)
+DATA_TRAIN_LAYERS = 2
+# phase 49: llama3.2-1b's 16 layers in bfloat16 served with the
+# tensor-parallel resolver of decode: batch 4 (2 rows a "data" rank),
+# prompt 256, 16 greedy tokens; float32 parity on its first 2 layers
+DATA_SERVE_RUN = dict(batch=4, prompt=256, gen=16)
+DATA_SERVE_PARITY = dict(layers=2, batch=4, prompt=64, steps=8)
+
+
+def data_cfgs(train_layers=None):
+    """Phases 47-49's configs: (deepseek's float32 cut, llama's bfloat16
+    training config on ``train_layers``, whole unless given, llama's
+    float32 cut, llama's serving config)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    ds = get_config("deepseek-v2-lite-16b")
+    llama = get_config("llama3.2-1b")
+    # phase 47 without remat: its recompute would gather the float32
+    # layers over gloo again (phase 48 and the CPU tests run FSDP under
+    # remat)
+    return (replace(ds, dtype="float32", n_layers=DATA_PARITY["layers"],
+                    accum_override=0, remat_policy="everything"),
+            replace(llama, accum_override=0,
+                    n_layers=train_layers or llama.n_layers),
+            replace(llama, dtype="float32",
+                    n_layers=DATA_SERVE_PARITY["layers"]),
+            llama)
+
+
+def data_prepare(args, torch, dev0):
+    """Phases 47-49's set-up in the parent: the batches, the plan's
+    (2, 2) rank-0 steps of phase 48's training cell and phase 49's
+    serving cells, and phase 49's one-process float32 logits.  Returns
+    (the context :func:`data_finish` reads, the ranks' arguments of
+    :func:`data_rank`)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import card_mesh
+    from repro_torch.models import transformer as T
+
+    mesh = card_mesh(DATA_MESH)
+    ds32, train_cfg, serve32, serve_cfg = data_cfgs(
+        None if args.phase == "data" else DATA_TRAIN_LAYERS)
+    q = DATA_PARITY
+    parity_batch = SyntheticPipeline(ds32, ShapeConfig(
+        "data_parity", q["seq"], q["batch"], "train")).batch_at(0)
+    B, S, steps = (DATA_TRAIN_RUN[k] for k in ("batch", "seq", "steps"))
+    if args.small:
+        S = 512
+    shape = ShapeConfig("data_train", S, B, "train")
+    pipe = SyntheticPipeline(train_cfg, shape,
+                             DataConfig(seed=TRAIN["seed"]))
+    batches = [pipe.batch_at(i) for i in range(steps)]
+    held = pipe.batch_at(steps + 1)
+    t0 = time.perf_counter()
+    rec = D.plan(train_cfg, shape, mesh)
+    own = rec["sharded_step"]
+    check("refused" not in own, f"plan {DATA_MESH} train: "
+          f"{own.get('refused')}")
+    r = DATA_SERVE_RUN
+    plans = {kind: D.plan(serve_cfg, ShapeConfig(
+        f"data_{kind}", seq, r["batch"], kind), mesh)
+        for kind, seq in (("prefill", r["prompt"]),
+                          ("decode", r["prompt"] + r["gen"]))}
+    log(f"plan {DATA_MESH}: the training and serving cells in "
+        f"{time.perf_counter() - t0:.1f} s")
+    prompts = np.random.default_rng(49).integers(
+        0, serve_cfg.vocab_size, (r["batch"], r["prompt"])).astype(np.int32)
+    sp = DATA_SERVE_PARITY
+    ptoks = np.random.default_rng(48).integers(
+        0, serve32.vocab_size,
+        (sp["batch"], sp["prompt"] + sp["steps"])).astype(np.int32)
+    p32 = seeded_params(torch, serve32, dev0)
+    want = teacher_forced(torch, serve32, p32, ptoks, sp["prompt"], dev0)
+    log(f"data parity: {serve32.name} on {serve32.n_layers} layers, "
+        f"{T.param_bytes(p32) / 1e9:.2f} GB of float32 in one process")
+    del p32
+    ctx = dict(train_cfg=train_cfg, serve_cfg=serve_cfg, B=B, S=S,
+               steps=steps, rec=rec, own=own, plans=plans, want=want)
+    return ctx, (ds32, parity_batch, train_cfg, batches, held, steps,
+                 own["predicted_peak_bytes"], serve32, ptoks, serve_cfg,
+                 prompts)
+
+
+@contextlib.contextmanager
+def captured_grads():
+    """Record the gradients every ``adamw.apply_updates`` call takes while
+    the block runs (a train step's, summed over its microbatches): a list
+    of dicts by name, on their devices."""
+    from repro_torch.optim import adamw
+
+    seen, apply = [], adamw.apply_updates
+
+    def capture(state, grads, *a, **kw):
+        seen.append({n: g.detach() for n, g in grads.items()})
+        return apply(state, grads, *a, **kw)
+
+    adamw.apply_updates = capture
+    try:
+        yield seen
+    finally:
+        adamw.apply_updates = apply
+
+
+def data_parity(torch, rank, dev, cfg, batch):
+    """Phase 47 on one rank (the (2, 2) mesh, the FSDP resolver): one
+    float32 ``make_train_step`` of two microbatches of ``batch`` from
+    zero moments, its gradients captured; then, in turn, each rank runs
+    the one-process step of the whole model (``res`` None) and holds its
+    blocks of it against its own: the gradients within
+    ``SHARDED_TRAIN_TOL`` of each largest |g|, the updated parameters as
+    ``check_updates`` holds them, every routing of its rows.  Returns
+    the losses, norms, errors and whether every routing was equal."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import card_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import OptConfig, init_state
+    from repro_torch.parallel.collectives import sharded_run
+    from repro_torch.training.step import make_train_step
+
+    t0 = time.perf_counter()
+    res = sharded_run(cfg, card_mesh(DATA_MESH), rank=rank,
+                      group=dist.group.WORLD, train=True)
+    b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    accum = DATA_PARITY["accum"]
+    rows = res.rows(DATA_PARITY["batch"] // accum)    # of a microbatch
+    opt = OptConfig(**SHARDED_TRAIN_OPT)
+    params = seeded_params(torch, cfg, dev, res)
+    weights_gb = T.param_bytes(params) / 1e9
+    fsdp = sum(hasattr(p, "fsdp") for p in params.parameters())
+    times = {"build": time.perf_counter() - t0}
+    t1 = time.perf_counter()
+    with recorded_routes() as routes, captured_grads() as seen:
+        state, met = make_train_step(cfg, opt, res=res, accum_steps=accum)(
+            init_state(params, opt), b)
+    times["step"] = time.perf_counter() - t1
+    grads = {n: g.cpu() for n, g in seen[0].items()}
+    updated = {n: p.detach().cpu() for n, p in params.named_parameters()}
+    # the state holds the blocks and their moments: the turns below need
+    # the card
+    del params, seen, state
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    for turn in range(dist.get_world_size()):
+        if turn == dist.get_rank():
+            whole = seeded_params(torch, cfg, dev)
+            with recorded_routes() as one_routes, \
+                    captured_grads() as one_seen:
+                one_state, one_met = make_train_step(
+                    cfg, opt, accum_steps=accum)(init_state(whole, opt), b)
+            one = one_seen[0]
+            errs = {}
+            for n, ref in rank_blocks(cfg, res, whole, one).items():
+                top = float(torch.linalg.vector_norm(one[n], math.inf))
+                errs[n] = float((grads[n].to(dev) - ref).abs().max()) / max(
+                    top, 1e-30)
+            del one, one_seen
+            want = rank_blocks(cfg, res, whole, {
+                n: p.detach() for n, p in whole.named_parameters()})
+            step = check_updates(torch, {n: u.to(dev) for n, u in
+                                         updated.items()},
+                                 {n: w.cpu() for n, w in want.items()},
+                                 opt.lr, f"data parity rank {rank}'s step")
+            same = len(routes) == len(one_routes) and all(
+                torch.equal(a[1], c[1][rows]) for a, c in
+                zip(routes, one_routes))
+            del whole, want, one_state
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    times["turns"] = time.perf_counter() - t1
+    return dict(loss=float(met["loss"]), one_loss=float(one_met["loss"]),
+                norm=float(met["grad_norm"]),
+                one_norm=float(one_met["grad_norm"]), errs=errs, step=step,
+                routes_equal=same, n_routes=len(routes),
+                weights_gb=weights_gb, fsdp=fsdp, rows=(rows.start,
+                                                        rows.stop),
+                times=times, s=time.perf_counter() - t0)
+
+
+def data_rank(rank, world, ds32, parity_batch, train_cfg, batches, held,
+              steps, plan_peak, serve32, ptoks, serve_cfg, prompts):
+    """Phases 47-49 on one rank of the (2, 2) mesh: :func:`data_parity`;
+    :func:`train_run` of llama3.2-1b under the FSDP resolver; its float32
+    cut's teacher-forced logits of the rank's rows and
+    :func:`kvseq_serve` of the whole model under the decode resolver."""
+    import gc
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import card_mesh
+    from repro_torch.parallel.collectives import sharded_run
+
+    torch, _, dev = rank_setup(rank, world, ds32, train=True)
+    mesh = card_mesh(DATA_MESH)
+    out = {"parity": data_parity(torch, rank, dev, ds32, parity_batch)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = sharded_run(train_cfg, mesh, rank=rank, group=dist.group.WORLD,
+                      train=True)
+    out["train"] = train_run(torch, res, dev, train_cfg, batches, held,
+                             steps, plan_peak)
+    out["train"]["s"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = sharded_run(serve32, mesh, rank=rank, group=dist.group.WORLD)
+    params = seeded_params(torch, serve32, dev, res)
+    B = len(ptoks)
+    rows = res.rows(B)
+    out["serve_parity"] = dict(
+        rows=(rows.start, rows.stop),
+        logits=teacher_forced(torch, serve32, params, ptoks[rows],
+                              DATA_SERVE_PARITY["prompt"], dev, res,
+                              batch=B).numpy())
+    del params
+    torch.cuda.empty_cache()
+    r = DATA_SERVE_RUN
+    res = sharded_run(serve_cfg, mesh, rank=rank, group=dist.group.WORLD)
+    out["serve"] = kvseq_serve(torch, res, dev, serve_cfg, prompts,
+                               r["prompt"] + r["gen"], r["gen"])
+    sl = res.rows(len(prompts))
+    out["serve"]["rows"] = (sl.start, sl.stop)
+    out["serve"]["s"] = time.perf_counter() - t0
+    return out
+
+
+def data_finish(args, torch, dev0, ctx, out):
+    """Phases 47-49's checks of the ranks' results ``out``: 47, the
+    float32 loss, gradients, norm and AdamW update of one step of two
+    microbatches of deepseek's 2 layers against one process, routing
+    equal, the loss and norm bitwise equal on the four ranks; 48,
+    llama3.2-1b trained: launches, step time, busy share, time in gloo
+    by kind, each rank's peak against the plan's (2, 2) rank-0 peak, the
+    plan's collectives against each rank's, the held-out objective
+    falling; 49, llama3.2-1b served: the float32 rows against one
+    process's, tokens bitwise equal within each "data" pair, launches,
+    the plan's collectives against each rank's.  Then
+    ``flash_attention`` and ``flash_attention_bwd`` at a rank's training
+    shapes and ``flash_decode`` at its serving shape against their plain
+    versions.  Returns (each kernel's launches by path over the four
+    ranks, its record entry at those shapes)."""
+    tol = SHARDED_TRAIN_TOL
+    # ----------- phase 47: float32 training parity on (2, 2)
+    stamp("phase 47")
+    got = [o["parity"] for o in out]
+    for rk, g in enumerate(got):
+        rel = abs(g["loss"] - g["one_loss"]) / abs(g["one_loss"])
+        worst = max(g["errs"].items(), key=lambda kv: kv[1])
+        nrel = abs(g["norm"] - g["one_norm"]) / g["one_norm"]
+        log(f"data parity rank {rk} (float32, TF32 off, {DATA_PARITY['batch']}"
+            f" x {DATA_PARITY['seq']} in {DATA_PARITY['accum']} microbatches,"
+            f" rows {g['rows']} of each): {g['weights_gb']:.2f} GB of "
+            f"weights, {g['fsdp']} blocks split over 'data'; the step's loss "
+            f"{g['loss']:.7f} against one process's {g['one_loss']:.7f} "
+            f"({rel:.3g}); every gradient made whole within {worst[1]:.3g} "
+            f"of its largest |g| ({worst[0]}); norm {g['norm']:.6f} against "
+            f"{g['one_norm']:.6f} ({nrel:.3g}); the updates worst "
+            f"{g['step'][0]:.3g} of their tolerance, {g['step'][1]} of "
+            f"{g['step'][2]} elements outside 1e-3; {g['n_routes']} "
+            f"routings equal: {g['routes_equal']}; {g['s']:.1f} s ("
+            + ", ".join(f"{k} {v:.1f} s" for k, v in g["times"].items())
+            + ")")
+        check(math.isfinite(g["loss"]) and rel <= tol["loss"],
+              f"data parity: rank {rk}'s loss {g['loss']} against "
+              f"{g['one_loss']}")
+        check(worst[1] <= tol["grad"], f"data parity: rank {rk}'s "
+              f"{worst[0]} gradient {worst[1]:.3g} of its largest away")
+        check(nrel <= tol["norm"], f"data parity: rank {rk}'s norm "
+              f"{g['norm']} against {g['one_norm']}")
+        check(g["routes_equal"] and g["n_routes"] > 0,
+              f"data parity: rank {rk} routes tokens to other experts")
+        check(g["fsdp"] > 0, f"data parity: rank {rk} holds no FSDP block")
+        check((g["loss"], g["norm"]) == (got[0]["loss"], got[0]["norm"]),
+              f"data parity: rank {rk}'s loss or norm differs from rank "
+              f"0's")
+
+    # ----------- phase 48: llama3.2-1b trained on (2, 2) in bfloat16
+    stamp("phase 48")
+    cfg, B, S, steps, rec, own = (ctx[k] for k in (
+        "train_cfg", "B", "S", "steps", "rec", "own"))
+    runs = [o["train"] for o in out]
+    want_l = {k: v * steps for k, v in per_packet(cfg).items()}
+    lo, hi = SHARDED_TRAIN_PEAK
+    for rk, t in enumerate(runs):
+        ratio = t["peak"] / t["plan_peak"]
+        step_ms = t["step_ms"]
+        kinds = {k: round(v, 1) for k, v in t["collective_kinds_ms"].items()}
+        log(f"data train rank {rk}: {t['weights_gb']:.3f} GB of weights made "
+            f"with their moments in {t['build_s']:.1f} s; losses "
+            f"{[round(x, 4) for x in t['losses']]}; step s "
+            f"{[round(x, 3) for x in t['step_s']]} (the plain step "
+            f"{step_ms:.1f} ms, {B * S / step_ms * 1e3:.0f} tokens/s "
+            f"a rank set); kernel ms a step {t['kernel_ms']:.1f}, busy "
+            f"{t['kernel_ms'] / step_ms:.1%}; in collectives "
+            f"{t['collective_ms'][0]:.1f} ms of the timed step's "
+            f"{t['collective_ms'][1]:.1f} ms, by kind {kinds} (host clock, "
+            f"card drained around each); peak {t['peak'] / 1e9:.3f} GB "
+            f"against the plan's rank-0 {t['plan_peak'] / 1e9:.3f} GB "
+            f"({ratio:.4f}, limits {lo}-{hi}); held-out objective "
+            f"{t['before']:.6f} -> {t['after']:.6f}; launches "
+            f"{t['launches']}; collectives a step "
+            f"{json.dumps(t['collectives'])}; {t['s']:.1f} s")
+        check(t["launches"] == want_l, f"data train: rank {rk} launched "
+              f"{t['launches']}, expected {want_l}")
+        check(all(math.isfinite(x) for x in t["losses"])
+              and t["after"] < t["before"],
+              f"data train: rank {rk}'s losses {t['losses']}, held-out "
+              f"objective {t['before']} -> {t['after']}")
+        check(t["losses"] == runs[0]["losses"], f"data train: rank {rk}'s "
+              f"losses differ from rank 0's")
+        check(lo <= ratio <= hi, f"data train: rank {rk}'s peak "
+              f"{t['peak'] / 1e9:.3f} GB against the plan's "
+              f"{t['plan_peak'] / 1e9:.3f} GB ({ratio:.4f})")
+        check(t["collectives"] == rec["collectives"],
+              f"data train: rank {rk} counted {t['collectives']}, the plan "
+              f"{rec['collectives']}")
+    log(f"plan {DATA_MESH} train (batch {B}, seq {S}, {cfg.n_layers} "
+        f"layers): collectives equal to each rank's counted step, "
+        f"{json.dumps(rec['collectives'])}; rank 0's arguments "
+        f"{rec['argument_bytes_per_device'] / 1e9:.3f} GB, its predicted "
+        f"peak {own['predicted_peak_bytes'] / 1e9:.3f} GB (even share "
+        f"{rec['predicted_peak_bytes_per_device'] / 1e9:.3f} GB)")
+
+    # ----------- phase 49: llama3.2-1b served on (2, 2)
+    stamp("phase 49")
+    want = ctx["want"]
+    top = float(want.abs().max())
+    for rk, o in enumerate(out):
+        g = o["serve_parity"]
+        rows = slice(*g["rows"])
+        lg = torch.from_numpy(g["logits"])
+        check(bool(torch.isfinite(lg).all())
+              and lg.shape == want[rows].shape,
+              f"data serve parity: rank {rk}'s logits {tuple(lg.shape)}")
+        torch.testing.assert_close(lg, want[rows], **SHARDED_TOL)
+        err = float((lg - want[rows]).abs().max())
+        log(f"data serve parity rank {rk}: rows {g['rows']}; max |rank - "
+            f"one process| {err:.3g} = {err / top:.3g} of the largest logit "
+            f"(rtol = atol = 2e-4)")
+    scfg, r, plans = ctx["serve_cfg"], DATA_SERVE_RUN, ctx["plans"]
+    serves = [o["serve"] for o in out]
+    want_s = {"flash_attention": scfg.n_layers, "selective_scan": 0,
+              "flash_decode": scfg.n_layers * (r["gen"] - 1)}
+    plan_peak = plans["decode"]["sharded_step"]["predicted_peak_bytes"]
+    for rk, sv in enumerate(serves):
+        pair = serves[rk - rk % 2]      # the rank of model coordinate 0
+        check(sv["rows"] == pair["rows"] and np.array_equal(
+            sv["tokens"], pair["tokens"]), f"data serve: rank {rk}'s tokens "
+            f"differ from its 'data' pair's")
+        check(sv["launches"] == want_s, f"data serve: rank {rk} launched "
+              f"{sv['launches']}, expected {want_s}")
+        for kind, prec in plans.items():
+            check(prec["collectives"] == sv["collectives"][kind],
+                  f"data plan {kind}: {prec['collectives']} against rank "
+                  f"{rk}'s {sv['collectives'][kind]}")
+        coll, step_t = sv["collective_ms"]
+        log(f"data serve rank {rk}: rows {sv['rows']}, {sv['weights_gb']:.3f}"
+            f" GB of weights made in {sv['build_s']:.1f} s beside "
+            f"{sv['held'] / 2**20:.0f} MiB held before; "
+            f"{r['batch']} x {r['prompt']} prompt + {r['gen']} greedy "
+            f"tokens in {sv['served_s']:.3f} s (peak {sv['peak'] / 1e9:.3f} "
+            f"GB); decode step {sv['step_ms']:.3f} ms (CUDA events), "
+            f"{coll:.1f} of a timed step's {step_t:.1f} ms in gloo "
+            f"collectives; the step's peak {sv['step_peak'] / 1e9:.4f} GB "
+            f"against the plan's rank-0 {plan_peak / 1e9:.4f} GB; launches "
+            f"{sv['launches']}; {sv['s']:.1f} s")
+    toks = np.concatenate([serves[0]["tokens"], serves[2]["tokens"]])
+    check(toks.shape == (r["batch"], r["gen"]) and int(toks.min()) >= 0
+          and int(toks.max()) < scfg.vocab_size,
+          f"data serve: tokens of shape {toks.shape} out of range")
+    for kind, prec in plans.items():
+        log(f"plan {DATA_MESH} serve {kind} (batch {r['batch']}, seq "
+            f"{prec['seq_len']}): collectives equal to each rank's, "
+            f"{json.dumps(prec['collectives'])}; rank 0's predicted peak "
+            f"{prec['sharded_step']['predicted_peak_bytes'] / 1e9:.4f} GB")
+
+    H, KH = cfg.n_heads // 2, cfg.n_kv_heads // 2
+    D_, bf16 = cfg.resolved_head_dim, torch.bfloat16
+    Bl = B // 2
+    gen_t = torch.Generator(dev0).manual_seed(47)
+
+    def randn(shape_, dtype):
+        return torch.randn(shape_, generator=gen_t, device=dev0).to(dtype)
+
+    log("kernels at a (2, 2) rank's shapes against their plain versions:")
+    shapes = {
+        "flash_attention": attn_check(torch, randn, Bl, S, H, KH, D_, bf16,
+                                      timed=True),
+        "flash_attention_bwd": attn_bwd_check(torch, randn, Bl, S, H, KH,
+                                              D_, bf16, timed=True),
+        "flash_decode": decode_check(
+            torch, randn, r["batch"] // 2, r["prompt"] + r["gen"], H, KH,
+            D_, r["prompt"] + r["gen"] - 1, bf16, timed=True)}
+    entries = {k: long_entry(v, f"{k}, a (2, 2) rank's share")
+               for k, v in shapes.items()}
+    launches = {
+        DATA_PATHS["train"]: {k: sum(t["launches"][k] for t in runs)
+                              for k in ("flash_attention",
+                                        "flash_attention_bwd")},
+        DATA_PATHS["serve"]: {k: sum(sv["launches"][k] for sv in serves)
+                              for k in ("flash_attention", "flash_decode")}}
+    log(f"(2, 2) launches by path (four ranks): {json.dumps(launches)}")
+    return launches, entries
+
+
+def late_rank(rank, world, train, kvseq, data):
+    """Phases 42-43, 45-46 and 47-49 on one rank, one spawn for all (a
+    phase group whose arguments are None is left out)."""
+    import gc
+
+    import torch
+    out, held = {}, {}
+    for key, fn, a in (("train", sharded_train_rank, train),
+                       ("kvseq", kvseq_rank, kvseq),
+                       ("data", data_rank, data)):
+        if a is not None:
+            out[key] = fn(rank, world, *a)
+            gc.collect()
+            torch.cuda.empty_cache()
+            held[key] = torch.cuda.memory_allocated()
+    out["held"] = held
+    return out
+
+
+def late_sharded_phases(args, torch, dev0, which=("train", "kvseq",
+                                                  "data")):
+    """Phases 42-49, those of ``which``: each group's set-up in the
+    parent (``*_prepare``), one spawn of four gloo ranks for them all
+    (:func:`late_rank`), then each group's checks (``*_finish``).
+    Returns by group what its ``*_finish`` returns."""
+    ctx, jobs = {}, {}
+    if "train" in which:
+        stamp("phases 42-43: set-up")
+        ctx["train"], jobs["train"] = sharded_train_prepare(args, torch,
+                                                            dev0)
+    if "kvseq" in which:
+        ctx["kvseq"], jobs["kvseq"] = kvseq_prepare(args, torch, dev0)
+    if "data" in which:
+        stamp("phases 47-49: set-up")
+        ctx["data"], jobs["data"] = data_prepare(args, torch, dev0)
+    stamp("phases " + ", ".join({"train": "42-43", "kvseq": "45-46",
+                                 "data": "47-49"}[k] for k in which)
+          + " on four ranks")
+    t0 = time.perf_counter()
+    out = run_ranks(torch, dev0, late_rank, jobs.get("train"),
+                    jobs.get("kvseq"), jobs.get("data"))
+    log(f"late sharded ranks: {time.perf_counter() - t0:.1f} s with the "
+        f"spawn; bytes each rank holds after each group: "
+        f"{[o['held'] for o in out]}")
+    finish = {"train": sharded_train_finish, "kvseq": kvseq_finish,
+              "data": data_finish}
+    results = {}
+    for k in which:
+        if k == "train":
+            stamp("phases 42-43")
+        elif k == "kvseq":
+            stamp("phases 45-46")
+        results[k] = finish[k](args, torch, dev0, ctx[k],
+                               [o[k] for o in out])
+    return results
+
+
 def device_line(torch) -> str:
     return json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5337,12 +5929,12 @@ def main() -> int:
                     help="small sizes instead of the paper's")
     ap.add_argument("--phase", choices=["fleet", "plan", "served",
                                         "sharded", "trained",
-                                        "sharded_train", "kvseq"],
+                                        "sharded_train", "kvseq", "data"],
                     help="build, then run these phases alone (fleet: 8a; "
                          "plan: 26-30; served: 31-34; sharded: 35-37; "
                          "trained: 38-41; sharded_train: 42-43; kvseq: "
-                         "44-46) as a quicker check; prints no kernels "
-                         "line")
+                         "44-46; data: 47-49) as a quicker check; prints "
+                         "no kernels line")
     args = ap.parse_args()
 
     import torch
@@ -5413,16 +6005,11 @@ def main() -> int:
         print(device_line(torch))
         return 0
 
-    if args.phase == "sharded_train":
-        sharded, _ = sharded_train_phases(args, torch, dev0)
-        log(f"sharded training launches: {json.dumps(sharded)}")
-        print(smi)
-        print(device_line(torch))
-        return 0
-
-    if args.phase == "kvseq":
-        kvseq, _ = kvseq_phases(args, torch, dev0)
-        log(f"kv_seq launches: {json.dumps(kvseq)}")
+    late = {"sharded_train": "train", "kvseq": "kvseq", "data": "data"}
+    if args.phase in late:
+        key = late[args.phase]
+        got, _ = late_sharded_phases(args, torch, dev0, (key,))[key]
+        log(f"{args.phase} launches: {json.dumps(got)}")
         print(smi)
         print(device_line(torch))
         return 0
@@ -5894,20 +6481,20 @@ def main() -> int:
             rec.update(launches=sum(by.values()))
     attach("flash_attention_bwd", **{
         f"{m.split('-')[0]}_train_shape": e for m, e in dense_b.items()})
-    # phases 42-43: jamba-v0.1-52b trained by four ranks on the card; the
-    # ranks' launches join the four training kernels' records
-    stamp("phases 42-43")
-    sharded_t, shapes_t = sharded_train_phases(args, torch, dev0)
+    # phases 42-49 on one spawn of four ranks: jamba-v0.1-52b trained by
+    # four ranks (42-43), internvl2-1b and deepseek-v2-lite-16b served
+    # over caches split by positions (44-46), and the (2, 2) mesh (47-49)
+    late = late_sharded_phases(args, torch, dev0)
+    # phases 42-43's launches join the four training kernels' records
+    sharded_t, shapes_t = late["train"]
     for rec in records:
         if rec["name"] in sharded_t:
             by = rec["launches_by_path"]
             by[SHARDED_TRAIN_PATH] = sharded_t[rec["name"]]
             rec.update(launches=sum(by.values()),
                        sharded_train_shape=shapes_t[rec["name"]])
-    # phases 44-46: internvl2-1b and deepseek-v2-lite-16b served by four
-    # ranks over caches split by positions; their launches join the two
-    # attention kernels' records
-    kvseq, kvseq_entry = kvseq_phases(args, torch, dev0)
+    # phases 45-46's launches join the two attention kernels' records
+    kvseq, kvseq_entry = late["kvseq"]
     for rec in records:
         if rec["name"] in ("flash_attention", "flash_decode"):
             by = rec["launches_by_path"]
@@ -5915,6 +6502,15 @@ def main() -> int:
                       if c[rec["name"]])
             rec.update(launches=sum(by.values()))
     attach("flash_decode", kvseq_shape=kvseq_entry)
+    # phases 47-49's launches and shapes join the three kernels' records
+    data, data_entries = late["data"]
+    for rec in records:
+        if rec["name"] in data_entries:
+            by = rec["launches_by_path"]
+            by.update((path, c[rec["name"]]) for path, c in data.items()
+                      if c.get(rec["name"]))
+            rec.update(launches=sum(by.values()),
+                       data_shape=data_entries[rec["name"]])
     log("training table: " + json.dumps(
         {m: {k: t[k] for k in ("step_s", "tokens_s", "busy", "peak_gb")}
          for m, t in trained.items()}))

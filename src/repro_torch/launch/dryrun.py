@@ -19,15 +19,19 @@ sharding resolver over the state's logical axes, with the JAX package's
 resolvers: FSDP for training, ``serve_2d_weights`` for prefill.  Nothing
 is allocated and no card is needed.
 
-A cell on a mesh whose "model" axis exceeds 1 also runs rank 0's own
-step (``sharded_step``): its block of the weights and cache
+A cell on a mesh with an axis above 1 also runs rank 0's own step
+(``sharded_step``): its block of the weights and cache
 (``transformer.shard_params``, ``init_cache(res=...)``) or of the
-training state (the blocks, their AdamW moments) on ``meta``, its
-collectives under a ``fake``-backend group of the axis' size, counted by
-``OpCost`` (a train step's forward, backward and remat recompute alike);
-the record's ``collectives`` are that step's.  A config that
-``transformer.check_shardable`` (serving) or ``check_trainable``
-(training) refuses keeps ``{}`` and records why.
+training state (the blocks, their AdamW moments) on ``meta``, on its
+rows of the batch where "data" exceeds 1 (a train step takes the whole
+batch and runs the rank's block of each microbatch), its collectives
+under a ``fake``-backend group of the mesh's size and the "model" and
+"data" groups made from it, counted by ``OpCost`` (a train step's
+forward, backward and remat recompute alike, the FSDP gathers and
+reduce-scatters over "data" among them); the record's ``collectives``
+are that step's.  A config that ``transformer.check_shardable``
+(serving) or ``check_trainable`` (training: a batch whose microbatches
+"data" does not divide too) refuses keeps ``{}`` and records why.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh h100
     PYTHONPATH=src python -m repro_torch.launch.dryrun \\
@@ -52,12 +56,12 @@ from repro_torch.configs import ARCH_IDS, SHAPES, get_config, shapes_for
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.launch import op_cost
 from repro_torch.launch import specs as SP
-from repro_torch.launch.mesh import card_mesh
+from repro_torch.launch.mesh import CARD_MESHES, card_mesh
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
 from repro_torch.optim.adamw import OptConfig
 from repro_torch.parallel import spmd
-from repro_torch.parallel.collectives import MODEL, sharded_run
+from repro_torch.parallel.collectives import sharded_run
 from repro_torch.parallel.sharding import Mesh, ShardingResolver
 from repro_torch.training import step as STEP
 
@@ -158,6 +162,9 @@ def run_step(cfg: ModelConfig, shape: ShapeConfig,
         params, _ = SP.abstract_params(cfg)
         if res is not None:
             params = T.shard_params(cfg, params, res)
+            if res.data_size > 1:      # the rank's rows
+                ins = {k: v[res.rows(v.shape[0])] if v.dim() else v
+                       for k, v in ins.items()}
         cache = T.init_cache(cfg, shape.global_batch, shape.seq_len,
                              device=SP.META, res=res)
         with op_cost.OpCost() as oc:
@@ -173,17 +180,22 @@ def run_step(cfg: ModelConfig, shape: ShapeConfig,
 
 def sharded_step(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh,
                  arg_bytes: int) -> Dict:
-    """Rank 0's step of a cell split over ``mesh``'s "model" axis (the
-    module's docstring): its totals, collectives and predicted peak
+    """Rank 0's step of a cell split over ``mesh`` (the module's
+    docstring): its totals, collectives and predicted peak
     (``arg_bytes``, a device's arguments, plus what the step holds), or
     ``{"refused": why}``."""
     train = shape.kind == "train"
     try:
-        (T.check_trainable if train else T.check_shardable)(cfg, mesh)
+        if train:
+            T.check_trainable(cfg, mesh, shape.global_batch,
+                              cfg.accum_override or shape.accum_steps)
+        else:
+            T.check_shardable(cfg, mesh)
     except ValueError as e:
         return {"refused": str(e)}
     with spmd.fake_group(mesh.size) as group:
-        res = sharded_run(cfg, mesh, group=group, train=train)
+        res = sharded_run(cfg, mesh, group=group, train=train,
+                          prefill=shape.kind == "prefill")
         oc = run_step(cfg, shape, res=res)
     s = oc.summary()
     out = {k: s[k] for k in ("flops", "dot_flops", "traffic_bytes",
@@ -229,7 +241,7 @@ def plan(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh, *,
         "per_device_bytes": args,
         "argument_bytes_per_device": arg_bytes,
         # the whole step's totals and an even share of them a device (a
-        # cell split over "model" also has rank 0's own step under
+        # cell split over the mesh also has rank 0's own step under
         # "sharded_step", and its collectives here)
         "flops": summary["flops"],
         "dot_flops": summary["dot_flops"],
@@ -247,7 +259,7 @@ def plan(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh, *,
         "predicted_peak_bytes_per_device":
             arg_bytes + summary["peak_held_bytes"] / n,
     }
-    if dict(zip(mesh.axis_names, mesh.shape)).get(MODEL, 1) > 1:
+    if any(n > 1 for n in mesh.shape):
         step = record["sharded_step"] = sharded_step(cfg, shape, mesh,
                                                      arg_bytes)
         if "refused" not in step:
@@ -329,7 +341,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None)
-    ap.add_argument("--mesh", default="h100", choices=["h100", "h100x4"])
+    ap.add_argument("--mesh", default="h100", choices=sorted(CARD_MESHES))
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--out", default="artifacts/dryrun")
     ap.add_argument("--force", action="store_true")

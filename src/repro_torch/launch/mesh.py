@@ -13,9 +13,10 @@ from typing import Dict, Optional
 
 from repro_torch.parallel.sharding import Mesh
 
-# the planner's meshes by name (``launch.dryrun --mesh``): one card, and
-# four cards of one host
-CARD_MESHES = {"h100": 1, "h100x4": 4}
+# the planner's meshes by name (``launch.dryrun --mesh``), as ("data",
+# "model") shapes: one card, four cards of one host tensor-parallel, and
+# four split two by two (the JAX package's test mesh over four devices)
+CARD_MESHES = {"h100": (1, 1), "h100x4": (1, 4), "h100x2x2": (2, 2)}
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
@@ -30,7 +31,7 @@ def make_test_mesh(n_devices: Optional[int] = None, model: int = 4) -> Mesh:
     """("data", "model") mesh over ``n_devices`` cards (default: those
     present, at least 1): ``model`` of them tensor-parallel when they
     divide by it, else all data-parallel.  One card is (1, 1), four are
-    (1, 4)."""
+    (1, 4), or (2, 2) with ``model=2``."""
     if n_devices is None:
         import torch
         n_devices = max(torch.cuda.device_count(), 1)
@@ -44,7 +45,7 @@ def card_mesh(name: str) -> Mesh:
     """The mesh a ``--mesh`` name stands for (``CARD_MESHES``)."""
     if name not in CARD_MESHES:
         raise KeyError(f"unknown mesh {name!r}; known: {sorted(CARD_MESHES)}")
-    return make_test_mesh(CARD_MESHES[name])
+    return Mesh(("data", "model"), CARD_MESHES[name])
 
 
 def coords(mesh: Mesh, rank: int) -> Dict[str, int]:

@@ -27,7 +27,7 @@ moments) whole again.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -156,16 +156,19 @@ def _place(cfg: ModelConfig, resolver: ShardingResolver, coords, owner,
     view[sl] = block.reshape(view[sl].shape)
 
 
-def whole_from_ranks(cfg: ModelConfig, mesh: Mesh, blocks) -> Dict[
+def whole_from_ranks(cfg: ModelConfig, mesh: Mesh, blocks, *,
+                     resolver: Optional[ShardingResolver] = None) -> Dict[
         str, torch.Tensor]:
     """``blocks``: rank by rank (row-major on ``mesh``), a dict from
     parameter name to that rank's block of a parameter, a gradient or a
-    moment (``transformer.shard_params``'s names and layouts) -> a dict
-    from name to the whole tensor, as one process holds it, on the
-    blocks' device.  A tensor whole on every rank is rank 0's."""
+    moment (``transformer.shard_params``'s names and layouts, cut by
+    ``resolver``: the ranks' own, FSDP for training; the tensor-parallel
+    one of ``mesh`` when None) -> a dict from name to the whole tensor,
+    as one process holds it, on the blocks' device.  A tensor whole on
+    every rank is rank 0's."""
     abstract = T.init_abstract(cfg)
     axes = T.param_axes(cfg, abstract)
-    resolver = ShardingResolver(mesh)
+    resolver = resolver or ShardingResolver(mesh)
     out = {}
     for name, p in abstract.named_parameters():
         first = blocks[0][name]

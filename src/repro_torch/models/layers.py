@@ -42,8 +42,10 @@ the kernel's backward) goes through the hand-written CUDA kernels of
 plain ops, as in the JAX package.
 
 Sharded runs: the ``res`` of ``parallel/collectives.py`` gives a rank
-of a model split over the mesh's "model" axis.  A layer reads its local
-widths from its weights (heads, kv heads, experts, ``d_inner``) and, where
+of a model split over the mesh's "model" axis (a layer never sees a
+weight split over "data": ``models/transformer.py`` gathers it first).
+A layer reads its local widths from its weights (heads, kv heads,
+experts, ``d_inner``) and, where
 its weights split a product's contraction, adds the ranks' partial sums
 with ``res.all_reduce``: after ``wo``, ``w_down``, the experts' combine,
 and Mamba's ``x_proj`` and ``out_proj``.  The same widths say where a
@@ -604,11 +606,19 @@ def moe_apply(cfg: ModelConfig, p: MoE, x, res=None):
     sum_e(density_e * mean_prob_e) in float32.  Under ``res`` the router
     (replicated) routes every token over all E experts on every rank,
     each rank runs its block of the experts, and one all-reduce adds the
-    ranks' gate-weighted sums."""
+    ranks' gate-weighted sums.  Where "data" splits the batch, x is the
+    rank's rows and the aux's means are over every row: its counts and
+    probabilities are summed over "data" before they are divided
+    (``res.data_sum``); the capacity dispatch is a row's own."""
     E, (El, _, f) = cfg.moe.n_routed, p.w_gate.shape
     e0 = res.rank * El if res is not None and El < E else 0
     split = res is not None and (El < E or f < cfg.moe_d_ff)
     enter = res.enter if split else _same
+    over_data = res is not None and res.data_size > 1
+    if over_data and cfg.moe.dispatch != "grouped":
+        raise ValueError(f"{cfg.name}: the {cfg.moe.dispatch!r} dispatch "
+                         f"counts expert slots over the whole batch, which "
+                         f"a 'data' axis above 1 splits (not ported)")
     if cfg.moe.dispatch == "grouped":
         y, probs, gate_idx = _moe_grouped_dispatch(cfg, p, x, e0, enter)
     else:
@@ -618,6 +628,17 @@ def moe_apply(cfg: ModelConfig, p: MoE, x, res=None):
     if p.shared is not None:
         y = y + mlp_apply(cfg, p.shared, x, res,
                           d_ff=cfg.moe.n_shared * cfg.moe_d_ff)
+    if over_data:
+        # the means over every token of the batch: the rank's sums of
+        # the choices, the probabilities and the tokens, summed over
+        # "data" (whose backward passes the rank's part through)
+        n = probs.new_full((1,), float(probs.shape[0]))
+        tot = res.data_sum(torch.cat([
+            F.one_hot(gate_idx, E).float().sum(dim=(0, 1)),
+            probs.sum(dim=0), n]))
+        density = tot[:E] / (tot[-1] * gate_idx.shape[-1])
+        aux = E * (density * (tot[E:2 * E] / tot[-1])).sum()
+        return y, aux
     density = F.one_hot(gate_idx, E).float().mean(dim=(0, 1))
     aux = E * (density * probs.mean(dim=0)).sum()
     return y, aux

@@ -44,12 +44,18 @@ predicts every codebook at each position (``lm_head`` (d, V*CB), logits
 
 Sharded runs (``res``, a ``parallel.collectives.ShardedRun``): each
 rank holds its block of every weight (:func:`shard_params`) and of every
-cache entry (:func:`init_cache`), split over the ("data", "model") mesh's
-"model" axis as the JAX package's resolver splits them, and the layers
-join the partial results with the run's collectives.  Where the resolver
-splits a cache by positions ("kv_seq"), a rank's entry is a stretch of
-them: :func:`init_cache` gives a :class:`RankCache` that knows the whole
-length, and :func:`prefill` and :func:`decode_step` hand it to the
+cache entry (:func:`init_cache`), split over the ("data", "model") mesh
+as the JAX package's resolver splits them, and the layers join the
+partial results with the run's collectives.  Where "data" exceeds 1 a
+rank takes its rows of the batch (``res.rows``): :func:`forward`,
+:func:`prefill` and :func:`decode_step` take the rank's rows and its
+cache holds them; under the FSDP resolver a weight's block is split over
+"data" too, and is gathered whole before use (:func:`_gathered` at the
+start of each layer, the embedding, the final norm and the head where
+they are used), so that no layer sees a block split over "data".  Where
+the resolver splits a cache by positions ("kv_seq"), a rank's entry is a
+stretch of them: :func:`init_cache` gives a :class:`RankCache` that knows
+the whole length, and :func:`prefill` and :func:`decode_step` hand it to the
 layers, which ask ``res.kv_stretch`` for the rank's stretch.  The
 embedding is a lookup of the rank's vocab rows and one all-reduce; the
 head gathers the logits over the vocab, so every rank holds them whole.
@@ -70,7 +76,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.parallel.sharding import (MODEL, Mesh, local_slice,
+from repro_torch.parallel.sharding import (DATA, MODEL, Mesh, local_slice,
                                            shard_shape)
 
 Cache = List[Dict[str, torch.Tensor]]
@@ -261,16 +267,33 @@ def param_bytes(params: LM) -> int:
 # ---------------------------------------------------------------------------
 
 def _check_mesh(cfg: ModelConfig, mesh: Mesh, what: str) -> int:
-    """The size of ``mesh``'s "model" axis; ``ValueError`` unless it is
-    the only axis above 1."""
+    """The size of ``mesh``'s "model" axis; ``ValueError`` unless the
+    mesh is ("data", "model"): a "pod" axis above 1 (the JAX package's
+    multi-pod mesh) is not ported."""
     check_supported(cfg)
     sizes = dict(zip(mesh.axis_names, mesh.shape))
     if MODEL not in sizes or any(n > 1 for a, n in sizes.items()
-                                 if a != MODEL):
+                                 if a not in (MODEL, DATA)):
         raise ValueError(f"{cfg.name}: sharded {what} splits the "
-                         f"'{MODEL}' axis alone, not mesh "
-                         f"{mesh.axis_names} x {mesh.shape}")
+                         f"'{DATA}' and '{MODEL}' axes only, not mesh "
+                         f"{mesh.axis_names} x {mesh.shape} (a 'pod' axis "
+                         f"above 1 is not ported)")
     return sizes[MODEL]
+
+
+def check_batch(cfg: ModelConfig, mesh: Mesh, batch: int,
+                accum: int = 1) -> None:
+    """``ValueError`` unless every microbatch of a training ``batch`` of
+    ``accum`` microbatches splits over the mesh's "data" axis: where it
+    does not, the JAX resolver puts the activations' "seq" on "data"
+    instead, which the port does not run (a rank would hold replicated
+    rows, and summed gradients would count them twice)."""
+    n = dict(zip(mesh.axis_names, mesh.shape)).get(DATA, 1)
+    if n > 1 and (batch % accum or (batch // accum) % n):
+        raise ValueError(f"{cfg.name}: a training batch of {batch} rows in "
+                         f"{accum} microbatches does not split over "
+                         f"'{DATA}' = {n} (the JAX resolver's 'seq' over "
+                         f"'{DATA}' fallback is not ported)")
 
 
 def _check_heads(cfg: ModelConfig, n: int) -> None:
@@ -283,21 +306,41 @@ def _check_heads(cfg: ModelConfig, n: int) -> None:
                          f"do not")
 
 
-def check_trainable(cfg: ModelConfig, mesh: Mesh) -> None:
+def check_trainable(cfg: ModelConfig, mesh: Mesh,
+                    batch: Optional[int] = None, accum: int = 1) -> None:
     """Raise ``ValueError`` unless ranks can train ``cfg`` split over
-    ``mesh``'s "model" axis: no other axis may exceed 1, and the heads
-    split as :func:`_check_heads` asks."""
+    ``mesh``'s "data" and "model" axes: no other axis may exceed 1, the
+    heads split as :func:`_check_heads` asks and, given ``batch``, each
+    of its ``accum`` microbatches splits over "data"
+    (:func:`check_batch`)."""
     _check_heads(cfg, _check_mesh(cfg, mesh, "training"))
+    if batch is not None:
+        check_batch(cfg, mesh, batch, accum)
 
 
 def check_shardable(cfg: ModelConfig, mesh: Mesh) -> None:
     """Raise ``ValueError`` unless ranks can serve ``cfg`` split over
-    ``mesh``'s "model" axis: no other axis may exceed 1, and the heads
-    split as :func:`_check_heads` asks.  A cache that the resolver splits
-    by positions ("kv_seq": every MLA cache, and GQA's when the kv heads
-    do not divide over the axis) is served: each rank holds a stretch of
-    positions and a decode step combines the ranks' partials."""
+    ``mesh``'s "data" and "model" axes: no other axis may exceed 1, and
+    the heads split as :func:`_check_heads` asks.  A cache that the
+    resolver splits by positions ("kv_seq": every MLA cache, and GQA's
+    when the kv heads do not divide over the axis) is served: each rank
+    holds a stretch of positions and a decode step combines the ranks'
+    partials.  A batch that "data" does not divide is served replicated
+    over "data": every "data" rank computes every row."""
     _check_heads(cfg, _check_mesh(cfg, mesh, "serving"))
+
+
+def _data_dim(res, spec, flat_at: Optional[int]) -> Optional[int]:
+    """The port's dim of a parameter that ``spec`` splits over a "data"
+    axis above 1, else None; ``flat_at``: the dim where the port keeps a
+    (heads, hd) pair flat (the spec's dims after it move down one)."""
+    if res.data_size == 1:
+        return None
+    for i, ax in enumerate(spec):
+        axes = () if ax is None else (ax,) if isinstance(ax, str) else ax
+        if DATA in axes:
+            return i - 1 if flat_at is not None and i > flat_at else i
+    return None
 
 
 def _local(res, cfg: ModelConfig, owner: nn.Module, leaf: str, axes,
@@ -305,19 +348,30 @@ def _local(res, cfg: ModelConfig, owner: nn.Module, leaf: str, axes,
     """The rank's block of parameter ``t`` (a copy: the whole tensor can
     be freed).  Mamba's fused ``in_proj`` (d, 2 di) is split half by
     half, the rank's block of the x columns beside the same block of the
-    z columns."""
+    z columns.  A block that the resolver splits over "data" (FSDP)
+    carries ``fsdp``: (its dim, whether it is such a pair of halves),
+    which :func:`_gathered` reads."""
     if isinstance(owner, L.Mamba) and leaf == "in_proj":
         halves = [_local(res, cfg, owner, "", axes, h)
                   for h in t.chunk(2, dim=-1)]
-        return L._frozen(torch.cat(halves, dim=-1))
+        p = L._frozen(torch.cat(halves, dim=-1))
+        if hasattr(halves[0], "fsdp"):
+            dim = halves[0].fsdp[0]
+            p.fsdp = (dim, dim == t.dim() - 1)
+        return p
     shape = logical_shape(cfg, axes, t.shape)
     spec = res.resolver.spec(axes, shape, param=True)
     block = t.reshape(shape)[local_slice(res.mesh, spec, shape,
                                          res.coords)]
+    flat_at = None
     if len(shape) > t.dim():   # a (heads, hd) pair the port keeps flat
-        i = next(k for k in range(t.dim()) if t.shape[k] != shape[k])
-        block = block.flatten(i, i + 1)
-    return L._frozen(block.clone())
+        flat_at = next(k for k in range(t.dim()) if t.shape[k] != shape[k])
+        block = block.flatten(flat_at, flat_at + 1)
+    p = L._frozen(block.clone())
+    dim = _data_dim(res, spec, flat_at)
+    if dim is not None:
+        p.fsdp = (dim, False)
+    return p
 
 
 def shard_params(cfg: ModelConfig, params: LM, res) -> LM:
@@ -339,21 +393,80 @@ def shard_params(cfg: ModelConfig, params: LM, res) -> LM:
     return local(params, "")
 
 
-def split_names(cfg: ModelConfig, res) -> List[str]:
-    """The names of the parameters that :func:`shard_params` cuts into
-    blocks for ``res``'s rank (the resolver splits a dim of theirs), in
-    ``named_parameters()`` order; the others are whole, and equal, on
-    every rank.  Read from the shapes alone, so that a step counted by
-    ``launch/op_cost.py`` may call it before the mode starts."""
+def split_axes(cfg: ModelConfig, res) -> Dict[str, Tuple[str, ...]]:
+    """The parameters that :func:`shard_params` cuts into blocks for
+    ``res``'s rank (the resolver splits a dim of theirs over a mesh axis
+    above 1), by name in ``named_parameters()`` order, each with the
+    mesh axes that split it (sorted); the others are whole, and equal,
+    on every rank.  Read from the shapes alone, so that a step counted
+    by ``launch/op_cost.py`` may call it before the mode starts."""
+    sizes = dict(zip(res.mesh.axis_names, res.mesh.shape))
     whole = init_abstract(cfg)
     axes = param_axes(cfg, whole)
-    out = []
+    out = {}
     for n, p in whole.named_parameters():
         shape = logical_shape(cfg, axes[n], p.shape)
-        if any(s is not None
-               for s in res.resolver.spec(axes[n], shape, param=True)):
-            out.append(n)
+        used = sorted(a for s in res.resolver.spec(axes[n], shape,
+                                                   param=True)
+                      if s is not None
+                      for a in ((s,) if isinstance(s, str) else s)
+                      if sizes[a] > 1)
+        if used:
+            out[n] = tuple(used)
     return out
+
+
+def split_names(cfg: ModelConfig, res) -> List[str]:
+    """The names of :func:`split_axes`' parameters, in its order."""
+    return list(split_axes(cfg, res))
+
+
+def _whole(res, params: List[torch.Tensor]) -> List[torch.Tensor]:
+    """``params`` with every FSDP block (a ``fsdp`` tag of
+    :func:`_local`) made whole over "data", all by one
+    ``res.gather_blocks``, whose backward reduce-scatters their
+    gradients to the blocks; the others as they are."""
+    if res is None or res.data_size == 1:
+        return list(params)
+    blocks, dims = [], []
+    for p in params:
+        if hasattr(p, "fsdp"):
+            dim, halves = p.fsdp
+            parts = p.chunk(2, dim=-1) if halves else (p,)
+            blocks.extend(parts)
+            dims.extend([dim] * len(parts))
+    if not blocks:
+        return list(params)
+    whole = iter(res.gather_blocks(blocks, dims))
+    out = []
+    for p in params:
+        if not hasattr(p, "fsdp"):
+            out.append(p)
+        elif p.fsdp[1]:
+            out.append(torch.cat([next(whole), next(whole)], dim=-1))
+        else:
+            out.append(next(whole))
+    return out
+
+
+def _gathered(module: nn.Module, res) -> nn.Module:
+    """``module`` with its parameters made whole over "data"
+    (:func:`_whole`): a shallow copy holding the gathered tensors, which
+    live as long as it does; ``module`` itself where nothing of it is
+    split over "data"."""
+    params = list(module.parameters())
+    if res is None or not any(hasattr(p, "fsdp") for p in params):
+        return module
+    new = {id(p): w for p, w in zip(params, _whole(res, params))}
+
+    def swap(m: nn.Module) -> nn.Module:
+        c = copy.copy(m)
+        c._parameters = {k: None if p is None else new[id(p)]
+                         for k, p in m._parameters.items()}
+        c._modules = {k: None if x is None else swap(x)
+                      for k, x in m._modules.items()}
+        return c
+    return swap(module)
 
 
 # ---------------------------------------------------------------------------
@@ -381,13 +494,14 @@ def embed_tokens(cfg: ModelConfig, params: LM, tokens, patches=None,
     With ``res`` splitting the vocab each rank sums its rows (zeros for
     the others' tokens) and one all-reduce adds the ranks' sums."""
     tokens = tokens.long()
+    embed, = _whole(res, [params.embed])
     if _codebooks(cfg):
-        x = _lookup(cfg, params.embed[0], tokens[..., 0], res)
+        x = _lookup(cfg, embed[0], tokens[..., 0], res)
         for cb in range(1, cfg.n_codebooks):
-            x = x + _lookup(cfg, params.embed[cb], tokens[..., cb], res)
+            x = x + _lookup(cfg, embed[cb], tokens[..., cb], res)
     else:
-        x = _lookup(cfg, params.embed, tokens, res)
-    if res is not None and params.embed.shape[-2] < cfg.vocab_size:
+        x = _lookup(cfg, embed, tokens, res)
+    if res is not None and embed.shape[-2] < cfg.vocab_size:
         x = res.all_reduce(x)
     if cfg.frontend == "vit_stub" and patches is not None:
         n = patches.shape[1]
@@ -402,17 +516,19 @@ def lm_head(cfg: ModelConfig, params: LM, x, res=None):
     vocab the rank's logits are gathered over it: every rank returns them
     whole."""
     cb = _codebooks(cfg)
+    w, = _whole(res, [params.embed if cfg.tie_embeddings
+                      else params.lm_head])
     split = res is not None and (
-        params.embed.shape[-2] < cfg.vocab_size if cfg.tie_embeddings
-        else params.lm_head.shape[-1] < cfg.vocab_size * max(cb, 1))
+        w.shape[-2] < cfg.vocab_size if cfg.tie_embeddings
+        else w.shape[-1] < cfg.vocab_size * max(cb, 1))
     if split:
         x = res.enter(x)
     if cfg.tie_embeddings:
-        logits = x @ params.embed.reshape(-1, cfg.d_model).T
+        logits = x @ w.reshape(-1, cfg.d_model).T
         if cb:
             logits = logits.unflatten(-1, (cb, -1))
     else:
-        logits = x @ params.lm_head
+        logits = x @ w
     if split:
         logits = res.all_gather(logits, -1)
     if cb and not cfg.tie_embeddings:
@@ -428,7 +544,11 @@ def _apply_layer(cfg: ModelConfig, lp: Layer, x, positions, cache=None,
                  pos=None, res=None, max_seq=None):
     """Returns (x, the layer's aux loss (float32; 0 but for an MoE
     layer), the layer's cache entry); decode when ``pos`` is given;
-    ``max_seq`` a rank's whole cache length (:class:`RankCache`)."""
+    ``max_seq`` a rank's whole cache length (:class:`RankCache`).  The
+    layer's FSDP blocks are gathered first (:func:`_gathered`): no layer
+    sees a block split over "data", and the gathered weights go with the
+    layer's call (a remat recompute gathers them again)."""
+    lp = _gathered(lp, res)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = L.rmsnorm(x, lp.ln1, cfg.norm_eps)
     if isinstance(lp.mixer, L.Mamba):
@@ -566,7 +686,8 @@ def _run_remat(cfg: ModelConfig, params: LM, x, positions, res=None):
         x, aux = _checkpoint(cfg, _run_layers(
             cfg, [params.layers[i] for i in group], positions, inner, res),
             x, aux)
-    return L.rmsnorm(x, params.final_norm, cfg.norm_eps), aux
+    return L.rmsnorm(x, _whole(res, [params.final_norm])[0],
+                     cfg.norm_eps), aux
 
 
 def _max_seq(cache, res):
@@ -592,7 +713,8 @@ def _run(cfg, params: LM, x, positions, cache=None, pos=None, res=None,
         if cache is not None:
             cache[i] = layer_cache
         aux = aux + a
-    return L.rmsnorm(x, params.final_norm, cfg.norm_eps), aux
+    return L.rmsnorm(x, _whole(res, [params.final_norm])[0],
+                     cfg.norm_eps), aux
 
 
 # ---------------------------------------------------------------------------
@@ -632,7 +754,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     each layer's as its mixer kind says.  With ``res``, a
     :class:`RankCache` of the rank's block of each entry (the resolver's
     spec over ``cache_axes``: a stretch of ``max_seq`` // n positions
-    where it splits "kv_seq" over the n ranks)."""
+    where it splits "kv_seq" over the n ranks, the rank's rows of
+    ``batch`` where it splits "batch" over "data")."""
     check_supported(cfg)
     dtype = _dtype(cfg)
     if res is not None:

@@ -12,16 +12,19 @@ and the float32 update runs over slices of at most :func:`update_slice`
 elements of each parameter.
 
 On a rank of a sharded model (``res``) the parameters, gradients and
-moments are the rank's blocks; the norm that clips them is the whole
-model's (the split blocks' squares summed over the ranks in one
-all-reduce, each whole parameter counted once), so every rank scales
-alike and the whole parameters stay equal on every rank.
+moments are the rank's blocks (over "model", and over "data" where FSDP
+splits them, as ZeRO-3 keeps the moments); the norm that clips them is
+the whole model's (each tensor's squares counted once: the blocks' sums
+added over the ranks that hold distinct blocks of it, in one all-reduce
+an axis), so every rank scales alike and the whole parameters stay
+equal on every rank.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Mapping, NamedTuple, Sequence, Tuple
+from typing import (Any, Dict, Mapping, NamedTuple, Sequence, Tuple,
+                    Union)
 
 import torch
 
@@ -110,24 +113,55 @@ def _square_sum(xs) -> torch.Tensor:
 
 
 def global_norm(tree: Mapping[str, torch.Tensor], res=None,
-                split: Sequence[str] = ()) -> torch.Tensor:
+                split: Union[Sequence[str], Mapping[str, Sequence[str]]] = ()
+                ) -> torch.Tensor:
     """The float32 norm of every tensor's elements together.  A tensor
     above :func:`update_slice` elements is squared and summed a slice at
     a time, as the update runs, so that its float32 temporaries stay
     small; a smaller one in one sum.  With ``res`` the tensors named in
     ``split`` are the rank's blocks, whose squares are summed over the
-    ranks; the rest are whole on every rank and counted once."""
+    ranks that hold the tensor's distinct blocks: ``split`` maps a name
+    to the mesh axes that split it (``transformer.split_axes``; a list of
+    names means the "model" axis), a block over "model" alone summed
+    over the rank's "model" group, over "data" alone over its "data"
+    group, over both over both; the rest are whole on every rank and
+    counted once."""
     if res is None:
         return torch.sqrt(_square_sum(tree.values()))
-    split = set(split)
-    blocks = [x for n, x in tree.items() if n in split]
-    whole = [x for n, x in tree.items() if n not in split]
+    axes = (dict(split) if isinstance(split, Mapping)
+            else {n: ("model",) for n in split})
+    if res.data_size > 1:
+        return torch.sqrt(_mesh_square_sum(tree, res, axes))
+    blocks = [x for n, x in tree.items() if n in axes]
+    whole = [x for n, x in tree.items() if n not in axes]
     total = (res.all_reduce(_square_sum(blocks)) if blocks
              else torch.zeros((), dtype=torch.float32,
                               device=next(iter(tree.values())).device))
     if whole:
         total = total + _square_sum(whole).to(total.device)
     return torch.sqrt(total)
+
+
+def _mesh_square_sum(tree, res, axes) -> torch.Tensor:
+    """The squares of ``tree`` on a mesh whose "data" axis exceeds 1, in
+    two all-reduces: the blocks over "model" (alone, and the part of
+    those over both) over the "model" group, then those over "data"
+    (alone, and that part) over the "data" group."""
+    parts = {(): [], ("model",): [], ("data",): [], ("data", "model"): []}
+    for n, x in tree.items():
+        parts[tuple(sorted(axes.get(n, ())))].append(x)
+    dev = next(iter(tree.values())).device
+
+    def sq(xs):
+        return (_square_sum(xs).to(dev) if xs
+                else torch.zeros((), dtype=torch.float32, device=dev))
+    by_model = torch.stack([sq(parts[("model",)]),
+                            sq(parts[("data", "model")])])
+    if res.size > 1:
+        by_model = res._reduce(by_model)
+    by_data = res._reduce(torch.stack([sq(parts[("data",)]), by_model[1]]),
+                          group=res.data_group)
+    return sq(parts[()]) + by_model[0] + by_data[0] + by_data[1]
 
 
 @torch.no_grad()
@@ -138,7 +172,8 @@ def apply_updates(state: TrainState, grads: Mapping[str, torch.Tensor],
     parameter's device).  Writes the parameters and moments in place and
     returns the state with the step advanced and ``{"grad_norm", "lr"}``
     (0-d float32 tensors).  ``res``, ``split``: a rank's blocks, as
-    :func:`global_norm` takes them."""
+    :func:`global_norm` takes them.  The moments are the rank's blocks
+    too."""
     b1, b2 = opt.betas
     step = state.step + 1
     gnorm = global_norm(grads, res, split)

@@ -12,8 +12,8 @@ parameter name across all layers (``layers.<i>.mixer.wq`` for every
 ``i`` shares one): the same codes as the reference's on the same
 gradients.  Every family the port covers repeats a period of one layer.
 On a rank of a sharded model (``res``) each group's absmax is the max
-over the ranks (one all-reduce of them all), the scale the reference
-takes of the whole tensors.
+over every rank of the mesh (one all-reduce of them all an axis above
+1), the scale the reference takes of the whole tensors.
 """
 from __future__ import annotations
 
@@ -60,7 +60,7 @@ def compress_decompress(
         absmax[k] = m if k not in absmax else torch.maximum(
             absmax[k], m.to(absmax[k].device))
     if res is not None and absmax:
-        both = res.all_reduce_max(torch.stack(list(absmax.values())))
+        both = res.max_over_mesh(torch.stack(list(absmax.values())))
         absmax = dict(zip(absmax, both))
     deq, new_err = {}, {}
     for n, x in g32.items():

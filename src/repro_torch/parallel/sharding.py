@@ -30,8 +30,10 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
-# The mesh axis that sharded serving splits weights over
+# The mesh axis that sharded serving splits weights over, and the one
+# that splits the batch (and, under FSDP, the weights' blocks again)
 MODEL = "model"
+DATA = "data"
 
 # Candidate mesh-axis tuples per logical axis, in preference order.  An empty
 # tuple means "replicate" and always succeeds.

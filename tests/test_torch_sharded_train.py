@@ -311,12 +311,13 @@ def test_every_h100x4_train_record_has_rank_0s_step(arch):
 
 
 @pytest.mark.parametrize("mesh, heads", [
-    (Mesh(("data", "model"), (2, 2)), {}),
+    (Mesh(("pod", "data", "model"), (2, 1, 2)), {}),
     (MESH, dict(n_heads=8, n_kv_heads=2)),
 ])
 def test_check_trainable_refuses(mesh, heads):
-    """A mesh with "data" above 1, and query heads that split over the
-    ranks where the kv heads do not."""
+    """A mesh with a "pod" axis above 1 (a "data" axis above 1 is taken:
+    ``tests/test_torch_sharded_data.py``), and query heads that split
+    over the ranks where the kv heads do not."""
     cfg = dataclasses.replace(get_smoke("llama3.2-1b"), **heads)
     with pytest.raises(ValueError):
         sharded_run(cfg, mesh, train=True)

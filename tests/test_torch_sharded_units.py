@@ -154,9 +154,88 @@ def test_check_shardable_passes_the_other_configs(arch):
 
 
 def test_check_shardable_refuses_a_data_axis():
-    with pytest.raises(ValueError, match="alone"):
-        T.check_shardable(get_config("llama3.2-1b"),
-                          Mesh(("data", "model"), (2, 2)))
+    """A "data" axis above 1 is taken since meshes with "data" above 1
+    are ported (``tests/test_torch_sharded_data.py``); a "pod" axis
+    above 1, the JAX package's multi-pod mesh, is refused."""
+    cfg = get_config("llama3.2-1b")
+    T.check_shardable(cfg, Mesh(("data", "model"), (2, 2)))
+    with pytest.raises(ValueError, match="'pod' axis"):
+        T.check_shardable(cfg, Mesh(("pod", "data", "model"), (2, 1, 2)))
+
+
+@pytest.mark.parametrize("batch, accum, ok", [
+    (4, 1, True), (4, 2, True), (8, 2, True), (2, 2, False), (3, 1, False),
+    (6, 2, False), (1, 1, False)])
+def test_check_trainable_takes_batches_that_split_over_data(batch, accum,
+                                                            ok):
+    """On (2, 2) each microbatch's rows must split over "data": a batch
+    of 1, or microbatches of odd rows, would put "seq" on "data" in the
+    JAX resolver (not ported) and are refused with that reason."""
+    cfg = dataclasses.replace(get_smoke("llama3.2-1b"), **R.HEADS)
+    mesh = card_mesh("h100x2x2")
+    T.check_trainable(cfg, mesh)
+    if ok:
+        T.check_trainable(cfg, mesh, batch, accum)
+    else:
+        with pytest.raises(ValueError, match="'seq' over 'data'"):
+            T.check_trainable(cfg, mesh, batch, accum)
+    # on (1, 4) every batch is taken
+    T.check_trainable(cfg, MESH, batch, accum)
+
+
+def test_train_step_refuses_a_batch_data_does_not_split():
+    from repro_torch.optim.adamw import OptConfig, init_state
+    from repro_torch.training.step import make_train_step
+    cfg = get_smoke("llama3.2-1b")
+    res = sharded_run(cfg, card_mesh("h100x2x2"), rank=0, train=True)
+    params = T.shard_params(cfg, T.init_abstract(cfg), res)
+    state = init_state(params, OptConfig())
+    tokens = torch.zeros((3, 8), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="does not split"):
+        make_train_step(cfg, OptConfig(), res=res)(state, {"tokens": tokens})
+
+
+def test_rank_rows_and_groups_on_the_2x2_mesh():
+    """Rank r of (2, 2) is ("data", "model") = divmod(r, 2): its rows are
+    its "data" block of the batch (all of a batch of 1), and a rank run
+    without a process group has neither group."""
+    mesh = card_mesh("h100x2x2")
+    cfg = dataclasses.replace(get_smoke("llama3.2-1b"), **R.HEADS)
+    for r in range(4):
+        res = sharded_run(cfg, mesh, rank=r)
+        d, m = divmod(r, 2)
+        assert (res.data_rank, res.rank, res.data_size, res.size) == (
+            d, m, 2, 2)
+        assert res.rows(8) == slice(4 * d, 4 * d + 4)
+        assert res.rows(1) == slice(0, 1)
+        assert res.group is None and res.data_group is None
+    one = sharded_run(cfg, MESH, rank=1)
+    assert (one.data_size, one.rows(4)) == (1, slice(0, 4))
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_fsdp_blocks_carry_their_data_dim(arch):
+    """Under the training resolver on (2, 2) a block split over "data"
+    is tagged with the dim the resolver chose, and ``split_axes`` lists
+    it; on (1, 4) nothing is tagged and only "model" splits (the FSDP
+    resolver splits nothing more while "data" is 1)."""
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=full.block_period
+                              + full.moe.first_dense)
+    whole = T.init_abstract(cfg)
+    res = sharded_run(cfg, card_mesh("h100x2x2"), train=True)
+    blocks = T.shard_params(cfg, whole, res)
+    axes = T.split_axes(cfg, res)
+    tagged = {n for n, p in blocks.named_parameters() if hasattr(p, "fsdp")}
+    assert tagged and tagged == {n for n, ax in axes.items() if "data" in ax}
+    for n, p in blocks.named_parameters():
+        if n in tagged:
+            dim = p.fsdp[0]
+            assert 2 * p.shape[dim] <= whole.get_parameter(n).shape[dim]
+    tp = sharded_run(cfg, MESH, train=True)
+    assert not any(hasattr(p, "fsdp") for p in
+                   T.shard_params(cfg, whole, tp).parameters())
+    assert all(ax == ("model",) for ax in T.split_axes(cfg, tp).values())
 
 
 # --------------------------------------------------------------- spmd
@@ -296,3 +375,55 @@ def test_cli_writes_the_sharded_step_without_jax(tmp_path):
                      .read_text())
     assert rec["collectives"]["all-reduce"]["count"] > 0
     assert rec["sharded_step"]["collectives"] == rec["collectives"]
+
+
+# -------------------------------------------------- the (2, 2) planner
+@pytest.mark.parametrize("arch, shape", D.cell_list())
+def test_2x2_records_carry_rank_0s_step(arch, shape):
+    """Every cell of ``cell_list()`` on the (2, 2) mesh, each config cut
+    to its first block of layers (a train cell at 512 tokens a row), has
+    rank 0's step, none refused; its collectives include the gathers and
+    reduce-scatters over "data" where the step trains."""
+    from repro_torch.configs import SHAPES
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=full.block_period
+                              + full.moe.first_dense)
+    s = SHAPES[shape]
+    if s.kind == "train":
+        cfg = dataclasses.replace(cfg, accum_override=0)
+        s = ShapeConfig(s.name, 512, 2, "train")
+    rec = D.plan(cfg, s, card_mesh("h100x2x2"))
+    step = rec["sharded_step"]
+    assert "refused" not in step, step.get("refused")
+    assert rec["collectives"] == step["collectives"]
+    if s.kind == "train":
+        assert step["collectives"]["all-gather"]["count"] > 0
+        assert step["collectives"]["reduce-scatter"]["count"] > 0
+    assert step["predicted_peak_bytes"] == (
+        rec["argument_bytes_per_device"] + step["peak_held_bytes"])
+
+
+def test_2x2_refuses_a_train_batch_data_does_not_split():
+    rec = D.plan(get_smoke("llama3.2-1b"), ShapeConfig("t", 32, 3, "train"),
+                 card_mesh("h100x2x2"))
+    assert "'seq' over 'data'" in rec["sharded_step"]["refused"]
+    assert rec["collectives"] == {}
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_1x4_records_keep_their_collectives(kind):
+    """The (1, 4) records of the smoke llama (8/4 heads, B = 4, S = 32)
+    keep the collectives they had before "data" could exceed 1: no
+    gather or reduce-scatter over "data", the counts pinned by
+    ``tests/test_torch_sharded.py`` and ``test_torch_sharded_train.py``."""
+    cfg = dataclasses.replace(get_smoke("llama3.2-1b"), **R.HEADS)
+    rec = D.plan(cfg, ShapeConfig("c", 32, 4, kind), MESH)
+    act = 32768.0
+    want = {"train": (13.0, 12 * act + 4, 131072.0),
+            "prefill": (5.0, 163840.0, 4096.0),
+            "decode": (5.0, 5120.0, 4096.0)}[kind]
+    got = rec["collectives"]
+    assert set(got) == {"all-reduce", "all-gather"}
+    assert (got["all-reduce"]["count"], got["all-reduce"]["result_bytes"],
+            got["all-gather"]["result_bytes"]) == want
+
