@@ -29,7 +29,7 @@ started.
 Phases, each fatal on failure:
 
 1. print the card's name and power limit (``nvidia-smi``);
-2. build the nine CUDA kernels from ``src/repro_torch/csrc`` (timed as
+2. build the eleven CUDA kernels from ``src/repro_torch/csrc`` (timed as
    set-up; the compiler's register and spill lines are printed) and the
    host routines of ``src/repro_torch/csrc/host`` with ``g++``;
 3. co-execute the paper's four kernel programs on ``[cuda:0, cpu]``
@@ -145,17 +145,30 @@ Phases, each fatal on failure:
 9. serve falcon-mamba-7b at full width on 16 of its 64 layers
    (``MAMBA_SERVED_LAYERS``; ``--small``: 2) in bfloat16 with the set-up
    of phase 6.  All must be served; the launch
-   counters, set to 0 after a warm-up, must show one ``selective_scan``
-   launch per layer and prefill and none in a decode step (one recurrence
-   step in plain ops); a fresh replica must give the same tokens.
-   Prefill and decode-step times from CUDA events, beside the weight-read
-   bound, and a profile of each;
+   counters, set to 0 after a warm-up, must show one
+   ``selective_scan_fused`` launch per layer and prefill, none of the (a,
+   b, C) form, and none in a decode step (one recurrence step in plain
+   ops); a fresh replica must give the same tokens.  Prefill and
+   decode-step times from CUDA events, beside the weight-read bound, and
+   a profile of each; no op of a traced prefill may read a (B, S, d_inner,
+   d_state) plane (``torch.profiler``'s input shapes);
 10. card against host as phase 7, on the first 8 of its 64 layers (a cut
     of depth that bounds the host's memory and time; full width);
 11. hold ``selective_scan`` against its plain version at the serving
     shape, a long shape and a ragged one with a carried state (rtol 1e-4 /
     atol 1e-5), and time kernel and plain version; no single PyTorch call
-    computes this recurrence, so it has no library time;
+    computes this recurrence, so it has no library time; hold
+    ``selective_scan_fused`` (the discretisation inside the kernel: dt and
+    x in bfloat16) against its plain version at the same tolerance at the
+    serving shape (B=4 S=256 di=8192 ds=16) and a long shape (B=2 S=4096),
+    both timed beside the bound on dt, x, A, B, C and y, at a rank's share
+    (di 2048, timed in phase 37), a ragged S with an odd di (bfloat16 rows
+    staged by loads) and a carried state, and float32 inputs; then the
+    (a, b, C) form's own path, the port's scan op
+    (``kernels/mamba_scan/ops.py`` ``selective_scan``) under autograd at
+    the serving shape: one forward and one backward launch, counted from
+    0, finite gradients (the records of ``selective_scan`` and
+    ``selective_scan_bwd`` count this path);
 12. train llama3.2-1b at full width (``--small``: 2 of its 16 layers) in
     bfloat16 through ``HeteroDPTrainer``: two groups on ``cuda:0``
     (throttles 1 and 2) sharing one copy of the weights, random weights
@@ -228,12 +241,13 @@ Phases, each fatal on failure:
     ``attn_every`` 4 at offset 2, the smoke config's period) with the
     set-up of phase 6.  All must be served; the launch counters, set to 0
     after a warm-up, must show one ``flash_attention`` launch per
-    attention layer (1) and one ``selective_scan`` launch per Mamba layer
-    (14) a prefill, one ``flash_decode`` launch per attention layer and no
-    scan a decode step; a fresh replica must give the same tokens.
-    Prefill and decode-step times beside the weight-read bound (the
-    capacity dispatch runs all 16 experts), a profile of each, peak
-    memory and each replica group's busy time;
+    attention layer (1) and one ``selective_scan_fused`` launch per Mamba
+    layer (7) a prefill, none of the (a, b, C) form, one ``flash_decode``
+    launch per attention layer and no scan a decode step; a fresh
+    replica must give the same tokens.  Prefill and decode-step times
+    beside the weight-read bound (the capacity dispatch runs all 16
+    experts), a profile of each, peak memory and each replica group's
+    busy time;
 19. card against host as phase 17 on layers 0, 1, 4 and 5 of the served
     model (Mamba + MoE, Mamba + MLP, attention + MoE, Mamba + MLP) run as
     one period of 4 at full width, in float32 (about 27.5 GB on each
@@ -265,29 +279,37 @@ Phases, each fatal on failure:
     version, bound) and at its edges (S not a multiple of 16, S = 1, ds =
     8 and 32, di not a multiple of a CTA's channels, non-zero h0 and
     dhT), max |err| within 1e-4 of each output's largest |value| + 1e-5,
-    two calls bitwise equal;
+    two calls bitwise equal; then ``selective_scan_fused_bwd``, fed the
+    states the fused forward keeps, against
+    ``selective_scan_fused_bwd_ref`` likewise, at the training packet in
+    bfloat16 (timed), at a rank's training share (B=1 S=2048 di=2048,
+    timed in phase 43), at the same edges in float32 and at an odd di in
+    bfloat16 (d_dt and d_x in bfloat16 also within one bfloat16 step);
 23. hold ``flash_attention_bwd`` at jamba's heads (32/8, D = 128; timed
     at S=4096 with SDPA's backward); train jamba-v0.1-52b at full width
     on 2 layers (attention + MoE, Mamba + MLP: 3.68 B parameters) in
     bfloat16 through ``HeteroDPTrainer`` with phase 12's set-up, a global
-    batch of 4 x 2,048 tokens (TRAIN_4K's 4,096 ran out of the card's
-    memory; ``--small``: 2 x 1,024), 4 steps: every loss finite, the
+    batch of 4 x 4,096 tokens where ``launch.dryrun``'s plan of a one-row
+    packet, times the allocator's measured reserve over it, says two
+    groups fit under ``PLAN_FILL`` of the card, else (as now) 4 x 2,048
+    (``--small``: 2 x 1,024), 4 steps: every loss finite, the
     objective on a held-out batch lower after the steps than before
     them (each step's loss is on its own tokens), rows on both groups,
-    and per packet
-    2 ``flash_attention``, 1 ``flash_attention_bwd``, 2 ``selective_scan``
-    and 1 ``selective_scan_bwd`` launches (counters set to 0 before each
-    step); step time, tokens/s, peak memory and a profile of one more
-    step;
+    and per packet 2 ``flash_attention``, 1 ``flash_attention_bwd``, 2
+    ``selective_scan_fused`` and 1 ``selective_scan_fused_bwd`` launches
+    and none of the (a, b, C) form (counters set to 0 before each step);
+    step time, tokens/s, peak memory and a profile of one more step;
 24. card against host in float32 (TF32 off) on those 2 layers, batch 1
     x 256: the loss within 1e-4 relative, every gradient within 1e-3 of
     its parameter's largest |g|, every token routed to the same experts
     on both sides and in the rematerialised recompute as in the forward
     (the smallest top-2 margin logged); falcon-mamba-7b on 8 of its 64
     layers (``--small``: 2), 2 ``make_train_step`` steps of batch 2 x
-    4,096: finite losses and gradient norms, the scan's launches of
-    ``T.forward_runs`` (2 remat groups of 4 layers: 22) and 1 backward
-    launch a layer; card against host on its first 2 layers;
+    4,096: finite losses and gradient norms, the fused scan's launches of
+    ``T.forward_runs`` (2 remat groups of 4 layers: 22) and 1 fused
+    backward launch a layer, none of the (a, b, C) form; no op of one
+    traced step may read a (B, S, d_inner, d_state) plane; card against
+    host on its first 2 layers;
 25. hold ``flash_attention_bwd`` at internvl2-1b's G = 7 (14/2, D = 64)
     and musicgen-large's 32/32 heads (D = 64), timed at S=4096 with SDPA's
     backward, and at ragged S in both dtypes; train internvl2-1b (24
@@ -369,8 +391,8 @@ Phases, each fatal on failure:
     of 13.8 GB a rank, never more than one whole layer on the card
     beside the blocks) served by the four ranks: batch 4, prompt 256, 16
     greedy tokens, the launches of each rank counted from 0 just before
-    (1 ``flash_attention`` and 3 ``selective_scan`` a prefill, 1
-    ``flash_decode`` a step), the
+    (1 ``flash_attention`` and 3 ``selective_scan_fused`` a prefill, none
+    of the (a, b, C) form, 1 ``flash_decode`` a step), the
     tokens equal on every rank; per rank a prefill's and a decode step's
     time (CUDA events), its kernel time and busy share, peak memory, the
     collectives a step (``OpCost``) and the time in them (one rank set
@@ -378,8 +400,9 @@ Phases, each fatal on failure:
 37. ``launch.dryrun.plan`` of the same cells on ``h100x4`` predicts
     phase 36's collectives kind by kind (count, result and wire bytes);
     its per-device peaks beside the measured one; ``flash_attention``,
-    ``flash_decode`` and ``selective_scan`` held against their plain
-    versions at a rank's shapes (8/2 heads, ``d_inner`` 2048) and timed
+    ``flash_decode``, ``selective_scan`` and ``selective_scan_fused`` held
+    against their plain versions at a rank's shapes (8/2 heads,
+    ``d_inner`` 2048) and timed
     (``sharded_shape`` of their records, whose ``launches_by_path`` gain
     phase 36's launches over the four ranks);
 38-41. qwen3-32b, yi-9b, stablelm-3b and dbrx-132b trained at full width
@@ -388,8 +411,9 @@ Phases, each fatal on failure:
     at D = 128, 32/32 at D = 80) against its plain version at B=1
     S=4096, ``flash_attention_bwd`` there too, timed beside SDPA's
     backward (``<config>_train_shape`` entries of its record), and at a
-    ragged S; the depth and the groups chosen by ``launch.dryrun.plan``
-    of a one-row packet under ``PLAN_FILL`` (``dense_train_plan``: the
+    ragged S; the depth (at most ``DENSE_TRAIN_MAX_LAYERS``) and the
+    groups chosen by ``launch.dryrun.plan`` of a one-row packet under
+    ``PLAN_FILL`` (``dense_train_plan``: the
     state, the bfloat16 sums of the gradients and one packet in flight
     on each group; two groups where any depth fits with two); that
     packet's plan held against the card as phase 27 holds llama's; then
@@ -420,11 +444,12 @@ Phases, each fatal on failure:
     its time in collectives, its peak within ``SHARDED_TRAIN_PEAK`` of
     the plan's rank-0 step (``launch.dryrun.plan`` on ``h100x4``) and
     its counted collectives equal to the plan's; then
-    ``flash_attention`` and ``selective_scan`` and their backwards held
-    against their plain versions at a rank's shapes (B=1 S=2,048 8/2
-    heads of 128 in bfloat16; ``d_inner`` 2048, ``d_state`` 16) and
-    timed, the attention's beside SDPA (``sharded_train_shape`` of their
-    records, whose ``launches_by_path`` gain phase 43's launches);
+    ``flash_attention``, ``selective_scan`` and ``selective_scan_fused``
+    and their backwards held against their plain versions at a rank's
+    shapes (B=1 S=2,048 8/2 heads of 128 in bfloat16; ``d_inner`` 2048,
+    ``d_state`` 16) and timed, the attention's beside SDPA
+    (``sharded_train_shape`` of their records, whose
+    ``launches_by_path`` gain phase 43's launches);
 44. ``flash_decode_partial`` (a rank's stretch of a cache split by
     positions: the live rows, a float32 output and each head's
     log-sum-exp from the kernel) at internvl2-1b's heads (B=4, 14/2,
@@ -482,14 +507,18 @@ Phases, each fatal on failure:
 
 Phases 8a and 18–25 add their launches to the records of
 ``flash_attention``, ``flash_attention_bwd``, ``flash_decode`` and
-``selective_scan`` (``launches_by_path``); phase 22's record is ``selective_scan_bwd``,
-whose launches are phases 23–25's; phase 28's is ``flash_attention_bwd_d192``,
+``selective_scan_fused`` (``launches_by_path``; the (a, b, C) form's
+``selective_scan`` and ``selective_scan_bwd`` run on no model path since
+the fused form: their launches are phase 11's op path's); phase 22's
+records are
+``selective_scan_bwd`` and ``selective_scan_fused_bwd``, whose launches
+are phases 23–25's; phase 28's is ``flash_attention_bwd_d192``,
 whose launches are phase 29's, which also adds its forward launches to
 ``flash_attention_d192`` and both to the records of all head dims; phases
 31-34 add theirs to ``flash_attention`` and ``flash_decode``, 35-37
-theirs to those two and ``selective_scan``, 38-41 theirs to
+theirs to those two and the two scan forwards, 38-41 theirs to
 ``flash_attention`` and ``flash_attention_bwd``, 42-43 theirs to
-the two attention kernels and the two scan kernels, 46 theirs to
+the two attention kernels and the four scan kernels, 46 theirs to
 ``flash_attention`` and ``flash_decode``, and 48-49 theirs to both
 attention kernels and ``flash_decode``.  The line
 before the last is the kernels' JSON record; the last line is
@@ -573,6 +602,20 @@ def cuda_ms(fn, torch, reps: int = 5) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def timed_call(fn, torch):
+    """(``fn()``, its device ms from CUDA events around the one call):
+    for a plain version that takes seconds, timed on the call whose
+    result is checked."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def bound(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_S):
@@ -663,6 +706,8 @@ ATTN_TOL = {"bfloat16": (2e-2, 2e-2), "float32": (1e-4, 2e-5)}
 ATTN_LSE_TOL = dict(rtol=1e-5, atol=1e-4)
 # the selective scan: that of tests/test_kernels.py:152
 SCAN_TOL = (1e-4, 1e-5)
+# the path of the scan's (a, b, C) form since the model runs the fused one
+OP_PATH = "ops.selective_scan under autograd"
 # falcon-mamba-7b is served on 16 of its 64 layers (a cut of depth that
 # keeps the script within its time: 32 before phases 47-49 were added)
 # and its card-against-host check runs its first 8
@@ -744,11 +789,28 @@ def free_card(torch, dev0, what):
         f"on the card, {avail:.1f} GB available on the host")
 
 
+class Counter:
+    """A wrapper's launch counter that its module keeps under another name
+    (``fused_launches``), read and set as ``launches``."""
+
+    def __init__(self, mod, attr):
+        self.mod, self.attr = mod, attr
+
+    @property
+    def launches(self):
+        return getattr(self.mod, self.attr)
+
+    @launches.setter
+    def launches(self, n):
+        setattr(self.mod, self.attr, n)
+
+
 def counted_kernels():
     from repro_torch.kernels.flash_attention import kernel as KA
     from repro_torch.kernels.flash_decode import kernel as KD
     from repro_torch.kernels.mamba_scan import kernel as KS
-    return {"flash_attention": KA, "flash_decode": KD, "selective_scan": KS}
+    return {"flash_attention": KA, "flash_decode": KD, "selective_scan": KS,
+            "selective_scan_fused": Counter(KS, "fused_launches")}
 
 
 def time_steps(torch, prefill, step, prefill_what, step_what, w_bytes,
@@ -1474,6 +1536,112 @@ def scan_kernel_check(torch, dev0, gen_t, B, S, d, s, with_h0=False,
     return res
 
 
+def fused_inputs(torch, dev0, gen_t, B, S, d, s, dtype, with_h0):
+    """The fused scan's inputs on the card: dt in [0.01, 0.5) and x
+    standard normal in ``dtype``, A = -(1 .. s) in every channel (the
+    model's initial A), B, C and h0 standard normal in float32."""
+    dt = (0.01 + 0.49 * torch.rand((B, S, d), generator=gen_t,
+                                   device=dev0)).to(dtype)
+    x = torch.randn((B, S, d), generator=gen_t, device=dev0).to(dtype)
+    A = -torch.arange(1, s + 1, dtype=torch.float32,
+                      device=dev0).repeat(d, 1)
+    Bm = torch.randn((B, S, s), generator=gen_t, device=dev0)
+    C = torch.randn((B, S, s), generator=gen_t, device=dev0)
+    h0 = (torch.randn((B, d, s), generator=gen_t, device=dev0)
+          if with_h0 else None)
+    return dt, x, A, Bm, C, h0
+
+
+def fused_scan_check(torch, dev0, gen_t, B, S, d, s, dtype, with_h0=False,
+                     timed=False):
+    """Hold ``selective_scan_fused`` against its plain version (the
+    eager discretisation, then the plain scan) on (B, S, d, s) inputs at
+    ``SCAN_TOL``; with ``timed``, time both and return the measurements
+    for a kernel record."""
+    from repro_torch.kernels.mamba_scan import kernel as KS, ref as RS
+
+    args = fused_inputs(torch, dev0, gen_t, B, S, d, s, dtype, with_h0)
+    y, h = KS.selective_scan_fused(*args)
+    yr, hr = RS.selective_scan_fused(*args)
+    rtol, atol = SCAN_TOL
+    torch.testing.assert_close(y, yr, rtol=rtol, atol=atol)
+    torch.testing.assert_close(h, hr, rtol=rtol, atol=atol)
+    check(bool(torch.isfinite(y).all()), "selective_scan_fused: y not "
+                                         "finite")
+    err = max(float((y - yr).abs().max()) if y.numel() else 0.0,
+              float((h - hr).abs().max()))
+    shape = (f"B={B} S={S} di={d} ds={s} {str(dtype)[6:]} dt, x"
+             + (" h0" if with_h0 else ""))
+    log(f"  selective_scan_fused {shape}: max abs err {err:.3g}")
+    res = None
+    if timed:
+        # dt and x read in their type, A, B, C (and h0) in float32, y and
+        # h_T written once; per (t, d, s) the kernel's least float
+        # operations (KS.FUSED_FLOPS) and its exp, counted as one
+        esize = args[0].element_size()
+        res = dict(
+            err=err, shape=shape,
+            ms=cuda_ms(lambda: KS.selective_scan_fused(*args), torch),
+            plain_ms=cuda_ms(lambda: RS.selective_scan_fused(*args),
+                             torch, 1),
+            library_ms=None,
+            nbytes=2.0 * esize * B * S * d + 4.0 * (
+                d * s + 2 * B * S * s + B * S * d
+                + B * d * s * (2 if with_h0 else 1)),
+            ops=(KS.FUSED_FLOPS + 1) * B * S * d * s, ops_per_s=FP32_OPS_S)
+        log(f"  timed {shape}: kernel {res['ms']:.4f} ms, plain "
+            f"{res['plain_ms']:.3f} ms")
+    del args, y, h, yr, hr
+    torch.cuda.empty_cache()
+    return res
+
+
+def plane_ops(torch, fn, shape):
+    """The ops of one call of ``fn`` (under ``torch.profiler``, their
+    input shapes recorded) that read a tensor of ``shape``: a Mamba
+    layer's (B, S, di, ds) plane."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU],
+                 record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    want = list(shape)
+    return sorted({e.name for e in prof.events()
+                   if any(list(sh) == want for sh in (e.input_shapes or ())
+                          if isinstance(sh, (list, tuple)))})
+
+
+def scan_op_path(torch, dev0, gen_t, B, S, d, s):
+    """The path of the (a, b, C) form, whose model paths run the fused
+    form: the port's scan op (``kernels/mamba_scan/ops.py``
+    ``selective_scan``, the JAX package's op of the same name) on (B, S,
+    d, s) planes that require grad, and its gradient.  The counters are
+    set to 0 just before and read just after: one forward (keeping its
+    states) and one backward launch.  Returns the two counts."""
+    from repro_torch.kernels.mamba_scan import kernel as KS, ops as OS
+
+    a = (0.5 + 0.49 * torch.rand((B, S, d, s), generator=gen_t,
+                                 device=dev0)).requires_grad_()
+    b = (0.1 * torch.randn((B, S, d, s), generator=gen_t,
+                           device=dev0)).requires_grad_()
+    C = torch.randn((B, S, s), generator=gen_t, device=dev0).requires_grad_()
+    KS.launches = KS.bwd_launches = 0
+    y, h = OS.selective_scan(a, b, C)
+    grads = torch.autograd.grad(y.sum() + h.sum(), (a, b, C))
+    torch.cuda.synchronize()
+    got = {"selective_scan": KS.launches,
+           "selective_scan_bwd": KS.bwd_launches}
+    check(got == {"selective_scan": 1, "selective_scan_bwd": 1},
+          f"{OP_PATH}: launches {got}, expected one forward and one backward")
+    check(all(bool(torch.isfinite(g).all()) for g in grads),
+          f"{OP_PATH}: gradients not finite")
+    log(f"{OP_PATH} at B={B} S={S} di={d} ds={s} float32: y {tuple(y.shape)}, "
+        f"finite gradients of a, b and C; launches {got}")
+    del a, b, C, y, h, grads
+    torch.cuda.empty_cache()
+    return got
+
+
 def mamba_phases(args, torch, dev0, launches, record):
     import copy
     from dataclasses import replace
@@ -1489,7 +1657,21 @@ def mamba_phases(args, torch, dev0, launches, record):
     # -------------------------------------------------- serve, full width
     params = make_params(torch, dev0, cfg)
     serve_model(torch, dev0, cfg, params, launches,
-                per_prefill={"selective_scan": cfg.n_layers}, per_step={})
+                per_prefill={"selective_scan_fused": cfg.n_layers,
+                             "selective_scan": 0}, per_step={})
+    # no op of a prefill reads a (B, S, di, ds) plane: the discretisation
+    # runs inside the fused kernel
+    with torch.inference_mode():
+        batch = torch.as_tensor(np.zeros((lws, P), np.int32), device=dev0)
+        cache = T.init_cache(cfg, lws, P + 1, dev0)
+        planes = plane_ops(torch, lambda: T.prefill(cfg, params, batch,
+                                                    cache),
+                           (lws, P, di, ds))
+    check(not planes, f"serve: a prefill's ops {planes} read a "
+                      f"{(lws, P, di, ds)} plane")
+    log(f"serve: no op of a traced prefill reads a {(lws, P, di, ds)} "
+        f"plane (torch.profiler, input shapes)")
+    del batch, cache
 
     # ----------------------- card against host, f32, first layers only
     n_par = min(MAMBA_PARITY_LAYERS, cfg.n_layers)
@@ -1515,12 +1697,41 @@ def mamba_phases(args, torch, dev0, launches, record):
     serve_s = scan_check(lws, P, di, ds, timed=True)
     long_s = scan_check(2, 1024 if args.small else 4096, di, ds, timed=True)
     scan_check(1, 1000, 1000, 8, with_h0=True)        # ragged, a state
+    op_path = scan_op_path(torch, dev0, gen_t, lws, P, di, ds)
     record("selective_scan", "src/repro_torch/csrc/selective_scan.cu",
            "src/repro/kernels/mamba_scan/kernel.py:55", serve_s["err"],
            serve_s["ms"], serve_s["plain_ms"], serve_s["nbytes"],
            serve_s["ops"], None, serve_s["shape"] + " (serving prefill)",
+           n_launches=op_path["selective_scan"],
+           launches_by_path={
+               "falcon-mamba-7b": launches["selective_scan"],
+               OP_PATH: op_path["selective_scan"]},
            long_shape=long_entry(long_s),
            library_note="no single PyTorch call computes this recurrence")
+    bf16 = torch.bfloat16
+    log("selective_scan_fused against its plain version:")
+    fused_s = fused_scan_check(torch, dev0, gen_t, lws, P, di, ds, bf16,
+                               timed=True)
+    fused_l = fused_scan_check(torch, dev0, gen_t, 2,
+                               1024 if args.small else 4096, di, ds, bf16,
+                               timed=True)
+    # a rank's share of jamba's d_inner (timed in phase 37), ragged S and
+    # an odd di (bfloat16 rows staged by loads, not cp.async) with a state
+    fused_scan_check(torch, dev0, gen_t, lws, P, di // 4, ds, bf16)
+    fused_scan_check(torch, dev0, gen_t, 1, 1000, 1001, 8, bf16,
+                     with_h0=True)
+    fused_scan_check(torch, dev0, gen_t, 2, 333, 520, ds, torch.float32,
+                     with_h0=True)
+    record("selective_scan_fused", "src/repro_torch/csrc/selective_scan.cu",
+           "src/repro/kernels/mamba_scan/kernel.py:55", fused_s["err"],
+           fused_s["ms"], fused_s["plain_ms"], fused_s["nbytes"],
+           fused_s["ops"], None, fused_s["shape"] + " (serving prefill)",
+           long_shape=long_entry(fused_l),
+           replaces_note="that kernel's function with Mamba's "
+                         "discretisation (src/repro/models/layers.py:"
+                         "608-611) taken in",
+           library_note="no single PyTorch call computes this recurrence")
+    return op_path
 
 
 # ------------------------------------------------ MLA and MoE (deepseek)
@@ -1683,7 +1894,8 @@ AUDIO_PARITY_LAYERS = 8
 # and the path that counted them before
 SERVED_KERNELS = {"flash_attention": "llama3.2-1b",
                   "flash_decode": "llama3.2-1b",
-                  "selective_scan": "falcon-mamba-7b"}
+                  "selective_scan": "falcon-mamba-7b",
+                  "selective_scan_fused": "falcon-mamba-7b"}
 
 
 def jamba_phases(args, torch, dev0):
@@ -1726,7 +1938,8 @@ def jamba_phases(args, torch, dev0):
     served = {}
     serve_model(torch, dev0, cfg, params, served,
                 per_prefill={"flash_attention": n_attn,
-                             "selective_scan": cfg.n_layers - n_attn},
+                             "selective_scan_fused": cfg.n_layers - n_attn,
+                             "selective_scan": 0},
                 per_step={"flash_decode": n_attn})
 
     # ------- phase 19: card against host, f32, one period of 4 layers
@@ -1825,7 +2038,7 @@ def vlm_phase(args, torch, dev0):
         decode_s = time.perf_counter() - t0
     counts = {name: k.launches for name, k in kernels.items()}
     want = {"flash_attention": L, "flash_decode": L * gen_p,
-            "selective_scan": 0}
+            "selective_scan": 0, "selective_scan_fused": 0}
     check(counts == want, f"internvl2-1b with patches: launches {counts}, "
                           f"expected {want}")
     check(bool(torch.isfinite(first).all()) and first.shape == (
@@ -1911,7 +2124,7 @@ def audio_phase(args, torch, dev0):
         decode_s = time.perf_counter() - t0
     counts = {name: k.launches for name, k in kernels.items()}
     want = {"flash_attention": L, "flash_decode": L * gen,
-            "selective_scan": 0}
+            "selective_scan": 0, "selective_scan_fused": 0}
     check(counts == want, f"musicgen-large: launches {counts}, expected "
                           f"{want}")
     check(bool(torch.isfinite(first).all())
@@ -1956,13 +2169,21 @@ SCAN_BWD_TOL = (1e-4, 1e-5)
 # moments (its period of 4, 6.88 B parameters, does not fit one card with
 # its moments and a gradient)
 JAMBA_TRAIN = dict(n_layers=2, attn_every=2, attn_offset=0)
-# TRAIN_4K's global batch of 256 cut to 4, 4 steps, and its 4,096 tokens
-# cut to 2,048: at 4,096 the two groups' first step ran out of the card's
-# memory (67.60 GiB allocated and 8.80 GiB reserved unallocated when a
-# 2 GiB block of a packet's backward was asked for: each packet's Mamba
-# backward holds several (1, S, 8192, 16) float32 tensors beside the
-# 36.8 GB of weights and moments and the gradients in flight)
-JAMBA_TRAIN_RUN = dict(batch=4, steps=4, seq=2048)
+# TRAIN_4K's global batch of 256 cut to 4, 4 steps, at its 4,096 tokens
+# where the plan of a one-row packet, times ``plan_margin``, says two
+# groups fit under PLAN_FILL of the card (the state, the bfloat16 sums of
+# the gradients and a packet in flight a group, as dense_train_plan
+# reckons them), else at 2,048.  Before the fused scan the two groups'
+# first step at 4,096 ran out of the card's memory (67.60 GiB allocated
+# and 8.80 GiB reserved unallocated when a 2 GiB block was asked for).
+# With it the plan at 4,096 is 63.70 GB and two groups' steps there peak
+# at 66.91 GB allocated, but the caching allocator reserves 83.33 GB of
+# the card's 85.0 with a retry (PERF.md, run SF7), and a second training
+# in the same process ran out of memory: the margin is reserved over
+# planned, 1.308, rounded up, so the phase trains at 2,048 until a
+# packet's peak comes down
+JAMBA_TRAIN_RUN = dict(batch=4, steps=4, seq=4096, fallback_seq=2048,
+                       plan_margin=1.31)
 # card against host in float32 on a training step: batch 1 x 256 (the
 # internvl2-1b run: 256 patch positions and 256 text tokens)
 TRAIN_PARITY_SEQ = 256
@@ -1976,11 +2197,14 @@ FRONTEND_TRAIN_RUN = dict(batch=4, steps=3, parity_layers=2)
 
 
 def train_kernels():
-    """The four kernel counters a training packet runs."""
+    """The kernel counters of a training packet: the four it runs and
+    the scan's (a, b, C) form, which it must not run."""
     from repro_torch.kernels.flash_attention import kernel as KA
     from repro_torch.kernels.mamba_scan import kernel as KS
     return {"flash_attention": (KA, "launches"),
             "flash_attention_bwd": (KA, "bwd_launches"),
+            "selective_scan_fused": (KS, "fused_launches"),
+            "selective_scan_fused_bwd": (KS, "fused_bwd_launches"),
             "selective_scan": (KS, "launches"),
             "selective_scan_bwd": (KS, "bwd_launches")}
 
@@ -1999,14 +2223,17 @@ def per_packet(cfg):
     forward kernel as often as the step runs the layer's forward (the
     forward and its rematerialised recomputes, ``T.forward_runs``: twice
     under a flat remat, three times inside a remat group but for the
-    group's last layer) and its backward once."""
+    group's last layer) and its backward once; a Mamba layer runs the
+    fused scan, never the (a, b, C) form."""
     from repro_torch.models import transformer as T
     runs = T.forward_runs(cfg)
     attn = [cfg.mixer_kind(i) == "attn" for i in range(cfg.n_layers)]
     return {"flash_attention": sum(r for r, a in zip(runs, attn) if a),
             "flash_attention_bwd": sum(attn),
-            "selective_scan": sum(r for r, a in zip(runs, attn) if not a),
-            "selective_scan_bwd": len(attn) - sum(attn)}
+            "selective_scan_fused": sum(r for r, a in zip(runs, attn)
+                                        if not a),
+            "selective_scan_fused_bwd": len(attn) - sum(attn),
+            "selective_scan": 0, "selective_scan_bwd": 0}
 
 
 def profile_step(torch, fn):
@@ -2034,9 +2261,9 @@ def profile_step(torch, fn):
         return out, "no device time in the trace", None
     by = {what: sum(ms for ms, k in kern if any(x in k for x in keys))
           for what, keys in (
-              ("scan forward", ("selective_scan_kernel",)),
-              ("scan backward", ("selective_scan_bwd",)),
-              ("dC sum", ("scan_dc_sum",)),
+              ("scan forward", ("scan_fwd_kernel",)),
+              ("scan backward", ("scan_bwd_kernel",)),
+              ("dB and dC sums", ("scan_partial_sum",)),
               ("attention forward", ("flash_fwd",)),
               ("attention backward", ("bwd_dkdv", "bwd_dq", "bwd_dsum")))}
     line = (f"{busy / 1e3:.3f} s of kernels in {wall:.3f} s (busy "
@@ -2324,10 +2551,77 @@ def scan_bwd_check(torch, dev0, gen_t, B, S, d, s, nonzero=False,
     return res
 
 
+def fused_scan_bwd_check(torch, dev0, gen_t, B, S, d, s, dtype,
+                         nonzero=False, timed=False):
+    """Hold ``selective_scan_fused_bwd``, fed the states the fused
+    forward keeps, against ``selective_scan_fused_bwd_ref``: every output
+    within ``SCAN_BWD_TOL`` of its largest |value| (d_dt and d_x in
+    bfloat16 also within one bfloat16 step, at most 2^-7 of each value:
+    both sides round their float32 sums at the end), two calls bitwise
+    equal; with
+    ``timed``, time kernel and plain version and return the measurements
+    for a kernel record."""
+    from repro_torch.kernels.mamba_scan import kernel as KS, ref as RS
+
+    args = fused_inputs(torch, dev0, gen_t, B, S, d, s, dtype, nonzero)
+    dy = torch.randn((B, S, d), generator=gen_t, device=dev0)
+    dhT = (torch.randn((B, d, s), generator=gen_t, device=dev0) if nonzero
+           else None)
+    _, _, states = KS.selective_scan_fused_fwd(*args, keep_states=True)
+    got = KS.selective_scan_fused_bwd(*args, dy, dhT, states)
+    again = KS.selective_scan_fused_bwd(*args, dy, dhT, states)
+    want, plain_ms = timed_call(
+        lambda: RS.selective_scan_fused_bwd_ref(*args, dy, dhT), torch)
+    shape = (f"B={B} S={S} di={d} ds={s} {str(dtype)[6:]} dt, x"
+             + (" h0 dhT" if nonzero else ""))
+    rtol, atol = SCAN_BWD_TOL
+    err = 0.0
+    names = ("d_dt", "d_x", "dA", "dB", "dC", "dh0")
+    for name, g, r, w in zip(names, got, again, want):
+        check(torch.equal(g, r), f"selective_scan_fused_bwd {shape}: "
+                                 f"{name} differs between two calls")
+        half = g.element_size() == 2
+        g, w = g.float(), w.float()
+        if not w.numel():
+            continue
+        e, top = (g - w).abs(), float(w.abs().max())
+        step = 2 ** -7 * w.abs() if half else 0.0
+        worst = float((e - step).max())
+        check(worst <= rtol * top + atol,
+              f"selective_scan_fused_bwd {shape}: {name} max |err| "
+              f"{float(e.max()):.3g} above {rtol} x {top:.3g} + {atol}")
+        err = max(err, float(e.max()))
+    log(f"  selective_scan_fused_bwd {shape}: max abs err {err:.3g}, two "
+        f"calls bitwise equal")
+    res = None
+    if timed:
+        # dt, x, dy, B, C, A, the kept states (and dhT) read once; d_dt,
+        # d_x, dA, dB, dC and dh0 written once; per (t, d, s) the
+        # kernel's least float operations (KS.FUSED_BWD_FLOPS: 19) and
+        # its exp, counted as one
+        esize = args[0].element_size()
+        res = dict(
+            err=err, shape=shape,
+            ms=cuda_ms(lambda: KS.selective_scan_fused_bwd(
+                *args, dy, dhT, states), torch),
+            plain_ms=plain_ms, library_ms=None,
+            nbytes=4.0 * esize * B * S * d + 4.0 * (
+                B * S * d + 4 * B * S * s + states.numel() + 2 * d * s
+                + B * d * s * (2 if nonzero else 1)),
+            ops=(KS.FUSED_BWD_FLOPS + 1) * B * S * d * s,
+            ops_per_s=FP32_OPS_S)
+        log(f"  timed {shape}: kernel {res['ms']:.4f} ms, plain "
+            f"{res['plain_ms']:.3f} ms")
+    del args, dy, dhT, states, got, again, want
+    torch.cuda.empty_cache()
+    return res
+
+
 def scan_bwd_phase(args, torch, dev0):
-    """Phase 22: the scan's backward kernel against its plain version at
-    the training packet (timed) and at its edges.  Returns the training
-    packet's measurements."""
+    """Phase 22: the scan's backward kernels, the (a, b, C) form's and
+    the fused form's, against their plain versions at the training packet
+    (timed) and at their edges.  Returns the training packet's
+    measurements of both."""
     from repro_torch.configs import get_config
 
     free_card(torch, dev0, "selective_scan_bwd phase")
@@ -2339,11 +2633,59 @@ def scan_bwd_phase(args, torch, dev0):
     packet = scan_bwd_check(torch, dev0, gen_t, 1, S, di, ds, timed=True)
     # S not a multiple of 16, S = 1, ds = 8 and 32, di not a multiple of
     # a CTA's channels, non-zero h0 and dhT
-    for B, S, d, s in ((2, 1000, 1000, 16), (1, 1, 8192, 16),
-                       (2, 333, 520, 8), (1, 77, 300, 32), (3, 16, 33, 5)):
-        scan_bwd_check(torch, dev0, gen_t, B, S, d, s, nonzero=True)
+    edges = ((2, 1000, 1000, 16), (1, 1, 8192, 16), (2, 333, 520, 8),
+             (1, 77, 300, 32), (3, 16, 33, 5))
+    for B, S_, d, s in edges:
+        scan_bwd_check(torch, dev0, gen_t, B, S_, d, s, nonzero=True)
     scan_bwd_check(torch, dev0, gen_t, 1, 100, 4100, 16)
-    return packet
+    log("selective_scan_fused_bwd against its plain version:")
+    bf16 = torch.bfloat16
+    fused = fused_scan_bwd_check(torch, dev0, gen_t, 1, S, di, ds, bf16,
+                                 timed=True)
+    # a rank's training share of jamba's d_inner (timed in phase 43)
+    fused_scan_bwd_check(torch, dev0, gen_t, 1, S // 2, di // 4, ds, bf16)
+    for B, S_, d, s in edges:
+        fused_scan_bwd_check(torch, dev0, gen_t, B, S_, d, s,
+                             torch.float32, nonzero=True)
+    fused_scan_bwd_check(torch, dev0, gen_t, 2, 100, 1001, 16, bf16,
+                         nonzero=True)                # odd di in bfloat16
+    return packet, fused
+
+
+def jamba_train_seq(torch, dev0, cfg, S):
+    """``S`` if the plan of one row of ``S`` tokens (``launch.dryrun`` on
+    one card), times ``JAMBA_TRAIN_RUN["plan_margin"]``, lets two groups
+    train ``cfg`` under ``PLAN_FILL`` of the card less what it holds: the
+    state, the bfloat16 sums of the gradients and one packet in flight a
+    group; else ``JAMBA_TRAIN_RUN["fallback_seq"]``."""
+    from dataclasses import replace
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import transformer as T
+
+    total = torch.cuda.get_device_properties(dev0).total_memory
+    held = torch.cuda.memory_allocated(dev0)
+    # a packet is one row in one microbatch (the config's accum_override
+    # splits a training batch, not a packet)
+    rec = D.plan(replace(cfg, accum_override=0),
+                 ShapeConfig(f"train_{S}_packet", S, 1, "train"),
+                 make_test_mesh(1))
+    sums = T.param_bytes(T.init_abstract(cfg))
+    need = rec["argument_bytes_allocated"] + sums + 2 * rec["step_peak_bytes"]
+    margin = JAMBA_TRAIN_RUN["plan_margin"]
+    fits = margin * need <= PLAN_FILL * total - held
+    log(f"plan {cfg.name} ({cfg.n_layers} layers) x one row of {S}: "
+        f"arguments {rec['argument_bytes_allocated'] / 1e9:.3f} GB, a "
+        f"packet {rec['step_peak_bytes'] / 1e9:.3f} GB, the gradients' sums "
+        f"{sums / 1e9:.3f} GB: two groups {need / 1e9:.3f} GB, x {margin} "
+        f"(the allocator's reserve over the plan at 4,096) against "
+        f"{(PLAN_FILL * total - held) / 1e9:.3f} GB ({PLAN_FILL} of the "
+        f"card's {total / 1e9:.1f} GB less {held / 1e9:.2f} GB held): "
+        + (f"trained at {S} tokens" if fits else
+           f"trained at {JAMBA_TRAIN_RUN['fallback_seq']} tokens"))
+    return S if fits else JAMBA_TRAIN_RUN["fallback_seq"]
 
 
 def jamba_train_phases(args, torch, dev0):
@@ -2381,6 +2723,8 @@ def jamba_train_phases(args, torch, dev0):
     # --------------------- phase 23: train at full width, 2 layers, bf16
     B, S = ((2, 1024) if args.small
             else (JAMBA_TRAIN_RUN["batch"], JAMBA_TRAIN_RUN["seq"]))
+    if not args.small:
+        S = jamba_train_seq(torch, dev0, cfg, S)
     params, summary = hetero_train(
         torch, dev0, cfg, S, B, JAMBA_TRAIN_RUN["steps"],
         f"{cfg.name} (2 of {full.n_layers} layers)", held_out=True)
@@ -2449,6 +2793,16 @@ def falcon_train_phase(args, torch, dev0):
     peak = torch.cuda.max_memory_allocated(dev0)
     batch = {k: torch.as_tensor(v, device=dev0)
              for k, v in pipeline.batch_at(len(times)).items()}
+    # one more step traced: no op of it may read a (B, S, di, ds) plane
+    plane = (B, S, cfg.d_inner, cfg.ssm.d_state)
+    out = []
+    planes = plane_ops(torch, lambda: out.append(step_fn(state, batch)),
+                       plane)
+    check(not planes, f"train {cfg.name}: a step's ops {planes} read a "
+                      f"{plane} plane")
+    log(f"train {cfg.name}: no op of a traced step reads a {plane} plane "
+        f"(torch.profiler, input shapes)")
+    state = out[0][0]
     (state, _), line, busy = profile_step(torch,
                                           lambda: step_fn(state, batch))
     log(f"profile train {cfg.name} step: {line}")
@@ -4321,7 +4675,8 @@ def sharded_phases(args, torch, dev0):
     stamp("phase 36")
     served = [r["serve"] for r in ranks]
     want_l = {"flash_attention": n_attn,
-              "selective_scan": cfg.n_layers - n_attn,
+              "selective_scan_fused": cfg.n_layers - n_attn,
+              "selective_scan": 0,
               "flash_decode": n_attn * (gen - 1)}
     for r, s in enumerate(served):
         check(np.array_equal(s["tokens"], served[0]["tokens"]),
@@ -4379,7 +4734,10 @@ def sharded_phases(args, torch, dev0):
         "flash_decode": decode_check(torch, randn, B, P + gen, H, KH, D_,
                                      P + gen - 1, bf16, timed=True),
         "selective_scan": scan_kernel_check(torch, dev0, gen_t, B, P, di,
-                                            cfg.ssm.d_state, timed=True)}
+                                            cfg.ssm.d_state, timed=True),
+        "selective_scan_fused": fused_scan_check(
+            torch, dev0, gen_t, B, P, di, cfg.ssm.d_state, bf16,
+            timed=True)}
     entries = {k: long_entry(r, f"{k}, a rank's share")
                for k, r in shapes.items()}
     launches = {k: sum(s["launches"][k] for s in served) for k in want_l}
@@ -4397,6 +4755,9 @@ DENSE_TRAIN = (("qwen3-32b", 21, 1), ("yi-9b", 22, 2),
 # each run: TRAIN_4K's 256 rows cut to 4 (a packet holds one or two of
 # them: lws 1), 3 steps
 DENSE_TRAIN_RUN = dict(rows=4, steps=3)
+# the deepest cut trained, for the script's time (the plan fits 19 of
+# yi-9b's 48 layers and all 32 of stablelm-3b's)
+DENSE_TRAIN_MAX_LAYERS = 8
 # AdamW at a tenth of TRAIN_OPT's rate: at 1e-3 qwen3-32b's held-out
 # objective rose over 4 steps (12.43 -> 13.26, PERF.md)
 DENSE_TRAIN_OPT = dict(TRAIN_OPT, lr=1e-4)
@@ -4404,8 +4765,9 @@ DENSE_TRAIN_OPT = dict(TRAIN_OPT, lr=1e-4)
 
 def dense_train_plan(torch, dev0, full, S):
     """The depth and the number of groups that the plan lets one card
-    train ``full`` with: the deepest cut, with two groups where any depth
-    fits with two, else one.  A step of ``HeteroDPTrainer`` holds the
+    train ``full`` with: the deepest cut (at most
+    ``DENSE_TRAIN_MAX_LAYERS``), with two groups where any depth fits
+    with two, else one.  A step of ``HeteroDPTrainer`` holds the
     state (the plan's arguments), its bfloat16 sums of the packets'
     gradients (the parameters' bytes) and, on each group, one packet in
     flight (the plan's step of one row, ``make_train_step``): that must
@@ -4455,11 +4817,11 @@ def dense_train_plan(torch, dev0, full, S):
         per = (plans[two][1]["argument_bytes_allocated"]
                - plans[1][1]["argument_bytes_allocated"]
                + (1 + groups) * (plans[two][2] - plans[1][2]))
-        n = full.n_layers if per <= 0 else min(
-            full.n_layers, 1 + int((limit - one) // per))
+        top = min(full.n_layers, DENSE_TRAIN_MAX_LAYERS)
+        n = top if per <= 0 else min(top, 1 + int((limit - one) // per))
         while n > 1 and need(n, groups) > limit:
             n -= 1
-        while n < full.n_layers and need(n + 1, groups) <= limit:
+        while n < top and need(n + 1, groups) <= limit:
             n += 1
         cfg, rec, _ = plans[n]
         log(f"plan {full.name}: {n} of {full.n_layers} layers, {groups} "
@@ -4467,6 +4829,8 @@ def dense_train_plan(torch, dev0, full, S):
             f"{held / 1e9:.3f} GB held, of the card's {total / 1e9:.1f} GB "
             f"(fill limit {PLAN_FILL})"
             + ("" if n == full.n_layers else
+               f" (at most {DENSE_TRAIN_MAX_LAYERS} for the script's time)"
+               if n == top else
                f"; {n + 1} layers would need "
                f"{need(n + 1, groups) / 1e9:.3f} GB"))
         return cfg, shape, rec, groups, need(n, groups)
@@ -4920,7 +5284,13 @@ def sharded_train_finish(args, torch, dev0, ctx, out):
         "selective_scan": scan_kernel_check(torch, dev0, gen_t, B, S, di,
                                             cfg.ssm.d_state, timed=True),
         "selective_scan_bwd": scan_bwd_check(torch, dev0, gen_t, B, S, di,
-                                             cfg.ssm.d_state, timed=True)}
+                                             cfg.ssm.d_state, timed=True),
+        "selective_scan_fused": fused_scan_check(
+            torch, dev0, gen_t, B, S, di, cfg.ssm.d_state, bf16,
+            timed=True),
+        "selective_scan_fused_bwd": fused_scan_bwd_check(
+            torch, dev0, gen_t, B, S, di, cfg.ssm.d_state, bf16,
+            timed=True)}
     entries = {k: long_entry(r, f"{k}, a rank's training share")
                for k, r in shapes.items()}
     launches = {k: sum(t["launches"][k] for t in runs) for k in want_l}
@@ -5282,6 +5652,7 @@ def kvseq_launches(cfg, rank, P, gen, max_seq):
     steps = sum(live_rows(P + i, rank * n_rows, n_rows) > 0
                 for i in range(gen - 1))
     return {"flash_attention": n, "selective_scan": 0,
+            "selective_scan_fused": 0,
             "flash_decode": n * steps if cfg.attn_kind == "gqa" else 0}
 
 
@@ -5797,6 +6168,7 @@ def data_finish(args, torch, dev0, ctx, out):
     scfg, r, plans = ctx["serve_cfg"], DATA_SERVE_RUN, ctx["plans"]
     serves = [o["serve"] for o in out]
     want_s = {"flash_attention": scfg.n_layers, "selective_scan": 0,
+              "selective_scan_fused": 0,
               "flash_decode": scfg.n_layers * (r["gen"] - 1)}
     plan_peak = plans["decode"]["sharded_step"]["predicted_peak_bytes"]
     for rk, sv in enumerate(serves):
@@ -6342,7 +6714,7 @@ def main() -> int:
     stamp("phase 8a")
     fleet_phase(args, torch, dev0, paths)
     stamp("phases 9-11")
-    mamba_phases(args, torch, dev0, launches, record)
+    op_path = mamba_phases(args, torch, dev0, launches, record)
     stamp("phases 12-13")
     training_phases(args, torch, dev0, launches, attach)
     stamp("phase 14")
@@ -6361,7 +6733,8 @@ def main() -> int:
     for rec in records:
         if rec["name"] not in SERVED_KERNELS:
             continue
-        by = {SERVED_KERNELS[rec["name"]]: rec["launches"]}
+        by = rec.get("launches_by_path") or {
+            SERVED_KERNELS[rec["name"]]: rec["launches"]}
         by.update((m, c[rec["name"]]) for m, c in paths.items()
                   if c.get(rec["name"]))
         rec.update(launches=sum(by.values()), launches_by_path=by)
@@ -6374,7 +6747,7 @@ def main() -> int:
     # phases 22-25: training of the Mamba, hybrid, MoE and frontend
     # families, through the scan's backward kernel
     stamp("phase 22")
-    scan_bwd = scan_bwd_phase(args, torch, dev0)
+    scan_bwd, fused_bwd = scan_bwd_phase(args, torch, dev0)
     trained = {}
     stamp("phases 23-24")
     trained["jamba-v0.1-52b"], jamba_b = jamba_train_phases(args, torch,
@@ -6397,22 +6770,30 @@ def main() -> int:
     by_path = {k: {f"{m} training": t["launches"][k]
                    for m, t in trained.items() if t["launches"][k]}
                for k in train_kernels()}
-    record("selective_scan_bwd", "src/repro_torch/csrc/selective_scan.cu",
-           "src/repro/kernels/mamba_scan/kernel.py:55", scan_bwd["err"],
-           scan_bwd["ms"], scan_bwd["plain_ms"], scan_bwd["nbytes"],
-           scan_bwd["ops"], None, scan_bwd["shape"] + " (training packet)",
-           n_launches=sum(by_path["selective_scan_bwd"].values()),
-           launches_by_path=by_path["selective_scan_bwd"],
-           replaces_note="the gradient of that kernel's function: the JAX "
-                         "package differentiates its jnp scan "
-                         "(src/repro/models/layers.py:559 "
-                         "_ssm_scan_chunked) with jax.value_and_grad",
-           library_note="no single PyTorch call computes this recurrence "
-                        "or its gradient")
+    for name, m in (("selective_scan_bwd", scan_bwd),
+                    ("selective_scan_fused_bwd", fused_bwd)):
+        record(name, "src/repro_torch/csrc/selective_scan.cu",
+               "src/repro/kernels/mamba_scan/kernel.py:55", m["err"],
+               m["ms"], m["plain_ms"], m["nbytes"], m["ops"], None,
+               m["shape"] + " (training packet)",
+               n_launches=sum(by_path[name].values())
+               + op_path.get(name, 0),
+               launches_by_path=dict(by_path[name], **(
+                   {OP_PATH: op_path[name]} if name in op_path else {})),
+               replaces_note="the gradient of that kernel's function: the "
+                             "JAX package differentiates its jnp scan "
+                             "(src/repro/models/layers.py:559 "
+                             "_ssm_scan_chunked"
+                             + (", and its discretisation :608-611"
+                                if "fused" in name else "")
+                             + ") with jax.value_and_grad",
+               library_note="no single PyTorch call computes this "
+                            "recurrence or its gradient")
     # the training paths' launches join the other kernels' records
     for rec in records:
         extra = by_path.get(rec["name"])
-        if not extra or rec["name"] == "selective_scan_bwd":
+        if not extra or rec["name"] in ("selective_scan_bwd",
+                                        "selective_scan_fused_bwd"):
             continue
         by = rec.get("launches_by_path") or {
             ("llama3.2-1b training" if rec["name"] == "flash_attention_bwd"

@@ -50,6 +50,8 @@ PROTOTYPES = {
     "flash_decode_fwd": [_P] * 8 + [_I] * 11 + [_P],
     "selective_scan_fwd": [_P] * 7 + [_I] * 4 + [_P],
     "selective_scan_bwd": [_P] * 11 + [_I] * 4 + [_LL, _P],
+    "selective_scan_fused_fwd": [_P] * 9 + [_I] * 5 + [_P],
+    "selective_scan_fused_bwd": [_P] * 15 + [_I] * 5 + [_LL, _P],
 }
 
 _lock = threading.Lock()

@@ -36,10 +36,10 @@ softmax, sorted descending, renormalised gates, an exclusive cumsum over
 batched ``torch.bmm``, as the JAX package leaves them to XLA.
 
 The Mamba1 block (falcon-mamba) keeps the JAX package's parameter names
-and layouts; its scan (prefill, and training, where autograd records
-the kernel's backward) goes through the hand-written CUDA kernels of
-``kernels/mamba_scan``, and its decode step is one recurrence step in
-plain ops, as in the JAX package.
+and layouts; its discretisation and scan (prefill, and training, where
+autograd records the kernel's backward) go through the fused hand-written
+CUDA kernels of ``kernels/mamba_scan`` (``selective_scan_fused``), and its
+decode step is one recurrence step in plain ops, as in the JAX package.
 
 Sharded runs: the ``res`` of ``parallel/collectives.py`` gives a rank
 of a model split over the mesh's "model" axis (a layer never sees a
@@ -75,7 +75,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.kernel import flash_attention
 from repro_torch.kernels.flash_decode.kernel import (flash_decode,
                                                     flash_decode_partial)
-from repro_torch.kernels.mamba_scan.kernel import selective_scan
+from repro_torch.kernels.mamba_scan.kernel import (selective_scan,
+                                                  selective_scan_fused)
 
 
 def _frozen(t: torch.Tensor) -> nn.Parameter:
@@ -742,18 +743,20 @@ def mamba_apply(cfg: ModelConfig, p: Mamba, x, cache: Optional[Dict] = None,
     Bmat = proj[..., dtr:dtr + ds].float()                  # (B,S,ds)
     Cmat = proj[..., dtr + ds:].float()
     A = -torch.exp(p.A_log)                                 # (di,ds)
-    dt32 = dt.float()
-    a = torch.exp(dt32[..., None] * A)                      # (B,S,di,ds)
-    b = (dt32 * xc.float())[..., None] * Bmat[:, :, None, :]
     if decode:
+        dt32 = dt.float()
+        a = torch.exp(dt32[..., None] * A)                  # (B,1,di,ds)
+        b = (dt32 * xc.float())[..., None] * Bmat[:, :, None, :]
         h = a[:, 0] * cache["h"] + b[:, 0]
         y = torch.einsum("bds,bs->bd", h, Cmat[:, 0])[:, None, :]
         new_h = h
     else:
-        h0 = (cache["h"] if cache is not None
-              else torch.zeros((B, di, ds), dtype=torch.float32,
-                               device=x.device))
-        y, new_h = _ssm_scan_chunked(a, b, Cmat, h0, cfg.scan_chunk)
+        # the discretisation runs inside the scan (the fused kernel on a
+        # card): no (B,S,di,ds) plane of a or b is formed
+        h0 = cache["h"].contiguous() if cache is not None else None
+        y, new_h = selective_scan_fused(dt.contiguous(), xc.contiguous(), A,
+                                        Bmat.contiguous(),
+                                        Cmat.contiguous(), h0)
     y = y.to(x.dtype) + xc * p.D.to(x.dtype)
     y = y * F.silu(z)
     out = y @ p.out_proj

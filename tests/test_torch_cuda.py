@@ -802,7 +802,8 @@ def test_selective_scan_records_its_backward_on_the_card(card):
 
 def test_mamba_model_on_card_matches_host(card):
     """The smoke falcon-mamba-7b in float32 (TF32 off): prefill through
-    the scan kernel (one launch per layer) and decode steps in plain ops
+    the fused scan kernel (one launch per layer, none of the (a, b, C)
+    form) and decode steps in plain ops
     (no launch), against the same weights on the host."""
     from repro_torch.configs import get_smoke
     from repro_torch.kernels.mamba_scan import kernel as KS
@@ -826,12 +827,13 @@ def test_mamba_model_on_card_matches_host(card):
 
     try:
         host = run("cpu", params)
-        before = KS.launches
+        before = KS.fused_launches, KS.launches
         got = run(card, params.to(card))
         torch.cuda.synchronize()
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
-    assert KS.launches == before + cfg.n_layers
+    assert (KS.fused_launches, KS.launches) == (before[0] + cfg.n_layers,
+                                                before[1])
     torch.testing.assert_close(got, host, rtol=2e-4, atol=2e-4)
 
 
@@ -880,8 +882,8 @@ def test_train_step_on_card_matches_host(card):
 def test_family_train_step_on_card_matches_host(card, arch):
     """One ``make_train_step`` step of a smoke family in float32 (TF32
     off) on the card and on the host from the same weights: on the card
-    two scan launches (forward and rematerialised recompute) and one
-    backward call a Mamba layer; loss, aux and gradient norm agree, and
+    two fused scan launches (forward and rematerialised recompute) and
+    one fused backward call a Mamba layer; loss, aux and gradient norm agree, and
     the updated parameters within 1e-3 of each one's largest |value|
     plus 2 lr (AdamW's first step may flip the sign of a move where a
     gradient lies within both sides' rounding of zero)."""
@@ -907,14 +909,16 @@ def test_family_train_step_on_card_matches_host(card, arch):
     try:
         host, mh = step(host, {k: torch.from_numpy(v)
                                for k, v in batch.items()})
-        fwd, bwd = KS.launches, KS.bwd_launches
+        fwd, bwd = KS.fused_launches, KS.fused_bwd_launches
+        plain = KS.launches, KS.bwd_launches
         dev, md = step(dev, {k: torch.from_numpy(v).to(card)
                              for k, v in batch.items()})
         torch.cuda.synchronize()
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
-    assert (KS.launches - fwd, KS.bwd_launches - bwd) == (2 * n_mamba,
-                                                          n_mamba)
+    assert (KS.fused_launches - fwd, KS.fused_bwd_launches - bwd) == (
+        2 * n_mamba, n_mamba)
+    assert (KS.launches, KS.bwd_launches) == plain
     for k in ("loss", "aux", "grad_norm"):
         np.testing.assert_allclose(float(md[k]), float(mh[k]), rtol=1e-4,
                                    atol=1e-7)
@@ -1011,8 +1015,8 @@ def test_deepseek_smoke_on_card_matches_host(card):
 def test_jamba_smoke_served_on_card(card):
     """The smoke jamba-v0.1-52b (one period: Mamba + MoE, Mamba + MLP,
     attention + MoE, Mamba + MLP) in float32 (TF32 off): a replica on the
-    card launches one flash_attention and three selective_scan kernels a
-    prefill and one flash_decode and no scan a decode step, as
+    card launches one flash_attention and three selective_scan_fused
+    kernels a prefill and one flash_decode and no scan a decode step, as
     ``chip_smoke.py`` phase 18 counts them at full width; and the
     teacher-forced logits on the card equal the host's."""
     from repro_torch.configs import get_smoke
@@ -1048,13 +1052,14 @@ def test_jamba_smoke_served_on_card(card):
             host = run("cpu", params)
             on_card = params.to(card)
             got = run(card, on_card)
-        before = (KA.launches, KD.launches, KS.launches)
+        before = (KA.launches, KD.launches, KS.fused_launches, KS.launches)
         out = Replica("r0", cfg, on_card, device=card).serve(prompts, gen)
         torch.cuda.synchronize()
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
-    counts = tuple(m.launches - b for m, b in zip((KA, KD, KS), before))
-    assert counts == (n_attn, gen * n_attn, cfg.n_layers - n_attn)
+    counts = tuple(n - b for n, b in zip(
+        (KA.launches, KD.launches, KS.fused_launches, KS.launches), before))
+    assert counts == (n_attn, gen * n_attn, cfg.n_layers - n_attn, 0)
     assert out.shape == (4, gen)
     assert 0 <= out.min() <= out.max() < cfg.vocab_size
     torch.testing.assert_close(got, host, rtol=2e-4, atol=2e-4)
