@@ -66,7 +66,12 @@ SPLIT_REPS = 20
 
 def takes_dv(build) -> bool:
     """Does this checkout's forward entry take v's width (D_v)?"""
-    return len(build.PROTOTYPES["flash_attention_fwd"]) == 13
+    return len(build.PROTOTYPES["flash_attention_fwd"]) >= 13
+
+
+def takes_q_start(build) -> bool:
+    """Does it take ``q_start`` and the bfloat16-score flag too?"""
+    return len(build.PROTOTYPES["flash_attention_fwd"]) >= 15
 
 
 def time_tree(tree: str) -> dict:
@@ -178,7 +183,8 @@ def split_tree(tree: str) -> list:
             o = torch.empty((B, S, H, dv), dtype=torch.bfloat16, device=dev)
             args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                     None, B, S, H, KH, 192] + ([dv] if takes_dv(build)
-                                               else []) + [1, stream]
+                                               else []) + [1] + (
+                [0, 0] if takes_q_start(build) else []) + [stream]
 
             def launch():
                 err = fwd(*args)

@@ -11,6 +11,7 @@
     python3 chip_smoke.py --phase sharded_train  # build, phases 42-43
     python3 chip_smoke.py --phase kvseq  # the build and phases 44-46 alone
     python3 chip_smoke.py --phase data   # the build and phases 47-49 alone
+    python3 chip_smoke.py --phase seq    # the build and phases 50-53 alone
 
 The whole script must finish within 1,000 s of command time on one H100
 from a clean checkout, builds included (``PERF.md`` has each run's);
@@ -21,8 +22,9 @@ it.  ``--phase fleet`` builds the kernels and runs phase 8a alone,
 foreground), ``--phase served`` phases 31-34 and ``--phase sharded``
 phases 35-37 (about 2.5 minutes with the build), ``--phase trained``
 phases 38-41, ``--phase sharded_train`` phases 42-43, ``--phase
-kvseq`` phases 44-46 and ``--phase data`` phases 47-49 (llama3.2-1b
-trained on all 16 layers, about 6 minutes), printing no kernels line.
+kvseq`` phases 44-46, ``--phase data`` phases 47-49 (llama3.2-1b
+trained on all 16 layers, about 6 minutes) and ``--phase seq`` phases
+50-53, printing no kernels line.
 Each phase group's start is logged with the seconds since the script
 started.
 
@@ -116,8 +118,8 @@ Phases, each fatal on failure:
    kernel on the device for one ``flash_decode`` call at the serving
    shape (a trace that lacks the spin kernels around its window has
    lost events and is taken again, up to 3 times);
-8a. the fleet tier: llama3.2-1b at full width (``--small``: 2 of its 16
-    layers) in bfloat16, random weights from seed 0, served through
+8a. the fleet tier: llama3.2-1b at full width on ``FLEET_LAYERS`` (8) of
+    its 16 layers (``--small``: 2) in bfloat16, random weights from seed 0, served through
     ``repro_torch.fleet.FleetServer`` by three ``ReplicaWorker``s whose
     replicas share one copy of the weights on ``cuda:0``: ``w0``
     (throttle 1, declared 4 requests/s), ``w1`` (throttle 2, 2/s) and
@@ -142,7 +144,7 @@ Phases, each fatal on failure:
     events, the router's predicted finish against the measured, peak
     memory, and ``simulate_fleet`` on the same requests at the measured
     per-worker powers beside the measured attainment and p99;
-9. serve falcon-mamba-7b at full width on 16 of its 64 layers
+9. serve falcon-mamba-7b at full width on 8 of its 64 layers
    (``MAMBA_SERVED_LAYERS``; ``--small``: 2) in bfloat16 with the set-up
    of phase 6.  All must be served; the launch
    counters, set to 0 after a warm-up, must show one
@@ -218,7 +220,7 @@ Phases, each fatal on failure:
     v at 128, each with the backend it took, the faster the yardstick;
     hold and time the equal-width instance (v of 192 columns) at the
     prefill shape;
-16. serve deepseek-v2-lite-16b at full width on 7 of its 27 layers
+16. serve deepseek-v2-lite-16b at full width on 4 of its 27 layers
     (``MLA_SERVED_LAYERS``: the dense one and 6 MoE; ``--small``: 2, the
     dense one and one MoE layer) in bfloat16 with the set-up of phase 6.  All must be served; the launch counters, set to 0 after
     a warm-up, must show one ``flash_attention`` launch per layer and
@@ -253,7 +255,8 @@ Phases, each fatal on failure:
     one period of 4 at full width, in float32 (about 27.5 GB on each
     side): the logits within 1e-3 of the largest, every token routed to
     the same experts on both sides, the smallest top-2 margin logged;
-20. internvl2-1b at full width (``--small``: 2 of its 24 layers): hold
+20. internvl2-1b at full width on 12 of its 24 layers (``--small``: 2):
+    hold
     both attention kernels at its G = 7 (14 query heads over 2, D = 64;
     the ``g7_shape`` entries, timed at the serving shapes) against their
     plain versions; serve it as phase 6 does, without patches, as the JAX
@@ -265,10 +268,11 @@ Phases, each fatal on failure:
 21. hold both attention kernels at musicgen-large's heads (H = KH = 32,
     D = 64; the ``musicgen_shape`` entries, timed at its shapes, and a
     ragged S in both dtypes) against their plain versions; run
-    musicgen-large at full width (48 layers, ``--small``: 2) through
+    musicgen-large at full width (24 of its 48 layers, ``--small``: 2)
+    through
     ``prefill`` and ``decode_step``: batch 4, a 256-position prompt of 4
     codebooks, 32 greedy steps (argmax per codebook, (4, 1, 4) tokens a
-    step), 48 ``flash_attention`` launches a prefill and 48
+    step), 24 ``flash_attention`` launches a prefill and 24
     ``flash_decode`` launches a step; prefill and decode-step times
     beside the weight-read bound, and a profile; card against host in
     float32 on its first 8 layers (logits (B, 1, 4, V)).
@@ -312,8 +316,8 @@ Phases, each fatal on failure:
     host on its first 2 layers;
 25. hold ``flash_attention_bwd`` at internvl2-1b's G = 7 (14/2, D = 64)
     and musicgen-large's 32/32 heads (D = 64), timed at S=4096 with SDPA's
-    backward, and at ragged S in both dtypes; train internvl2-1b (24
-    layers, 256 patches a row) and musicgen-large (8 of 48 layers, (B,
+    backward, and at ragged S in both dtypes; train internvl2-1b (12 of
+    24 layers, 256 patches a row) and musicgen-large (8 of 48 layers, (B,
     S, 4) tokens; ``--small``: 2 layers each) 3 steps each through
     ``HeteroDPTrainer`` with the launch counts of phase 23 and finite
     losses; card against host in float32 on 2 layers of each (internvl2-
@@ -352,20 +356,20 @@ Phases, each fatal on failure:
 30. card against host in float32 on its first 2 layers, batch 1 x 256,
     as phase 24, every token routed alike;
 31. qwen3-32b (64/8 heads, G = 8, D = 128, q/k RMSNorm) at full width
-    on 8 of its 64 layers (``SERVED_CONFIGS``; ``--small``: 2 layers):
+    on 4 of its 64 layers (``SERVED_CONFIGS``; ``--small``: 2 layers):
     hold ``flash_attention`` at its serving prefill (B=4,
     S=256) and ``flash_decode`` at its serving decode (B=4, Smax=288,
     pos=287) in bfloat16 against their plain versions, timed (the
     ``qwen3_shape`` entries), and both at a ragged S in float32; serve it
     as phase 6 does (one ``flash_attention`` launch a layer and prefill,
     one ``flash_decode`` launch a layer and decode step, no other
-    kernel); card against host in float32 on a model of its first 2
-    layers made fresh from the cut config (the embedding and head of
+    kernel); card against host in float32 on a model of its first
+    layer made fresh from the cut config (the embedding and head of
     151,936 tokens included);
-32. yi-9b (32/4, G = 8, D = 128) likewise, 12 of its 48 layers, card
-    against host on 4 layers (``yi_shape``);
-33. stablelm-3b (32/32, G = 1, D = 80) likewise, 8 of its 32 layers,
-    card against host on 8 layers (``stablelm_shape``);
+32. yi-9b (32/4, G = 8, D = 128) likewise, 6 of its 48 layers, card
+    against host on 2 layers (``yi_shape``);
+33. stablelm-3b (32/32, G = 1, D = 80) likewise, 4 of its 32 layers,
+    card against host on 4 layers (``stablelm_shape``);
 34. dbrx-132b (48/8, G = 6, D = 128; 16 experts, top 4, every layer) at
     full width on its first 2 of 40 layers (14.3 GB; the whole 263 GB
     does not fit one card; ``--small``: 2), as phase 31, its capacity
@@ -502,8 +506,48 @@ Phases, each fatal on failure:
     ``flash_attention`` and ``flash_attention_bwd`` at a rank's training
     shape (B=2 S=2,048 16/4 heads of 64) and ``flash_decode`` at its
     serving shape (B=2, 272 positions) against their plain versions,
-    timed beside SDPA (``data_shape`` of their records).  One rank set
-    runs 42-43, 45-46 and 47-49.
+    timed beside SDPA (``data_shape`` of their records);
+50. both attention kernels with bfloat16 scores (``score_dtype``: the
+    scores and weights rounded to bfloat16 as the JAX package's
+    ``_flash_inner`` rounds them) and with ``q_start`` (a stretch of
+    query rows against the keys up to them) against their plain versions
+    at ``VARIANT_SHAPES`` (bfloat16 at 2e-2, float32 at ``ATTN_TOL``, the
+    backward's plain version from the kernel's log-sum-exp; at bfloat16
+    scores the plain versions round as the kernels' tiles do and each
+    output is also held within ``BF16S_SHARP`` of what the rounding
+    moves, ``sharp_check``): llama's
+    serving prefill (B=4 S=256 32/8 heads of 64), one training row (B=1
+    S=4,096), MLA's (192, 128), a "data" rank's stretch of llama's
+    training row (2,048 rows against 4,096 keys), the float32 kernels at
+    a ragged S.  Timed beside SDPA (an explicit boolean bottom-right mask
+    at ``q_start``): the records ``flash_attention_bf16s``,
+    ``flash_attention_bwd_bf16s``, ``flash_attention_qstart`` and
+    ``flash_attention_bwd_qstart``;
+51. llama3.2-1b's first 2 layers with bfloat16 scores (``BF16S_RUN``):
+    a prefill of 4 x 256 and 8 greedy decode steps (one bfloat16-score
+    ``flash_attention`` launch a layer, one ``flash_decode`` launch a
+    layer and step), one training step of a row of 1,024 tokens (its
+    forward and backward launches with bfloat16 scores), and a float32
+    copy card against host (chunks of the kernel's key tile) within
+    ``BF16S_TOL`` of the largest logit and within ``BF16S_SHARP`` of the
+    host's distance to its float32-score logits;
+52. the (2, 2) mesh with microbatches of one row, whose positions the
+    ranks split over "data" (``SEQ_PARITY``), float32 against one
+    process as phase 47: llama3.2-1b's and falcon-mamba-7b's first 2
+    layers at 1 x 512 (the keys gathered, the conv's halo and the scan's
+    state from the earlier stretch), deepseek-v2-lite-16b's phase-47
+    layers at 2 x 256 in two microbatches of a row, then phase 47's step
+    with the "global" dispatch; then llama3.2-1b's first 2 layers in
+    bfloat16, 3 steps of 1 x 4,096 (``SEQ_TRAIN_RUN``, 2,048 positions a
+    "data" rank): phase 48's checks (the ``q_start`` launches on the
+    second stretch's ranks), the time in gloo, each rank's peak against
+    the plan's rank-0 peak and the plan's collectives;
+53. the ("pod", "data", "model") = (2, 1, 2) mesh (``h100x2x1x2``):
+    llama3.2-1b's first 2 layers in float32 trained (4 x 256, the rows
+    over "pod") against one process as phase 52, the plan's rank-0
+    collectives equal to rank 0's counted step, and served (batch 4,
+    prompt 64, 8 teacher-forced steps) against one process's logits.
+    One rank set runs 42-43, 45-46, 47-49 and 52-53.
 
 Phases 8a and 18–25 add their launches to the records of
 ``flash_attention``, ``flash_attention_bwd``, ``flash_decode`` and
@@ -519,8 +563,10 @@ whose launches are phase 29's, which also adds its forward launches to
 theirs to those two and the two scan forwards, 38-41 theirs to
 ``flash_attention`` and ``flash_attention_bwd``, 42-43 theirs to
 the two attention kernels and the four scan kernels, 46 theirs to
-``flash_attention`` and ``flash_decode``, and 48-49 theirs to both
-attention kernels and ``flash_decode``.  The line
+``flash_attention`` and ``flash_decode``, 48-49 theirs to both
+attention kernels and ``flash_decode``, and 51-52 theirs to both
+attention kernels, ``flash_decode`` and phase 50's four records (each
+of which must have launched on its path).  The line
 before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  It exits non-zero, printing no result,
 without a card or outside a checkout of the repository.
@@ -708,10 +754,10 @@ ATTN_LSE_TOL = dict(rtol=1e-5, atol=1e-4)
 SCAN_TOL = (1e-4, 1e-5)
 # the path of the scan's (a, b, C) form since the model runs the fused one
 OP_PATH = "ops.selective_scan under autograd"
-# falcon-mamba-7b is served on 16 of its 64 layers (a cut of depth that
-# keeps the script within its time: 32 before phases 47-49 were added)
-# and its card-against-host check runs its first 8
-MAMBA_SERVED_LAYERS = 16
+# falcon-mamba-7b is served on 8 of its 64 layers (a cut of depth that
+# keeps the script within its time: 32 before phases 47-49 were added,
+# 16 before phases 50-53) and its card-against-host check runs them
+MAMBA_SERVED_LAYERS = 8
 MAMBA_PARITY_LAYERS = 8
 
 
@@ -960,10 +1006,11 @@ def serve_model(torch, dev0, cfg, params, launches, per_prefill, per_step):
 
 
 def card_against_host(torch, dev0, cfg32, p32, label, prompt=None,
-                      patches=None):
+                      patches=None, rel_tol=1e-3):
     """Teacher-forced ``PARITY`` in float32 (TF32 off) with ``p32`` on
     the card (kernels) and then on the host (plain versions); the logits
-    must agree within 1e-3 of the largest.  ``prompt`` replaces PARITY's
+    must agree within ``rel_tol`` (1e-3; bfloat16 scores: ``BF16S_TOL``)
+    of the largest.  ``prompt`` replaces PARITY's
     prompt length; ``patches`` (numpy, (batch, n, d)) go to the prefill
     (the ``vit_stub`` frontend); an ``encodec_stub`` model takes tokens
     of all its codebooks.  Moves ``p32`` to the host."""
@@ -988,15 +1035,17 @@ def card_against_host(torch, dev0, cfg32, p32, label, prompt=None,
     # float32 on both sides with TF32 off: what is left is the order of
     # summation (cuBLAS against the host BLAS, the kernels' tiles against
     # the plain versions' whole rows) over every layer
-    tol = 1e-3 * top
+    tol = rel_tol * top
     check(bool(torch.isfinite(card).all()) and card.shape == host.shape,
           "parity: logits not finite or of another shape")
     check(err <= tol, f"parity: max |card - host| {err:.3g} above "
-                      f"{tol:.3g} (1e-3 of the largest logit {top:.3g})")
+                      f"{tol:.3g} ({rel_tol} of the largest logit "
+                      f"{top:.3g})")
     log(f"parity {label} float32 (TF32 off), batch {B2}, prompt {P2}, "
         f"{n_steps} decode steps: max |card - host| {err:.3g} = "
-        f"{err / top:.3g} of the largest logit {top:.3g} (limit 1e-3); "
-        f"card {t_card:.2f} s, host {t_host:.2f} s")
+        f"{err / top:.3g} of the largest logit {top:.3g} (limit "
+        f"{rel_tol}); card {t_card:.2f} s, host {t_host:.2f} s")
+    return card, host, ptoks
 
 
 def long_entry(r, label="long shape"):
@@ -1264,6 +1313,10 @@ FLEET_SCALE = dict(target_delay_s=1.0, breach_s=0.5, warmup_s=0.5,
 FLEET_TIMEOUT_S = 300.0
 # requests of each worker held against a fresh replica
 FLEET_INVARIANT = 4
+# the fleet's llama3.2-1b at full width on its first 8 of 16 layers, for
+# the script's time (all 16 before phases 50-53 were added; phase 6
+# serves all 16)
+FLEET_LAYERS = 8
 
 
 def fleet_phase(args, torch, dev0, launches):
@@ -1283,9 +1336,8 @@ def fleet_phase(args, torch, dev0, launches):
                                    make_requests, percentile,
                                    poisson_arrivals)
 
-    cfg = get_config("llama3.2-1b")
-    if args.small:
-        cfg = replace(cfg, n_layers=2)
+    cfg = replace(get_config("llama3.2-1b"),
+                  n_layers=2 if args.small else FLEET_LAYERS)
     traffic = SMALL_FLEET if args.small else FLEET
     P, gen, lws = (SERVE[k] for k in ("prompt", "gen", "lws"))
     n_burst, n_tail = traffic["burst"], traffic["tail"]
@@ -1735,11 +1787,11 @@ def mamba_phases(args, torch, dev0, launches, record):
 
 
 # ------------------------------------------------ MLA and MoE (deepseek)
-# deepseek-v2-lite-16b is served on 7 of its 27 layers (the dense first
-# and 6 MoE: a cut of depth that keeps the script within its time, 14
-# before phases 47-49 were added); the card-against-host check runs the
-# dense first layer and two MoE layers
-MLA_SERVED_LAYERS = 7
+# deepseek-v2-lite-16b is served on 4 of its 27 layers (the dense first
+# and 3 MoE: a cut of depth that keeps the script within its time, 14
+# before phases 47-49 were added, 7 before phases 50-53); the
+# card-against-host check runs the dense first layer and two MoE layers
+MLA_SERVED_LAYERS = 4
 MOE_PARITY_LAYERS = 3
 
 
@@ -1888,8 +1940,13 @@ JAMBA_PERIOD4 = dict(n_layers=4, attn_every=4, attn_offset=2)
 JAMBA_PARITY_LAYERS = (0, 1, 4, 5)
 # internvl2-1b's patch run: 256 patch positions, then 256 text tokens
 VLM_RUN = dict(batch=4, patches=256, text=256, gen=32)
-# musicgen-large's card-against-host check runs its first 8 layers
-AUDIO_PARITY_LAYERS = 8
+# internvl2-1b served on 12 of its 24 layers and musicgen-large on 24 of
+# its 48 (whole before phases 50-53 were added), for the script's time;
+# musicgen-large's card-against-host check runs its first 4 layers (8
+# before)
+VLM_LAYERS = 12
+AUDIO_LAYERS = 24
+AUDIO_PARITY_LAYERS = 4
 # the kernels whose records add up the launches of phases 18-21's paths,
 # and the path that counted them before
 SERVED_KERNELS = {"flash_attention": "llama3.2-1b",
@@ -1975,9 +2032,8 @@ def vlm_phase(args, torch, dev0):
     from repro_torch.models import transformer as T
 
     free_card(torch, dev0, "internvl2-1b phase")
-    cfg = get_config("internvl2-1b")
-    if args.small:
-        cfg = replace(cfg, n_layers=2)
+    cfg = replace(get_config("internvl2-1b"),
+                  n_layers=2 if args.small else VLM_LAYERS)
     H, KH, D, L = (cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
                    cfg.n_layers)
     P, gen, lws = (SERVE[k] for k in ("prompt", "gen", "lws"))
@@ -2079,9 +2135,8 @@ def audio_phase(args, torch, dev0):
     from repro_torch.models import transformer as T
 
     free_card(torch, dev0, "musicgen-large phase")
-    cfg = get_config("musicgen-large")
-    if args.small:
-        cfg = replace(cfg, n_layers=2)
+    cfg = replace(get_config("musicgen-large"),
+                  n_layers=2 if args.small else AUDIO_LAYERS)
     P, gen, B = (SERVE[k] for k in ("prompt", "gen", "lws"))
     L, CB, V = cfg.n_layers, cfg.n_codebooks, cfg.vocab_size
     H, KH, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
@@ -2190,9 +2245,10 @@ TRAIN_PARITY_SEQ = 256
 # falcon-mamba-7b trained on 8 of its 64 layers: make_train_step, 2 steps
 # of batch 2 x 4,096; card against host on its first 2 layers
 FALCON_TRAIN = dict(layers=8, batch=2, steps=2, parity_layers=2)
-# the frontends: internvl2-1b whole, musicgen-large on 8 of its 48 layers,
-# 3 steps each of TRAIN_4K's batch cut to 4; card against host on 2 layers
-FRONTEND_TRAIN = {"internvl2-1b": 0, "musicgen-large": 8}
+# the frontends: internvl2-1b on 12 of its 24 layers (whole before phases
+# 50-53 were added), musicgen-large on 8 of its 48 layers, 3 steps each
+# of TRAIN_4K's batch cut to 4; card against host on 2 layers
+FRONTEND_TRAIN = {"internvl2-1b": 12, "musicgen-large": 8}
 FRONTEND_TRAIN_RUN = dict(batch=4, steps=3, parity_layers=2)
 
 
@@ -2203,6 +2259,8 @@ def train_kernels():
     from repro_torch.kernels.mamba_scan import kernel as KS
     return {"flash_attention": (KA, "launches"),
             "flash_attention_bwd": (KA, "bwd_launches"),
+            "flash_attention_qstart": (KA, "qstart_launches"),
+            "flash_attention_bwd_qstart": (KA, "bwd_qstart_launches"),
             "selective_scan_fused": (KS, "fused_launches"),
             "selective_scan_fused_bwd": (KS, "fused_bwd_launches"),
             "selective_scan": (KS, "launches"),
@@ -2224,7 +2282,8 @@ def per_packet(cfg):
     forward and its rematerialised recomputes, ``T.forward_runs``: twice
     under a flat remat, three times inside a remat group but for the
     group's last layer) and its backward once; a Mamba layer runs the
-    fused scan, never the (a, b, C) form."""
+    fused scan, never the (a, b, C) form.  A packet of whole rows
+    launches no attention with ``q_start``."""
     from repro_torch.models import transformer as T
     runs = T.forward_runs(cfg)
     attn = [cfg.mixer_kind(i) == "attn" for i in range(cfg.n_layers)]
@@ -2233,6 +2292,7 @@ def per_packet(cfg):
             "selective_scan_fused": sum(r for r, a in zip(runs, attn)
                                         if not a),
             "selective_scan_fused_bwd": len(attn) - sum(attn),
+            "flash_attention_qstart": 0, "flash_attention_bwd_qstart": 0,
             "selective_scan": 0, "selective_scan_bwd": 0}
 
 
@@ -2476,8 +2536,11 @@ def train_card_against_host(torch, dev0, cfg32, p32, batch, label,
                       f"top-{k} margin {margin:.3g}")
     if opt is not None:
         from repro_torch.optim import adamw
-        sc = adamw.apply_updates(adamw.init_state(p32, opt), gc, opt)[0]
-        sh = adamw.apply_updates(adamw.init_state(host32, opt), gh, opt)[0]
+        lead = cfg32.moe.first_dense
+        sc = adamw.apply_updates(adamw.init_state(p32, opt), gc, opt,
+                                 unstacked=lead)[0]
+        sh = adamw.apply_updates(adamw.init_state(host32, opt), gh, opt,
+                                 unstacked=lead)[0]
         worst_p, outside, n_el = check_updates(
             torch, sc.params, sh.params, opt.lr, f"train parity {label}")
         route_note += (f"; after one AdamW step the parameters within "
@@ -2512,7 +2575,8 @@ def scan_bwd_check(torch, dev0, gen_t, B, S, d, s, nonzero=False,
     _, _, states = KS.selective_scan_fwd(a, b, C, h0, keep_states=True)
     got = KS.selective_scan_bwd(a, b, C, h0, dy, dhT, states)
     again = KS.selective_scan_bwd(a, b, C, h0, dy, dhT, states)
-    want = RS.selective_scan_bwd_ref(a, b, C, h0, dy, dhT)
+    want, plain_ms = timed_call(
+        lambda: RS.selective_scan_bwd_ref(a, b, C, h0, dy, dhT), torch)
     shape = (f"B={B} S={S} di={d} ds={s} float32"
              + (" h0 dhT" if nonzero else ""))
     rtol, atol = SCAN_BWD_TOL
@@ -2538,8 +2602,7 @@ def scan_bwd_check(torch, dev0, gen_t, B, S, d, s, nonzero=False,
             err=err, shape=shape,
             ms=cuda_ms(lambda: KS.selective_scan_bwd(a, b, C, h0, dy, dhT,
                                                      states), torch),
-            plain_ms=cuda_ms(lambda: RS.selective_scan_bwd_ref(
-                a, b, C, h0, dy, dhT), torch, 1),
+            plain_ms=plain_ms,
             library_ms=None,
             nbytes=4.0 * (4 * B * S * d * s + 2 * B * S * s + B * S * d
                           + n_st + B * d * s * (3 if nonzero else 1)),
@@ -4168,18 +4231,18 @@ def host_phase(args, torch, dev0, attach, host_runs, build_s):
 # ------------------------- the dense configs and dbrx served (31-34)
 # (arch, layers served at full width (None: all of them), layers of the
 # float32 card-against-host model, its kernel records' entry, seed).
-# Each is served on an eighth to a quarter of its layers (dbrx-132b's 40
-# are 263 GB, qwen3-32b's 64 65.5 GB; halved again when phases 47-49
-# were added): a layer adds nothing the first ones do not check, and the
-# script's time is bounded (PERF.md).  The float32 models are made fresh
-# from the cut config (never a float32 copy of the served weights:
-# qwen3's would be 131 GB):
-# qwen3 2 layers with its 151,936-token embedding and head (10.1 GB a
-# side), yi 4, stablelm 8, dbrx 2 (31 GB a side, 13 GB a layer)
-SERVED_CONFIGS = (("qwen3-32b", 8, 2, "qwen3_shape", 8),
-                  ("yi-9b", 12, 4, "yi_shape", 9),
-                  ("stablelm-3b", 8, 8, "stablelm_shape", 10),
-                  ("dbrx-132b", 2, 2, "dbrx_shape", 11))
+# Each is served on a sixteenth to an eighth of its layers (dbrx-132b's
+# 40 are 263 GB, qwen3-32b's 64 65.5 GB; halved when phases 47-49 were
+# added, and again, with the float32 models, when phases 50-53 were): a
+# layer adds nothing the first ones do not check, and the script's time
+# is bounded (PERF.md).  The float32 models are made fresh from the cut
+# config (never a float32 copy of the served weights: qwen3's would be
+# 131 GB): qwen3 1 layer with its 151,936-token embedding and head, yi
+# 2, stablelm 4, dbrx 1 (18 GB a side, 13 GB a layer)
+SERVED_CONFIGS = (("qwen3-32b", 4, 1, "qwen3_shape", 8),
+                  ("yi-9b", 6, 2, "yi_shape", 9),
+                  ("stablelm-3b", 4, 4, "stablelm_shape", 10),
+                  ("dbrx-132b", 2, 1, "dbrx_shape", 11))
 
 
 def served_config_phase(args, torch, dev0, arch, n_layers, n_parity, seed):
@@ -4326,7 +4389,10 @@ def timed_run(torch, res):
     from repro_torch.parallel.collectives import ShardedRun
 
     class TimedRun(ShardedRun):
-        seconds = 0.0
+        # in ``by_kind``, which the copies ``for_batch`` makes share
+        @property
+        def seconds(self):
+            return sum(self.by_kind.values())
 
         def _timed(self, kind, fn, *a):
             torch.cuda.synchronize()
@@ -4334,7 +4400,6 @@ def timed_run(torch, res):
             y = fn(*a)
             torch.cuda.synchronize()
             dt = time.perf_counter() - t
-            self.seconds += dt
             self.by_kind[kind] = self.by_kind.get(kind, 0.0) + dt
             return y
 
@@ -4756,8 +4821,9 @@ DENSE_TRAIN = (("qwen3-32b", 21, 1), ("yi-9b", 22, 2),
 # them: lws 1), 3 steps
 DENSE_TRAIN_RUN = dict(rows=4, steps=3)
 # the deepest cut trained, for the script's time (the plan fits 19 of
-# yi-9b's 48 layers and all 32 of stablelm-3b's)
-DENSE_TRAIN_MAX_LAYERS = 8
+# yi-9b's 48 layers and all 32 of stablelm-3b's; 8 before phases 50-53
+# were added)
+DENSE_TRAIN_MAX_LAYERS = 4
 # AdamW at a tenth of TRAIN_OPT's rate: at 1e-3 qwen3-32b's held-out
 # objective rose over 4 steps (12.43 -> 13.26, PERF.md)
 DENSE_TRAIN_OPT = dict(TRAIN_OPT, lr=1e-4)
@@ -5068,14 +5134,17 @@ def train_run(torch, res, dev, cfg, batches, held, steps, plan_peak):
     opt = OptConfig(**SHARDED_TRAIN_OPT)
     state = init_state(params, opt)
     build_s = time.perf_counter() - t0
-    loss_fn = make_loss_fn(cfg, res)
     step = make_train_step(cfg, opt, res=res)
 
     def on_card(batch):
         return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
 
-    # the loss takes the rank's rows (all of them where "data" is 1)
-    held_rows = {k: v[res.rows(len(v))] for k, v in held.items()}
+    # the loss takes the rank's part of the held-out batch: its rows, or
+    # every row with its stretch of the positions
+    n_rows, n_pos = held["tokens"].shape[:2]
+    loss_fn = make_loss_fn(cfg, res.for_batch(n_rows, n_pos))
+    held_rows = {k: v[res.for_batch(n_rows, n_pos).tokens.rows]
+                 for k, v in held.items()}
 
     def objective():
         with torch.no_grad():
@@ -5927,86 +5996,9 @@ def captured_grads():
         adamw.apply_updates = apply
 
 
-def data_parity(torch, rank, dev, cfg, batch):
-    """Phase 47 on one rank (the (2, 2) mesh, the FSDP resolver): one
-    float32 ``make_train_step`` of two microbatches of ``batch`` from
-    zero moments, its gradients captured; then, in turn, each rank runs
-    the one-process step of the whole model (``res`` None) and holds its
-    blocks of it against its own: the gradients within
-    ``SHARDED_TRAIN_TOL`` of each largest |g|, the updated parameters as
-    ``check_updates`` holds them, every routing of its rows.  Returns
-    the losses, norms, errors and whether every routing was equal."""
-    import torch.distributed as dist
-
-    from repro_torch.launch.mesh import card_mesh
-    from repro_torch.models import transformer as T
-    from repro_torch.optim.adamw import OptConfig, init_state
-    from repro_torch.parallel.collectives import sharded_run
-    from repro_torch.training.step import make_train_step
-
-    t0 = time.perf_counter()
-    res = sharded_run(cfg, card_mesh(DATA_MESH), rank=rank,
-                      group=dist.group.WORLD, train=True)
-    b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
-    accum = DATA_PARITY["accum"]
-    rows = res.rows(DATA_PARITY["batch"] // accum)    # of a microbatch
-    opt = OptConfig(**SHARDED_TRAIN_OPT)
-    params = seeded_params(torch, cfg, dev, res)
-    weights_gb = T.param_bytes(params) / 1e9
-    fsdp = sum(hasattr(p, "fsdp") for p in params.parameters())
-    times = {"build": time.perf_counter() - t0}
-    t1 = time.perf_counter()
-    with recorded_routes() as routes, captured_grads() as seen:
-        state, met = make_train_step(cfg, opt, res=res, accum_steps=accum)(
-            init_state(params, opt), b)
-    times["step"] = time.perf_counter() - t1
-    grads = {n: g.cpu() for n, g in seen[0].items()}
-    updated = {n: p.detach().cpu() for n, p in params.named_parameters()}
-    # the state holds the blocks and their moments: the turns below need
-    # the card
-    del params, seen, state
-    torch.cuda.empty_cache()
-    t1 = time.perf_counter()
-    for turn in range(dist.get_world_size()):
-        if turn == dist.get_rank():
-            whole = seeded_params(torch, cfg, dev)
-            with recorded_routes() as one_routes, \
-                    captured_grads() as one_seen:
-                one_state, one_met = make_train_step(
-                    cfg, opt, accum_steps=accum)(init_state(whole, opt), b)
-            one = one_seen[0]
-            errs = {}
-            for n, ref in rank_blocks(cfg, res, whole, one).items():
-                top = float(torch.linalg.vector_norm(one[n], math.inf))
-                errs[n] = float((grads[n].to(dev) - ref).abs().max()) / max(
-                    top, 1e-30)
-            del one, one_seen
-            want = rank_blocks(cfg, res, whole, {
-                n: p.detach() for n, p in whole.named_parameters()})
-            step = check_updates(torch, {n: u.to(dev) for n, u in
-                                         updated.items()},
-                                 {n: w.cpu() for n, w in want.items()},
-                                 opt.lr, f"data parity rank {rank}'s step")
-            same = len(routes) == len(one_routes) and all(
-                torch.equal(a[1], c[1][rows]) for a, c in
-                zip(routes, one_routes))
-            del whole, want, one_state
-            torch.cuda.synchronize()
-            torch.cuda.empty_cache()
-        dist.barrier()
-    times["turns"] = time.perf_counter() - t1
-    return dict(loss=float(met["loss"]), one_loss=float(one_met["loss"]),
-                norm=float(met["grad_norm"]),
-                one_norm=float(one_met["grad_norm"]), errs=errs, step=step,
-                routes_equal=same, n_routes=len(routes),
-                weights_gb=weights_gb, fsdp=fsdp, rows=(rows.start,
-                                                        rows.stop),
-                times=times, s=time.perf_counter() - t0)
-
-
 def data_rank(rank, world, ds32, parity_batch, train_cfg, batches, held,
               steps, plan_peak, serve32, ptoks, serve_cfg, prompts):
-    """Phases 47-49 on one rank of the (2, 2) mesh: :func:`data_parity`;
+    """Phases 47-49 on one rank of the (2, 2) mesh: :func:`mesh_parity`;
     :func:`train_run` of llama3.2-1b under the FSDP resolver; its float32
     cut's teacher-forced logits of the rank's rows and
     :func:`kvseq_serve` of the whole model under the decode resolver."""
@@ -6019,7 +6011,8 @@ def data_rank(rank, world, ds32, parity_batch, train_cfg, batches, held,
 
     torch, _, dev = rank_setup(rank, world, ds32, train=True)
     mesh = card_mesh(DATA_MESH)
-    out = {"parity": data_parity(torch, rank, dev, ds32, parity_batch)}
+    out = {"parity": mesh_parity(torch, rank, dev, ds32, parity_batch,
+                                 DATA_PARITY["accum"], DATA_MESH)}
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -6085,9 +6078,8 @@ def data_finish(args, torch, dev0, ctx, out):
             f"{g['one_norm']:.6f} ({nrel:.3g}); the updates worst "
             f"{g['step'][0]:.3g} of their tolerance, {g['step'][1]} of "
             f"{g['step'][2]} elements outside 1e-3; {g['n_routes']} "
-            f"routings equal: {g['routes_equal']}; {g['s']:.1f} s ("
-            + ", ".join(f"{k} {v:.1f} s" for k, v in g["times"].items())
-            + ")")
+            f"routings equal: {g['routes_equal']}; the step "
+            f"{g['step_s']:.1f} s of {g['s']:.1f} s")
         check(math.isfinite(g["loss"]) and rel <= tol["loss"],
               f"data parity: rank {rk}'s loss {g['loss']} against "
               f"{g['one_loss']}")
@@ -6232,16 +6224,717 @@ def data_finish(args, torch, dev0, ctx, out):
     return launches, entries
 
 
-def late_rank(rank, world, train, kvseq, data):
-    """Phases 42-43, 45-46 and 47-49 on one rank, one spawn for all (a
-    phase group whose arguments are None is left out)."""
+# ------ bfloat16 scores and the query offset (phases 50-53)
+BF16S = "bfloat16"
+# phase 50 holds each kernel with bfloat16 scores against the plain
+# version that rounds p against the kernel's own key tiles (``chunk`` =
+# ``key_tile``, ``ragged``), and the bfloat16 backward against the one
+# that rounds P and dS for the products as ``wgmma`` takes them.  The
+# kernel's root-mean-square distance to that version must be at most
+# BF16S_SHARP of both the distance between that version and the one with
+# float32 scores (what the rounding moves) and the kernel's own distance
+# to the float32-score version: a kernel that ignored the flag would be
+# at about 1 on each
+BF16S_SHARP = 0.25
+# phase 50's shapes: (what, B, S, H, KH, D, D_v, q_start, score dtype,
+# input dtype, the forward's record or None, the backward's or None);
+# the kernels' records take their times from the shapes they name
+VARIANT_SHAPES = (
+    ("llama3.2-1b's serving prefill", 4, 256, 32, 8, 64, 64, 0, BF16S,
+     "bfloat16", "flash_attention_bf16s", None),
+    ("one training row of llama3.2-1b", 1, 4096, 32, 8, 64, 64, 0, BF16S,
+     "bfloat16", None, "flash_attention_bwd_bf16s"),
+    ("MLA (deepseek-v2-lite-16b)", 4, 256, 16, 16, 192, 128, 0, BF16S,
+     "bfloat16", None, None),
+    ("a 'data' rank's stretch of llama3.2-1b's training row", 1, 2048, 32,
+     8, 64, 64, 2048, "float32", "bfloat16", "flash_attention_qstart",
+     "flash_attention_bwd_qstart"),
+    ("the stretch with bfloat16 scores", 1, 2048, 32, 8, 64, 64, 2048, BF16S,
+     "bfloat16", None, None),
+    ("MLA's stretch", 1, 1024, 16, 16, 192, 128, 1024, BF16S, "bfloat16",
+     None, None),
+    # the float32 kernels (FMA), ragged S
+    ("float32 inputs", 2, 300, 8, 2, 64, 64, 0, BF16S, "float32", None,
+     None),
+    ("float32 inputs, a ragged stretch", 2, 300, 8, 2, 64, 64, 100, BF16S,
+     "float32", None, None),
+    ("float32 MLA, a stretch", 1, 200, 4, 4, 192, 128, 64, "float32",
+     "float32", None, None),
+)
+VARIANT_SRC = ("src/repro_torch/csrc/flash_attention.cu",
+               "src/repro_torch/csrc/flash_attention_bwd.cu")
+# phase 51: llama3.2-1b's first 2 layers at full width with bfloat16
+# scores: a prefill of 4 x 256 and 8 greedy decode steps, a float32 copy
+# card against host (teacher-forced, within BF16S_TOL of the largest
+# logit), and one training step of a row of 1,024 tokens
+BF16S_RUN = dict(layers=2, batch=4, prompt=256, gen=8, train_seq=1024)
+BF16S_TOL = 2e-2
+BF16S_PATHS = {"serve": "llama3.2-1b bf16 scores served",
+               "train": "llama3.2-1b bf16 scores trained"}
+
+
+def variant_check(torch, randn, B, S, h, kh, d, dv, q_start, score_dtype,
+                  dtype, timed=False):
+    """Hold ``flash_attention`` (and the log-sum-exp it keeps) and
+    ``flash_attention_bwd`` at ``q_start`` and ``score_dtype`` against
+    their plain versions on queries of S rows and keys of ``q_start`` +
+    S (bfloat16 inputs at 2e-2, float32 at ``ATTN_TOL`` with float32
+    scores and 2e-2 with bfloat16 ones; the backward's plain version from
+    the kernel's log-sum-exp, at ``ATTN_BWD_TOL`` of each largest
+    |value|); at bfloat16 scores the plain versions round as the kernels
+    do and each output is also held within ``BF16S_SHARP``
+    (:func:`sharp_check`).  With ``timed``, time both kernels, both plain
+    versions (on the checked call) and SDPA forward and backward (an
+    explicit boolean mask, bottom-right aligned, where ``q_start`` > 0)
+    and return the measurements of each direction for a kernel record."""
+    from repro_torch.kernels.flash_attention import kernel as KA, ref as RA
+    F = torch.nn.functional
+    Sk = q_start + S
+    q, k, v = (randn(s, dtype) for s in ((B, S, h, d), (B, Sk, kh, d),
+                                         (B, Sk, kh, dv)))
+    kw = dict(q_start=q_start, score_dtype=score_dtype)
+    bf = RA.is_bf16(score_dtype)
+    # the plain versions' schedule: p rounded against the kernel's tiles
+    tiles = dict(chunk=KA.key_tile(dtype, d, dv), ragged=True)
+    out, lse = KA.flash_attention_fwd(q, k, v, keep_lse=True, **kw)
+    check(torch.equal(out, KA.flash_attention(q, k, v, **kw)),
+          "flash_attention: the output differs when it keeps the lse")
+    want, plain_ms = timed_call(lambda: RA.attention_ref(
+        q, k, v, **tiles, **kw), torch)
+    name = str(dtype).split(".")[-1]
+    rtol, atol = (ATTN_TOL[name] if score_dtype == "float32"
+                  else ATTN_TOL["bfloat16"])
+    torch.testing.assert_close(out.float(), want.float(), rtol=rtol,
+                               atol=atol)
+    err = float((out.float() - want.float()).abs().max())
+    lse_want = RA.attention_lse_ref(q, k, v, **tiles, **kw)
+    lse_err = float((lse - lse_want).abs().max())
+    check(lse_err <= (ATTN_LSE_TOL["atol"] if score_dtype == "float32"
+                      and name == "float32" else 2e-2),
+          f"flash_attention: kept log-sum-exp {lse_err:.3g} away")
+    shape = (f"B={B} S={S} keys={Sk} (q_start {q_start}) H={h} KH={kh} "
+             f"D={d}" + (f" Dv={dv}" if dv != d else "")
+             + f" {name}, {score_dtype} scores")
+    if bf:
+        f32 = dict(q_start=q_start)
+        sharp_check(torch, f"{shape} forward", out,
+                    want, RA.attention_ref(q, k, v, **f32))
+        sharp_check(torch, f"{shape} log-sum-exp", lse,
+                    lse_want, RA.attention_lse_ref(q, k, v, **f32))
+    dout = randn((B, S, h, dv), dtype)
+    got = KA.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+    again = KA.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+    # the wgmma kernels take P and dS in bfloat16
+    prods = dtype == torch.bfloat16
+    bwant, bwd_plain_ms = timed_call(lambda: RA.attention_bwd_ref(
+        q, k, v, out, dout, lse, bf16_products=prods, **kw), torch)
+    if bf:
+        bwant_f = RA.attention_bwd_ref(q, k, v, out, dout, q_start=q_start,
+                                       bf16_products=prods)
+        for n, g, w, wf in zip(("dq", "dk", "dv"), got, bwant, bwant_f):
+            sharp_check(torch, f"{shape} backward {n}", g, w, wf)
+        del bwant_f
+    tol = ATTN_BWD_TOL["bfloat16" if BF16S in (name, score_dtype)
+                       else "float32"]
+    bwd_err = 0.0
+    for n, g, a, w in zip(("dq", "dk", "dv"), got, again, bwant):
+        check(torch.equal(g, a), f"flash_attention_bwd {shape}: {n} "
+                                 f"differs between two calls")
+        e = float((g.float() - w.float()).abs().max())
+        top = float(w.float().abs().max())
+        check(e <= tol * top, f"flash_attention_bwd {shape}: {n} max |err|"
+                              f" {e:.3g} above {tol} x {top:.3g}")
+        bwd_err = max(bwd_err, e)
+    log(f"  {shape}: forward max abs err {err:.3g}, log-sum-exp "
+        f"{lse_err:.3g}; backward {bwd_err:.3g}, two calls bitwise equal")
+    if not timed:
+        del q, k, v, out, lse, want, dout, got, again, bwant
+        torch.cuda.empty_cache()
+        return None
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    mask = (None if q_start == 0 else torch.ones(
+        (S, Sk), dtype=torch.bool, device=q.device).tril(q_start))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+            enable_gqa=h != kh)
+
+    lib_out = sdpa()
+    lib_err = float((lib_out.detach().transpose(1, 2).float()
+                     - out.float()).abs().max())
+    dlib = dout.transpose(1, 2).contiguous()
+    elt = q.element_size()
+    pairs = S * (q_start + (S + 1) / 2)
+    rate = BF16_OPS_S if dtype == torch.bfloat16 else FP32_OPS_S
+    fwd = dict(err=err, shape=shape, plain_ms=plain_ms,
+               ms=cuda_ms(lambda: KA.flash_attention(q, k, v, **kw), torch),
+               library_ms=cuda_ms(lambda: sdpa().detach(), torch),
+               nbytes=elt * B * (d + dv) * (S * h + Sk * kh),
+               ops=2.0 * B * h * (d + dv) * pairs, ops_per_s=rate)
+    bwd = dict(err=bwd_err, shape=shape, plain_ms=bwd_plain_ms,
+               ms=cuda_ms(lambda: KA.flash_attention_bwd(
+                   q, k, v, out, dout, lse, **kw), torch),
+               library_ms=cuda_ms(lambda: torch.autograd.grad(
+                   lib_out, (qt, kt, vt), dlib, retain_graph=True), torch),
+               nbytes=elt * 4 * B * d * (S * h + Sk * kh),
+               ops=10.0 * B * h * d * S * (q_start + S / 2),
+               ops_per_s=rate)
+    log(f"  timed {shape}: forward {fwd['ms']:.4f} ms, plain "
+        f"{plain_ms:.3f} ms, SDPA {fwd['library_ms']:.4f} ms (sdpa vs "
+        f"kernel max abs diff {lib_err:.3g}); backward {bwd['ms']:.4f} ms, "
+        f"plain {bwd_plain_ms:.3f} ms, SDPA backward "
+        f"{bwd['library_ms']:.4f} ms")
+    del q, k, v, out, lse, want, dout, got, again, bwant, qt, kt, vt
+    del lib_out, dlib, mask
+    torch.cuda.empty_cache()
+    return fwd, bwd
+
+
+def sharp_check(torch, what, got, want, want_f32):
+    """At bfloat16 scores: ``got`` (a kernel's) against ``want`` (the
+    plain version that rounds as it does) and ``want_f32`` (the plain
+    version with float32 scores), each as float32.  Logs the largest and
+    the root-mean-square distances of the three pairs and checks that
+    the kernel's distance to ``want`` is at most ``BF16S_SHARP`` of the
+    other two (``BF16S_SHARP``'s comment)."""
+    got, want, want_f32 = (t.float() for t in (got, want, want_f32))
+
+    def dist(a, b):
+        d = (a - b).abs()
+        return float(d.max()), float(d.square().mean().sqrt())
+
+    (m_b, r_b), (m_f, r_f), (m_g, r_g) = (
+        dist(got, want), dist(got, want_f32), dist(want, want_f32))
+    log(f"    {what}: kernel to bf16-score plain max {m_b:.3g} rms "
+        f"{r_b:.3g}; to float32-score plain max {m_f:.3g} rms {r_f:.3g}; "
+        f"the two plain versions apart max {m_g:.3g} rms {r_g:.3g}")
+    check(r_b <= BF16S_SHARP * r_g and r_b <= BF16S_SHARP * r_f,
+          f"{what}: bfloat16 scores not rounded as the plain version "
+          f"rounds them (rms {r_b:.3g} against {r_g:.3g} and {r_f:.3g}, "
+          f"limit {BF16S_SHARP} of each)")
+
+
+def variant_phase(args, torch, dev0, record):
+    """50. Both attention kernels with bfloat16 scores and with
+    ``q_start`` against their plain versions at ``VARIANT_SHAPES``, the
+    records' shapes timed beside SDPA.  Each named record starts with no
+    launches: phases 51 and 52 give them."""
+    free_card(torch, dev0, "phase 50")
+    gen_t = torch.Generator(dev0).manual_seed(50)
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen_t, device=dev0).to(dtype)
+
+    log("bfloat16 scores and q_start against the plain versions:")
+    failed = []
+    for (what, B, S, h, kh, d, dv, q0, sd, dt, frec,
+         brec) in VARIANT_SHAPES:
+        if args.small:
+            S = min(S, 512)
+            q0 = min(q0, 512)
+        try:
+            got = variant_check(torch, randn, B, S, h, kh, d, dv, q0, sd,
+                                getattr(torch, dt),
+                                timed=bool(frec or brec))
+        except RuntimeError as e:   # every shape's numbers, then fail
+            log(f"  FAILED {what}: {e}")
+            failed.append(what)
+            torch.cuda.empty_cache()
+            continue
+        for rec_name, m, src in ((frec, got and got[0], VARIANT_SRC[0]),
+                                 (brec, got and got[1], VARIANT_SRC[1])):
+            if rec_name is None:
+                continue
+            record(rec_name, src,
+                   "src/repro/kernels/flash_attention/kernel.py:69",
+                   m["err"], m["ms"], m["plain_ms"], m["nbytes"], m["ops"],
+                   m["library_ms"], f"{m['shape']} ({what})",
+                   m["ops_per_s"], n_launches=0, launches_by_path={},
+                   replaces_note=(
+                       "the JAX package's bfloat16 score_dtype "
+                       "(src/repro/models/layers.py:73-139 _flash_inner)"
+                       if "bf16s" in rec_name else
+                       "a stretch of positions against the keys before "
+                       "it: the JAX package's seq-over-data layout "
+                       "(src/repro/parallel/sharding.py:52)")
+                   + ("; the gradient, by jax.value_and_grad there"
+                      if "bwd" in rec_name else ""),
+                   library_note=(
+                       "F.scaled_dot_product_attention" + (
+                           " with an explicit boolean bottom-right mask"
+                           if "qstart" in rec_name else "(is_causal=True)")
+                       + (", the backward alone" if "bwd" in rec_name
+                          else "")))
+    check(not failed, f"phase 50 failed at: {'; '.join(failed)}")
+
+
+def bf16s_phase(args, torch, dev0):
+    """51. llama3.2-1b's first layers at full width with bfloat16 scores
+    (``BF16S_RUN``): a prefill and greedy decode steps on the card (one
+    ``flash_attention`` launch a layer with bfloat16 scores, one
+    ``flash_decode`` launch a layer and step), a float32 copy card
+    against host, and one training step whose forward and backward
+    launch with bfloat16 scores.  Returns the launches by path."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as KA
+    from repro_torch.kernels.flash_decode import kernel as KD
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import OptConfig, init_state
+    from repro_torch.training.step import make_train_step
+
+    free_card(torch, dev0, "phase 51")
+    r = BF16S_RUN
+    cfg = replace(get_config("llama3.2-1b"), n_layers=r["layers"],
+                  score_dtype=BF16S)
+    params = make_params(torch, dev0, cfg)
+    prompts = torch.as_tensor(np.random.default_rng(51).integers(
+        0, cfg.vocab_size, (r["batch"], r["prompt"])), device=dev0)
+    for mod, attrs in ((KA, ("launches", "bf16s_launches")),
+                       (KD, ("launches",))):
+        for a in attrs:
+            setattr(mod, a, 0)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        cache = T.init_cache(cfg, r["batch"], r["prompt"] + r["gen"], dev0)
+        lg, cache = T.prefill(cfg, params, prompts, cache)
+        toks = [lg[:, -1].argmax(-1)]
+        for i in range(r["gen"] - 1):
+            lg, cache = T.decode_step(cfg, params, toks[-1][:, None], cache,
+                                      r["prompt"] + i)
+            toks.append(lg[:, -1].argmax(-1))
+    toks = torch.stack(toks, 1).cpu()
+    serve_s = time.perf_counter() - t0
+    got = dict(flash_attention_bf16s=KA.bf16s_launches,
+               flash_attention=KA.launches, flash_decode=KD.launches)
+    want = dict(flash_attention_bf16s=cfg.n_layers,
+                flash_attention=cfg.n_layers,
+                flash_decode=cfg.n_layers * (r["gen"] - 1))
+    check(got == want, f"bf16 scores served: launches {got}, expected "
+                       f"{want}")
+    check(toks.shape == (r["batch"], r["gen"]) and int(toks.min()) >= 0
+          and int(toks.max()) < cfg.vocab_size,
+          f"bf16 scores served: tokens {tuple(toks.shape)} out of range")
+    log(f"bf16 scores {cfg.name} ({cfg.n_layers} layers): prefill "
+        f"{r['batch']} x {r['prompt']} and {r['gen']} greedy tokens in "
+        f"{serve_s:.3f} s; launches {got}")
+    paths = {BF16S_PATHS["serve"]: dict(got)}
+    # one training step of the bfloat16 model, with bfloat16 scores
+    params.requires_grad_(True)
+    opt = OptConfig(**TRAIN_OPT)
+    batch = {"tokens": torch.as_tensor(np.random.default_rng(52).integers(
+        0, cfg.vocab_size, (1, r["train_seq"])).astype(np.int32),
+        device=dev0)}
+    for a in ("launches", "bwd_launches", "bf16s_launches",
+              "bwd_bf16s_launches"):
+        setattr(KA, a, 0)
+    state, met = make_train_step(cfg, opt)(init_state(params, opt), batch)
+    torch.cuda.synchronize()
+    runs = sum(T.forward_runs(cfg))
+    got = dict(flash_attention_bf16s=KA.bf16s_launches,
+               flash_attention_bwd_bf16s=KA.bwd_bf16s_launches,
+               flash_attention=KA.launches,
+               flash_attention_bwd=KA.bwd_launches)
+    want = dict(flash_attention_bf16s=runs,
+                flash_attention_bwd_bf16s=cfg.n_layers,
+                flash_attention=runs, flash_attention_bwd=cfg.n_layers)
+    check(got == want and math.isfinite(float(met["loss"])),
+          f"bf16 scores trained: launches {got}, expected {want}, loss "
+          f"{float(met['loss'])}")
+    log(f"bf16 scores {cfg.name} trained on one row of {r['train_seq']}: "
+        f"loss {float(met['loss']):.4f}, launches {got}")
+    paths[BF16S_PATHS["train"]] = got
+    del state, batch
+    # a float32 copy, card (the float32 kernels, bfloat16 scores)
+    # against host (the plain version's chunk loop over chunks of the
+    # kernel's key tile), and against the host with float32 scores
+    hd = cfg.resolved_head_dim
+    cfg32 = replace(cfg, dtype="float32",
+                    attn_chunk=KA.key_tile(torch.float32, hd, hd))
+    p32 = T.LM(params.embed, list(params.layers), params.final_norm,
+               params.lm_head).to(torch.float32)
+    p32.requires_grad_(False)
+    del params
+    label = f"{cfg.name} bf16 scores ({cfg.n_layers} layers)"
+    card, host, ptoks = card_against_host(torch, dev0, cfg32, p32, label,
+                                          rel_tol=BF16S_TOL)
+    host_f32 = teacher_forced(torch, replace(cfg32, score_dtype="float32"),
+                              p32, ptoks, PARITY["prompt"],
+                              torch.device("cpu"))
+    sharp_check(torch, f"{label} logits, card against host", card, host,
+                host_f32)
+    del p32
+    return paths
+
+
+# phase 52: the (2, 2) mesh on four gloo ranks, microbatches of one row
+# (its positions over "data": stretches of half the row), float32
+# against one process: llama3.2-1b's and falcon-mamba-7b's first 2
+# layers at 1 x 512, deepseek-v2-lite-16b's phase-47 layers at 2 x 256
+# in two microbatches of a row; then phase 47's 4 x 256 step (two rows a
+# microbatch, over "data") with the "global" dispatch on the same
+# weights.  Then llama3.2-1b's first 2 layers in bfloat16, 3 steps of 1 x
+# 4,096 (2,048 positions a "data" rank)
+SEQ_MESH = "h100x2x2"
+SEQ_PARITY = (("llama3.2-1b", 1, 512, 1, False),
+              ("falcon-mamba-7b", 1, 512, 1, False),
+              ("deepseek-v2-lite-16b", 2, 256, 2, False),
+              ("deepseek-v2-lite-16b", 4, 256, 2, True))
+SEQ_TRAIN_RUN = dict(layers=2, batch=1, seq=4096, steps=3)
+SEQ_PATH = "llama3.2-1b seq over data (2, 2)"
+# phase 53: the ("pod", "data", "model") = (2, 1, 2) mesh: llama3.2-1b's
+# first 2 layers in float32, trained (4 x 256, rows over "pod") and
+# served (batch 4, prompt 64, 8 teacher-forced steps) against one process
+POD_MESH = "h100x2x1x2"
+POD_TRAIN = dict(batch=4, seq=256)
+POD_SERVE = dict(batch=4, prompt=64, steps=8)
+
+
+def seq_cfg(arch, dispatch_global=False):
+    """A parity config: ``arch``'s first 2 layers (deepseek's: phase 47's)
+    at full width in float32, no remat (its recompute would gather the
+    float32 layers over gloo again)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    if arch == "deepseek-v2-lite-16b":
+        cfg = data_cfgs()[0]
+    else:
+        cfg = replace(get_config(arch), dtype="float32", n_layers=2,
+                      accum_override=0, remat_policy="everything")
+    if dispatch_global:
+        cfg = replace(cfg, moe=replace(cfg.moe, dispatch="global"))
+    return cfg
+
+
+def seq_prepare(args, torch, dev0):
+    """Phases 52-53's set-up in the parent: the parity batches, phase
+    52's bfloat16 training batches and its plan's (2, 2) rank-0 step,
+    phase 53's plan of the pod training step and its one-process float32
+    serving logits.  Returns (the context :func:`seq_finish` reads, the
+    ranks' arguments of :func:`seq_rank`)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import card_mesh
+
+    parity = []
+    for arch, B, S, accum, glob in SEQ_PARITY:
+        cfg = seq_cfg(arch, glob)
+        parity.append((f"{arch}{' global' if glob else ''} {B} x {S}", cfg,
+                       SyntheticPipeline(cfg, ShapeConfig(
+                           "seq_parity", S, B, "train")).batch_at(0),
+                       accum, SEQ_MESH))
+    pod32 = seq_cfg("llama3.2-1b")
+    parity.append((f"llama3.2-1b pod {POD_TRAIN['batch']} x "
+                   f"{POD_TRAIN['seq']}", pod32, SyntheticPipeline(
+                       pod32, ShapeConfig("pod_parity", POD_TRAIN["seq"],
+                                          POD_TRAIN["batch"], "train")
+                   ).batch_at(0), 1, POD_MESH))
+    r = SEQ_TRAIN_RUN
+    S = 1024 if args.small else r["seq"]
+    train_cfg = replace(get_config("llama3.2-1b"), n_layers=r["layers"],
+                        accum_override=0)
+    shape = ShapeConfig("seq_train", S, r["batch"], "train")
+    pipe = SyntheticPipeline(train_cfg, shape,
+                             DataConfig(seed=TRAIN["seed"]))
+    batches = [pipe.batch_at(i) for i in range(r["steps"])]
+    held = pipe.batch_at(r["steps"] + 1)
+    t0 = time.perf_counter()
+    rec = D.plan(train_cfg, shape, card_mesh(SEQ_MESH))
+    own = rec["sharded_step"]
+    check("refused" not in own, f"plan {SEQ_MESH} seq train: "
+          f"{own.get('refused')}")
+    pod_rec = D.plan(pod32, ShapeConfig("pod_train", POD_TRAIN["seq"],
+                                        POD_TRAIN["batch"], "train"),
+                     card_mesh(POD_MESH))
+    check("refused" not in pod_rec["sharded_step"], f"plan {POD_MESH}: "
+          f"{pod_rec['sharded_step'].get('refused')}")
+    log(f"plan {SEQ_MESH} (a row over 'data') and {POD_MESH}: the training "
+        f"cells in {time.perf_counter() - t0:.1f} s")
+    sp = POD_SERVE
+    ptoks = np.random.default_rng(53).integers(
+        0, pod32.vocab_size,
+        (sp["batch"], sp["prompt"] + sp["steps"])).astype(np.int32)
+    p32 = seeded_params(torch, pod32, dev0)
+    want = teacher_forced(torch, pod32, p32, ptoks, sp["prompt"], dev0)
+    del p32
+    torch.cuda.empty_cache()
+    ctx = dict(parity=[p[0] for p in parity], train_cfg=train_cfg, S=S,
+               rec=rec, own=own, pod_rec=pod_rec, want=want)
+    return ctx, (parity, train_cfg, batches, held, r["steps"],
+                 own["predicted_peak_bytes"], pod32, ptoks)
+
+
+def mesh_parity(torch, rank, dev, cfg, batch, accum, mesh_name):
+    """One float32 ``make_train_step`` of ``accum`` microbatches of
+    ``batch`` on this rank of ``mesh_name`` (the FSDP resolver) from zero
+    moments, its gradients captured and its collectives counted; then, in
+    turn, each rank runs the one-process step of the whole model (``res``
+    None) and holds its blocks of it against its own: the gradients
+    within ``SHARDED_TRAIN_TOL`` of each largest |g|, the updated
+    parameters as ``check_updates`` holds them, every routing of its
+    tokens (its rows, or its stretch of each row).  Returns the losses,
+    norms, errors, the layout and whether every routing was equal."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import op_cost
+    from repro_torch.launch.mesh import card_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import OptConfig, init_state
+    from repro_torch.parallel.collectives import sharded_run
+    from repro_torch.training.step import make_train_step
+
+    t0 = time.perf_counter()
+    res = sharded_run(cfg, card_mesh(mesh_name), rank=rank,
+                      group=dist.group.WORLD, train=True)
+    b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    B, S = b["tokens"].shape[:2]
+    tok = res.for_batch(B // accum, S).tokens
+    a, n = tok.stretch or (0, S)
+    opt = OptConfig(**SHARDED_TRAIN_OPT)
+    params = seeded_params(torch, cfg, dev, res)
+    weights_gb = T.param_bytes(params) / 1e9
+    fsdp = sum(hasattr(p, "fsdp") for p in params.parameters())
+    t1 = time.perf_counter()
+    with recorded_routes() as routes, captured_grads() as seen, \
+            op_cost.OpCost() as oc:
+        state, met = make_train_step(cfg, opt, res=res, accum_steps=accum)(
+            init_state(params, opt), b)
+    step_s = time.perf_counter() - t1
+    grads = {name: g.cpu() for name, g in seen[0].items()}
+    updated = {name: p.detach().cpu() for name, p in
+               params.named_parameters()}
+    del params, seen, state
+    torch.cuda.empty_cache()
+    for turn in range(dist.get_world_size()):
+        if turn == dist.get_rank():
+            whole = seeded_params(torch, cfg, dev)
+            with recorded_routes() as one_routes, \
+                    captured_grads() as one_seen:
+                _, one_met = make_train_step(cfg, opt, accum_steps=accum)(
+                    init_state(whole, opt), b)
+            one = one_seen[0]
+            errs = {}
+            for name, ref in rank_blocks(cfg, res, whole, one).items():
+                top = float(torch.linalg.vector_norm(one[name], math.inf))
+                errs[name] = float((grads[name].to(dev) - ref).abs().max()
+                                   ) / max(top, 1e-30)
+            del one, one_seen
+            want = rank_blocks(cfg, res, whole, {
+                name: p.detach() for name, p in whole.named_parameters()})
+            step = check_updates(torch, {name: u.to(dev) for name, u in
+                                         updated.items()},
+                                 {name: w.cpu() for name, w in want.items()},
+                                 opt.lr, f"{mesh_name} parity rank {rank}")
+            rows = B // accum
+            same = len(routes) == len(one_routes) and all(
+                torch.equal(g[1].reshape(-1, n, g[1].shape[-1]),
+                            c[1].reshape(rows, S, -1)[tok.rows, a:a + n])
+                for g, c in zip(routes, one_routes))
+            del whole, want
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return dict(loss=float(met["loss"]), one_loss=float(one_met["loss"]),
+                norm=float(met["grad_norm"]),
+                one_norm=float(one_met["grad_norm"]), errs=errs, step=step,
+                routes_equal=same, n_routes=len(routes),
+                weights_gb=weights_gb, fsdp=fsdp,
+                rows=(tok.rows.start, tok.rows.stop),
+                stretch=tok.stretch, axes=tok.axes, step_s=step_s,
+                collectives=oc.summary()["collectives"],
+                s=time.perf_counter() - t0)
+
+
+def seq_rank(rank, world, parity, train_cfg, batches, held, steps,
+             plan_peak, pod32, ptoks):
+    """Phases 52-53 on one rank: :func:`mesh_parity` of each parity case,
+    :func:`train_run` of llama3.2-1b in bfloat16 on rows that "data" does
+    not divide (the ``q_start`` launches counted), and the pod mesh's
+    float32 teacher-forced logits of the rank's rows."""
+    import gc
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import card_mesh
+    from repro_torch.parallel.collectives import sharded_run
+
+    torch, _, dev = rank_setup(rank, world, train_cfg, train=True)
+    out = {"parity": []}
+    for label, cfg, batch, accum, mesh_name in parity:
+        out["parity"].append(mesh_parity(torch, rank, dev, cfg, batch,
+                                         accum, mesh_name))
+        gc.collect()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = sharded_run(train_cfg, card_mesh(SEQ_MESH), rank=rank,
+                      group=dist.group.WORLD, train=True)
+    out["train"] = train_run(torch, res, dev, train_cfg, batches, held,
+                             steps, plan_peak)
+    out["train"]["s"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = sharded_run(pod32, card_mesh(POD_MESH), rank=rank,
+                      group=dist.group.WORLD)
+    params = seeded_params(torch, pod32, dev, res)
+    B = len(ptoks)
+    rows = res.rows(B)
+    out["pod_serve"] = dict(
+        rows=(rows.start, rows.stop),
+        logits=teacher_forced(torch, pod32, params, ptoks[rows],
+                              POD_SERVE["prompt"], dev, res,
+                              batch=B).numpy())
+    del params
+    return out
+
+
+def seq_finish(args, torch, dev0, ctx, out):
+    """Phases 52-53's checks of the ranks' results ``out``: each parity
+    case's float32 loss, gradients, norm, AdamW update and routing
+    against one process, the loss and norm bitwise equal on the four
+    ranks; llama3.2-1b's bfloat16 steps over "data" positions: launches
+    (``q_start`` ones on the second stretch's ranks), step time, the
+    share in gloo, each rank's peak against the plan's rank-0 peak, the
+    plan's collectives against each rank's, the held-out objective
+    falling; the pod mesh's served rows against one process's, and the
+    planner's ``h100x2x1x2`` collectives against rank 0's counted step.
+    Returns the launches by path over the four ranks."""
+    tol = SHARDED_TRAIN_TOL
+    stamp("phase 52")
+    for i, label in enumerate(ctx["parity"]):
+        got = [o["parity"][i] for o in out]
+        if "pod" in label:
+            stamp("phase 53")
+        for rk, g in enumerate(got):
+            rel = abs(g["loss"] - g["one_loss"]) / abs(g["one_loss"])
+            worst = max(g["errs"].items(), key=lambda kv: kv[1])
+            nrel = abs(g["norm"] - g["one_norm"]) / g["one_norm"]
+            log(f"{label} rank {rk} (float32, TF32 off; rows {g['rows']}, "
+                f"stretch {g['stretch']}, tokens over {g['axes']}): "
+                f"{g['weights_gb']:.2f} GB of weights; loss "
+                f"{g['loss']:.7f} against one process's "
+                f"{g['one_loss']:.7f} ({rel:.3g}); every gradient made "
+                f"whole within {worst[1]:.3g} of its largest |g| "
+                f"({worst[0]}); norm {g['norm']:.6f} against "
+                f"{g['one_norm']:.6f} ({nrel:.3g}); the updates worst "
+                f"{g['step'][0]:.3g} of their tolerance, {g['step'][1]} of "
+                f"{g['step'][2]} elements outside 1e-3; {g['n_routes']} "
+                f"routings equal: {g['routes_equal']}; the step "
+                f"{g['step_s']:.2f} s; {g['s']:.1f} s")
+            check(math.isfinite(g["loss"]) and rel <= tol["loss"],
+                  f"{label}: rank {rk}'s loss {g['loss']} against "
+                  f"{g['one_loss']}")
+            check(worst[1] <= tol["grad"], f"{label}: rank {rk}'s "
+                  f"{worst[0]} gradient {worst[1]:.3g} of its largest away")
+            check(nrel <= tol["norm"], f"{label}: rank {rk}'s norm "
+                  f"{g['norm']} against {g['one_norm']}")
+            check(g["routes_equal"], f"{label}: rank {rk} routes tokens to "
+                                     f"other experts")
+            check((g["loss"], g["norm"]) == (got[0]["loss"], got[0]["norm"]),
+                  f"{label}: rank {rk}'s loss or norm differs from rank "
+                  f"0's")
+        if "pod" in label:
+            prec = ctx["pod_rec"]
+            check(got[0]["collectives"] == prec["collectives"],
+                  f"plan {POD_MESH}: {prec['collectives']} against rank 0's "
+                  f"{got[0]['collectives']}")
+            log(f"plan {POD_MESH} train ({POD_TRAIN['batch']} x "
+                f"{POD_TRAIN['seq']}): collectives equal to rank 0's "
+                f"counted step, {json.dumps(prec['collectives'])}; rank 0's "
+                f"predicted peak "
+                f"{prec['sharded_step']['predicted_peak_bytes'] / 1e9:.3f}"
+                f" GB")
+        elif not label.startswith("deepseek-v2-lite-16b global"):
+            check(all(g["stretch"] is not None for g in got),
+                  f"{label}: a rank holds no stretch of positions")
+    # the bfloat16 steps of one row over "data"
+    cfg, S, rec, own = (ctx[k] for k in ("train_cfg", "S", "rec", "own"))
+    runs = [o["train"] for o in out]
+    steps = SEQ_TRAIN_RUN["steps"]
+    base = {k: v * steps for k, v in per_packet(cfg).items()}
+    lo, hi = SHARDED_TRAIN_PEAK
+    qstart = {"flash_attention_qstart": 0, "flash_attention_bwd_qstart": 0}
+    for rk, t in enumerate(runs):
+        second = rk // 2 == 1      # the "data" rank of the second stretch
+        want_l = dict(base, flash_attention_qstart=(
+            base["flash_attention"] if second else 0),
+            flash_attention_bwd_qstart=(
+            base["flash_attention_bwd"] if second else 0))
+        ratio = t["peak"] / t["plan_peak"]
+        kinds = {k: round(v, 1) for k, v in t["collective_kinds_ms"].items()}
+        coll, step_t = t["collective_ms"]
+        log(f"seq train rank {rk}: {t['weights_gb']:.3f} GB of weights; "
+            f"losses {[round(x, 4) for x in t['losses']]}; step s "
+            f"{[round(x, 3) for x in t['step_s']]} (the plain step "
+            f"{t['step_ms']:.1f} ms, {S / t['step_ms'] * 1e3:.0f} tokens/s "
+            f"a rank set); kernel ms a step {t['kernel_ms']:.1f}, busy "
+            f"{t['kernel_ms'] / t['step_ms']:.1%}; in gloo collectives "
+            f"{coll:.1f} ms of the timed step's {step_t:.1f} ms "
+            f"({coll / step_t:.1%}), by kind {kinds}; peak "
+            f"{t['peak'] / 1e9:.3f} GB against the plan's rank-0 "
+            f"{t['plan_peak'] / 1e9:.3f} GB ({ratio:.4f}, limits {lo}-{hi});"
+            f" held-out objective {t['before']:.6f} -> {t['after']:.6f}; "
+            f"launches {t['launches']}; {t['s']:.1f} s")
+        check(t["launches"] == want_l, f"seq train: rank {rk} launched "
+              f"{t['launches']}, expected {want_l}")
+        check(all(math.isfinite(x) for x in t["losses"])
+              and t["after"] < t["before"],
+              f"seq train: rank {rk}'s losses {t['losses']}, held-out "
+              f"objective {t['before']} -> {t['after']}")
+        check(t["losses"] == runs[0]["losses"], f"seq train: rank {rk}'s "
+              f"losses differ from rank 0's")
+        check(lo <= ratio <= hi, f"seq train: rank {rk}'s peak "
+              f"{t['peak'] / 1e9:.3f} GB against the plan's "
+              f"{t['plan_peak'] / 1e9:.3f} GB ({ratio:.4f})")
+        check(t["collectives"] == rec["collectives"],
+              f"seq train: rank {rk} counted {t['collectives']}, the plan "
+              f"{rec['collectives']}")
+        for k in qstart:
+            qstart[k] += t["launches"][k]
+    log(f"plan {SEQ_MESH} train (one row of {S}, {cfg.n_layers} layers, "
+        f"a stretch of {S // 2} a 'data' rank): collectives equal to each "
+        f"rank's counted step, {json.dumps(rec['collectives'])}; rank 0's "
+        f"predicted peak {own['predicted_peak_bytes'] / 1e9:.3f} GB")
+    # the pod mesh's served rows
+    want = ctx["want"]
+    top = float(want.abs().max())
+    for rk, o in enumerate(out):
+        g = o["pod_serve"]
+        rows = slice(*g["rows"])
+        lg = torch.from_numpy(g["logits"])
+        check(bool(torch.isfinite(lg).all())
+              and lg.shape == want[rows].shape,
+              f"pod serve: rank {rk}'s logits {tuple(lg.shape)}")
+        torch.testing.assert_close(lg, want[rows], **SHARDED_TOL)
+        err = float((lg - want[rows]).abs().max())
+        log(f"pod serve rank {rk}: rows {g['rows']} of {POD_SERVE['batch']}"
+            f"; max |rank - one process| {err:.3g} = {err / top:.3g} of the "
+            f"largest logit (rtol = atol = 2e-4)")
+    launches = {SEQ_PATH: dict(qstart, **{
+        k: sum(t["launches"][k] for t in runs)
+        for k in ("flash_attention", "flash_attention_bwd")})}
+    log(f"seq launches by path (four ranks): {json.dumps(launches)}")
+    return launches
+
+
+def late_rank(rank, world, train, kvseq, data, seq):
+    """Phases 42-43, 45-46, 47-49 and 52-53 on one rank, one spawn for all
+    (a phase group whose arguments are None is left out)."""
     import gc
 
     import torch
     out, held = {}, {}
     for key, fn, a in (("train", sharded_train_rank, train),
                        ("kvseq", kvseq_rank, kvseq),
-                       ("data", data_rank, data)):
+                       ("data", data_rank, data),
+                       ("seq", seq_rank, seq)):
         if a is not None:
             out[key] = fn(rank, world, *a)
             gc.collect()
@@ -6252,9 +6945,9 @@ def late_rank(rank, world, train, kvseq, data):
 
 
 def late_sharded_phases(args, torch, dev0, which=("train", "kvseq",
-                                                  "data")):
-    """Phases 42-49, those of ``which``: each group's set-up in the
-    parent (``*_prepare``), one spawn of four gloo ranks for them all
+                                                  "data", "seq")):
+    """Phases 42-49 and 52-53, those of ``which``: each group's set-up in
+    the parent (``*_prepare``), one spawn of four gloo ranks for them all
     (:func:`late_rank`), then each group's checks (``*_finish``).
     Returns by group what its ``*_finish`` returns."""
     ctx, jobs = {}, {}
@@ -6267,17 +6960,21 @@ def late_sharded_phases(args, torch, dev0, which=("train", "kvseq",
     if "data" in which:
         stamp("phases 47-49: set-up")
         ctx["data"], jobs["data"] = data_prepare(args, torch, dev0)
+    if "seq" in which:
+        stamp("phases 52-53: set-up")
+        ctx["seq"], jobs["seq"] = seq_prepare(args, torch, dev0)
     stamp("phases " + ", ".join({"train": "42-43", "kvseq": "45-46",
-                                 "data": "47-49"}[k] for k in which)
+                                 "data": "47-49", "seq": "52-53"}[k]
+                                for k in which)
           + " on four ranks")
     t0 = time.perf_counter()
     out = run_ranks(torch, dev0, late_rank, jobs.get("train"),
-                    jobs.get("kvseq"), jobs.get("data"))
+                    jobs.get("kvseq"), jobs.get("data"), jobs.get("seq"))
     log(f"late sharded ranks: {time.perf_counter() - t0:.1f} s with the "
         f"spawn; bytes each rank holds after each group: "
         f"{[o['held'] for o in out]}")
     finish = {"train": sharded_train_finish, "kvseq": kvseq_finish,
-              "data": data_finish}
+              "data": data_finish, "seq": seq_finish}
     results = {}
     for k in which:
         if k == "train":
@@ -6301,12 +6998,13 @@ def main() -> int:
                     help="small sizes instead of the paper's")
     ap.add_argument("--phase", choices=["fleet", "plan", "served",
                                         "sharded", "trained",
-                                        "sharded_train", "kvseq", "data"],
+                                        "sharded_train", "kvseq", "data",
+                                        "seq"],
                     help="build, then run these phases alone (fleet: 8a; "
                          "plan: 26-30; served: 31-34; sharded: 35-37; "
                          "trained: 38-41; sharded_train: 42-43; kvseq: "
-                         "44-46; data: 47-49) as a quicker check; prints "
-                         "no kernels line")
+                         "44-46; data: 47-49; seq: 50-53) as a quicker "
+                         "check; prints no kernels line")
     args = ap.parse_args()
 
     import torch
@@ -6373,6 +7071,17 @@ def main() -> int:
     if args.phase == "sharded":
         sharded, _ = sharded_phases(args, torch, dev0)
         log(f"sharded launches: {json.dumps(sharded)}")
+        print(smi)
+        print(device_line(torch))
+        return 0
+
+    if args.phase == "seq":
+        stamp("phase 50")
+        variant_phase(args, torch, dev0, lambda *a, **kw: None)
+        stamp("phase 51")
+        paths = bf16s_phase(args, torch, dev0)
+        paths.update(late_sharded_phases(args, torch, dev0, ("seq",))["seq"])
+        log(f"seq launches: {json.dumps(paths)}")
         print(smi)
         print(device_line(torch))
         return 0
@@ -6574,15 +7283,15 @@ def main() -> int:
     n = min(size * bops.LWS, 1 << 21)
     args_b = (s0[a:a + n], k0[a:a + n], ty[a:a + n])
     got = KB.price_options(*args_b)
-    want = RB.price_options(*args_b)
+    # the plain version (2.7 s a call) timed on the call that is checked
+    want, plain_ms = timed_call(lambda: RB.price_options(*args_b), torch)
     torch.testing.assert_close(got, want, rtol=TOLERANCES["binomial"][0],
                                atol=TOLERANCES["binomial"][1])
     steps = RB.STEPS
     record("binomial", "src/repro_torch/csrc/binomial.cu",
            "src/repro/kernels/binomial/kernel.py:42",
            float((got - want).abs().max()),
-           cuda_ms(lambda: KB.price_options(*args_b), torch),
-           cuda_ms(lambda: RB.price_options(*args_b), torch, 2),
+           cuda_ms(lambda: KB.price_options(*args_b), torch), plain_ms,
            16.0 * n, binomial_ops(n, steps), None,
            f"{n} options of the largest packet ({size * bops.LWS})")
     # the kernel folds disc into its coefficients (one rounding fewer per
@@ -6617,16 +7326,15 @@ def main() -> int:
     nr = min(64, hi - lo)
     r0 = min(max(px // 2 - nr // 2, lo), hi - nr)
     got = KM.escape_counts(r0, nr, px, px, iters, device=dev0)
-    want = RM.escape_counts(r0, nr, px, px, iters, device=dev0)
+    want, plain_ms = timed_call(lambda: RM.escape_counts(
+        r0, nr, px, px, iters, device=dev0), torch)
     n_bad = int((got != want).sum())
     check(n_bad == 0, f"mandelbrot kernel: {n_bad} counts differ")
     iters_done = float(got.sum())
     record("mandelbrot", "src/repro_torch/csrc/mandelbrot.cu",
            "src/repro/kernels/mandelbrot/kernel.py:49", 0.0,
            cuda_ms(lambda: KM.escape_counts(r0, nr, px, px, iters,
-                                            device=dev0), torch),
-           cuda_ms(lambda: RM.escape_counts(r0, nr, px, px, iters,
-                                            device=dev0), torch, 1),
+                                            device=dev0), torch), plain_ms,
            4.0 * nr * px, 8.0 * iters_done + 6.0 * nr * px, None,
            f"rows [{r0}, {r0 + nr}) x {px} of the largest packet "
            f"(rows [{lo}, {hi})), {iters_done:.0f} iterations")
@@ -6657,7 +7365,8 @@ def main() -> int:
     t0n = off * nops.LWS
     nt = min(size * nops.LWS, 1 << 17)
     got = KN.step_rows(pm, vel, t0n, nt)
-    want = RN.step_rows(pm, vel, t0n, nt)
+    want, plain_ms = timed_call(lambda: RN.step_rows(pm, vel, t0n, nt),
+                                torch)
     torch.testing.assert_close(got, want, rtol=TOLERANCES["nbody"][0],
                                atol=TOLERANCES["nbody"][1])
     # the sum over N sources runs in another order in the kernel (one
@@ -6685,8 +7394,7 @@ def main() -> int:
     record("nbody", "src/repro_torch/csrc/nbody.cu",
            "src/repro/kernels/nbody/kernel.py:38",
            float((got - want).abs().max()),
-           cuda_ms(lambda: KN.step_rows(pm, vel, t0n, nt), torch),
-           cuda_ms(lambda: RN.step_rows(pm, vel, t0n, nt), torch, 2),
+           cuda_ms(lambda: KN.step_rows(pm, vel, t0n, nt), torch), plain_ms,
            *nbody_bytes_ops(nt), None,
            f"{nt} targets of the largest packet ({size * nops.LWS}) x "
            f"{N} sources")
@@ -6862,14 +7570,22 @@ def main() -> int:
             rec.update(launches=sum(by.values()))
     attach("flash_attention_bwd", **{
         f"{m.split('-')[0]}_train_shape": e for m, e in dense_b.items()})
-    # phases 42-49 on one spawn of four ranks: jamba-v0.1-52b trained by
-    # four ranks (42-43), internvl2-1b and deepseek-v2-lite-16b served
-    # over caches split by positions (44-46), and the (2, 2) mesh (47-49)
+    # phases 50-51: both attention kernels with bfloat16 scores and with
+    # q_start against their plain versions (their records), and
+    # llama3.2-1b served and trained with bfloat16 scores
+    stamp("phase 50")
+    variant_phase(args, torch, dev0, record)
+    stamp("phase 51")
+    bf16s_paths = bf16s_phase(args, torch, dev0)
+    # phases 42-49 and 52-53 on one spawn of four ranks: jamba-v0.1-52b
+    # trained by four ranks (42-43), internvl2-1b and deepseek-v2-lite-16b
+    # served over caches split by positions (44-46), the (2, 2) mesh
+    # (47-49), rows that "data" does not divide and the pod mesh (52-53)
     late = late_sharded_phases(args, torch, dev0)
     # phases 42-43's launches join the four training kernels' records
     sharded_t, shapes_t = late["train"]
     for rec in records:
-        if rec["name"] in sharded_t:
+        if rec["name"] in shapes_t:
             by = rec["launches_by_path"]
             by[SHARDED_TRAIN_PATH] = sharded_t[rec["name"]]
             rec.update(launches=sum(by.values()),
@@ -6892,6 +7608,19 @@ def main() -> int:
                       if c.get(rec["name"]))
             rec.update(launches=sum(by.values()),
                        data_shape=data_entries[rec["name"]])
+    # phases 51-53's launches: the bfloat16-score and q_start records', and
+    # their paths' launches of the two attention kernels
+    for path, counts in dict(bf16s_paths, **late["seq"]).items():
+        for name, n in counts.items():
+            rec = next((r for r in records if r["name"] == name), None)
+            if rec is None or not n:
+                continue
+            rec["launches_by_path"][path] = n
+            rec["launches"] = sum(rec["launches_by_path"].values())
+    for name in ("flash_attention_bf16s", "flash_attention_bwd_bf16s",
+                 "flash_attention_qstart", "flash_attention_bwd_qstart"):
+        n = next(r for r in records if r["name"] == name)["launches"]
+        check(n > 0, f"{name}: no launch on its main path")
     log("training table: " + json.dumps(
         {m: {k: t[k] for k in ("step_s", "tokens_s", "busy", "peak_gb")}
          for m, t in trained.items()}))

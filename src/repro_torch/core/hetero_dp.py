@@ -199,7 +199,8 @@ class HeteroDPTrainer:
             if self._err is None:
                 self._err = C.init_error(state.params)
             grads, self._err = C.compress_decompress(grads, self._err)
-        new_state, opt_metrics = adamw.apply_updates(state, grads, self.opt)
+        new_state, opt_metrics = adamw.apply_updates(
+            state, grads, self.opt, unstacked=self.cfg.moe.first_dense)
         if home.type == "cuda":
             torch.cuda.synchronize(home)
         dt = time.perf_counter() - t0

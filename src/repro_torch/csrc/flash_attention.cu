@@ -92,8 +92,9 @@ template <int DP, int DVP>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
-                 float* __restrict__ lse2, int S, int H, int KH, int D,
-                 int Dv, int G, int BQ, float scale) {
+                 float* __restrict__ lse2, int S, int Sk, int q_start,
+                 int H, int KH, int D, int Dv, int G, int BQ, float scale,
+                 bool bf16s) {
   constexpr int QS = DP + 4;  // row strides (floats): 16-byte aligned rows
   constexpr int KS = DP + 4;  // whose float4 reads hit distinct banks
   constexpr int VS = DVP;
@@ -114,8 +115,10 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int q0 = qt * BQ;
   const int R = BQ * G;
 
-  // row r of the CTA is query position q0 + r / G of head kvh*G + r % G;
-  // the G heads of one position are contiguous in q and o
+  // row r of the CTA is query row q0 + r / G (key position q_start +
+  // q0 + r / G) of head kvh*G + r % G; the G heads of one position are
+  // contiguous in q and o.  With bf16s q, k and v are rounded to bfloat16
+  // as they land, as the JAX package casts them for bfloat16 scores
   for (int idx = tid; idx < kRows * DP; idx += kThreads) {
     const int r = idx / DP, d = idx - (idx / DP) * DP;
     const int pos = q0 + r / G;
@@ -123,43 +126,45 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (r < R && pos < S && d < D) {
       val = q[((static_cast<size_t>(b) * S + pos) * H + kvh * G) * D +
               static_cast<size_t>(r % G) * D + d];
+      if (bf16s) val = bf16_round(val);
     }
     Qs[r * QS + d] = val;
   }
 
-  int row_pos[4];  // -1: a row past R or S, never written
+  int row_pos[4];  // the row's key position, -1: past R or S, not written
   float m[4], l[4], acc[4][CPT * 4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = rg * 4 + i;
     const int pos = q0 + r / G;
-    row_pos[i] = (r < R && pos < S) ? pos : -1;
+    row_pos[i] = (r < R && pos < S) ? q_start + pos : -1;
     m[i] = kNegInf;
     l[i] = 0.f;
 #pragma unroll
     for (int c = 0; c < CPT * 4; ++c) acc[i][c] = 0.f;
   }
 
-  const int last = min(q0 + BQ, S) - 1;  // the CTA's last position
-  const int n_tiles = last / kBK + 1;    // tiles above the diagonal skipped
+  // the CTA's last key position; tiles above the diagonal skipped
+  const int last = q_start + min(q0 + BQ, S) - 1;
+  const int n_tiles = last / kBK + 1;
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();  // the previous tile's K/V are no longer read
     for (int idx = tid; idx < kBK * DP; idx += kThreads) {
       const int key = idx / DP, d = idx - (idx / DP) * DP;
       float kval = 0.f;
-      if (k0 + key < S && d < D)
-        kval = k[((static_cast<size_t>(b) * S + k0 + key) * KH + kvh) * D +
+      if (k0 + key < Sk && d < D)
+        kval = k[((static_cast<size_t>(b) * Sk + k0 + key) * KH + kvh) * D +
                  d];
-      Ks[key * KS + d] = kval;
+      Ks[key * KS + d] = bf16s ? bf16_round(kval) : kval;
     }
     for (int idx = tid; idx < kBK * DVP; idx += kThreads) {
       const int key = idx / DVP, d = idx - (idx / DVP) * DVP;
       float vval = 0.f;
-      if (k0 + key < S && d < Dv)
-        vval = v[((static_cast<size_t>(b) * S + k0 + key) * KH + kvh) * Dv +
+      if (k0 + key < Sk && d < Dv)
+        vval = v[((static_cast<size_t>(b) * Sk + k0 + key) * KH + kvh) * Dv +
                  d];
-      Vs[key * VS + d] = vval;
+      Vs[key * VS + d] = bf16s ? bf16_round(vval) : vval;
     }
     __syncthreads();
 
@@ -190,13 +195,15 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
 
     // online softmax, one row at a time; the 8 threads of a row group are
-    // 8 neighbouring lanes of one warp
+    // 8 neighbouring lanes of one warp.  bf16s: the scores and the
+    // weights rounded to bfloat16 as the JAX package rounds them, the
+    // running max, the denominator and O still in float32
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       float mx = kNegInf;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        s[i][j] *= scale;
+        s[i][j] = bf16s ? bf16_score(s[i][j], scale) : s[i][j] * scale;
         if (k0 + cg + 8 * j <= row_pos[i]) mx = fmaxf(mx, s[i][j]);
       }
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
@@ -207,14 +214,16 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       float rs = 0.f;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const float p =
+        float p =
             (k0 + cg + 8 * j <= row_pos[i]) ? expf(s[i][j] - m_new) : 0.f;
+        if (bf16s) p = bf16_round(p);
         Ps[(rg * 4 + i) * PS + cg + 8 * j] = p;
         rs += p;
       }
       rs += __shfl_xor_sync(0xffffffffu, rs, 1);
       rs += __shfl_xor_sync(0xffffffffu, rs, 2);
       rs += __shfl_xor_sync(0xffffffffu, rs, 4);
+      if (bf16s) rs = bf16_round(rs);  // the tile's sum, as JAX's chunk's
       l[i] = l[i] * corr + rs;
       m[i] = m_new;
 #pragma unroll
@@ -255,15 +264,16 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     if (row_pos[i] < 0) continue;
     const int r = rg * 4 + i;
+    const int row = row_pos[i] - q_start;
     const float den = fmaxf(l[i], 1e-30f);
     float* orow =
-        o + ((static_cast<size_t>(b) * S + row_pos[i]) * H + kvh * G) * Dv +
+        o + ((static_cast<size_t>(b) * S + row) * H + kvh * G) * Dv +
         static_cast<size_t>(r % G) * Dv;
     // the row's log-sum-exp of its scaled scores, in base 2, for the
     // backward
     if (lse2 != nullptr && cg == 0)
-      lse2[(static_cast<size_t>(b) * H + kvh * G + r % G) * S + row_pos[i]] =
-          m[i] * 1.4426950408889634f + log2f(den);
+      lse2[(static_cast<size_t>(b) * H + kvh * G + r % G) * S + row] =
+          m[i] * kLog2e + log2f(den);
 #pragma unroll
     for (int c = 0; c < CPT; ++c)
 #pragma unroll
@@ -276,8 +286,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int DP, int DVP>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   float* lse2, int B, int S, int H, int KH, int D, int Dv,
-                   cudaStream_t stream) {
+                   float* lse2, int B, int S, int q_start, int H, int KH,
+                   int D, int Dv, bool bf16s, cudaStream_t stream) {
   const int G = H / KH;
   const int BQ = kRows / G;
   const size_t smem = smem_floats<DP, DVP>() * sizeof(float);
@@ -288,9 +298,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((S + BQ - 1) / BQ, KH, B);
   flash_fwd_kernel<DP, DVP><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), lse2, S, H, KH,
-      D, Dv, G, BQ,
-      static_cast<float>(1.0 / std::sqrt(static_cast<double>(D))));
+      static_cast<const float*>(v), static_cast<float*>(o), lse2, S,
+      q_start + S, q_start, H, KH, D, Dv, G, BQ,
+      static_cast<float>(1.0 / std::sqrt(static_cast<double>(D))), bf16s);
   return cudaGetLastError();
 }
 
@@ -464,16 +474,23 @@ __device__ __forceinline__ void issue_pv(
 }
 
 // online softmax of the scores of the BN keys k0 ... in s (rows: this
-// lane's two), in base 2 with the scale folded into one FMA: s becomes the
-// exp2 weights, rs their sums over the lane's columns, corr the factors
-// that rescale the rows' earlier state, m the running maxima
+// lane's two, at key positions row_pos; q0 the item's first), in base 2
+// with the scale folded into one FMA: s becomes the exp2 weights, rs
+// their sums over the lane's columns, corr the factors that rescale the
+// rows' earlier state, m the running maxima.  bf16s: each score is first
+// rounded to bfloat16 and scaled (bf16_score; scale_log2 is then log2 e),
+// the weights are summed as P.V reads them, rounded to bfloat16, and the
+// tile's sum of a row is itself rounded to bfloat16 (the JAX package sums
+// p in bfloat16, a chunk at a time), held by the quad's first lane so
+// that the final sum over the quad's lanes counts it once
 template <int BN>
 __device__ __forceinline__ void online_softmax(float (&s)[BN / 2],
                                                float (&m)[2],
                                                float (&corr)[2],
                                                float (&rs)[2], int k0,
                                                int q0, const int (&row_pos)[2],
-                                               int lane, float scale_log2) {
+                                               int lane, float scale_log2,
+                                               bool bf16s, float scale) {
   const bool masked = k0 + BN - 1 > q0;  // some key past some row
   float mx[2] = {m[0], m[1]};
 #pragma unroll
@@ -482,6 +499,7 @@ __device__ __forceinline__ void online_softmax(float (&s)[BN / 2],
     for (int e = 0; e < 4; ++e) {
       const int h = e >> 1;
       const int key = k0 + i * 8 + (lane & 3) * 2 + (e & 1);
+      if (bf16s) s[4 * i + e] = bf16_score(s[4 * i + e], scale);
       if (masked && key > row_pos[h]) s[4 * i + e] = -INFINITY;
       mx[h] = fmaxf(mx[h], s[4 * i + e]);
     }
@@ -502,8 +520,16 @@ __device__ __forceinline__ void online_softmax(float (&s)[BN / 2],
     for (int e = 0; e < 4; ++e) {
       const float x = ex2(fmaf(s[4 * i + e], scale_log2, -mc[e >> 1]));
       s[4 * i + e] = x;
-      rs[e >> 1] += x;
+      rs[e >> 1] += bf16s ? bf16_round(x) : x;
     }
+  if (bf16s) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float t = rs[h] + __shfl_xor_sync(0xffffffffu, rs[h], 1);
+      t += __shfl_xor_sync(0xffffffffu, t, 2);
+      rs[h] = (lane & 3) == 0 ? bf16_round(t) : 0.f;
+    }
+  }
 }
 
 // O's rows (this lane's two: rows r and r + 8 of its warp's 16) times
@@ -573,8 +599,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_v,
                        const __grid_constant__ CUtensorMap tm_o,
                        __nv_bfloat16* __restrict__ o,
-                       float* __restrict__ lse2, int B, int S, int H, int KH,
-                       int G, int BQ, float scale_log2) {
+                       float* __restrict__ lse2, int B, int S, int q_start,
+                       int H, int KH, int G, int BQ, float scale_log2,
+                       bool bf16s, float scale) {
   using W = WgShape<D, DV>;
   extern __shared__ uint8_t smem_raw[];
   // 1024-byte alignment: the period of the 128-byte swizzle
@@ -627,7 +654,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         for (int a = 0; a < W::NA; ++a)
           tma_load_4d(Qs + qb * W::QBUF + a * W::Q_ATOM, &tm_q, &full_q[qb],
                       a * 64, kvh * G, qt * BQ, b);
-        const int n_tiles = (min(qt * BQ + BQ, S) - 1) / W::BN + 1;
+        const int n_tiles =
+            (q_start + min(qt * BQ + BQ, S) - 1) / W::BN + 1;
         for (int j = 0; j < n_tiles; ++j, ++it) {
           const int st = it % kStages, ph = (it / kStages) & 1;
           mbar_wait(&empty_k[st], ph ^ 1);
@@ -658,7 +686,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     int qt, kvh, b, it = 0;
     for (int n = 0; work_item(n, n_items, KH, B, n_qt, qt, kvh, b); ++n) {
       const int q0 = qt * BQ;
-      const int n_tiles = (min(q0 + BQ, S) - 1) / W::BN + 1;
+      const int n_tiles = (q_start + min(q0 + BQ, S) - 1) / W::BN + 1;
       FA_STAMP(n, 0);
       FA_STAMP_ITEM(n, n_tiles, qt);
       const int qb = W::QBUFS == 2 ? n & 1 : 0;
@@ -666,15 +694,16 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       int nqt, nkvh, nb;
       const bool last_item = !work_item(n + 1, n_items, KH, B, n_qt, nqt,
                                         nkvh, nb);
-      // this lane's rows: r and r + 8 of its warp's 16 (row r: position
-      // q0 + r/G, head kvh*G + r%G); rows past R or S are computed on
-      // whatever the Q buffer holds there and never written
+      // this lane's rows: r and r + 8 of its warp's 16 (row r: query
+      // row q0 + r/G at key position q_start + q0 + r/G, head kvh*G +
+      // r%G); rows past R or S are computed on whatever the Q buffer
+      // holds there and never written
       int row_pos[2];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int r = wg * 64 + warp * 16 + (lane >> 2) + h * 8;
         const int pos = q0 + r / G;
-        row_pos[h] = (r < R && pos < S) ? pos : -1;
+        row_pos[h] = (r < R && pos < S) ? q_start + pos : -1;
       }
       float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
       // S_j: s[4i+e], row h = e/2, key 8i + 2(lane%4) + e%2
@@ -712,8 +741,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
           if (n_tiles == 1) mbar_arrive(&empty_q[qb]);  // Q read
         }
         float corr[2], rs[2];
-        online_softmax<W::BN>(s, m, corr, rs, 0, q0, row_pos, lane,
-                              scale_log2);
+        online_softmax<W::BN>(s, m, corr, rs, 0, q_start + q0, row_pos,
+                              lane, scale_log2, bf16s, scale);
         l[0] = rs[0];
         l[1] = rs[1];
         to_afrag<W::BN>(p, s);  // the weights as P's A fragments
@@ -744,8 +773,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
           if (j == n_tiles - 1) mbar_arrive(&empty_q[qb]);
         }
         float corr[2], rs[2];
-        online_softmax<W::BN>(s, m, corr, rs, j * W::BN, q0, row_pos, lane,
-                              scale_log2);
+        online_softmax<W::BN>(s, m, corr, rs, j * W::BN, q_start + q0,
+                              row_pos, lane, scale_log2, bf16s, scale);
         wgmma_wait<0>();  // P_{j-1}.V_{j-1} done: free its V slot
 #pragma unroll
         for (int a = 0; a < W::NAV; ++a) fence_regs(acc[a]);
@@ -802,8 +831,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
             inv[h] = 1.f / fmaxf(l[h], 1e-30f);
             if (row_pos[h] >= 0 && lse2 != nullptr && (lane & 3) == 0)
               lse2[(static_cast<size_t>(b) * H + kvh * G + r % G) * S +
-                   row_pos[h]] = m[h] * scale_log2 +
-                                 log2f(fmaxf(l[h], 1e-30f));
+                   row_pos[h] - q_start] = m[h] * scale_log2 +
+                                           log2f(fmaxf(l[h], 1e-30f));
           }
           store_rows_tma<W::NAV>(&tm_o, Os + wg * 64 * 128, acc, inv, wg, t,
                                  warp, lane, kvh * G, q0 + wg * (64 / G), b);
@@ -814,15 +843,15 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         for (int h = 0; h < 2; ++h) {
           if (row_pos[h] < 0) continue;
           const int r = wg * 64 + warp * 16 + (lane >> 2) + h * 8;
+          const int row = row_pos[h] - q_start;
           const float inv = 1.f / fmaxf(l[h], 1e-30f);
           // the row's log-sum-exp of its scaled scores, in base 2, for the
           // backward: m is the raw maximum, the weights ex2(s*c - m*c)
           if (lse2 != nullptr && (lane & 3) == 0)
-            lse2[(static_cast<size_t>(b) * H + kvh * G + r % G) * S +
-                 row_pos[h]] = m[h] * scale_log2 + log2f(fmaxf(l[h], 1e-30f));
+            lse2[(static_cast<size_t>(b) * H + kvh * G + r % G) * S + row] =
+                m[h] * scale_log2 + log2f(fmaxf(l[h], 1e-30f));
           __nv_bfloat16* orow =
-              o + ((static_cast<size_t>(b) * S + row_pos[h]) * H + kvh * G +
-                   r % G) *
+              o + ((static_cast<size_t>(b) * S + row) * H + kvh * G + r % G) *
                       DV;
 #pragma unroll
           for (int a = 0; a < W::NAV; ++a)
@@ -862,8 +891,8 @@ int sm_count() {
 
 template <int D, int DV>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
-                         void* o, float* lse2, int B, int S, int H, int KH,
-                         cudaStream_t stream) {
+                         void* o, float* lse2, int B, int S, int q_start,
+                         int H, int KH, bool bf16s, cudaStream_t stream) {
   using W = WgShape<D, DV>;
   const int G = H / KH;
   const int BQ = kWgRows / G;
@@ -873,8 +902,8 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   // positions: a warpgroup's rows
   CUtensorMap mq, mk, mv, mo{};
   if (!rows_map(&mq, q, 2, B, S, S, H, D, BQ, G) ||
-      !rows_map(&mk, k, 2, B, S, S, KH, D, W::BN) ||
-      !rows_map(&mv, v, 2, B, S, S, KH, DV, W::BN) ||
+      !rows_map(&mk, k, 2, B, q_start + S, q_start + S, KH, D, W::BN) ||
+      !rows_map(&mv, v, 2, B, q_start + S, q_start + S, KH, DV, W::BN) ||
       (W::STAGE_O &&
        !rows_map(&mo, o, 2, B, S, S, H, DV, 64 % G == 0 ? 64 / G : 1, G)))
     return cudaErrorNotSupported;
@@ -888,59 +917,73 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   const int grid = static_cast<int>(
       n_items < sm_count() ? n_items : static_cast<long long>(sm_count()));
   flash_fwd_wgmma_kernel<D, DV><<<grid, kWgThreads, smem, stream>>>(
-      mq, mk, mv, mo, static_cast<__nv_bfloat16*>(o), lse2, B, S, H, KH, G,
-      BQ,
-      static_cast<float>(1.4426950408889634 /
-                         std::sqrt(static_cast<double>(D))));
+      mq, mk, mv, mo, static_cast<__nv_bfloat16*>(o), lse2, B, S, q_start,
+      H, KH, G, BQ,
+      bf16s ? kLog2e
+            : static_cast<float>(1.4426950408889634 /
+                                 std::sqrt(static_cast<double>(D))),
+      bf16s, static_cast<float>(1.0 / std::sqrt(static_cast<double>(D))));
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q: (B, S, H, D); k: (B, S, KH, D); v: (B, S, KH, Dv); o: (B, S, H, Dv),
-// contiguous and 16-byte aligned, float32 (0 < Dv <= D <= 192, on the FMA
-// kernel) or, with is_bf16, bfloat16 ((D, Dv) of (64, 64), (80, 80),
-// (128, 128), (192, 192) or (192, 128), MLA's, on wgmma).  Causal;
-// H % KH == 0, H / KH <= 64.  lse2: null, or float32 (B, H, S) that
-// receives each row's log-sum-exp of its scaled scores in base 2 (for the
-// backward).
+// q: (B, S, H, D); k: (B, Sk, KH, D); v: (B, Sk, KH, Dv); o: (B, S, H,
+// Dv) with Sk = q_start + S: query row i at key position q_start + i
+// (causal, the rectangle's bottom-right aligned), contiguous and 16-byte
+// aligned, float32 (0 < Dv <= D <= 192, on the FMA kernel) or, with
+// is_bf16, bfloat16 ((D, Dv) of (64, 64), (80, 80), (128, 128), (192,
+// 192) or (192, 128), MLA's, on wgmma).  H % KH == 0, H / KH <= 64.
+// bf16_scores: the scores and weights rounded to bfloat16 (the JAX
+// package's bfloat16 score_dtype; float32 inputs are first rounded to
+// bfloat16).  lse2: null, or float32 (B, H, S) that receives each row's
+// log-sum-exp of its scaled scores in base 2 (for the backward).
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, void* lse2,
                                    int B, int S, int H, int KH, int D,
-                                   int Dv, int is_bf16, void* stream) {
+                                   int Dv, int is_bf16, int q_start,
+                                   int bf16_scores, void* stream) {
   const bool bf16_pair = D == Dv ? (D == 64 || D == 80 || D == 128 ||
                                     D == 192)
                                  : (D == 192 && Dv == 128);
   if (B < 1 || S < 1 || KH < 1 || H < KH || H % KH != 0 ||
       H / KH > kRows || D < 1 || D > 192 || Dv < 1 || Dv > D ||
-      B > 65535 || KH > 65535 ||
+      B > 65535 || KH > 65535 || q_start < 0 ||
+      static_cast<long long>(q_start) + S > (1ll << 31) - 1 ||
       (is_bf16 && static_cast<long long>(S) * KH * B > (1ll << 31) - 1) ||
       (is_bf16 && !bf16_pair)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l2 = static_cast<float*>(lse2);
+  const int q0 = q_start;
+  const bool bs = bf16_scores != 0;
   cudaError_t err;
   if (is_bf16 && D == 64) {
-    err = launch_wgmma<64, 64>(q, k, v, o, l2, B, S, H, KH, st);
+    err = launch_wgmma<64, 64>(q, k, v, o, l2, B, S, q0, H, KH, bs, st);
   } else if (is_bf16 && D == 80) {
-    err = launch_wgmma<80, 80>(q, k, v, o, l2, B, S, H, KH, st);
+    err = launch_wgmma<80, 80>(q, k, v, o, l2, B, S, q0, H, KH, bs, st);
   } else if (is_bf16 && D == 128) {
-    err = launch_wgmma<128, 128>(q, k, v, o, l2, B, S, H, KH, st);
+    err = launch_wgmma<128, 128>(q, k, v, o, l2, B, S, q0, H, KH, bs, st);
   } else if (is_bf16 && Dv == 128) {
-    err = launch_wgmma<192, 128>(q, k, v, o, l2, B, S, H, KH, st);
+    err = launch_wgmma<192, 128>(q, k, v, o, l2, B, S, q0, H, KH, bs, st);
   } else if (is_bf16) {
-    err = launch_wgmma<192, 192>(q, k, v, o, l2, B, S, H, KH, st);
+    err = launch_wgmma<192, 192>(q, k, v, o, l2, B, S, q0, H, KH, bs, st);
   } else if (D <= 64) {
-    err = launch<64, 64>(q, k, v, o, l2, B, S, H, KH, D, Dv, st);
+    err = launch<64, 64>(q, k, v, o, l2, B, S, q0, H, KH, D, Dv, bs,
+                         st);
   } else if (D <= 96) {
-    err = launch<96, 96>(q, k, v, o, l2, B, S, H, KH, D, Dv, st);
+    err = launch<96, 96>(q, k, v, o, l2, B, S, q0, H, KH, D, Dv, bs,
+                         st);
   } else if (D <= 128) {
-    err = launch<128, 128>(q, k, v, o, l2, B, S, H, KH, D, Dv, st);
+    err = launch<128, 128>(q, k, v, o, l2, B, S, q0, H, KH, D, Dv, bs,
+                         st);
   } else if (Dv <= 128) {
-    err = launch<192, 128>(q, k, v, o, l2, B, S, H, KH, D, Dv, st);
+    err = launch<192, 128>(q, k, v, o, l2, B, S, q0, H, KH, D, Dv, bs,
+                         st);
   } else {
-    err = launch<192, 192>(q, k, v, o, l2, B, S, H, KH, D, Dv, st);
+    err = launch<192, 192>(q, k, v, o, l2, B, S, q0, H, KH, D, Dv, bs,
+                         st);
   }
   return static_cast<int>(err);
 }

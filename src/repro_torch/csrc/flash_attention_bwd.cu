@@ -195,13 +195,19 @@ constexpr int kPS = kT + 4;     // row stride (floats) of the P / dS tiles
 
 // Tile of kT positions x DP columns of a (B, S, NH, D) tensor at
 // (b, p0, head) into shared memory (row stride DP + 4), zero-filled past S
-// and past D: 16-byte loads where D is a multiple of 4 (every row then
-// starts 16-byte aligned), else one element at a time.
+// and past D, rounded to bfloat16 with ``round``: 16-byte loads where D is
+// a multiple of 4 (every row then starts 16-byte aligned), else one
+// element at a time.
+__device__ __forceinline__ float4 round4(float4 x) {
+  return make_float4(bf16_round(x.x), bf16_round(x.y), bf16_round(x.z),
+                     bf16_round(x.w));
+}
+
 template <int DP>
 __device__ __forceinline__ void load_tile(float* dst,
                                           const float* __restrict__ src,
                                           int b, int p0, int head, int S,
-                                          int NH, int D) {
+                                          int NH, int D, bool round = false) {
   constexpr int LS = DP + 4;
   static_assert(DP % 4 == 0, "a row is whole 16-byte loads");
   if (D % 4 == 0) {
@@ -212,7 +218,7 @@ __device__ __forceinline__ void load_tile(float* dst,
       if (p < S && d < D)
         x = *reinterpret_cast<const float4*>(
             src + ((static_cast<size_t>(b) * S + p) * NH + head) * D + d);
-      *reinterpret_cast<float4*>(dst + r * LS + d) = x;
+      *reinterpret_cast<float4*>(dst + r * LS + d) = round ? round4(x) : x;
     }
     return;
   }
@@ -222,7 +228,7 @@ __device__ __forceinline__ void load_tile(float* dst,
     float x = 0.f;
     if (p < S && d < D)
       x = src[((static_cast<size_t>(b) * S + p) * NH + head) * D + d];
-    dst[r * LS + d] = x;
+    dst[r * LS + d] = round ? bf16_round(x) : x;
   }
 }
 
@@ -313,13 +319,16 @@ __host__ __device__ constexpr size_t tile_floats() {
 }
 
 // S and dP of one (query tile, key tile) pair into P and dS, in
-// registers: P = exp2(S*scale_log2 - lse2), dS = P (dP - D_i), zero where
-// masked; element (ii, jj) is query row tr + 16 ii, key tc + 16 jj.
+// registers: P = exp2(S*scale_log2 - lse2) (bf16s: exp2(bf16_score(S) *
+// log2 e - lse2), the forward's rounded scores), dS = P (dP - D_i), zero
+// where masked; element (ii, jj) is query row q0 + tr + 16 ii (of S, at
+// key position q_start + q0 + tr + 16 ii), key tc + 16 jj (of Sk).
 template <int DP>
 __device__ __forceinline__ void probs_and_dscores(
     float (&p)[4][4], float (&ds)[4][4], const float* sQ, const float* sDO,
     const float* sK, const float* sV, const float* sLse, const float* sDsum,
-    int q0, int k0, int S, float scale_log2, int tr, int tc) {
+    int q0, int k0, int S, int Sk, int q_start, float scale_log2,
+    bool bf16s, float scale, int tr, int tc) {
   rows_dot<DP>(p, sQ, sK, tr, tc);
   rows_dot<DP>(ds, sDO, sV, tr, tc);
 #pragma unroll
@@ -331,8 +340,9 @@ __device__ __forceinline__ void probs_and_dscores(
     for (int jj = 0; jj < 4; ++jj) {
       const int kp = k0 + tc + 16 * jj;
       float pv = 0.f;
-      if (kp <= qp && kp < S && qp < S)
-        pv = exp2f(p[ii][jj] * scale_log2 - lse);
+      if (kp <= q_start + qp && kp < Sk && qp < S)
+        pv = bf16s ? exp2f(bf16_score(p[ii][jj], scale) * kLog2e - lse)
+                   : exp2f(p[ii][jj] * scale_log2 - lse);
       ds[ii][jj] = pv * (ds[ii][jj] - di);
       p[ii][jj] = pv;
     }
@@ -388,8 +398,8 @@ bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, const float* __restrict__ dout,
                 const float* __restrict__ lse2,
                 const float* __restrict__ dsum, float* __restrict__ dk,
-                float* __restrict__ dv, int S, int H, int KH, int D,
-                float scale_log2, float scale) {
+                float* __restrict__ dv, int S, int Sk, int q_start, int H,
+                int KH, int D, float scale_log2, float scale, bool bf16s) {
   constexpr bool kOne = one_pds_buffer<DP>();
   extern __shared__ float4 smem4[];
   float* sK = reinterpret_cast<float*>(smem4);
@@ -408,26 +418,27 @@ bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int n_qt = (S + kT - 1) / kT;
   const int tid = threadIdx.x, tr = tid >> 4, tc = tid & 15;
 
-  load_tile<DP>(sK, k, b, k0, kh, S, KH, D);
-  load_tile<DP>(sV, v, b, k0, kh, S, KH, D);
+  load_tile<DP>(sK, k, b, k0, kh, Sk, KH, D, bf16s);
+  load_tile<DP>(sV, v, b, k0, kh, Sk, KH, D, bf16s);
   float adk[4][DP / 16], adv[4][DP / 16];
 #pragma unroll
   for (int r = 0; r < 4; ++r)
 #pragma unroll
     for (int c = 0; c < DP / 16; ++c) adk[r][c] = adv[r][c] = 0.f;
 
-  for (int qt = kt; qt < n_qt; ++qt) {
+  // the first query tile with a row at or past the tile's first key
+  for (int qt = max(k0 - q_start, 0) / kT; qt < n_qt; ++qt) {
     const int q0 = qt * kT;
     for (int g = 0; g < G; ++g) {
       const int h = kh * G + g;
       __syncthreads();  // the previous pair's tiles are consumed
-      load_tile<DP>(sQ, q, b, q0, h, S, H, D);
+      load_tile<DP>(sQ, q, b, q0, h, S, H, D, bf16s);
       load_tile<DP>(sDO, dout, b, q0, h, S, H, D);
       load_row_stats(sLse, sDsum, lse2, dsum, b, h, q0, S, H);
       __syncthreads();
       float p[4][4], ds[4][4];
       probs_and_dscores<DP>(p, ds, sQ, sDO, sK, sV, sLse, sDsum, q0, k0, S,
-                            scale_log2, tr, tc);
+                            Sk, q_start, scale_log2, bf16s, scale, tr, tc);
       put_tile(sP, p, tr, tc, false);
       if (!kOne) put_tile(sDS, ds, tr, tc, false);
       __syncthreads();
@@ -440,8 +451,8 @@ bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       cols_accum<DP>(adk, sDS, sQ, tr, tc);
     }
   }
-  store_rows<DP>(dk, adk, scale, b, k0, kh, S, KH, D, tr, tc);
-  store_rows<DP>(dv, adv, 1.f, b, k0, kh, S, KH, D, tr, tc);
+  store_rows<DP>(dk, adk, scale, b, k0, kh, Sk, KH, D, tr, tc);
+  store_rows<DP>(dv, adv, 1.f, b, k0, kh, Sk, KH, D, tr, tc);
 }
 
 template <int DP>
@@ -456,8 +467,8 @@ __global__ void __launch_bounds__(kThreads)
 bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ dout,
               const float* __restrict__ lse2, const float* __restrict__ dsum,
-              float* __restrict__ dq, int S, int H, int KH, int D,
-              float scale_log2, float scale) {
+              float* __restrict__ dq, int S, int Sk, int q_start, int H,
+              int KH, int D, float scale_log2, float scale, bool bf16s) {
   extern __shared__ float4 smem4[];
   float* sQ = reinterpret_cast<float*>(smem4);
   float* sDO = sQ + tile_floats<DP>();
@@ -474,7 +485,7 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int q0 = qt * kT;
   const int tid = threadIdx.x, tr = tid >> 4, tc = tid & 15;
 
-  load_tile<DP>(sQ, q, b, q0, h, S, H, D);
+  load_tile<DP>(sQ, q, b, q0, h, S, H, D, bf16s);
   load_tile<DP>(sDO, dout, b, q0, h, S, H, D);
   load_row_stats(sLse, sDsum, lse2, dsum, b, h, q0, S, H);
   float adq[4][DP / 16];
@@ -483,15 +494,17 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < DP / 16; ++c) adq[r][c] = 0.f;
 
-  for (int kt = 0; kt <= qt; ++kt) {
+  // key tiles up to the tile's last row's position
+  const int n_kt = (q_start + min(q0 + kT, S) - 1) / kT + 1;
+  for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kT;
     __syncthreads();  // the previous key tile is consumed
-    load_tile<DP>(sK, k, b, k0, kh, S, KH, D);
-    load_tile<DP>(sV, v, b, k0, kh, S, KH, D);
+    load_tile<DP>(sK, k, b, k0, kh, Sk, KH, D, bf16s);
+    load_tile<DP>(sV, v, b, k0, kh, Sk, KH, D, bf16s);
     __syncthreads();
     float p[4][4], ds[4][4];
     probs_and_dscores<DP>(p, ds, sQ, sDO, sK, sV, sLse, sDsum, q0, k0, S,
-                          scale_log2, tr, tc);
+                          Sk, q_start, scale_log2, bf16s, scale, tr, tc);
     put_tile(sDST, ds, tr, tc, true);
     __syncthreads();
     cols_accum<DP>(adq, sDST, sK, tr, tc);
@@ -504,9 +517,11 @@ template <int DP>
 cudaError_t launch_fma(const float* q, const float* k, const float* v,
                        const float* dout, const float* lse2,
                        const float* dsum, float* dq, float* dk, float* dv,
-                       int B, int S, int H, int KH, int D, float scale_log2,
-                       float scale, cudaStream_t stream) {
+                       int B, int S, int q_start, int H, int KH, int D,
+                       float scale_log2, float scale, bool bf16s,
+                       cudaStream_t stream) {
   const int n_t = (S + kT - 1) / kT;
+  const int n_kt = (q_start + S + kT - 1) / kT;
   const int dkdv_smem = static_cast<int>(dkdv_smem_bytes<DP>());
   const int dq_smem = static_cast<int>(dq_smem_bytes<DP>());
   cudaError_t err = cudaFuncSetAttribute(
@@ -517,12 +532,14 @@ cudaError_t launch_fma(const float* q, const float* k, const float* v,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              dq_smem);
   if (err != cudaSuccess) return err;
-  bwd_dkdv_kernel<DP><<<dim3(B * KH, n_t), kThreads, dkdv_smem, stream>>>(
-      q, k, v, dout, lse2, dsum, dk, dv, S, H, KH, D, scale_log2, scale);
+  bwd_dkdv_kernel<DP><<<dim3(B * KH, n_kt), kThreads, dkdv_smem, stream>>>(
+      q, k, v, dout, lse2, dsum, dk, dv, S, q_start + S, q_start, H, KH, D,
+      scale_log2, scale, bf16s);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   bwd_dq_kernel<DP><<<dim3(B * H, n_t), kThreads, dq_smem, stream>>>(
-      q, k, v, dout, lse2, dsum, dq, S, H, KH, D, scale_log2, scale);
+      q, k, v, dout, lse2, dsum, dq, S, q_start + S, q_start, H, KH, D,
+      scale_log2, scale, bf16s);
   return cudaGetLastError();
 }
 
@@ -661,14 +678,15 @@ __device__ __forceinline__ void fence_acc(float (&acc)[NA][32]) {
   for (int a = 0; a < NA; ++a) fence_regs(acc[a]);
 }
 
-// P^T = ex2(S^T * scale log2 e - lse2) of a dK/dV step, in place of S^T
-// (s): the lane's keys key[0], key[1] (rows), query positions q0 + 8i +
-// 2(lane%4) + e (columns), whose lse2 are ls[.]; zero where a key is past
-// a position
+// P^T = ex2(S^T * scale log2 e - lse2) (bf16s: ex2(bf16_score(S^T) *
+// log2 e - lse2), the forward's rounded scores) of a dK/dV step, in place
+// of S^T (s): the lane's keys key[0], key[1] (rows), query key positions
+// q0 + 8i + 2(lane%4) + e (columns), whose lse2 are ls[.]; zero where a
+// key is past a position
 __device__ __forceinline__ void dkdv_p(float (&s)[32], const float* ls,
                                        int q0, const int (&key)[2],
-                                       int kbase, int lane,
-                                       float scale_log2) {
+                                       int kbase, int lane, float scale_log2,
+                                       bool bf16s, float scale) {
   const bool masked = kbase + 63 > q0;  // some key past some row
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
@@ -677,7 +695,9 @@ __device__ __forceinline__ void dkdv_p(float (&s)[32], const float* ls,
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int x = 4 * i + e;
-      float p = ex2(fmaf(s[x], scale_log2, -((e & 1) ? l2.y : l2.x)));
+      const float lse = (e & 1) ? l2.y : l2.x;
+      float p = bf16s ? ex2(bf16_score(s[x], scale) * kLog2e - lse)
+                      : ex2(fmaf(s[x], scale_log2, -lse));
       if (masked && key[e >> 1] > q0 + c + (e & 1)) p = 0.f;
       s[x] = p;
     }
@@ -706,8 +726,9 @@ __device__ __forceinline__ void dkdv_probs(float (&s)[32], float (&dp)[32],
                                            const float* ls, const float* dsm,
                                            int q0, const int (&key)[2],
                                            int kbase, int lane,
-                                           float scale_log2) {
-  dkdv_p(s, ls, q0, key, kbase, lane, scale_log2);
+                                           float scale_log2, bool bf16s,
+                                           float scale) {
+  dkdv_p(s, ls, q0, key, kbase, lane, scale_log2, bf16s, scale);
   dkdv_ds(dp, s, dsm, lane);
 }
 
@@ -720,8 +741,9 @@ bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const float* __restrict__ lse2,
                       const float* __restrict__ dsum,
                       __nv_bfloat16* __restrict__ dk,
-                      __nv_bfloat16* __restrict__ dv, int S, int H, int KH,
-                      int G, float scale_log2, float scale) {
+                      __nv_bfloat16* __restrict__ dv, int S, int q_start,
+                      int H, int KH, int G, float scale_log2, float scale,
+                      bool bf16s) {
   using W = BwdShape<D>;
   extern __shared__ uint8_t smem_raw[];
   // 1024-byte alignment: the period of the 128-byte swizzle
@@ -741,8 +763,10 @@ bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int wg = tid >> 7;
   const int b = blockIdx.x / KH, kvh = blockIdx.x - b * KH;
   const int k0 = blockIdx.y * kKeys;  // key tile 0, the most rows, first
-  const int qt0 = k0 / kStep;         // the first query tile it sees
+  // the first query tile it sees: the first with a row at or past k0
+  const int qt0 = max(k0 - q_start, 0) / kStep;
   const int n_steps = ((S + kStep - 1) / kStep - qt0) * G;
+  const int Sk = q_start + S;
   if (tid == 0) {
     mbar_init(kv_full, 1);
     for (int st = 0; st < kRing; ++st) {
@@ -815,8 +839,8 @@ bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         wgmma_wait<0>();
         fence_regs(s);
         fence_regs(dp);
-        dkdv_probs(s, dp, lse_s, dsum_s, qt0 * kStep, key, kbase, lane,
-                   scale_log2);
+        dkdv_probs(s, dp, lse_s, dsum_s, q_start + qt0 * kStep, key, kbase,
+                   lane, scale_log2, bf16s, scale);
         to_afrag<64>(pf, s);
         to_afrag<64>(dsf, dp);
       }
@@ -846,7 +870,8 @@ bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         fence_regs(s);
         fence_regs(dp);
         dkdv_probs(s, dp, lse_s + st * kStep, dsum_s + st * kStep,
-                   (qt0 + n / G) * kStep, key, kbase, lane, scale_log2);
+                   q_start + (qt0 + n / G) * kStep, key, kbase, lane,
+                   scale_log2, bf16s, scale);
         wgmma_wait<0>();  // step n-1's dV, dK done: free its slot
         fence_acc(adk);
         fence_acc(adv);
@@ -899,7 +924,8 @@ bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         fence_regs(s);
         fence_regs(dp);
         dkdv_probs(s, dp, lse_s + st * kStep, dsum_s + st * kStep,
-                   (qt0 + n / G) * kStep, key, kbase, lane, scale_log2);
+                   q_start + (qt0 + n / G) * kStep, key, kbase, lane,
+                   scale_log2, bf16s, scale);
         to_afrag<64>(pf, s);
         to_afrag<64>(dsf, dp);
         named_sync(bar_me);
@@ -926,8 +952,9 @@ bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      if (key[h] >= S) continue;
-      const size_t at = ((static_cast<size_t>(b) * S + key[h]) * KH + kvh) * D;
+      if (key[h] >= Sk) continue;
+      const size_t at =
+          ((static_cast<size_t>(b) * Sk + key[h]) * KH + kvh) * D;
       store_acc_row(dk + at, adk, h, lane, D, scale);
       store_acc_row(dv + at, adv, h, lane, D, 1.f);
     }
@@ -948,7 +975,8 @@ __device__ __forceinline__ void split_consumer(
     const uint8_t* score_tiles, const uint8_t* accum_tiles,
     const float* stat_s, float* pbuf, uint64_t* full, uint64_t* empty,
     uint64_t* p_full, uint64_t* p_empty, int n_steps, int qt0, int G,
-    const int (&key)[2], int k0, int t, int lane, float scale_log2) {
+    const int (&key)[2], int k0, int t, int lane, float scale_log2,
+    int q_start, bool bf16s, float scale) {
   using W = BwdShape<D>;
   constexpr int kPBuf = kStep * kStep;  // floats of a P^T buffer
   float s[32], p[32];
@@ -971,8 +999,8 @@ __device__ __forceinline__ void split_consumer(
   // [x][t]: a warp's 32 stores are 32 consecutive words), or dS^T
   auto finish = [&](int n, int st) {
     if constexpr (kDV) {
-      dkdv_p(s, stat_s + st * kStep, (qt0 + n / G) * kStep, key, k0, lane,
-             scale_log2);
+      dkdv_p(s, stat_s + st * kStep, q_start + (qt0 + n / G) * kStep, key,
+             k0, lane, scale_log2, bf16s, scale);
       const int buf = n & 1;
       mbar_wait(&p_empty[buf], ((n >> 1) & 1) ^ 1);
       float* dst = pbuf + buf * kPBuf + t;
@@ -1054,8 +1082,9 @@ bwd_dkdv_split_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const float* __restrict__ lse2,
                       const float* __restrict__ dsum,
                       __nv_bfloat16* __restrict__ dk,
-                      __nv_bfloat16* __restrict__ dv, int S, int H, int KH,
-                      int G, float scale_log2, float scale) {
+                      __nv_bfloat16* __restrict__ dv, int S, int q_start,
+                      int H, int KH, int G, float scale_log2, float scale,
+                      bool bf16s) {
   using W = BwdShape<D>;
   static_assert(W::SPLIT, "up to D = 128: bwd_dkdv_wgmma_kernel");
   constexpr int kPBuf = kStep * kStep;  // floats of a P^T buffer
@@ -1077,9 +1106,11 @@ bwd_dkdv_split_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int tid = threadIdx.x;
   const int wg = tid >> 7;
   const int b = blockIdx.x / KH, kvh = blockIdx.x - b * KH;
-  const int qt0 = blockIdx.y;  // key tile 0, the most rows, first
-  const int k0 = qt0 * kStep;
+  const int k0 = blockIdx.y * kStep;  // key tile 0, the most rows, first
+  // the first query tile it sees: the first with a row at or past k0
+  const int qt0 = max(k0 - q_start, 0) / kStep;
   const int n_steps = ((S + kStep - 1) / kStep - qt0) * G;
+  const int Sk = q_start + S;
   if (tid == 0) {
     mbar_init(kv_full, 1);
     for (int st = 0; st < kRing; ++st) {
@@ -1128,30 +1159,32 @@ bwd_dkdv_split_kernel(const __grid_constant__ CUtensorMap tm_q,
   if (wg == 0)
     split_consumer<D, true>(acc, Ks, Qs, DOs, lse_s, pbuf, full, empty,
                             p_full, p_empty, n_steps, qt0, G, key, k0, t,
-                            lane, scale_log2);
+                            lane, scale_log2, q_start, bf16s, scale);
   else
     split_consumer<D, false>(acc, Vs, DOs, Qs, dsum_s, pbuf, full, empty,
                              p_full, p_empty, n_steps, qt0, G, key, k0, t,
-                             lane, scale_log2);
+                             lane, scale_log2, q_start, bf16s, scale);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    if (key[h] >= S) continue;
-    const size_t at = ((static_cast<size_t>(b) * S + key[h]) * KH + kvh) * D;
+    if (key[h] >= Sk) continue;
+    const size_t at = ((static_cast<size_t>(b) * Sk + key[h]) * KH + kvh) * D;
     store_acc_row(wg == 0 ? dv + at : dk + at, acc, h, lane, D,
                   wg == 0 ? 1.f : scale);
   }
 }
 
-// dS = P (dP - D_i), P = ex2(S * scale log2 e - lse2), of a dQ step, in
-// place of dP (dp): the lane's rows at positions row_pos[0], row_pos[1]
-// (-1: an idle row), keys k0 + 8i + 2(lane%4) + e (columns); zero where a
-// key is past a position
+// dS = P (dP - D_i), P = ex2(S * scale log2 e - lse2) (bf16s: the
+// forward's rounded scores, as dkdv_p), of a dQ step, in place of dP
+// (dp): the lane's rows at key positions row_pos[0], row_pos[1] (-1: an
+// idle row; q0 the first row's), keys k0 + 8i + 2(lane%4) + e (columns);
+// zero where a key is past a position
 __device__ __forceinline__ void dq_dscores(const float (&s)[32],
                                            float (&dp)[32], int k0, int q0,
                                            const int (&row_pos)[2],
                                            const float (&lse_r)[2],
                                            const float (&di_r)[2], int lane,
-                                           float scale_log2) {
+                                           float scale_log2, bool bf16s,
+                                           float scale) {
   const bool masked = k0 + kStep - 1 > q0;  // some key past some row
 #pragma unroll
   for (int i = 0; i < 8; ++i)
@@ -1159,7 +1192,8 @@ __device__ __forceinline__ void dq_dscores(const float (&s)[32],
     for (int e = 0; e < 4; ++e) {
       const int x = 4 * i + e, h = e >> 1;
       const int key = k0 + 8 * i + 2 * (lane & 3) + (e & 1);
-      float p = ex2(fmaf(s[x], scale_log2, -lse_r[h]));
+      float p = bf16s ? ex2(bf16_score(s[x], scale) * kLog2e - lse_r[h])
+                      : ex2(fmaf(s[x], scale_log2, -lse_r[h]));
       if (masked && key > row_pos[h]) p = 0.f;
       dp[x] = p * (dp[x] - di_r[h]);
     }
@@ -1173,8 +1207,9 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_v,
                     const float* __restrict__ lse2,
                     const float* __restrict__ dsum,
-                    __nv_bfloat16* __restrict__ dq, int S, int H, int KH,
-                    int G, int BQ, float scale_log2, float scale) {
+                    __nv_bfloat16* __restrict__ dq, int S, int q_start,
+                    int H, int KH, int G, int BQ, float scale_log2,
+                    float scale, bool bf16s) {
   using W = BwdShape<D>;
   constexpr int kR = W::DQ_RING;
   extern __shared__ uint8_t smem_raw[];
@@ -1194,7 +1229,8 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int qt = n_qt - 1 - static_cast<int>(blockIdx.y);  // longest first
   const int q0 = qt * BQ;
   const int R = BQ * G;  // packed rows: position q0 + r/G, head kvh*G + r%G
-  const int n_kt = (min(q0 + BQ, S) - 1) / kStep + 1;  // up to the diagonal
+  // key tiles up to the diagonal
+  const int n_kt = (q_start + min(q0 + BQ, S) - 1) / kStep + 1;
   if (tid == 0) {
     mbar_init(q_full, 1);
     for (int st = 0; st < kR; ++st) {
@@ -1237,8 +1273,9 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     // ------------------------------------------------------- consumers
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
     const int t = tid & 127, warp = t >> 5, lane = t & 31;
-    // this lane's rows r and r + 8 of its warp's 16; rows past R or S are
-    // computed on whatever the buffers hold there and never written
+    // this lane's rows r and r + 8 of its warp's 16 (query row q0 + r/G at
+    // key position q_start + q0 + r/G); rows past R or S are computed on
+    // whatever the buffers hold there and never written
     int row_pos[2], head[2];
     float lse_r[2], di_r[2];
 #pragma unroll
@@ -1246,7 +1283,7 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       const int r = wg * 64 + warp * 16 + (lane >> 2) + 8 * h;
       const int pos = q0 + r / G;
       const bool valid = r < R && pos < S;
-      row_pos[h] = valid ? pos : -1;
+      row_pos[h] = valid ? q_start + pos : -1;
       head[h] = kvh * G + r % G;
       const size_t at = (static_cast<size_t>(b) * H + head[h]) * S + pos;
       lse_r[h] = valid ? lse2[at] : INFINITY;
@@ -1281,7 +1318,8 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         wgmma_wait<0>();
         fence_regs(s);
         fence_regs(dp);
-        dq_dscores(s, dp, 0, q0, row_pos, lse_r, di_r, lane, scale_log2);
+        dq_dscores(s, dp, 0, q_start + q0, row_pos, lse_r, di_r, lane,
+                   scale_log2, bf16s, scale);
         to_afrag<64>(dsf, dp);
       }
       // key tile j: S_j, dP_j and tile j-1's dQ product on the tensor
@@ -1306,8 +1344,8 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         wgmma_wait<1>();  // S_j and dP_j done
         fence_regs(s);
         fence_regs(dp);
-        dq_dscores(s, dp, j * kStep, q0, row_pos, lse_r, di_r, lane,
-                   scale_log2);
+        dq_dscores(s, dp, j * kStep, q_start + q0, row_pos, lse_r, di_r,
+                   lane, scale_log2, bf16s, scale);
         wgmma_wait<0>();  // tile j-1's dQ product done: free its slot
         fence_acc(adq);
         fence_regs(dsf);
@@ -1350,8 +1388,8 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         wgmma_wait<0>();
         fence_regs(s);
         fence_regs(dp);
-        dq_dscores(s, dp, j * kStep, q0, row_pos, lse_r, di_r, lane,
-                   scale_log2);
+        dq_dscores(s, dp, j * kStep, q_start + q0, row_pos, lse_r, di_r,
+                   lane, scale_log2, bf16s, scale);
         to_afrag<64>(dsf, dp);
         named_sync(bar_me);
         fence_acc(adq);
@@ -1373,9 +1411,11 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       if (row_pos[h] < 0) continue;
-      store_acc_row(
-          dq + ((static_cast<size_t>(b) * S + row_pos[h]) * H + head[h]) * D,
-          adq, h, lane, D, scale);
+      store_acc_row(dq + ((static_cast<size_t>(b) * S + row_pos[h] - q_start) *
+                              H +
+                          head[h]) *
+                             D,
+                    adq, h, lane, D, scale);
     }
   }
 }
@@ -1393,9 +1433,11 @@ template <int D>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          const void* dout, const float* lse2,
                          const float* dsum, void* dq, void* dk, void* dv,
-                         int B, int S, int H, int KH, float scale_log2,
-                         float scale, cudaStream_t stream) {
+                         int B, int S, int q_start, int H, int KH,
+                         float scale_log2, float scale, bool bf16s,
+                         cudaStream_t stream) {
   using W = BwdShape<D>;
+  const int Sk = q_start + S;
   const int G = H / KH;
   const int BQ = kPacked / G;
   // dK/dV: (Q, dO) boxes of kStep positions of one head, (K, V) of the
@@ -1405,12 +1447,12 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   CUtensorMap q1, do1, kres, vres, qp, dop, k64, v64;
   if (!rows_map(&q1, q, 2, B, S, S, H, D, kStep) ||
       !rows_map(&do1, dout, 2, B, S, S, H, D, kStep) ||
-      !rows_map(&kres, k, 2, B, S, S, KH, D, kRes) ||
-      !rows_map(&vres, v, 2, B, S, S, KH, D, kRes) ||
+      !rows_map(&kres, k, 2, B, Sk, Sk, KH, D, kRes) ||
+      !rows_map(&vres, v, 2, B, Sk, Sk, KH, D, kRes) ||
       !rows_map(&qp, q, 2, B, S, S, H, D, BQ, G) ||
       !rows_map(&dop, dout, 2, B, S, S, H, D, BQ, G) ||
-      !rows_map(&k64, k, 2, B, S, S, KH, D, kStep) ||
-      !rows_map(&v64, v, 2, B, S, S, KH, D, kStep))
+      !rows_map(&k64, k, 2, B, Sk, Sk, KH, D, kStep) ||
+      !rows_map(&v64, v, 2, B, Sk, Sk, KH, D, kStep))
     return cudaErrorNotSupported;
   const auto dkdv = dkdv_kernel<D>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -1420,38 +1462,42 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              W::DQ_SMEM);
   if (err != cudaSuccess) return err;
-  dkdv<<<dim3(B * KH, (S + kRes - 1) / kRes), kBwdThreads, W::DKDV_SMEM,
+  dkdv<<<dim3(B * KH, (Sk + kRes - 1) / kRes), kBwdThreads, W::DKDV_SMEM,
          stream>>>(q1, do1, kres, vres, lse2, dsum,
                    static_cast<__nv_bfloat16*>(dk),
-                   static_cast<__nv_bfloat16*>(dv), S, H, KH, G, scale_log2,
-                   scale);
+                   static_cast<__nv_bfloat16*>(dv), S, q_start, H, KH, G,
+                   scale_log2, scale, bf16s);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   bwd_dq_wgmma_kernel<D>
       <<<dim3(B * KH, (S + BQ - 1) / BQ), kBwdThreads, W::DQ_SMEM, stream>>>(
           qp, dop, k64, v64, lse2, dsum, static_cast<__nv_bfloat16*>(dq), S,
-          H, KH, G, BQ, scale_log2, scale);
+          q_start, H, KH, G, BQ, scale_log2, scale, bf16s);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q, o, dout, dq: (B, S, H, D); k, v, dk, dv: (B, S, KH, D); float32 or
-// bfloat16 (is_bf16: D of 64, 80, 128 or 192), contiguous and 16-byte
-// aligned.  bfloat16 runs on wgmma, float32 on FMAs: nothing falls back.
-// lse2: float32 (B, H, S), each row's log-sum-exp of its scaled scores in
-// base 2, as the forward writes it.  scratch: B*H*S float32 (the rows'
-// D_i), written and read by the call.
+// q, o, dout, dq: (B, S, H, D); k, v, dk, dv: (B, Sk, KH, D) with Sk =
+// q_start + S (query row i at key position q_start + i, as the forward
+// takes them); float32 or bfloat16 (is_bf16: D of 64, 80, 128 or 192),
+// contiguous and 16-byte aligned.  bfloat16 runs on wgmma, float32 on
+// FMAs: nothing falls back.  bf16_scores: the forward's scores were kept
+// in bfloat16, and P is formed from them rounded alike.  lse2: float32
+// (B, H, S), each row's log-sum-exp of its scaled scores in base 2, as the
+// forward writes it.  scratch: B*H*S float32 (the rows' D_i), written and
+// read by the call.
 extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* o,
                                    const void* dout, const void* lse2,
                                    void* dq, void* dk, void* dv,
                                    void* scratch, int B, int S, int H,
-                                   int KH, int D, int is_bf16,
-                                   void* stream) {
+                                   int KH, int D, int is_bf16, int q_start,
+                                   int bf16_scores, void* stream) {
   if (B < 1 || S < 1 || KH < 1 || H < KH || H % KH != 0 || H / KH > 64 ||
       D < 1 || D > 192 || static_cast<long long>(B) * H > (1ll << 31) - 1 ||
-      (S + kT - 1) / kT > 65535 ||
+      q_start < 0 || static_cast<long long>(q_start) + S > (1ll << 31) - 1 ||
+      (q_start + S + kT - 1) / kT > 65535 ||
       (is_bf16 && (D != 64 && D != 80 && D != 128 && D != 192)) ||
       (is_bf16 &&
        (S + kPacked / (H / KH) - 1) / (kPacked / (H / KH)) > 65535)) {
@@ -1480,19 +1526,21 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
+  const int q0 = q_start;
+  const bool bs = bf16_scores != 0;
   if (is_bf16) {
     if (D == 64)
-      err = launch_wgmma<64>(q, k, v, dout, l2, dsum, dq, dk, dv, B, S, H, KH,
-                             scale_log2, scale, st);
+      err = launch_wgmma<64>(q, k, v, dout, l2, dsum, dq, dk, dv, B, S, q0,
+                              H, KH, scale_log2, scale, bs, st);
     else if (D == 80)
-      err = launch_wgmma<80>(q, k, v, dout, l2, dsum, dq, dk, dv, B, S, H, KH,
-                             scale_log2, scale, st);
+      err = launch_wgmma<80>(q, k, v, dout, l2, dsum, dq, dk, dv, B, S, q0,
+                              H, KH, scale_log2, scale, bs, st);
     else if (D == 128)
-      err = launch_wgmma<128>(q, k, v, dout, l2, dsum, dq, dk, dv, B, S, H,
-                              KH, scale_log2, scale, st);
+      err = launch_wgmma<128>(q, k, v, dout, l2, dsum, dq, dk, dv, B, S, q0,
+                              H, KH, scale_log2, scale, bs, st);
     else
-      err = launch_wgmma<192>(q, k, v, dout, l2, dsum, dq, dk, dv, B, S, H,
-                              KH, scale_log2, scale, st);
+      err = launch_wgmma<192>(q, k, v, dout, l2, dsum, dq, dk, dv, B, S, q0,
+                              H, KH, scale_log2, scale, bs, st);
     return static_cast<int>(err);
   }
   const float* qf = static_cast<const float*>(q);
@@ -1503,16 +1551,16 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
   float* dkf = static_cast<float*>(dk);
   float* dvf = static_cast<float*>(dv);
   if (D <= 64)
-    err = launch_fma<64>(qf, kf, vf, df, l2, dsum, dqf, dkf, dvf, B, S, H,
-                         KH, D, scale_log2, scale, st);
+    err = launch_fma<64>(qf, kf, vf, df, l2, dsum, dqf, dkf, dvf, B, S, q0,
+                            H, KH, D, scale_log2, scale, bs, st);
   else if (D <= 96)
-    err = launch_fma<96>(qf, kf, vf, df, l2, dsum, dqf, dkf, dvf, B, S, H,
-                         KH, D, scale_log2, scale, st);
+    err = launch_fma<96>(qf, kf, vf, df, l2, dsum, dqf, dkf, dvf, B, S, q0,
+                            H, KH, D, scale_log2, scale, bs, st);
   else if (D <= 128)
-    err = launch_fma<128>(qf, kf, vf, df, l2, dsum, dqf, dkf, dvf, B, S, H,
-                          KH, D, scale_log2, scale, st);
+    err = launch_fma<128>(qf, kf, vf, df, l2, dsum, dqf, dkf, dvf, B, S, q0,
+                            H, KH, D, scale_log2, scale, bs, st);
   else
-    err = launch_fma<192>(qf, kf, vf, df, l2, dsum, dqf, dkf, dvf, B, S, H,
-                          KH, D, scale_log2, scale, st);
+    err = launch_fma<192>(qf, kf, vf, df, l2, dsum, dqf, dkf, dvf, B, S, q0,
+                            H, KH, D, scale_log2, scale, bs, st);
   return static_cast<int>(err);
 }

@@ -161,6 +161,21 @@ __device__ __forceinline__ uint64_t sw128_desc(const void* p) {
          (1ull << 62);
 }
 
+// x rounded to bfloat16 (to nearest even) and read back as float32
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// a score kept in bfloat16 as the JAX package's bfloat16 score_dtype
+// forms it (models/layers.py _flash_inner): the product of bfloat16 q and
+// k rounded to bfloat16, times the scale (itself a bfloat16 there, as a
+// weakly typed constant takes the array's type), rounded again
+__device__ __forceinline__ float bf16_score(float s, float scale) {
+  return bf16_round(bf16_round(s) * bf16_round(scale));
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
   return *reinterpret_cast<uint32_t*>(&v);

@@ -23,15 +23,16 @@ A cell on a mesh with an axis above 1 also runs rank 0's own step
 (``sharded_step``): its block of the weights and cache
 (``transformer.shard_params``, ``init_cache(res=...)``) or of the
 training state (the blocks, their AdamW moments) on ``meta``, on its
-rows of the batch where "data" exceeds 1 (a train step takes the whole
-batch and runs the rank's block of each microbatch), its collectives
-under a ``fake``-backend group of the mesh's size and the "model" and
-"data" groups made from it, counted by ``OpCost`` (a train step's
-forward, backward and remat recompute alike, the FSDP gathers and
-reduce-scatters over "data" among them); the record's ``collectives``
-are that step's.  A config that ``transformer.check_shardable``
-(serving) or ``check_trainable`` (training: a batch whose microbatches
-"data" does not divide too) refuses keeps ``{}`` and records why.
+rows of the batch where "pod" or "data" exceeds 1 (a train step takes
+the whole batch and runs the rank's part of each microbatch: its block
+of the rows, or its stretch of the positions where the batch axes do
+not divide the rows), its collectives under a ``fake``-backend group of
+the mesh's size and the "model", "data" and "pod" groups made from it,
+counted by ``OpCost`` (a train step's forward, backward and remat
+recompute alike, the FSDP gathers and reduce-scatters over "data" among
+them); the record's ``collectives`` are that step's.  A config that
+``transformer.check_shardable`` (serving) or ``check_trainable``
+(training) refuses keeps ``{}`` and records why.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh h100
     PYTHONPATH=src python -m repro_torch.launch.dryrun \\
@@ -162,7 +163,7 @@ def run_step(cfg: ModelConfig, shape: ShapeConfig,
         params, _ = SP.abstract_params(cfg)
         if res is not None:
             params = T.shard_params(cfg, params, res)
-            if res.data_size > 1:      # the rank's rows
+            if res.data_size > 1 or res.pod_size > 1:   # the rank's rows
                 ins = {k: v[res.rows(v.shape[0])] if v.dim() else v
                        for k, v in ins.items()}
         cache = T.init_cache(cfg, shape.global_batch, shape.seq_len,

@@ -15,8 +15,11 @@ from repro_torch.parallel.sharding import Mesh
 
 # the planner's meshes by name (``launch.dryrun --mesh``), as ("data",
 # "model") shapes: one card, four cards of one host tensor-parallel, and
-# four split two by two (the JAX package's test mesh over four devices)
-CARD_MESHES = {"h100": (1, 1), "h100x4": (1, 4), "h100x2x2": (2, 2)}
+# four split two by two (the JAX package's test mesh over four devices);
+# and as a ("pod", "data", "model") shape, four cards as two pods of two
+# (the JAX package's multi-pod axes)
+CARD_MESHES = {"h100": (1, 1), "h100x4": (1, 4), "h100x2x2": (2, 2),
+               "h100x2x1x2": (2, 1, 2)}
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
@@ -42,10 +45,12 @@ def make_test_mesh(n_devices: Optional[int] = None, model: int = 4) -> Mesh:
 
 
 def card_mesh(name: str) -> Mesh:
-    """The mesh a ``--mesh`` name stands for (``CARD_MESHES``)."""
+    """The mesh a ``--mesh`` name stands for (``CARD_MESHES``): ("data",
+    "model"), or ("pod", "data", "model") for a shape of three."""
     if name not in CARD_MESHES:
         raise KeyError(f"unknown mesh {name!r}; known: {sorted(CARD_MESHES)}")
-    return Mesh(("data", "model"), CARD_MESHES[name])
+    shape = CARD_MESHES[name]
+    return Mesh(("pod", "data", "model")[3 - len(shape):], shape)
 
 
 def coords(mesh: Mesh, rank: int) -> Dict[str, int]:

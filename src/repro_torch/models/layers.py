@@ -60,7 +60,17 @@ the attention layers write only the positions that fall in it, and a
 decode step combines each rank's partial over its live rows
 (``flash_decode_partial`` for GQA, the absorbed decode's plain products
 for MLA, after an all-gather of its latent queries over heads) with
-``res.combine_lse``.  With ``res`` None a layer runs as on one card.
+``res.combine_lse``.  Under a training batch whose positions the
+resolver splits over "data" (``res.stretch``) a layer sees the rank's
+stretch of positions: attention gathers the keys and values up to its
+end (MLA its latent rows) and runs ``flash_attention`` with ``q_start``,
+Mamba takes its conv's halo and its scan's initial state from the
+earlier stretches, and the MoE dispatch counts their slots.  With
+``res`` None a layer runs as on one card.
+
+Attention keeps its scores in ``cfg.score_dtype``: float32, or bfloat16
+as the JAX package's ``_flash_inner`` rounds them (both kernels and
+their plain versions take it).
 """
 from __future__ import annotations
 
@@ -150,13 +160,16 @@ def apply_rope(x, cos, sin):
 # attention cores
 # ---------------------------------------------------------------------------
 
-def blocked_causal_attention(q, k, v, chunk: int = 2048):
-    """Exact causal attention. q: (B,S,H,D); k: (B,S,KH,D); v:
-    (B,S,KH,D_v), D_v <= D -> (B,S,H,D_v).  ``chunk``
-    is the JAX schedule's kv-block size; the kernel picks its own tiles
-    and takes any S, and neither changes the result beyond rounding."""
-    del chunk
-    return flash_attention(q, k, v)
+def blocked_causal_attention(q, k, v, chunk: int = 2048,
+                             score_dtype="float32", q_start: int = 0):
+    """Exact causal attention. q: (B,S,H,D); k: (B,q_start+S,KH,D); v:
+    (B,q_start+S,KH,D_v), D_v <= D -> (B,S,H,D_v); query row i at key
+    position ``q_start`` + i.  ``chunk`` is the JAX schedule's kv-block
+    size, against whose running max the plain version rounds bfloat16
+    scores (``score_dtype``); the kernel picks its own tiles and takes
+    any S, and neither changes the result beyond rounding."""
+    return flash_attention(q, k, v, q_start=q_start,
+                           score_dtype=score_dtype, chunk=chunk)
 
 
 def cached_decode_attention(q, k_cache, v_cache, pos: int):
@@ -269,6 +282,7 @@ def gqa_apply(cfg: ModelConfig, p: GQA, x, positions, *,
     cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
+    seq = None if res is None or cache is not None else res.stretch
     stretch = _kv_stretch(res, cache, GQA_CACHE_AXES["k"],
                           (B, max_seq, cfg.n_kv_heads, hd))
     if cache is not None and pos is not None:
@@ -281,8 +295,16 @@ def gqa_apply(cfg: ModelConfig, p: GQA, x, positions, *,
             o, lse = flash_decode_partial(q[:, 0], cache["k"], cache["v"],
                                           _live(pos, stretch))
             out = res.combine_lse(o, lse, q.dtype)[:, None]
+    elif seq is not None:
+        # the rank's stretch of positions against the keys up to its end
+        kv = res.seq_gather(torch.cat([k, v], dim=-1), 1)[:, :sum(seq)]
+        out = blocked_causal_attention(q, kv[..., :hd].contiguous(),
+                                       kv[..., hd:].contiguous(),
+                                       cfg.attn_chunk, cfg.score_dtype,
+                                       q_start=seq[0])
     else:
-        out = blocked_causal_attention(q, k, v, cfg.attn_chunk)
+        out = blocked_causal_attention(q, k, v, cfg.attn_chunk,
+                                       cfg.score_dtype)
         if cache is not None:  # prefill: write the prefix in place
             _write_prefix(cache, {"k": k, "v": v}, S, stretch)
     y = out.reshape(B, S, H * hd) @ p.wo
@@ -387,6 +409,7 @@ def mla_apply(cfg: ModelConfig, p: MLA, x, positions, *,
     # krope's positions split as ckv's: no other dim of either takes the
     # "model" axis
     stretch = _kv_stretch(res, cache, MLA_CACHE_AXES["ckv"], (B, max_seq, R))
+    seq = None if res is None or cache is not None else res.stretch
     if cache is not None and pos is not None and S == 1:
         # absorbed decode: never expand the per-token K/V.  The JAX
         # package inserts with a functional dynamic_update_slice and masks
@@ -419,14 +442,25 @@ def mla_apply(cfg: ModelConfig, p: MLA, x, positions, *,
                           wkv_b[..., nope:]).to(x.dtype)
     else:
         # expanded path: per-head keys and values, the shared causal core
-        # with q and k at head dim nope + rope and v at its own vd columns
-        kv = (enter(ckv) @ p.wkv_b).view(B, S, H, nope + vd)
+        # with q and k at head dim nope + rope and v at its own vd columns.
+        # Under a stretch of positions the latent rows (kv_lora + rope
+        # columns) are gathered up to its end, then expanded
+        q_start = 0
+        if seq is not None:
+            q_start = seq[0]
+            lat = res.seq_gather(torch.cat([ckv, k_rope], dim=-1),
+                                 1)[:, :sum(seq)]
+            ckv, k_rope = lat[..., :R], lat[..., R:]
+        Sk = ckv.shape[1]
+        kv = (enter(ckv) @ p.wkv_b).view(B, Sk, H, nope + vd)
         k = torch.cat([kv[..., :nope],
-                       enter(k_rope)[:, :, None, :].expand(B, S, H, rope_d)],
+                       enter(k_rope)[:, :, None, :].expand(B, Sk, H,
+                                                           rope_d)],
                       dim=-1)
         qq = torch.cat([q_nope, q_rope], dim=-1)
         out = blocked_causal_attention(qq, k, kv[..., nope:].contiguous(),
-                                       cfg.attn_chunk)
+                                       cfg.attn_chunk, cfg.score_dtype,
+                                       q_start=q_start)
         if cache is not None:  # prefill: write the prefix in place
             _write_prefix(cache, {"ckv": ckv, "krope": k_rope}, S, stretch)
     y = out.reshape(B, S, H * vd) @ p.wo
@@ -532,11 +566,23 @@ def _capacity(cfg: ModelConfig, n_tokens: int) -> int:
     return int(max(1, math.ceil(cfg.moe.capacity_factor * k * n_tokens / E)))
 
 
+def _expert_counts(gate_idx, E: int):
+    """int32 (G, E): each group's choices of each expert, gate_idx (G, T,
+    k)."""
+    G = gate_idx.shape[0]
+    idx = gate_idx.reshape(G, -1)
+    return torch.zeros((G, E), dtype=torch.int32,
+                       device=idx.device).scatter_add_(
+        1, idx, torch.ones(idx.shape, dtype=torch.int32, device=idx.device))
+
+
 def _dispatch(cfg: ModelConfig, p: MoE, x, gate_vals, gate_idx, C,
-              e0: int = 0):
+              e0: int = 0, offset=None):
     """Capacity dispatch within each group (leading dim G of x (G, T, d)
     and of gate_vals/gate_idx (G, T, k)): slot = the choice's exclusive
-    running count of its expert over (token, choice) order; choices at
+    running count of its expert over (token, choice) order, plus the
+    group's ``offset`` (G, E) of that expert (the choices of the tokens
+    that precede the group's on other ranks) when given; choices at
     slot >= C are dropped (sent to the pad row, never read back).
     The experts run on their (G*C, d) rows as three batched products;
     returns the gate-weighted sum over each token's kept choices, (G, T,
@@ -550,6 +596,8 @@ def _dispatch(cfg: ModelConfig, p: MoE, x, gate_vals, gate_idx, C,
     onehot = F.one_hot(flat_idx, E)                        # (G, T*k, E)
     pos_in_e = onehot.cumsum(dim=1) - onehot               # exclusive
     slot = pos_in_e.gather(2, flat_idx[..., None])[..., 0]
+    if offset is not None:
+        slot = slot + offset.to(slot.dtype).gather(1, flat_idx)
     keep = slot < C
     if El < E:
         flat_idx = flat_idx - e0
@@ -574,30 +622,60 @@ def _dispatch(cfg: ModelConfig, p: MoE, x, gate_vals, gate_idx, C,
 
 
 def _moe_global_dispatch(cfg: ModelConfig, p: MoE, x, e0: int = 0,
-                         enter=_same):
+                         enter=_same, res=None):
     """The whole batch as one group of B*S tokens (the JAX package's
     naive scatter).  ``enter`` marks the tokens and gates that reach the
-    rank's experts.  Returns (y (B,S,d), probs (B*S, E), gate_idx (B*S,
-    k))."""
+    rank's experts.  Where other ranks hold other tokens of the batch
+    (``res.token_sum``'s ranks) x is the rank's part and the slots count
+    the choices of every token before it in the whole batch's (token,
+    choice) order: one all-gather of each rank's counts a (row, expert)
+    gives them (rows split: the earlier ranks' rows come first; positions
+    split over "data": each row's earlier rows whole and its earlier
+    stretches), and C is the whole batch's.  Returns (y (B,S,d), probs
+    (B*S, E), gate_idx (B*S, k))."""
     B, S, d = x.shape
-    xt = x.reshape(1, B * S, d)
-    probs, gate_vals, gate_idx = moe_route(cfg, p, xt)
-    y = _dispatch(cfg, p, enter(xt), enter(gate_vals), gate_idx,
-                  _capacity(cfg, B * S), e0)
-    return (y.view(B, S, d), probs.view(B * S, -1),
-            gate_idx.view(B * S, -1))
+    E = cfg.moe.n_routed
+    if res is None or res.token_group() is None:
+        xt = x.reshape(1, B * S, d)
+        probs, gate_vals, gate_idx = moe_route(cfg, p, xt)
+        y = _dispatch(cfg, p, enter(xt), enter(gate_vals), gate_idx,
+                      _capacity(cfg, B * S), e0)
+        return (y.view(B, S, d), probs.view(B * S, -1),
+                gate_idx.view(B * S, -1))
+    probs, gate_vals, gate_idx = moe_route(cfg, p, x)      # (B, S, .)
+    counts, i = res.gather_counts(_expert_counts(gate_idx, E))  # (n,B,E)
+    C = _capacity(cfg, counts.shape[0] * B * S)
+    if res.stretch is not None:   # each row a group after its earlier rows
+        rows = counts.sum(0)
+        offset = rows.cumsum(0) - rows + counts[:i].sum(0)
+        y = _dispatch(cfg, p, enter(x), enter(gate_vals), gate_idx, C, e0,
+                      offset)
+    else:                         # the rank's rows one group, after others'
+        offset = counts[:i].sum((0, 1))[None]
+        y = _dispatch(cfg, p, enter(x.reshape(1, B * S, d)),
+                      enter(gate_vals.reshape(1, B * S, -1)),
+                      gate_idx.reshape(1, B * S, -1), C, e0,
+                      offset).view(B, S, d)
+    return y, probs.reshape(B * S, -1), gate_idx.reshape(B * S, -1)
 
 
 def _moe_grouped_dispatch(cfg: ModelConfig, p: MoE, x, e0: int = 0,
-                          enter=_same):
+                          enter=_same, res=None):
     """Each batch row a group of S tokens (GShard-style: the position
     cumsum, scatter and combine stay local to the row); ``enter`` as in
-    :func:`_moe_global_dispatch`.  Returns (y (B,S,d), probs (B*S, E),
-    gate_idx (B*S, k))."""
+    :func:`_moe_global_dispatch`.  Where "data" splits the positions, a
+    row's slots count its earlier stretches' choices too (one all-gather
+    of the ranks' counts a (row, expert)) and C is the whole row's.
+    Returns (y (B,S,d), probs (B*S, E), gate_idx (B*S, k))."""
     B, S, d = x.shape
     probs, gate_vals, gate_idx = moe_route(cfg, p, x)
-    y = _dispatch(cfg, p, enter(x), enter(gate_vals), gate_idx,
-                  _capacity(cfg, S), e0)
+    C, offset = _capacity(cfg, S), None
+    if res is not None and res.stretch is not None:
+        counts, i = res.gather_counts(_expert_counts(gate_idx,
+                                                     cfg.moe.n_routed))
+        C, offset = _capacity(cfg, counts.shape[0] * S), counts[:i].sum(0)
+    y = _dispatch(cfg, p, enter(x), enter(gate_vals), gate_idx, C, e0,
+                  offset)
     return y, probs.view(B * S, -1), gate_idx.view(B * S, -1)
 
 
@@ -609,21 +687,18 @@ def moe_apply(cfg: ModelConfig, p: MoE, x, res=None):
     each rank runs its block of the experts, and one all-reduce adds the
     ranks' gate-weighted sums.  Where "data" splits the batch, x is the
     rank's rows and the aux's means are over every row: its counts and
-    probabilities are summed over "data" before they are divided
-    (``res.data_sum``); the capacity dispatch is a row's own."""
+    probabilities are summed over the ranks that hold other tokens
+    before they are divided (``res.token_sum``); the capacity dispatch
+    counts the slots of the tokens before the rank's on those ranks
+    (:func:`_moe_grouped_dispatch`, :func:`_moe_global_dispatch`)."""
     E, (El, _, f) = cfg.moe.n_routed, p.w_gate.shape
     e0 = res.rank * El if res is not None and El < E else 0
     split = res is not None and (El < E or f < cfg.moe_d_ff)
     enter = res.enter if split else _same
-    over_data = res is not None and res.data_size > 1
-    if over_data and cfg.moe.dispatch != "grouped":
-        raise ValueError(f"{cfg.name}: the {cfg.moe.dispatch!r} dispatch "
-                         f"counts expert slots over the whole batch, which "
-                         f"a 'data' axis above 1 splits (not ported)")
-    if cfg.moe.dispatch == "grouped":
-        y, probs, gate_idx = _moe_grouped_dispatch(cfg, p, x, e0, enter)
-    else:
-        y, probs, gate_idx = _moe_global_dispatch(cfg, p, x, e0, enter)
+    over_data = res is not None and res.token_group() is not None
+    dispatch = (_moe_grouped_dispatch if cfg.moe.dispatch == "grouped"
+                else _moe_global_dispatch)
+    y, probs, gate_idx = dispatch(cfg, p, x, e0, enter, res)
     if split:
         y = res.all_reduce(y)
     if p.shared is not None:
@@ -634,7 +709,7 @@ def moe_apply(cfg: ModelConfig, p: MoE, x, res=None):
         # the choices, the probabilities and the tokens, summed over
         # "data" (whose backward passes the rank's part through)
         n = probs.new_full((1,), float(probs.shape[0]))
-        tot = res.data_sum(torch.cat([
+        tot = res.token_sum(torch.cat([
             F.one_hot(gate_idx, E).float().sum(dim=(0, 1)),
             probs.sum(dim=0), n]))
         density = tot[:E] / (tot[-1] * gate_idx.shape[-1])
@@ -722,19 +797,32 @@ def mamba_apply(cfg: ModelConfig, p: Mamba, x, cache: Optional[Dict] = None,
     cache's h, or zeros, and a zero-padded conv) or one decode step (S ==
     1, ``cache`` = {"h", "conv"}).  ``d_inner`` is the weights' (a rank's
     block of it under ``res``, whose ``x_proj`` output is then a partial
-    sum over it, all-reduced before ``dt_proj``, B and C).  Returns (y,
-    new cache or None)."""
+    sum over it, all-reduced before ``dt_proj``, B and C).  Under a
+    batch whose positions are split over "data" (``res.stretch``, no
+    cache) x is the rank's stretch: the conv's halo is the previous
+    stretch's tail, and the scan starts from the state the earlier
+    stretches end in.  Returns (y, new cache or None)."""
     B, S, _ = x.shape
     di, ds = p.D.shape[0], cfg.ssm.d_state
     dtr = cfg.resolved_dt_rank
     split = res is not None and di < cfg.d_inner
+    seq = None if res is None or cache is not None else res.stretch
     if split:
         x = res.enter(x)
     xz = x @ p.in_proj
     xin, z = xz[..., :di], xz[..., di:]
-    conv_state = cache.get("conv") if cache else None
-    xc, new_conv = _causal_conv(xin, p.conv_w, p.conv_b,
-                                state=conv_state if decode else None)
+    conv_state = cache.get("conv") if cache and decode else None
+    if seq is not None and p.conv_w.shape[0] > 1:
+        # the conv's halo: the previous stretch's last dc - 1 rows (zeros
+        # before the first), from one all-gather of every stretch's tail
+        h = p.conv_w.shape[0] - 1
+        if S < h:
+            raise ValueError(f"{cfg.name}: a stretch of {S} positions is "
+                             f"shorter than the conv's halo of {h}")
+        tails = F.pad(res.seq_gather(xin[:, S - h:], 1), (0, 0, h, 0))
+        r = res.data_rank
+        conv_state = tails[:, r * h:(r + 1) * h]
+    xc, new_conv = _causal_conv(xin, p.conv_w, p.conv_b, state=conv_state)
     xc = F.silu(xc)
     proj = xc @ p.x_proj
     if split:      # whole on every rank; dt, B and C enter its d_inner
@@ -754,9 +842,22 @@ def mamba_apply(cfg: ModelConfig, p: Mamba, x, cache: Optional[Dict] = None,
         # the discretisation runs inside the scan (the fused kernel on a
         # card): no (B,S,di,ds) plane of a or b is formed
         h0 = cache["h"].contiguous() if cache is not None else None
-        y, new_h = selective_scan_fused(dt.contiguous(), xc.contiguous(), A,
-                                        Bmat.contiguous(),
-                                        Cmat.contiguous(), h0)
+        args = (dt.contiguous(), xc.contiguous(), A, Bmat.contiguous(),
+                Cmat.contiguous())
+        y, new_h = selective_scan_fused(*args, h0)
+        if seq is not None:
+            # the state entering the stretch: each earlier stretch's final
+            # state from zeros, carried through the later ones' decays
+            # exp(A sum(dt)) (every stretch's pair from one all-gather),
+            # then the stretch's scan again from it.  Every rank runs both
+            # scans (the first stretch from zeros joined to the gathered
+            # pairs), so that every rank's backward reduce-scatters them
+            decay = torch.exp(dt.float().sum(1)[..., None] * A)
+            both = res.seq_gather(torch.stack([new_h, decay])[None], 0)
+            h0 = both[0, 0] * 0
+            for j in range(res.data_rank):
+                h0 = both[j, 1] * h0 + both[j, 0]
+            y, new_h = selective_scan_fused(*args, h0)
     y = y.to(x.dtype) + xc * p.D.to(x.dtype)
     y = y * F.silu(z)
     out = y @ p.out_proj

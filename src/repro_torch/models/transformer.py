@@ -44,12 +44,15 @@ predicts every codebook at each position (``lm_head`` (d, V*CB), logits
 
 Sharded runs (``res``, a ``parallel.collectives.ShardedRun``): each
 rank holds its block of every weight (:func:`shard_params`) and of every
-cache entry (:func:`init_cache`), split over the ("data", "model") mesh
-as the JAX package's resolver splits them, and the layers join the
-partial results with the run's collectives.  Where "data" exceeds 1 a
-rank takes its rows of the batch (``res.rows``): :func:`forward`,
-:func:`prefill` and :func:`decode_step` take the rank's rows and its
-cache holds them; under the FSDP resolver a weight's block is split over
+cache entry (:func:`init_cache`), split over the ("pod", "data",
+"model") mesh as the JAX package's resolver splits them, and the layers
+join the partial results with the run's collectives.  Where "pod" or
+"data" exceeds 1 a rank takes its rows of the batch (``res.rows``):
+:func:`forward`, :func:`prefill` and :func:`decode_step` take the rank's
+rows and its cache holds them; where the batch axes do not divide a
+training microbatch's rows, its positions are split over "data"
+(``res.for_batch``): :func:`forward` takes the whole rows and runs the
+rank's stretch of them; under the FSDP resolver a weight's block is split over
 "data" too, and is gathered whole before use (:func:`_gathered` at the
 start of each layer, the embedding, the final norm and the head where
 they are used), so that no layer sees a block split over "data".  Where
@@ -76,8 +79,8 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.parallel.sharding import (DATA, MODEL, Mesh, local_slice,
-                                           shard_shape)
+from repro_torch.parallel.sharding import (DATA, MODEL, POD, Mesh,
+                                           local_slice, shard_shape)
 
 Cache = List[Dict[str, torch.Tensor]]
 Logical = Tuple[Optional[str], ...]
@@ -98,17 +101,17 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is valid and its attention scores are kept in
-    float32, as the attention kernels keep them."""
+    """Raise unless ``cfg`` is valid: its attention one the port has and
+    its scores kept in float32 or bfloat16, as the attention kernels can
+    keep them."""
     cfg.validate()
     if cfg.attn_kind not in ("gqa", "mla", "none"):
         raise NotImplementedError(
             f"{cfg.name}: attention kind {cfg.attn_kind!r} (the port has "
             f"gqa, mla and none)")
-    if cfg.score_dtype != "float32":
-        raise NotImplementedError(
-            f"{cfg.name}: score_dtype {cfg.score_dtype!r}; the attention "
-            f"kernels keep their scores in float32")
+    if cfg.score_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"{cfg.name}: score_dtype {cfg.score_dtype!r} "
+                         f"(float32 or bfloat16)")
 
 
 class Layer(nn.Module):
@@ -268,32 +271,28 @@ def param_bytes(params: LM) -> int:
 
 def _check_mesh(cfg: ModelConfig, mesh: Mesh, what: str) -> int:
     """The size of ``mesh``'s "model" axis; ``ValueError`` unless the
-    mesh is ("data", "model"): a "pod" axis above 1 (the JAX package's
-    multi-pod mesh) is not ported."""
+    mesh's axes are those of the JAX package's meshes: ("data", "model")
+    or ("pod", "data", "model")."""
     check_supported(cfg)
     sizes = dict(zip(mesh.axis_names, mesh.shape))
-    if MODEL not in sizes or any(n > 1 for a, n in sizes.items()
-                                 if a not in (MODEL, DATA)):
-        raise ValueError(f"{cfg.name}: sharded {what} splits the "
-                         f"'{DATA}' and '{MODEL}' axes only, not mesh "
-                         f"{mesh.axis_names} x {mesh.shape} (a 'pod' axis "
-                         f"above 1 is not ported)")
+    if MODEL not in sizes or not set(sizes) <= {POD, DATA, MODEL}:
+        raise ValueError(f"{cfg.name}: sharded {what} takes a mesh of "
+                         f"'{POD}', '{DATA}' and '{MODEL}' axes, not "
+                         f"{mesh.axis_names}")
     return sizes[MODEL]
 
 
-def check_batch(cfg: ModelConfig, mesh: Mesh, batch: int,
-                accum: int = 1) -> None:
-    """``ValueError`` unless every microbatch of a training ``batch`` of
-    ``accum`` microbatches splits over the mesh's "data" axis: where it
-    does not, the JAX resolver puts the activations' "seq" on "data"
-    instead, which the port does not run (a rank would hold replicated
-    rows, and summed gradients would count them twice)."""
-    n = dict(zip(mesh.axis_names, mesh.shape)).get(DATA, 1)
-    if n > 1 and (batch % accum or (batch // accum) % n):
-        raise ValueError(f"{cfg.name}: a training batch of {batch} rows in "
-                         f"{accum} microbatches does not split over "
-                         f"'{DATA}' = {n} (the JAX resolver's 'seq' over "
-                         f"'{DATA}' fallback is not ported)")
+def check_batch(cfg: ModelConfig, batch: int, accum: int = 1) -> None:
+    """``ValueError`` unless a training ``batch`` splits into ``accum``
+    microbatches of equal rows.  Any microbatch then lays out on the mesh
+    as the JAX resolver lays out its tokens (``ShardedRun.for_batch``):
+    its rows split over the batch axes ("pod" and "data"), or, where they
+    do not divide, its positions over "data" (``"seq": [("data",)]``,
+    each rank a stretch of every row), or neither (every rank the whole
+    microbatch)."""
+    if batch % accum:
+        raise ValueError(f"{cfg.name}: a training batch of {batch} rows "
+                         f"does not split into {accum} microbatches")
 
 
 def _check_heads(cfg: ModelConfig, n: int) -> None:
@@ -309,19 +308,18 @@ def _check_heads(cfg: ModelConfig, n: int) -> None:
 def check_trainable(cfg: ModelConfig, mesh: Mesh,
                     batch: Optional[int] = None, accum: int = 1) -> None:
     """Raise ``ValueError`` unless ranks can train ``cfg`` split over
-    ``mesh``'s "data" and "model" axes: no other axis may exceed 1, the
-    heads split as :func:`_check_heads` asks and, given ``batch``, each
-    of its ``accum`` microbatches splits over "data"
-    (:func:`check_batch`)."""
+    ``mesh``'s "pod", "data" and "model" axes: the heads split as
+    :func:`_check_heads` asks and, given ``batch``, its ``accum``
+    microbatches lay out as :func:`check_batch` says."""
     _check_heads(cfg, _check_mesh(cfg, mesh, "training"))
     if batch is not None:
-        check_batch(cfg, mesh, batch, accum)
+        check_batch(cfg, batch, accum)
 
 
 def check_shardable(cfg: ModelConfig, mesh: Mesh) -> None:
     """Raise ``ValueError`` unless ranks can serve ``cfg`` split over
-    ``mesh``'s "data" and "model" axes: no other axis may exceed 1, and
-    the heads split as :func:`_check_heads` asks.  A cache that the
+    ``mesh``'s "pod", "data" and "model" axes: the heads split as
+    :func:`_check_heads` asks.  A cache that the
     resolver splits by positions ("kv_seq": every MLA cache, and GQA's
     when the kv heads do not divide over the axis) is served: each rank
     holds a stretch of positions and a decode step combines the ranks'
@@ -733,9 +731,19 @@ def forward(cfg: ModelConfig, params: LM, tokens, *, patches=None,
     With ``remat`` and grad enabled the layers are checkpointed in two
     levels as the JAX package's are (the module's docstring,
     :func:`remat_segments`) unless ``cfg.remat_policy`` is "everything".
-    Checkpointing changes what the backward keeps, not the values."""
+    Checkpointing changes what the backward keeps, not the values.
+
+    Where ``res``'s batch layout (``ShardedRun.for_batch``) splits the
+    positions over "data", ``tokens`` are the rank's whole rows: they are
+    embedded whole (the patches and codebooks as one process embeds
+    them), then the rank keeps its stretch, whose RoPE positions are the
+    global ones, and the logits are the stretch's."""
     x = embed_tokens(cfg, params, tokens, patches, res)
     positions = torch.arange(x.shape[1], device=x.device)
+    stretch = None if res is None else res.stretch
+    if stretch is not None:
+        a, n = stretch
+        x, positions = x[:, a:a + n], positions[a:a + n]
     if (remat and torch.is_grad_enabled()
             and cfg.remat_policy != "everything"):
         x, aux = _run_remat(cfg, params, x, positions, res)

@@ -92,13 +92,17 @@ def init_state(params, opt: OptConfig) -> TrainState:
             for n, p in named.items()})
 
 
-def _reference_ndim(name: str, p: torch.Tensor) -> int:
+def _reference_ndim(name: str, p: torch.Tensor, unstacked: int = 0) -> int:
     """The rank of the JAX package's array for parameter ``name``: it
-    stacks every layer's parameters over a leading ``n_blocks`` axis, so
-    its ``ndim >= 2`` rule also decays each layer's norms and vectors
-    (and never ``final_norm``).  The port keeps one module per layer and
-    counts that axis back in."""
-    return p.ndim + (1 if name.startswith("layers.") else 0)
+    stacks the parameters of every layer after the first ``unstacked``
+    (its leading dense layers, ``cfg.moe.first_dense``, which it keeps
+    apart) over a leading ``n_blocks`` axis, so its ``ndim >= 2`` rule
+    also decays those layers' norms and vectors (and never
+    ``final_norm``'s or a leading layer's).  The port keeps one module
+    per layer and counts that axis back in."""
+    parts = name.split(".")
+    stacked = parts[0] == "layers" and int(parts[1]) >= unstacked
+    return p.ndim + (1 if stacked else 0)
 
 
 def _square_sum(xs) -> torch.Tensor:
@@ -167,13 +171,15 @@ def _mesh_square_sum(tree, res, axes) -> torch.Tensor:
 @torch.no_grad()
 def apply_updates(state: TrainState, grads: Mapping[str, torch.Tensor],
                   opt: OptConfig, *, res=None,
-                  split: Sequence[str] = ()) -> Tuple[TrainState, Dict]:
+                  split: Sequence[str] = (),
+                  unstacked: int = 0) -> Tuple[TrainState, Dict]:
     """One AdamW step with ``grads`` (name -> gradient, any dtype, on each
     parameter's device).  Writes the parameters and moments in place and
     returns the state with the step advanced and ``{"grad_norm", "lr"}``
     (0-d float32 tensors).  ``res``, ``split``: a rank's blocks, as
     :func:`global_norm` takes them.  The moments are the rank's blocks
-    too."""
+    too.  ``unstacked``: the model's leading dense layers
+    (``cfg.moe.first_dense``), whose norms are not decayed."""
     b1, b2 = opt.betas
     step = state.step + 1
     gnorm = global_norm(grads, res, split)
@@ -188,7 +194,7 @@ def apply_updates(state: TrainState, grads: Mapping[str, torch.Tensor],
                                      device=sf.device), sf)
     for name, p in state.params.named_parameters():
         dev = p.device
-        decay = _reference_ndim(name, p) >= 2  # decoupled, matrices only
+        decay = _reference_ndim(name, p, unstacked) >= 2  # matrices only
         sc, lr_d, bc1_d, bc2_d = (x.to(dev) for x in (scale, lr, bc1, bc2))
         flat = [t.view(-1) for t in (p.data, state.mu[name],
                                      state.nu[name])]

@@ -34,6 +34,7 @@ import torch
 # that splits the batch (and, under FSDP, the weights' blocks again)
 MODEL = "model"
 DATA = "data"
+POD = "pod"
 
 # Candidate mesh-axis tuples per logical axis, in preference order.  An empty
 # tuple means "replicate" and always succeeds.

@@ -238,27 +238,43 @@ def test_launch_serve_deepseek_smoke_on_cpu(capsys):
     pytest.param("jamba-v0.1-52b", {"moe": None}, None,
                  id="jamba-v0.1-52b-cut1-hybrid"),
     pytest.param("internvl2-1b", {}, None, id="internvl2-1b-cut2-frontend"),
-    pytest.param("llama3.2-1b", {"score_dtype": "bfloat16"}, "score_dtype",
+    pytest.param("llama3.2-1b", {"score_dtype": "bfloat16"}, None,
                  id="llama3.2-1b-cut3-score_dtype"),
+    pytest.param("llama3.2-1b", {"score_dtype": "float16"}, "score_dtype",
+                 id="llama3.2-1b-cut4-score_dtype-float16"),
 ])
 def test_check_supported_names_what_is_missing(arch, cut, refused):
-    """What is missing is a score dtype other than float32 (the attention
-    kernels keep their scores in float32): ``check_supported`` names it.
-    A recurrent family with MoE, the hybrid period without MoE and a
-    frontend are accepted, and their weights have the JAX package's
-    count."""
+    """Nothing the JAX package runs is missing: a recurrent family with
+    MoE, the hybrid period without MoE, a frontend and bfloat16 attention
+    scores are accepted, their weights have the JAX package's count, and
+    the bfloat16 scores' logits are the JAX package's (at bfloat16's
+    2e-2); only a score dtype neither float32 nor bfloat16 is named."""
     cfg, jcfg = get_smoke(arch), jax_get_smoke(arch)
     if "moe" in cut:
         cfg, jcfg = (replace(c, moe=replace(c.moe, n_routed=0))
                      for c in (cfg, jcfg))
     if refused:
-        with pytest.raises(NotImplementedError, match=refused):
+        with pytest.raises(ValueError, match=refused):
             T.check_supported(replace(cfg, **cut))
         return
+    if "score_dtype" in cut:
+        cfg, jcfg = replace(cfg, **cut), replace(jcfg, **cut)
     T.check_supported(cfg)
     params = T.init_params(cfg, torch.Generator().manual_seed(0))
     assert sum(p.numel() for p in params.parameters()) == (
         JT.param_count(jcfg)[0])
+    if "score_dtype" in cut:
+        jparams, _ = JT.init_params(jcfg, jax.random.PRNGKey(0))
+        params = params_from_jax(cfg, jax.tree.map(np.asarray, jparams),
+                                 device="cpu")
+        toks = np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (2, 64)).astype(np.int32)
+        want, _ = JT.forward(jcfg, jparams, jnp.asarray(toks), remat=False)
+        with torch.no_grad():
+            got, _ = T.forward(cfg, params, torch.from_numpy(toks))
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32),
+                                   rtol=2e-2, atol=2e-2)
 
 
 def test_plain_scan_keeps_its_gradient():

@@ -154,13 +154,25 @@ def test_check_shardable_passes_the_other_configs(arch):
 
 
 def test_check_shardable_refuses_a_data_axis():
-    """A "data" axis above 1 is taken since meshes with "data" above 1
-    are ported (``tests/test_torch_sharded_data.py``); a "pod" axis
-    above 1, the JAX package's multi-pod mesh, is refused."""
+    """A "data" axis above 1 is taken, and so is a "pod" axis above 1,
+    the JAX package's multi-pod mesh (``tests/test_torch_sharded_pod.py``):
+    on ("pod", "data", "model") = (2, 1, 2) a batch of 4 splits its rows
+    over ("pod", "data"), a batch of 1 is replicated over "pod"; a mesh
+    of other axes is refused."""
     cfg = get_config("llama3.2-1b")
     T.check_shardable(cfg, Mesh(("data", "model"), (2, 2)))
-    with pytest.raises(ValueError, match="'pod' axis"):
-        T.check_shardable(cfg, Mesh(("pod", "data", "model"), (2, 1, 2)))
+    pod = Mesh(("pod", "data", "model"), (2, 1, 2))
+    T.check_shardable(cfg, pod)
+    T.check_trainable(cfg, pod, 4)
+    for r in range(4):
+        res = sharded_run(cfg, pod, rank=r, train=True)
+        p = res.coords["pod"]
+        assert res.rows(4) == slice(2 * p, 2 * p + 2)
+        assert res.for_batch(4, 32).tokens.axes == ("pod",)
+        one = res.for_batch(1, 32).tokens
+        assert (one.rows, one.stretch, one.axes) == (slice(0, 1), None, ())
+    with pytest.raises(ValueError, match="'pod', 'data' and 'model'"):
+        T.check_shardable(cfg, Mesh(("expert", "model"), (2, 2)))
 
 
 @pytest.mark.parametrize("batch, accum, ok", [
@@ -168,22 +180,35 @@ def test_check_shardable_refuses_a_data_axis():
     (6, 2, False), (1, 1, False)])
 def test_check_trainable_takes_batches_that_split_over_data(batch, accum,
                                                             ok):
-    """On (2, 2) each microbatch's rows must split over "data": a batch
-    of 1, or microbatches of odd rows, would put "seq" on "data" in the
-    JAX resolver (not ported) and are refused with that reason."""
+    """On (2, 2) every batch is taken.  A microbatch whose rows split
+    over "data" (``ok``) gives each "data" rank its block of them; one of
+    1 row, or of odd rows, puts "seq" on "data" as the JAX resolver does:
+    each rank holds every row and its half of the positions."""
     cfg = dataclasses.replace(get_smoke("llama3.2-1b"), **R.HEADS)
     mesh = card_mesh("h100x2x2")
     T.check_trainable(cfg, mesh)
-    if ok:
-        T.check_trainable(cfg, mesh, batch, accum)
-    else:
-        with pytest.raises(ValueError, match="'seq' over 'data'"):
-            T.check_trainable(cfg, mesh, batch, accum)
-    # on (1, 4) every batch is taken
+    T.check_trainable(cfg, mesh, batch, accum)
+    n = batch // accum
+    for r in range(4):
+        tok = sharded_run(cfg, mesh, rank=r, train=True).for_batch(
+            n, 32).tokens
+        d = coords(mesh, r)["data"]
+        assert tok.axes == ("data",)
+        if ok:
+            assert tok.stretch is None
+            assert tok.rows == slice(d * n // 2, (d + 1) * n // 2)
+        else:
+            assert tok.rows == slice(0, n) and tok.stretch == (16 * d, 16)
+    # on (1, 4) every batch is taken, whole on every rank
     T.check_trainable(cfg, MESH, batch, accum)
+    assert sharded_run(cfg, MESH).for_batch(n, 32).tokens.axes == ()
 
 
 def test_train_step_refuses_a_batch_data_does_not_split():
+    """What the train step still refuses on (2, 2): a batch that does
+    not split into equal microbatches, and stretches of positions
+    shorter than a Mamba conv's halo; a batch of 3 rows whose
+    microbatch "data" does not divide is taken (its positions split)."""
     from repro_torch.optim.adamw import OptConfig, init_state
     from repro_torch.training.step import make_train_step
     cfg = get_smoke("llama3.2-1b")
@@ -192,7 +217,21 @@ def test_train_step_refuses_a_batch_data_does_not_split():
     state = init_state(params, OptConfig())
     tokens = torch.zeros((3, 8), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="does not split"):
-        make_train_step(cfg, OptConfig(), res=res)(state, {"tokens": tokens})
+        make_train_step(cfg, OptConfig(), res=res, accum_steps=2)(
+            state, {"tokens": tokens})
+    T.check_batch(cfg, 3, 1)
+    mamba = get_smoke("falcon-mamba-7b")
+    with spmd.fake_group(4) as group:
+        mres = sharded_run(mamba, card_mesh("h100x2x2"), group=group,
+                           train=True)
+        mstate = init_state(T.shard_params(
+            mamba, T.init_abstract(mamba), mres), OptConfig())
+        step = make_train_step(mamba, OptConfig(), res=mres)
+        with pytest.raises(ValueError, match="halo"):
+            step(mstate, {"tokens": torch.zeros((1, 4), dtype=torch.int32,
+                                                device="meta")})
+        step(mstate, {"tokens": torch.zeros((1, 6), dtype=torch.int32,
+                                            device="meta")})
 
 
 def test_rank_rows_and_groups_on_the_2x2_mesh():
@@ -404,10 +443,25 @@ def test_2x2_records_carry_rank_0s_step(arch, shape):
 
 
 def test_2x2_refuses_a_train_batch_data_does_not_split():
-    rec = D.plan(get_smoke("llama3.2-1b"), ShapeConfig("t", 32, 3, "train"),
+    """A train batch of 3 rows on (2, 2) is no longer refused: rank 0
+    runs every row's first half of the positions.  Beside the FSDP
+    gathers it all-gathers each layer's keys and values over "data"
+    (in the forward and in the recompute), whose backward
+    reduce-scatters them, so it counts two gathers and one scatter a
+    layer more than the batch of 4, whose rows split."""
+    cfg = get_smoke("llama3.2-1b")
+    rec = D.plan(cfg, ShapeConfig("t", 32, 3, "train"),
                  card_mesh("h100x2x2"))
-    assert "'seq' over 'data'" in rec["sharded_step"]["refused"]
-    assert rec["collectives"] == {}
+    rows = D.plan(cfg, ShapeConfig("t", 32, 4, "train"),
+                  card_mesh("h100x2x2"))
+    step = rec["sharded_step"]
+    assert "refused" not in step, step.get("refused")
+    assert rec["collectives"] == step["collectives"]
+    got, base = step["collectives"], rows["sharded_step"]["collectives"]
+    n = cfg.n_layers
+    assert got["all-gather"]["count"] == base["all-gather"]["count"] + 2 * n
+    assert got["reduce-scatter"]["count"] == (
+        base["reduce-scatter"]["count"] + n)
 
 
 @pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
